@@ -1,0 +1,86 @@
+"""Workload configuration presets + flag overrides (counterpart of
+``fetode_tpu/config.py``).
+
+Only the ``serve`` preset is ported; its field names are the JAX
+package's, so one command line drives either package.  The port adds
+``device``.  The other workloads' presets arrive with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+
+@dataclass
+class ServePreset:
+    """Serving bundle export + latency bench (``fetode_tpu_torch/serve.py``)."""
+
+    # What to serve.  Ported: "predprey" (batched trajectory solve).
+    source: str = "ecg"
+    # Batch buckets (requests pad up / chunk down at serve time).
+    buckets: tuple = (8, 64, 256)
+    # Where the bundle goes ("" = <out-dir>/bundle).
+    bundle_dir: str = ""
+    # Checkpoint to serve instead of a fresh init (needs the training
+    # drivers; refused until they are ported).
+    ckpt_dir: str = ""
+    # Latency bench: timed calls per window (3 windows per bucket).
+    iters: int = 30
+    # ECG source hypers
+    t_len: int = 96
+    latent_dim: int = 64
+    num_basis: int = 12
+    field: str = "plain"
+    # "auto" (the kernel on CUDA, eager elsewhere), "pallas" (the
+    # whole-solve kernel), "while" (eager early-exit solve).
+    solver_mode: str = "auto"
+    rtol: float = 1e-2
+    atol: float = 1e-3
+    # ETT source hypers
+    num_features: int = 7
+    context_len: int = 96
+    pred_len: int = 8
+    # predprey source: serve trajectories over linspace(0, horizon, n_points)
+    horizon: float = 14.0
+    n_points: int = 140
+    # ddpm source
+    n_samples: int = 10
+    diff_t: int = 200
+    # cond_diffusion source
+    denoiser: str = "kan_node"
+    # mnist source
+    rollout: str = "pallas_fused"
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+PRESETS = {
+    "serve": ServePreset,
+}
+
+
+def make_config(workload: str, overrides: Optional[Dict[str, Any]] = None):
+    """Instantiate a preset with typed overrides; unknown keys error."""
+    if workload not in PRESETS:
+        raise ValueError(f"workload {workload!r} has no preset in the port; "
+                         f"ported: {sorted(PRESETS)}")
+    cls = PRESETS[workload]
+    cfg = cls()
+    for k, v in (overrides or {}).items():
+        if not hasattr(cfg, k):
+            raise ValueError(f"unknown option {k!r} for workload {workload!r};"
+                             f" valid: {[f.name for f in dataclasses.fields(cls)]}")
+        cur = getattr(cfg, k)
+        if isinstance(cur, bool):
+            v = str(v).lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            v = int(v)
+        elif isinstance(cur, float):
+            v = float(v)
+        elif isinstance(cur, tuple):
+            v = tuple(int(x) for x in str(v).strip("()[]").split(","))
+        setattr(cfg, k, v)
+    return cfg

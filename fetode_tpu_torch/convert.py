@@ -1,0 +1,59 @@
+"""Parameter conversion between the JAX package and the port.
+
+The JAX package keeps a KAN stack's parameters as a list of dicts of
+arrays, one per layer (``{"_buffers": {"grid"}, "base_weight",
+"spline_weight", "spline_scaler", "ferro": {"k", "ec", "ps", "bias",
+"coef"}, "logistic": {...}}``), and pickles them as numpy arrays into a
+serving bundle's ``params.pkl`` (``fetode_tpu/serve.py:267-268``).  The
+port keeps the same tensors in a ``KAN`` module, whose ``state_dict``
+keys are ``layers.<i>.<name>`` with the grid as ``layers.<i>.grid``.
+
+Everything converts to float32: the JAX package's tests run with x64 on,
+and the port works in float32 throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+
+def _flatten(prefix: str, node: Dict[str, Any], out: Dict[str, Any]) -> None:
+    for name, value in node.items():
+        if isinstance(value, dict):
+            # "_buffers" holds the knot grid; the port keeps it on the layer.
+            sub = prefix if name == "_buffers" else f"{prefix}{name}."
+            _flatten(sub, value, out)
+        else:
+            out[prefix + name] = value
+
+
+def params_from_numpy(tree: List[Dict[str, Any]],
+                      device=None) -> Dict[str, torch.Tensor]:
+    """The JAX param list -> a ``state_dict`` for the port's ``KAN``.
+
+    Use as ``kan.load_state_dict(params_from_numpy(tree, device))``.
+    """
+    flat: Dict[str, Any] = {}
+    for i, layer in enumerate(tree):
+        _flatten(f"layers.{i}.", layer, flat)
+    return {k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+            for k, v in flat.items()}
+
+
+def params_to_numpy(params) -> List[Dict[str, Any]]:
+    """The inverse: a ``KAN`` (or its ``state_dict``) -> the JAX param list
+    of float32 numpy arrays."""
+    state = params.state_dict() if hasattr(params, "state_dict") else params
+    layers: Dict[int, Dict[str, Any]] = {}
+    for key, value in state.items():
+        _, idx, *path = key.split(".")
+        node = layers.setdefault(int(idx), {})
+        if path == ["grid"]:
+            path = ["_buffers", "grid"]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value.detach().cpu().numpy().astype(np.float32)
+    return [layers[i] for i in sorted(layers)]

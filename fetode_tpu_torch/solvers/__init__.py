@@ -1,0 +1,6 @@
+"""ODE integrators (counterpart of ``fetode_tpu/solvers/__init__.py``).
+
+Ported so far: adaptive dopri5 in its early-exit forward mode.
+"""
+
+from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5  # noqa: F401

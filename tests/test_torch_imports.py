@@ -1,0 +1,54 @@
+"""The PyTorch port imports torch and never jax or the JAX package.
+
+Checked in a fresh interpreter, since this test process imports both:
+every module of ``fetode_tpu_torch`` is imported and ``sys.modules`` must
+then hold neither ``jax`` (nor any ``jax.*``) nor ``fetode_tpu`` (nor any
+``fetode_tpu.*``; note that the bare prefix ``fetode_tpu`` also matches
+``fetode_tpu_torch``).  The subprocess runs from the repo root with the
+root on ``PYTHONPATH``, since the package is not installed.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import fetode_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(fetode_tpu_torch.__path__,
+                                               "fetode_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "fetode_tpu") or k.startswith(("jax.", "jaxlib",
+                                                          "fetode_tpu.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    for name in ("fetode_tpu_torch.cli", "fetode_tpu_torch.serve",
+                 "fetode_tpu_torch.ops.kanfet_node",
+                 "fetode_tpu_torch.models.predprey"):
+        assert name in report["modules"]
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (ROOT / "fetode_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0].rstrip(",")
+                assert mod not in ("jax", "jaxlib", "fetode_tpu"), \
+                    f"{path.relative_to(ROOT)}: {line.strip()}"
