@@ -2,7 +2,7 @@
 
 Counterpart of ``fetode_tpu/__init__.py``.  The JAX package stays the
 reference; this package mirrors its layout (``ops``, ``nn``, ``solvers``,
-``models``, ``serve``, ``config``, ``cli``) with the same module and
+``models``, ``train``, ``serve``, ``config``, ``cli``) with the same module and
 function names, so each piece has an obvious twin.  Every Pallas kernel
 of the JAX package becomes a hand-written CUDA kernel for Hopper
 (``csrc/``), built on first use by ``ops/_build.py``.
@@ -11,7 +11,10 @@ The port imports ``torch`` and never ``jax`` or ``fetode_tpu``.
 
 Ported so far: the predator-prey KANFET serving path
 (``python -m fetode_tpu_torch.cli serve --source predprey``), whose
-solver is the whole-solve dopri5 kernel ``ops/kanfet_node.py``.
+solver is the whole-solve dopri5 kernel ``ops/kanfet_node.py``, and its
+training path (``python -m fetode_tpu_torch.cli predprey``, ``train/``),
+whose solver is the discrete-adjoint kernel pair
+``ops/kanfet_adjoint.py``.
 """
 
 __version__ = "0.1.0"

@@ -3,11 +3,17 @@
 
 Same workload names and ``--key value`` overrides as the JAX package's
 CLI, so one command line drives either package.  Ported so far:
-``serve --source predprey``, which builds the predprey KANFET NODE,
-exports a serving bundle, loads it back and reports p50/p99 latency per
-batch bucket.  The other workloads and serve sources raise an error
-naming the ROADMAP item that ports them.  ``--device cuda`` (the
-default) without CUDA raises; nothing falls back to the CPU.
+
+* ``predprey`` — trains the predprey KANFET NODE on one trajectory
+  (``train/predprey_driver.py``) and reports epochs/s and the final
+  training loss.
+* ``serve --source predprey`` — builds the predprey KANFET NODE, exports
+  a serving bundle, loads it back and reports p50/p99 latency per batch
+  bucket.
+
+The other workloads and serve sources raise an error naming the ROADMAP
+item that ports them.  ``--device cuda`` (the default) without CUDA
+raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 
 # Where each workload / serve source not yet ported is queued.
 _WORKLOAD_TODO = {
-    "predprey": "ROADMAP A.5 (predprey drivers)",
     "ecg": "ROADMAP A.7 (ECG)",
     "ett": "ROADMAP A.8 (forecasting)",
     "timemmd": "ROADMAP A.8 (forecasting)",
@@ -66,6 +71,40 @@ def _parse(argv):
     if key is not None:                  # trailing valueless flag
         overrides[key] = "true"
     return args, overrides
+
+
+def run_predprey(cfg, out_dir, plots):
+    """Train the predprey KANFET NODE on the reference's trajectory."""
+    from fetode_tpu_torch.models.predprey import PredPreyNODE
+    from fetode_tpu_torch.train.predprey_driver import (
+        PredPreyRun,
+        train_predprey,
+    )
+
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    spec = PredPreyNODE.kanfet(layers_hidden=cfg.layers,
+                               grid_size=cfg.grid_size,
+                               ferro_num_basis=cfg.ferro_num_basis,
+                               method=cfg.method, rtol=cfg.rtol,
+                               atol=cfg.atol, max_steps=cfg.max_steps,
+                               solver_mode=cfg.solver_mode)
+    run = PredPreyRun(spec=spec, lr=cfg.lr, epochs=cfg.epochs,
+                      epochs_per_call=cfg.epochs_per_call, seed=cfg.seed,
+                      consistent_time_base=cfg.consistent_time_base,
+                      shooting_points=cfg.shooting_points,
+                      shooting_devices=cfg.shooting_devices,
+                      ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every,
+                      resume=cfg.resume, aot_cache=cfg.aot_cache,
+                      device=cfg.device)
+    _, hist = train_predprey(run, log=lambda m: print(m, flush=True))
+    with open(os.path.join(out_dir, "metrics.jsonl"), "w") as f:
+        for i, (ep, tr) in enumerate(zip(hist["epoch"], hist["train"])):
+            te = hist["test"][i] if hist["test"] else None
+            f.write(json.dumps({"step": ep, "train": tr, "test": te}) + "\n")
+    return {"epochs_per_sec": hist["epochs_per_sec"],
+            "final_train": hist["train"][-1]}
 
 
 def predprey_serving(cfg, device: torch.device):
@@ -109,8 +148,9 @@ def run_serve(cfg, out_dir, plots):
             f"serve source {cfg.source!r} is not ported yet: "
             f"{_SOURCE_TODO.get(cfg.source, 'unknown source')}")
     if cfg.ckpt_dir:
-        raise NotImplementedError("serving a training checkpoint needs the "
-                                  "training drivers: ROADMAP A.5")
+        raise NotImplementedError("serving a training checkpoint needs "
+                                  "checkpoint/resume: ROADMAP A.5 "
+                                  "(checkpoint/resume)")
     device = resolve_device(cfg.device)
     params, fn, example = predprey_serving(cfg, device)
 
@@ -138,6 +178,7 @@ def run_serve(cfg, out_dir, plots):
 
 
 RUNNERS = {
+    "predprey": run_predprey,
     "serve": run_serve,
 }
 

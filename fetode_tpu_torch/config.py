@@ -1,8 +1,8 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Only the ``serve`` preset is ported; its field names are the JAX
-package's, so one command line drives either package.  The port adds
+Ported: the ``predprey`` and ``serve`` presets; their field names are the
+JAX package's, so one command line drives either package.  The port adds
 ``device``.  The other workloads' presets arrive with their slices.
 """
 
@@ -11,6 +11,42 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
+
+
+@dataclass
+class PredPreyPreset:
+    """train_kanfet_node_predprey.py:20-38 (lr 2e-3, 10k epochs,
+    KANFET [2,10,2] grid 5, dopri5)."""
+
+    epochs: int = 10_000
+    epochs_per_call: int = 100
+    lr: float = 2e-3
+    layers: tuple = (2, 10, 2)
+    grid_size: int = 5
+    ferro_num_basis: int = 8
+    method: str = "dopri5"
+    rtol: float = 1e-7
+    atol: float = 1e-9
+    max_steps: int = 256
+    # "auto" (the kernels on CUDA; on the CPU the eager scan under
+    # autograd and the eager while solve for evaluation), "scan" (eager
+    # differentiable solve), "while" (eager, no gradient), or "pallas"
+    # (the discrete-adjoint CUDA kernels; CUDA only).
+    solver_mode: str = "auto"
+    # Fit at the times the window targets were actually sampled
+    # (PredPreyRun.consistent_time_base).
+    consistent_time_base: bool = False
+    # Not ported yet (PredPreyRun refuses any other value, naming the
+    # ROADMAP item): multiple shooting, checkpoint/resume, AOT cache.
+    shooting_points: int = 0
+    shooting_devices: int = 0
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    resume: bool = False
+    aot_cache: str = ""
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
 
 
 @dataclass
@@ -23,8 +59,8 @@ class ServePreset:
     buckets: tuple = (8, 64, 256)
     # Where the bundle goes ("" = <out-dir>/bundle).
     bundle_dir: str = ""
-    # Checkpoint to serve instead of a fresh init (needs the training
-    # drivers; refused until they are ported).
+    # Checkpoint to serve instead of a fresh init (refused until
+    # checkpoint/resume is ported).
     ckpt_dir: str = ""
     # Latency bench: timed calls per window (3 windows per bucket).
     iters: int = 30
@@ -58,6 +94,7 @@ class ServePreset:
 
 
 PRESETS = {
+    "predprey": PredPreyPreset,
     "serve": ServePreset,
 }
 

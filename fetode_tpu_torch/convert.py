@@ -8,8 +8,10 @@ serving bundle's ``params.pkl`` (``fetode_tpu/serve.py:267-268``).  The
 port keeps the same tensors in a ``KAN`` module, whose ``state_dict``
 keys are ``layers.<i>.<name>`` with the grid as ``layers.<i>.grid``.
 
-Everything converts to float32: the JAX package's tests run with x64 on,
-and the port works in float32 throughout.
+Everything converts to float32 unless asked otherwise: the JAX package's
+tests run with x64 on, and the port works in float32 throughout.
+``grads_to_numpy`` maps a module's gradients onto the JAX tree, so tests
+compare gradients leaf by leaf.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ def params_from_numpy(tree: List[Dict[str, Any]],
             for k, v in flat.items()}
 
 
-def params_to_numpy(params) -> List[Dict[str, Any]]:
+def params_to_numpy(params, dtype=np.float32) -> List[Dict[str, Any]]:
     """The inverse: a ``KAN`` (or its ``state_dict``) -> the JAX param list
-    of float32 numpy arrays."""
+    of numpy arrays of ``dtype``."""
     state = params.state_dict() if hasattr(params, "state_dict") else params
     layers: Dict[int, Dict[str, Any]] = {}
     for key, value in state.items():
@@ -55,5 +57,17 @@ def params_to_numpy(params) -> List[Dict[str, Any]]:
             path = ["_buffers", "grid"]
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = value.detach().cpu().numpy().astype(np.float32)
+        node[path[-1]] = value.detach().cpu().numpy().astype(dtype)
     return [layers[i] for i in sorted(layers)]
+
+
+def grads_to_numpy(params, dtype=np.float32) -> List[Dict[str, Any]]:
+    """A ``KAN``'s ``.grad``s -> the JAX package's gradient tree (the layout
+    of ``params_to_numpy``).  The knot grid, a buffer, gets zeros, as the
+    JAX package's discrete-adjoint kernel reports for it; so does a
+    parameter without a gradient."""
+    grads = {name: p.grad for name, p in params.named_parameters()}
+    return params_to_numpy({
+        key: torch.zeros_like(value) if grads.get(key) is None
+        else grads[key] for key, value in params.state_dict().items()},
+        dtype)

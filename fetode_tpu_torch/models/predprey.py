@@ -10,14 +10,17 @@ with a KANFET [2,10,2] neural ODE integrated by adaptive dopri5.
 Solver dispatch in ``predict`` / ``predict_batch`` (by ``solver_mode``
 and the tensor's device; a failure on CUDA raises, nothing falls back):
 
-* ``"pallas"`` — the whole-solve CUDA kernel (``ops/kanfet_node.py``),
-  the mode string of the JAX package.  CUDA tensors only.
-* ``"auto"`` — the kernel on a CUDA tensor, the eager solve elsewhere.
-* ``"while"`` — the eager early-exit solve on any device.
-* ``"scan"`` — the differentiable eager solve, not ported yet.
+* ``"pallas"`` — the whole-solve CUDA kernels, the mode string of the
+  JAX package.  CUDA tensors only.  Under autograd (a parameter or x0
+  that requires grad) the discrete-adjoint kernels
+  (``ops/kanfet_adjoint.py: kanfet_solve_train``), otherwise the serving
+  kernel (``ops/kanfet_node.py: kanfet_solve``); both run the same solve.
+* ``"auto"`` — the kernels on a CUDA tensor; on a CPU tensor the eager
+  solve, ``"scan"`` under autograd and ``"while"`` otherwise.
+* ``"while"`` — the eager early-exit solve on any device, no gradient.
+* ``"scan"`` — the eager solve that autograd differentiates.
 
-Training (the discrete-adjoint kernels, the training loss and drivers),
-the fixed-step methods and the head and RNN variants arrive in later
+The fixed-step methods and the head and RNN variants arrive in later
 slices.
 """
 
@@ -35,8 +38,9 @@ from fetode_tpu_torch.nn.kan import (
     kan_state_init,
     kanfet_config,
 )
+from fetode_tpu_torch.ops.kanfet_adjoint import kanfet_solve_train
 from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
-from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
 
 # Stacks with max(in*out*K) >= this go to the wide-layout training kernel
 # in the JAX package (measured crossover on a TPU).  The port has no
@@ -127,12 +131,6 @@ def _use_kernel(params: KAN, spec: PredPreyNODE, x: torch.Tensor) -> bool:
         raise NotImplementedError(
             f"ferro N = {max_ferro_n} >= {WIDE_DISPATCH_FERRO_N} goes to the "
             "wide-layout kernel, not ported yet (ROADMAP B.3)")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            p.requires_grad for p in params.parameters())):
-        raise NotImplementedError(
-            "the kernel solve is forward-only; the differentiable kernel "
-            "(discrete adjoint) is not ported yet (ROADMAP B.2): run "
-            "inference under torch.no_grad()")
     return True
 
 
@@ -169,8 +167,11 @@ def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
     stepped on its own: ``jax.vmap(lambda x0: predict(params, spec, x0,
     ts))`` of the JAX package, written out for PyTorch."""
     if _use_kernel(params, spec, x0s):
-        return kanfet_solve(params, spec.kan, x0s, ts, rtol=spec.rtol,
-                            atol=spec.atol, max_steps=spec.max_steps)
+        solve = (kanfet_solve_train
+                 if _under_autograd(x0s, *params.parameters())
+                 else kanfet_solve)
+        return solve(params, spec.kan, x0s, ts, rtol=spec.rtol,
+                     atol=spec.atol, max_steps=spec.max_steps)
     state = kan_state_init((x0s.shape[0],), spec.kan, device=x0s.device,
                            dtype=x0s.dtype)
 
@@ -180,3 +181,11 @@ def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
     return odeint_dopri5(rhs, x0s, ts, rtol=spec.rtol, atol=spec.atol,
                          max_steps=spec.max_steps, mode=spec.solver_mode,
                          per_row=True)
+
+
+def trajectory_loss(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
+                    ts: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MSE over the trajectory window (the reference's training loss,
+    ``train_kanfet_node_predprey.py:254``)."""
+    pred = predict(params, spec, x0, ts)
+    return torch.mean((pred - target) ** 2)

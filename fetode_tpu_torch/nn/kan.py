@@ -10,8 +10,9 @@ Parameters initialised by the JAX package load one to one through
 ``fetode_tpu_torch.convert``.
 
 Hysteresis state stays explicit (``kan_state_init``), passed in and
-returned by ``kan_linear_apply`` / ``kan_apply``.  ``kan_update_grid``
-and ``kan_regularization`` arrive with the training slice.
+returned by ``kan_linear_apply`` / ``kan_apply``.  ``kan_regularization``
+is the training penalty; ``kan_update_grid`` is not ported yet
+(ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -234,6 +235,22 @@ def kan_linear_state(batch_shape, cfg: KANLinearConfig, *, device=None,
                             dtype=dtype)
 
 
+def kan_linear_regularization(layer: KANLinear,
+                              regularize_activation: float = 1.0,
+                              regularize_entropy: float = 1.0,
+                              regularize_logistic_l1: float = 0.0):
+    """L1 + entropy regulariser on spline weights
+    (``efficientkan.py:223-237``)."""
+    l1 = layer.spline_weight.abs().mean(-1)
+    act = l1.sum()
+    p = l1 / (act + 1e-12)
+    ent = -torch.sum(p * torch.log(p + 1e-12))
+    reg = regularize_activation * act + regularize_entropy * ent
+    if layer.cfg.logistic_num_basis > 0 and regularize_logistic_l1 != 0.0:
+        reg = reg + regularize_logistic_l1 * layer.logistic.weight.abs().mean()
+    return reg
+
+
 # --------------------------------------------------------------------- stacks
 
 
@@ -278,6 +295,12 @@ def kan_apply(params: KAN, x: torch.Tensor, state=None, *,
         x, s1 = kan_linear_apply(layer, x, s, generator=generator)
         new_states.append(s1)
     return x, tuple(new_states)
+
+
+def kan_regularization(params: KAN, **kw):
+    """The sum of every layer's ``kan_linear_regularization``."""
+    return sum(kan_linear_regularization(layer, **kw)
+               for layer in params.layers)
 
 
 # ---------------------------------------------------------------------- KANFET

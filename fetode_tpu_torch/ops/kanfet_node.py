@@ -16,8 +16,9 @@ header comment gives the kernel's design and what bounds it on the card.
 * ``pack_params`` — the parameter layout the kernel reads
   (``pallas_node.py:302-318``).
 
-Forward only: the result carries no gradient (the training solve is
-``ops/pallas_adjoint.py``'s, still to be ported).
+Forward only: the result carries no gradient.  The differentiable solve
+is ``ops/kanfet_adjoint.py: kanfet_solve_train``, which shares this
+kernel's solve (``csrc/kanfet_field.cuh``).
 """
 
 from __future__ import annotations
@@ -135,6 +136,30 @@ def _kernel_geometry(cfg: KANConfig, T: int) -> dict:
                 alpha=float(l1.ferro_alpha))
 
 
+def _check_cuda(x0s: torch.Tensor, ts: torch.Tensor, name: str) -> None:
+    """What a kernel takes: float32, contiguous, on CUDA."""
+    if x0s.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA (or CPU, through its "
+                         f"reference), got a tensor on {x0s.device}")
+    if x0s.dtype != torch.float32 or ts.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 x0s and ts, got {x0s.dtype} "
+                        f"and {ts.dtype}")
+    if not (x0s.is_contiguous() and ts.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous x0s and ts")
+
+
+def _pack_for(params: KAN, cfg: KANConfig, geo: dict,
+              device: torch.device) -> torch.Tensor:
+    """``pack_params``, checked against the kernel's geometry and device."""
+    packed = pack_params(params, cfg)
+    if packed.device != device:
+        raise ValueError(f"parameters on {packed.device} but x0s on {device}")
+    if packed.numel() != geo["n_params"]:    # the kernel reads n_params floats
+        raise RuntimeError(f"packed {packed.numel()} parameters, the kernel "
+                           f"expects {geo['n_params']}")
+    return packed
+
+
 def _launcher():
     from fetode_tpu_torch.ops._build import load_library
 
@@ -171,20 +196,10 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     if x0s.device.type == "cpu":
         return kanfet_solve_reference(params, cfg, x0s, ts, rtol=rtol,
                                       atol=atol, max_steps=max_steps)
-    if x0s.device.type != "cuda":
-        raise ValueError(f"kanfet_solve runs on CUDA (or CPU, through its "
-                         f"reference), got a tensor on {x0s.device}")
-    if not (x0s.is_contiguous() and ts.is_contiguous()):
-        raise ValueError("kanfet_solve takes contiguous x0s and ts")
+    _check_cuda(x0s, ts, "kanfet_solve")
     B, T = x0s.shape[0], ts.shape[0]
     geo = _kernel_geometry(cfg, T)
-    packed = pack_params(params, cfg)
-    if packed.device != x0s.device:
-        raise ValueError(f"parameters on {packed.device} but x0s on "
-                         f"{x0s.device}")
-    if packed.numel() != geo["n_params"]:     # the kernel reads n_params floats
-        raise RuntimeError(f"packed {packed.numel()} parameters, the kernel "
-                           f"expects {geo['n_params']}")
+    packed = _pack_for(params, cfg, geo, x0s.device)
     out = torch.empty((B, T, D), dtype=torch.float32, device=x0s.device)
     stream = torch.cuda.current_stream(x0s.device).cuda_stream
     rc = _launcher()(

@@ -17,11 +17,18 @@ Two forms around one loop:
   path gets per-trajectory step control (``cli.py:693-694``); PyTorch
   cannot vmap a data-dependent loop, so the batch is written out.
 
-Modes: ``"while"`` is the early-exit forward solve (run under
-``torch.no_grad``).  ``"scan"``, the bounded loop that autograd
-differentiates, arrives with the training slice and raises here;
-``"auto"`` picks it exactly when the call is under autograd, as the JAX
-``mode="auto"`` does.
+Modes:
+
+* ``"while"`` — the early-exit forward solve, run under ``torch.no_grad``.
+* ``"scan"`` — the solve that autograd differentiates: the same loop
+  with autograd on.  The JAX package runs ``max_steps`` attempts as a
+  ``lax.scan`` whose attempts past the end are masked no-ops; those are
+  identities in value and in gradient, so stopping once every row has
+  finished is exact.  As there, the error norm and the initial step are
+  cut from the graph (``stop_gradient`` -> ``.detach()``), so t and dt
+  are constants of the step mesh.
+* ``"auto"`` — ``"scan"`` exactly when the call is under autograd, else
+  ``"while"``, as the JAX ``mode="auto"`` does.
 """
 
 from __future__ import annotations
@@ -41,10 +48,6 @@ _ORDER = 5
 # PI controller (Hairer DOPRI5 defaults): beta = 0.04, alpha = 1/5 - 0.75*beta
 _BETA = 0.04
 _ALPHA = 1.0 / _ORDER - 0.75 * _BETA
-
-SCAN_TODO = ("odeint_dopri5 mode='scan' (the bounded, autograd-"
-             "differentiable solve) is not ported yet: ROADMAP A.3, with "
-             "the training slice")
 
 
 def _rms(v: torch.Tensor, ref: torch.Tensor, rtol, atol) -> torch.Tensor:
@@ -85,10 +88,12 @@ def _dense_eval(y0, dy, r3, r4, r5, theta):
 
 
 def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
-                dfactor):
+                dfactor, record=None):
     """The early-exit loop over ``(B, D)`` rows, each with its own step
     control.  ``func(t (B, 1), y (B, D), *args) -> (B, D)``.  Returns
-    ``(B, T, D)``."""
+    ``(B, T, D)``.  ``record(m, active, t, dt, accepted, y, ks)``, when
+    given, sees attempt m of every row before the state advances (the
+    rows in ``active`` are making their m-th attempt)."""
     B, D = y0.shape
     T = ts.shape[0]
     t0, t_final = ts[0], ts[-1]
@@ -97,8 +102,9 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
 
     t = t0.expand(B).clone()
     f = func(t[:, None], y0, *args)
-    dt = torch.minimum(_initial_step(func, t[:, None], y0, f, rtol, atol, args),
-                       t_final - t0)
+    dt = torch.minimum(
+        _initial_step(func, t[:, None], y0, f, rtol, atol, args).detach(),
+        t_final - t0)
     err_prev = torch.ones_like(t)
     n = torch.zeros(B, dtype=torch.int32, device=y0.device)
     y = y0
@@ -106,6 +112,7 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
     # fixed up after the loop.
     ys = y0[:, None, :].expand(B, T, D).clone()
 
+    m = 0
     while True:
         active = (t < end) & (n < max_steps)
         if not bool(active.any()):
@@ -116,7 +123,9 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
 
         y1, y_err, ks = rk_stage_loop(func, t[:, None], y, dt[:, None], DOPRI5,
                                       args, f0=f)
-        err = torch.clamp(error_norm(y_err, y, y1, rtol, atol), min=1e-10)
+        # Step control is a discrete decision: cut from the graph.
+        err = torch.clamp(error_norm(y_err, y, y1, rtol, atol).detach(),
+                          min=1e-10)
         accept = (err <= 1.0) | finished
 
         # PI controller on accept; plain shrink on reject.
@@ -133,6 +142,8 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
                             0.0, 1.0)
         dense = _dense_eval(y, dy, r3, r4, r5, theta)
         adv = active & accept & ~finished
+        if record is not None:
+            record(m, active, t, dt, adv, y, ks)
         write = (adv[:, None] & (ts[None, :] > t[:, None])
                  & (ts[None, :] <= (t + dt + tiny)[:, None]))
         ys = torch.where(write[..., None], dense, ys)
@@ -144,6 +155,7 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
         y = torch.where(adv[:, None], y1, y)
         f = torch.where(adv[:, None], ks[6], f)     # FSAL: f(t_new, y1)
         n = n + active.to(n.dtype)
+        m += 1
 
     # Outputs past the frontier a row reached hold its last state.
     unreached = ts[None, :] > (t + tiny)[:, None]
@@ -159,7 +171,8 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
                   rtol: float = 1e-7, atol: float = 1e-9, max_steps: int = 512,
                   safety: float = 0.9, ifactor: float = 10.0,
                   dfactor: float = 0.2, mode: str = "auto",
-                  per_row: bool = False) -> torch.Tensor:
+                  per_row: bool = False, unroll: int = 1,
+                  checkpoint: bool = True, record=None) -> torch.Tensor:
     """Integrate ``dy/dt = func(t, y, *args)`` adaptively, output at ``ts``.
 
     Args:
@@ -169,6 +182,12 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         ``func(t, y)`` with a scalar ``t``; returns ``(T, *y0.shape)``.
         True — ``y0`` is ``(B, D)``, each row stepped on its own,
         ``func(t, y)`` with ``t`` a ``(B, 1)`` column; returns ``(B, T, D)``.
+      unroll, checkpoint: the JAX package's scan-mode performance knobs
+        (attempts per scan iteration, rematerialisation); accepted and
+        ignored, since the eager loop has neither.
+      record: per_row only, a callback that sees every attempt
+        (``_solve_rows``); ``ops/kanfet_adjoint.py`` records the step mesh
+        with it.
     """
     if mode not in ("auto", "scan", "while"):
         raise ValueError(f"odeint_dopri5 mode={mode!r}: expected "
@@ -191,9 +210,9 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         # closes over (its parameters), so it is checked with y0.
         f0 = fn(ts[:1].expand(rows.shape[0])[:, None], rows, *args)
         mode = "scan" if _under_autograd(rows, f0, *args) else "while"
-    if mode == "scan":
-        raise NotImplementedError(SCAN_TODO)
-    with torch.no_grad():
+    if record is not None and not per_row:
+        raise ValueError("record takes the per-row form (per_row=True)")
+    with torch.set_grad_enabled(mode == "scan" and torch.is_grad_enabled()):
         ys = _solve_rows(fn, rows, ts, args, rtol, atol, max_steps, safety,
-                         ifactor, dfactor)
+                         ifactor, dfactor, record)
     return ys if per_row else ys[0].reshape((ts.shape[0],) + tuple(shape))

@@ -1,0 +1,16 @@
+"""Training: the optimiser, the step loop and the workload drivers
+(counterpart of ``fetode_tpu/train/__init__.py``).
+
+Ported so far: Adam with global-norm clipping and cosine decay
+(``optim.py``), the full-batch step loop (``loop.py``), and the predprey
+drivers, single trajectory (``predprey_driver.py``) and a batched
+population of initial conditions (``traj_driver.py``).
+"""
+
+from fetode_tpu_torch.train.loop import (  # noqa: F401
+    TrainState,
+    init_state,
+    make_epoch_scanner,
+    make_train_step,
+)
+from fetode_tpu_torch.train.optim import make_optimizer  # noqa: F401

@@ -176,9 +176,11 @@ def test_predict_dispatch(setup):
     np.testing.assert_allclose(one.numpy(), ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(rows.numpy(), _reference(
         s, s["x0s"], s["ts"], max_steps=256))
-    # the eager 'auto' solve under autograd is the differentiable mode
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tpp.predict(s["model"], auto, x0, ts)
+    # the eager 'auto' solve under autograd is the differentiable mode:
+    # the same values, with a gradient
+    grad_one = tpp.predict(s["model"], auto, x0, ts)
+    assert grad_one.requires_grad
+    np.testing.assert_array_equal(grad_one.detach().numpy(), one.numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
         tpp.predict(s["model"], s["spec"]._replace(method="rk4"), x0, ts)
 

@@ -153,7 +153,10 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         cli.main(["serve", "--source", "ecg", "--device", "cpu",
                   "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        cli.main(["predprey", "--out-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        cli.main(["ecg", "--out-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="checkpoint/resume"):
+        cli.main(["serve", "--source", "predprey", "--device", "cpu",
+                  "--ckpt_dir", "x", "--out-dir", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown option"):
         cli.main(["serve", "--no_such_flag", "1", "--out-dir", str(tmp_path)])
