@@ -7,9 +7,13 @@ CLI, so one command line drives either package.  Ported so far:
 * ``predprey`` — trains the predprey KANFET NODE on one trajectory
   (``train/predprey_driver.py``) and reports epochs/s and the final
   training loss.
-* ``serve --source predprey`` — builds the predprey KANFET NODE, exports
-  a serving bundle, loads it back and reports p50/p99 latency per batch
-  bucket.
+* ``ecg`` — trains an ECG200 classifier, ``--model kanfet_node`` (the
+  default) or ``kanfet_mlp_node`` (``train/ecg_driver.py``), on the
+  ECG200 files when ``$FETODE_DATA_DIR`` holds them, else on the
+  synthetic stand-in, and reports the best test accuracy.
+* ``serve --source ecg`` (the default source) and ``serve --source
+  predprey`` — builds the model, exports a serving bundle, loads it back
+  and reports p50/p99 latency per batch bucket.
 
 The other workloads and serve sources raise an error naming the ROADMAP
 item that ports them.  ``--device cuda`` (the default) without CUDA
@@ -19,6 +23,7 @@ raises; nothing falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import sys
@@ -31,7 +36,6 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 
 # Where each workload / serve source not yet ported is queued.
 _WORKLOAD_TODO = {
-    "ecg": "ROADMAP A.7 (ECG)",
     "ett": "ROADMAP A.8 (forecasting)",
     "timemmd": "ROADMAP A.8 (forecasting)",
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
@@ -39,7 +43,6 @@ _WORKLOAD_TODO = {
     "symbolic": "ROADMAP A.10 (Kuramoto-MNIST and symbolic)",
 }
 _SOURCE_TODO = {
-    "ecg": "ROADMAP A.7 (ECG)",
     "ett": "ROADMAP A.8 (forecasting)",
     "ddpm": "ROADMAP A.8 (forecasting) and B.9 (pallas_ddpm)",
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
@@ -107,6 +110,101 @@ def run_predprey(cfg, out_dir, plots):
             "final_train": hist["train"][-1]}
 
 
+# ECG models of the JAX CLI not ported yet.
+_ECG_TODO = {m: "ROADMAP A.7 (the remaining ECG models: the RNNs, 'all' "
+                "and the noise study)"
+             for m in ("fepa_rnn", "digital_rnn", "node_rnn", "all",
+                       "noise_study")}
+
+
+def run_ecg(cfg, out_dir, plots):
+    """Train an ECG200 classifier: ``kanfet_node`` or ``kanfet_mlp_node``,
+    on the ECG200 files when they are found, else on the synthetic
+    stand-in."""
+    from fetode_tpu_torch.data.ecg200 import load_ecg200, synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.train.ecg_driver import ECGRun, train_ecg_model
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if cfg.gate_impl != "sigmoid" and cfg.model != "kanfet_mlp_node":
+        raise SystemExit(
+            f"--gate-impl {cfg.gate_impl!r} is only supported by "
+            f"--model kanfet_mlp_node (model {cfg.model!r} has no "
+            f"gate_impl field)")
+    if cfg.model in _ECG_TODO:
+        raise NotImplementedError(f"ecg --model {cfg.model} is not ported "
+                                  f"yet: {_ECG_TODO[cfg.model]}")
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    device = resolve_device(cfg.device)
+    try:
+        data = load_ecg200()
+    except FileNotFoundError:
+        print("ECG200 files not found; using synthetic stand-in")
+        data = synthetic_ecg200()
+    T = data[0].shape[1]
+    if cfg.model == "kanfet_node":
+        spec = M.KanFetNODESpec(T=T, latent_dim=cfg.latent_dim,
+                                num_basis=cfg.num_basis, solver=cfg.solver,
+                                rtol=cfg.rtol, atol=cfg.atol, field=cfg.field,
+                                solver_mode=cfg.solver_mode)
+
+        def init_fn(g):
+            return M.kanfet_node_init(g, spec, device=device)
+
+        def apply_fn(p, x, g):
+            return M.kanfet_node_apply(p, spec, x)
+    elif cfg.model == "kanfet_mlp_node":
+        spec = M.KanFetMLPNODESpec(T=T, latent_dim=cfg.latent_dim,
+                                   num_basis=cfg.num_basis, solver=cfg.solver,
+                                   rtol=cfg.rtol, atol=cfg.atol,
+                                   noise_std=cfg.noise_std,
+                                   solver_mode=cfg.solver_mode,
+                                   gate_impl=cfg.gate_impl)
+
+        def init_fn(g):
+            return M.kanfet_mlp_node_init(g, spec, device=device)
+
+        def apply_fn(p, x, g):
+            return M.kanfet_mlp_node_apply(
+                p, spec, x, generator=g if cfg.noise_std > 0 else None)
+    else:
+        raise SystemExit(f"unknown ECG model {cfg.model!r}")
+    run = ECGRun(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
+                 weight_decay=cfg.weight_decay, seed=cfg.seed,
+                 epochs_per_call=cfg.epochs_per_call,
+                 mesh_devices=cfg.mesh_devices, mesh_model=cfg.mesh_model,
+                 ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every,
+                 resume=cfg.resume, aot_cache=cfg.aot_cache,
+                 device=cfg.device)
+    _, hist = train_ecg_model(init_fn, apply_fn, data, run,
+                              log=lambda m: print(m, flush=True))
+    return {"best_test_acc": hist["best_test_acc"],
+            "test_acc_curve": [float(a) for a in hist["test_acc"]],
+            "loss_curve": [float(v) for v in hist["loss"]],
+            "wall_seconds": hist["wall_seconds"]}
+
+
+def ecg_serving(cfg, device: torch.device):
+    """The ECG serving function: ``(params, fn, example)`` with a fresh
+    KanFetNODE classifier from ``cfg.seed`` and ``fn(params, x) ->
+    (B, num_classes)`` logits of ``(B, t_len)`` series."""
+    from fetode_tpu_torch.models import ecg as M
+
+    spec = M.KanFetNODESpec(T=cfg.t_len, latent_dim=cfg.latent_dim,
+                            num_basis=cfg.num_basis, rtol=cfg.rtol,
+                            atol=cfg.atol, field=cfg.field,
+                            solver_mode=cfg.solver_mode)
+    params = M.kanfet_node_init(torch.Generator().manual_seed(cfg.seed), spec,
+                                device=device)
+
+    def fn(p, x):
+        return M.kanfet_node_apply(p, spec, x)
+    example = torch.zeros((1, cfg.t_len), dtype=torch.float32, device=device)
+    return params, fn, example
+
+
 def predprey_serving(cfg, device: torch.device):
     """The predprey serving function: ``(params, fn, example)`` with fresh
     parameters from ``cfg.seed`` and ``fn(params, x0s) -> (B, T, 2)``
@@ -137,13 +235,15 @@ def predprey_serving(cfg, device: torch.device):
     return params, fn, example
 
 
+SERVING = {"ecg": ecg_serving, "predprey": predprey_serving}
+
+
 def run_serve(cfg, out_dir, plots):
     """Export a serving bundle, load it back and bench it per bucket."""
-    from fetode_tpu_torch.nn.kan import KAN
     from fetode_tpu_torch.serve import export_servable, load_servable, serve_bench
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if cfg.source != "predprey":
+    if cfg.source not in SERVING:
         raise NotImplementedError(
             f"serve source {cfg.source!r} is not ported yet: "
             f"{_SOURCE_TODO.get(cfg.source, 'unknown source')}")
@@ -152,14 +252,15 @@ def run_serve(cfg, out_dir, plots):
                                   "checkpoint/resume: ROADMAP A.5 "
                                   "(checkpoint/resume)")
     device = resolve_device(cfg.device)
-    params, fn, example = predprey_serving(cfg, device)
+    params, fn, example = SERVING[cfg.source](cfg, device)
 
     bundle = cfg.bundle_dir or os.path.join(out_dir, "bundle")
     t0 = time.perf_counter()
     meta = export_servable(bundle, params, example, buckets=cfg.buckets)
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sv = load_servable(bundle, fn, KAN(params.cfg, device=device))
+    # A copy of the module is the skeleton the bundle's state loads into.
+    sv = load_servable(bundle, fn, copy.deepcopy(params))
     load_s = time.perf_counter() - t0
     print(f"bundle {bundle}: export {export_s:.2f}s, load {load_s:.2f}s "
           f"on {meta['fingerprint']['device_kind']}")
@@ -179,6 +280,7 @@ def run_serve(cfg, out_dir, plots):
 
 RUNNERS = {
     "predprey": run_predprey,
+    "ecg": run_ecg,
     "serve": run_serve,
 }
 

@@ -1,9 +1,10 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Ported: the ``predprey`` and ``serve`` presets; their field names are the
-JAX package's, so one command line drives either package.  The port adds
-``device``.  The other workloads' presets arrive with their slices.
+Ported: the ``predprey``, ``ecg`` and ``serve`` presets; their field
+names are the JAX package's, so one command line drives either package.
+The port adds ``device``.  The other workloads' presets arrive with
+their slices.
 """
 
 from __future__ import annotations
@@ -50,10 +51,55 @@ class PredPreyPreset:
 
 
 @dataclass
+class ECGPreset:
+    """train_ecg_kan_fet_nn_ode.py:1181-1261 (100 epochs, batch 8, latent
+    64, basis 12, dopri5 rtol 1e-2 atol 1e-3, AdamW 1e-3 wd 1e-4)."""
+
+    # Ported: kanfet_node, kanfet_mlp_node.  fepa_rnn, digital_rnn,
+    # node_rnn, "all" and "noise_study" raise naming ROADMAP A.7.
+    model: str = "kanfet_node"
+    noise_stds: str = "0,0.1,0.2,0.5"
+    noise_seeds: str = "0,1,2"
+    epochs: int = 100
+    batch_size: int = 8
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    latent_dim: int = 64
+    num_basis: int = 12
+    solver: str = "dopri5"
+    rtol: float = 1e-2
+    atol: float = 1e-3
+    noise_std: float = 0.0
+    # Ferro gate form of kanfet_mlp_node only: "sigmoid" or "tanh" (the
+    # eager solves only).
+    gate_impl: str = "sigmoid"
+    # "auto" (the kernels on CUDA; on the CPU the eager scan under
+    # autograd and the eager while solve for evaluation), "scan",
+    # "while", or "pallas" (the whole-solve CUDA kernels; CUDA only).
+    solver_mode: str = "auto"
+    # kanfet_node latent field: "plain" ("mlp" waits for ROADMAP B.6).
+    field: str = "plain"
+    # Epochs per call of the block scanner (ECGRun.epochs_per_call).
+    epochs_per_call: int = 1
+    # Not ported yet (ECGRun refuses any other value, naming the ROADMAP
+    # item): the mesh, checkpoint/resume, the AOT cache.
+    mesh_devices: int = 0
+    mesh_model: int = 1
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    resume: bool = False
+    aot_cache: str = ""
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class ServePreset:
     """Serving bundle export + latency bench (``fetode_tpu_torch/serve.py``)."""
 
-    # What to serve.  Ported: "predprey" (batched trajectory solve).
+    # What to serve.  Ported: "ecg" (the KanFetNODE classifier) and
+    # "predprey" (batched trajectory solve).
     source: str = "ecg"
     # Batch buckets (requests pad up / chunk down at serve time).
     buckets: tuple = (8, 64, 256)
@@ -95,6 +141,7 @@ class ServePreset:
 
 PRESETS = {
     "predprey": PredPreyPreset,
+    "ecg": ECGPreset,
     "serve": ServePreset,
 }
 

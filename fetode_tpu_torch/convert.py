@@ -8,6 +8,13 @@ serving bundle's ``params.pkl`` (``fetode_tpu/serve.py:267-268``).  The
 port keeps the same tensors in a ``KAN`` module, whose ``state_dict``
 keys are ``layers.<i>.<name>`` with the grid as ``layers.<i>.grid``.
 
+The ECG models' parameters are one dict tree in the JAX package
+(``encoder_w``, ``field_mixer: {a, b}``, ``fc1: {k, ec, ps, bias, coef}``
+...) and one module in the port whose ``state_dict`` keys are the dotted
+paths of that tree (``field_mixer.a``, ``fc1.k``):
+``ecg_params_from_numpy`` / ``ecg_params_to_numpy`` /
+``ecg_grads_to_numpy``.
+
 Everything converts to float32 unless asked otherwise: the JAX package's
 tests run with x64 on, and the port works in float32 throughout.
 ``grads_to_numpy`` maps a module's gradients onto the JAX tree, so tests
@@ -71,3 +78,36 @@ def grads_to_numpy(params, dtype=np.float32) -> List[Dict[str, Any]]:
         key: torch.zeros_like(value) if grads.get(key) is None
         else grads[key] for key, value in params.state_dict().items()},
         dtype)
+
+
+def ecg_params_from_numpy(tree: Dict[str, Any], device=None,
+                          dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """An ECG model's JAX param tree -> a ``state_dict`` for its port
+    module (``models/ecg.py``)."""
+    flat: Dict[str, Any] = {}
+    _flatten("", tree, flat)
+    return {k: torch.as_tensor(np.array(v, dtype=dtype), device=device)
+            for k, v in flat.items()}
+
+
+def _nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().cpu().numpy().astype(dtype)
+    return tree
+
+
+def ecg_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """The inverse: an ECG port module -> the JAX param tree."""
+    return _nest(module.state_dict(), dtype)
+
+
+def ecg_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """An ECG port module's ``.grad``s -> the JAX gradient tree; a
+    parameter without a gradient gets zeros."""
+    return _nest({name: torch.zeros_like(p) if p.grad is None else p.grad
+                  for name, p in module.named_parameters()}, dtype)

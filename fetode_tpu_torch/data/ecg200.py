@@ -1,0 +1,123 @@
+"""ECG200 time-series classification data (counterpart of
+``fetode_tpu/data/ecg200.py``).
+
+Whitespace rows with the class label in column 0, labels remapped
+consistently to ``0..C-1`` across splits, each 96-point series
+z-normalised per row.  ``synthetic_ecg200`` is the in-repo stand-in with
+the same shapes and label contract.  Everything is numpy, as in the JAX
+package; the port keeps its own copies of the numpy paths of
+``data/native.py`` (``znorm_rows``, ``shuffled_indices``) and
+``data/batching.py: epoch_batches``.  Its shuffle is numpy's
+``default_rng(seed)``, the JAX package's fallback when its C++ runtime
+is not built.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+_DATA_ROOTS = (
+    os.environ.get("FETODE_DATA_DIR", ""),
+    os.path.join(os.path.dirname(__file__), "..", "..", "datasets"),
+)
+
+
+def locate(relpath: str) -> str | None:
+    """The first existing path for ``relpath`` under ``$FETODE_DATA_DIR``
+    or the repo's ``datasets/`` directory (``data/paths.py``)."""
+    for root in _DATA_ROOTS:
+        if root and os.path.exists(os.path.join(root, relpath)):
+            return os.path.join(root, relpath)
+    return None
+
+
+def znorm_rows(x: np.ndarray, eps: float = 1e-8) -> np.ndarray:
+    x = np.ascontiguousarray(x, np.float32)
+    mu = x.mean(1, keepdims=True)
+    sd = x.std(1, keepdims=True)
+    return (x - mu) / (sd + eps)
+
+
+def shuffled_indices(n: int, seed: int) -> np.ndarray:
+    idx = np.arange(n, dtype=np.int64)
+    np.random.default_rng(seed).shuffle(idx)
+    return idx
+
+
+def epoch_batches(*arrays, batch_size: int, seed: int = 0,
+                  drop_last: bool = True):
+    """Shuffle consistently and stack each array into (n_batches, B, ...).
+    ``batch_size`` is clamped to the dataset size; a short last batch is
+    dropped or, with ``drop_last=False``, padded by wrap-around."""
+    n = len(arrays[0])
+    batch_size = min(batch_size, n)
+    idx = shuffled_indices(n, seed)
+    nb = max(n // batch_size if drop_last else -(-n // batch_size), 1)
+    out = []
+    for a in arrays:
+        batches = []
+        for i in range(nb):
+            sel = idx[i * batch_size:(i + 1) * batch_size]
+            if len(sel) < batch_size:
+                sel = np.concatenate([sel, idx[:batch_size - len(sel)]])
+            batches.append(a[sel])
+        out.append(np.stack(batches))
+    return tuple(out)
+
+
+def _parse(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    raw = np.loadtxt(path)
+    return raw[:, 1:].astype(np.float32), raw[:, 0]
+
+
+def load_ecg200(train_path: str | None = None, test_path: str | None = None,
+                normalize: bool = True):
+    """Returns ``(x_train, y_train, x_test, y_test)`` as numpy arrays,
+    labels encoded 0..C-1 consistently across both splits."""
+    train_path = train_path or locate("ECG200_TRAIN.txt")
+    test_path = test_path or locate("ECG200_TEST.txt")
+    if train_path is None or test_path is None:
+        raise FileNotFoundError(
+            "ECG200 files not found; set FETODE_DATA_DIR or pass paths "
+            "(tests can use synthetic_ecg200)")
+    xtr, ltr = _parse(train_path)
+    xte, lte = _parse(test_path)
+    classes = np.unique(np.concatenate([ltr, lte]))
+    remap = {c: i for i, c in enumerate(classes)}
+    ytr = np.asarray([remap[c] for c in ltr], np.int32)
+    yte = np.asarray([remap[c] for c in lte], np.int32)
+    if normalize:
+        xtr, xte = znorm_rows(xtr), znorm_rows(xte)
+    return xtr, ytr, xte, yte
+
+
+def synthetic_ecg200(seed: int = 0, n_train: int = 64, n_test: int = 32,
+                     T: int = 96):
+    """Deterministic stand-in with the same shapes and label contract:
+    class 0 = smooth beat (gaussian bump), class 1 = beat with a sharp
+    notch."""
+    rng = np.random.default_rng(seed)
+
+    def make(n):
+        t = np.linspace(0, 1, T)
+        y = (np.arange(n) % 2).astype(np.int32)   # balanced classes
+        rng.shuffle(y)
+        bump = np.exp(-((t - 0.4) ** 2) / 0.01)
+        notch = -1.5 * np.exp(-((t - 0.6) ** 2) / 0.005)
+        x = bump[None, :] + y[:, None] * notch[None, :]
+        x = x + rng.normal(0, 0.1, (n, T))
+        return znorm_rows(x.astype(np.float32)), y
+
+    xtr, ytr = make(n_train)
+    xte, yte = make(n_test)
+    return xtr, ytr, xte, yte
+
+
+def batch_iterator(x, y, batch_size: int, *, seed: int = 0,
+                   drop_last: bool = True):
+    """Pre-shuffled full-epoch batch arrays: (n_batches, B, ...)."""
+    return epoch_batches(x, y, batch_size=batch_size, seed=seed,
+                         drop_last=drop_last)

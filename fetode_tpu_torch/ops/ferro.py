@@ -95,7 +95,8 @@ def ferro_state_init(batch_shape, cfg: FerroConfig, *, device=None,
 
 def ferro_basis(params: FerroParams, state: FerroState, x: torch.Tensor,
                 cfg: FerroConfig, *, generator: torch.Generator | None = None,
-                noise_std: float | torch.Tensor | None = None):
+                noise_std: float | torch.Tensor | None = None,
+                noise: torch.Tensor | None = None):
     """Evaluate the hysteresis basis tensor and advance the state.
 
     Args:
@@ -104,6 +105,9 @@ def ferro_basis(params: FerroParams, state: FerroState, x: torch.Tensor,
         or ``noise_std`` is given.
       noise_std: optional override of ``cfg.noise_std`` (a population run
         can carry a different noise level per member).
+      noise: device noise drawn beforehand, the basis's shape with the
+        scale multiplied in, used instead of a draw (the frozen per-solve
+        noise of ``ops/ferro_node.py: frozen_solve_noise``).
 
     Returns:
       ``(basis, new_state)`` with ``basis: (..., in, out, K)``.
@@ -134,7 +138,9 @@ def ferro_basis(params: FerroParams, state: FerroState, x: torch.Tensor,
     basis = params.ps * torch.tanh(params.k * (xe + params.ec * branch)) \
         + params.bias
 
-    if noise_std is not None or cfg.noise_std > 0.0:
+    if noise is not None:
+        basis = basis + noise.detach()
+    elif noise_std is not None or cfg.noise_std > 0.0:
         if generator is None:
             raise ValueError("noise_std > 0 requires a generator")
         std = cfg.noise_std if noise_std is None else noise_std
@@ -151,10 +157,11 @@ def ferro_basis(params: FerroParams, state: FerroState, x: torch.Tensor,
 
 def ferro_apply(params: FerroParams, state: FerroState, x: torch.Tensor,
                 cfg: FerroConfig, *, generator: torch.Generator | None = None,
-                noise_std: float | torch.Tensor | None = None):
+                noise_std: float | torch.Tensor | None = None,
+                noise: torch.Tensor | None = None):
     """Full basis layer: ``y[..., o] = sum_{i,k} basis[..., i, o, k] *
     coef[i, o, k]``.  Returns ``(y, new_state)``.
     """
     basis, new_state = ferro_basis(params, state, x, cfg, generator=generator,
-                                   noise_std=noise_std)
+                                   noise_std=noise_std, noise=noise)
     return torch.einsum("...iok,iok->...o", basis, params.coef), new_state

@@ -1,8 +1,9 @@
 """Logistic basis functions (counterpart of ``fetode_tpu/ops/logistic.py``).
 
-Only the plain basis that ``nn/kan.py: kan_linear_apply`` uses is ported
-(the layer initialises its parameters); it is off in KANFET stacks.  The
-hysteretic two-branch variant arrives with the ECG slice.
+Ported: the plain basis, which ``nn/kan.py: kan_linear_apply`` uses (it
+is off in KANFET stacks) and the ECG models' feature mixer is built on
+(``models/ecg.py``), and ``logistic_init``.  The hysteretic two-branch
+variant waits for the RNN models (ROADMAP A.1).
 """
 
 from __future__ import annotations
@@ -11,12 +12,24 @@ from typing import NamedTuple
 
 import torch
 
+from fetode_tpu_torch.utils.init import normal
+
 
 class LogisticParams(NamedTuple):
     """Per-feature logistic basis parameters, each ``(in_features, num_basis)``."""
 
     a: torch.Tensor  # slope
     b: torch.Tensor  # centre
+
+
+def logistic_init(generator: torch.Generator, in_features: int,
+                  num_basis: int, scale: float = 1.0, *, device=None,
+                  dtype=torch.float32) -> LogisticParams:
+    """``a``, ``b`` ~ ``scale`` * N(0, 1), each ``(in_features, num_basis)``."""
+    shape = (in_features, num_basis)
+    a = normal(generator, shape, device=device, dtype=dtype) * scale
+    b = normal(generator, shape, device=device, dtype=dtype) * scale
+    return LogisticParams(a=a, b=b)
 
 
 def logistic_basis(params: LogisticParams, x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Model serving: bundles, bucketed batching, latency bench.
 
 Counterpart of ``fetode_tpu/serve.py``.  A bundle directory holds the
-parameters (``params.pt``, a ``state_dict``) and ``meta.json`` (buckets,
-per-sample shape and dtype, and the fingerprint of the world it was
-exported in).  ``load_servable`` loads the parameters into a model
-skeleton that the caller builds, together with the function that
-serves them.
+parameters of any model (``params.pt``, its module's ``state_dict``) and
+``meta.json`` (buckets, per-sample shape and dtype, and the fingerprint
+of the world it was exported in).  ``load_servable`` loads the
+parameters into a model skeleton that the caller builds (a module of the
+same architecture), together with the function that serves them.  A
+request is padded up to its bucket with copies of its last row; for a
+model whose solve steps the whole batch under one controller (the ECG
+classifier) the padding rows enter the step control, as in the JAX
+package.
 
 Not carried over: ``AotCache`` / ``CachedJit`` and the serialized
 per-bucket executables, which answer a TPU compile cost that eager

@@ -185,9 +185,10 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
       unroll, checkpoint: the JAX package's scan-mode performance knobs
         (attempts per scan iteration, rematerialisation); accepted and
         ignored, since the eager loop has neither.
-      record: per_row only, a callback that sees every attempt
-        (``_solve_rows``); ``ops/kanfet_adjoint.py`` records the step mesh
-        with it.
+      record: a callback that sees every attempt (``_solve_rows``); in
+        the whole-state form it sees one row, the flattened state.
+        ``ops/kanfet_adjoint.py`` (per row) and ``ops/node_common.py``
+        (whole state) record the step mesh with it.
     """
     if mode not in ("auto", "scan", "while"):
         raise ValueError(f"odeint_dopri5 mode={mode!r}: expected "
@@ -210,8 +211,6 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         # closes over (its parameters), so it is checked with y0.
         f0 = fn(ts[:1].expand(rows.shape[0])[:, None], rows, *args)
         mode = "scan" if _under_autograd(rows, f0, *args) else "while"
-    if record is not None and not per_row:
-        raise ValueError("record takes the per-row form (per_row=True)")
     with torch.set_grad_enabled(mode == "scan" and torch.is_grad_enabled()):
         ys = _solve_rows(fn, rows, ts, args, rtol, atol, max_steps, safety,
                          ifactor, dfactor, record)

@@ -1,16 +1,19 @@
 """Training: the optimiser, the step loop and the workload drivers
 (counterpart of ``fetode_tpu/train/__init__.py``).
 
-Ported so far: Adam with global-norm clipping and cosine decay
-(``optim.py``), the full-batch step loop (``loop.py``), and the predprey
-drivers, single trajectory (``predprey_driver.py``) and a batched
-population of initial conditions (``traj_driver.py``).
+Ported so far: Adam, AdamW and SGD with global-norm clipping and cosine
+decay (``optim.py``), the full-batch and minibatch step loops
+(``loop.py``), the predprey drivers, single trajectory
+(``predprey_driver.py``) and a batched population of initial conditions
+(``traj_driver.py``), and the ECG trainer (``ecg_driver.py``).
 """
 
 from fetode_tpu_torch.train.loop import (  # noqa: F401
     TrainState,
     init_state,
     make_epoch_scanner,
+    make_minibatch_epoch,
+    make_minibatch_epochs_scanner,
     make_train_step,
 )
 from fetode_tpu_torch.train.optim import make_optimizer  # noqa: F401

@@ -6,14 +6,22 @@ one dispatch.  PyTorch runs eagerly, so here a call is a plain loop over
 that many steps.  The state is updated in place (the parameters and the
 optimiser's moments) and returned, so call sites read as in the JAX
 package: ``state, losses = scanner(state, *batch)``.  The losses stay on
-the device until the caller reads them.  The minibatch and population
-scanners come with the ECG slice (ROADMAP A.7).
+the device until the caller reads them.
+
+The minibatch epoch and the block-of-epochs scanner are plain loops too.
+Their keyed form replaces the JAX package's split PRNG keys: the loss
+takes a ``torch.Generator`` (``loss_fn(params, generator, *batch)``),
+and every step gets a fresh one, seeded from (seed, epoch, step) by
+``step_generator``, so one epoch draws the same numbers whether it runs
+alone or inside a block.  The population scanner waits for the
+noise-study slice (ROADMAP A.7).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -59,3 +67,71 @@ def make_epoch_scanner(loss_fn: Callable, n_epochs_per_call: int) -> Callable:
         return state, torch.stack(losses)
 
     return run
+
+
+def derived_seed(*words: int) -> int:
+    """A 63-bit seed from a few integers, through numpy's
+    ``SeedSequence``."""
+    state = np.random.SeedSequence(list(words)).generate_state(
+        1, np.uint64)[0]
+    return int(state >> 1)
+
+
+def step_generator(seed: int, epoch: int, step: int,
+                   device: torch.device) -> torch.Generator:
+    """A fresh generator on ``device`` for one training step, seeded from
+    (seed, epoch, step)."""
+    return torch.Generator(device=device).manual_seed(
+        derived_seed(seed, epoch, step))
+
+
+def make_minibatch_epoch(loss_fn: Callable, *, keyed: bool = False
+                         ) -> Callable:
+    """One epoch over pre-batched minibatches: ``fn(state, batches) ->
+    (state, losses[n_batches])``, every tensor of ``batches`` with leading
+    axes (n_batches, batch_size, ...).
+
+    With ``keyed=True`` the loss is ``loss_fn(params, generator, *batch)``
+    and the epoch function ``fn(state, key, batches)`` with ``key = (seed,
+    epoch)``: step i draws from ``step_generator(seed, epoch, i)``.
+    """
+    step = make_train_step(loss_fn)
+
+    def run(state: TrainState, batches: Sequence[torch.Tensor], key=None):
+        losses = []
+        for i in range(batches[0].shape[0]):
+            batch = [b[i] for b in batches]
+            if key is not None:
+                batch.insert(0, step_generator(*key, i, batches[0].device))
+            state, loss = step(state, *batch)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    if not keyed:
+        return run
+    return lambda state, key, batches: run(state, batches, key)
+
+
+def make_minibatch_epochs_scanner(loss_fn: Callable, *, keyed: bool = False
+                                  ) -> Callable:
+    """A block of epochs in one call: every tensor of ``epoch_batches``
+    has leading axes (n_epochs, n_batches, batch_size, ...).  Returns
+    ``fn(state, epoch_batches) -> (state, losses[n_epochs, n_batches])``;
+    keyed, ``fn(state, (seed, epoch0), epoch_batches)``, where epoch e of
+    the block draws as epoch ``epoch0 + e`` of ``make_minibatch_epoch``.
+    """
+    epoch_fn = make_minibatch_epoch(loss_fn)
+
+    def run(state: TrainState, epoch_batches: Sequence[torch.Tensor],
+            key=None):
+        losses = []
+        for e in range(epoch_batches[0].shape[0]):
+            batches = [b[e] for b in epoch_batches]
+            ekey = None if key is None else (key[0], key[1] + e)
+            state, loss = epoch_fn(state, batches, ekey)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    if not keyed:
+        return run
+    return lambda state, key, epoch_batches: run(state, epoch_batches, key)

@@ -1,7 +1,8 @@
 """The optimiser (counterpart of ``fetode_tpu/train/optim.py``).
 
 The JAX package builds ``optax.chain(clip_by_global_norm(grad_clip),
-adam(lr))``, ``lr`` a float or a schedule such as
+core)`` with ``core`` one of ``adam(lr)``, ``adamw(lr, weight_decay)``
+and ``sgd(lr)``, ``lr`` a float or a schedule such as
 ``optax.cosine_decay_schedule(lr, epochs, alpha=0.05)``
 (``train/predprey_driver.py:288-294``), and masks the knot grids out by
 their ``_buffers`` key.  Here the grids are module buffers, so only the
@@ -12,8 +13,11 @@ gradients by ``max / norm`` only when ``norm >= max`` (optax's
 ``(g / norm) * max``, not ``clip_grad_norm_``'s ``max / (norm + 1e-6)``),
 computed on the device without a host sync; Adam is ``torch.optim.Adam``
 (b1 0.9, b2 0.999, eps 1e-8), whose update equals optax's
-``scale_by_adam``; the schedule is read at the count before the step, as
-optax's ``scale_by_schedule`` reads it.
+``scale_by_adam``; AdamW is ``torch.optim.AdamW``, whose step ``p * (1 -
+lr * wd) - lr * adam(g)`` is optax's ``adamw`` update ``-lr * (adam(g) +
+wd * p)``; SGD is ``torch.optim.SGD`` without momentum, optax's ``sgd``.
+The schedule is read at the count before the step, as optax's
+``scale_by_schedule`` reads it.
 """
 
 from __future__ import annotations
@@ -51,38 +55,45 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 class Optimizer:
-    """Adam over ``params`` with an optional global-norm clip first and a
-    learning rate that is a float or a schedule of the step count."""
+    """Adam, AdamW or SGD over ``params`` with an optional global-norm clip
+    first and a learning rate that is a float or a schedule of the step
+    count."""
 
     def __init__(self, params: Iterable[torch.Tensor],
-                 lr: Union[float, Schedule], grad_clip: float | None = None):
+                 lr: Union[float, Schedule], grad_clip: float | None = None,
+                 kind: str = "adam", weight_decay: float = 0.0):
         self.params = [p for p in params if p.requires_grad]
         self.lr = lr if callable(lr) else (lambda count: lr)
         self.grad_clip = grad_clip
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=self.lr(0),
-                                     betas=(0.9, 0.999), eps=1e-8)
+        adam = dict(lr=self.lr(0), betas=(0.9, 0.999), eps=1e-8)
+        if kind == "adam":
+            self.inner = torch.optim.Adam(self.params, **adam)
+        elif kind == "adamw":
+            self.inner = torch.optim.AdamW(self.params, **adam,
+                                           weight_decay=weight_decay)
+        elif kind == "sgd":
+            self.inner = torch.optim.SGD(self.params, lr=self.lr(0))
+        else:
+            raise ValueError(f"unknown optimiser {kind!r}")
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        self.inner.zero_grad(set_to_none=True)
 
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.grad_clip is not None and grads:
             clip_by_global_norm_(grads, self.grad_clip)
-        for group in self.adam.param_groups:
+        for group in self.inner.param_groups:
             group["lr"] = self.lr(self.count)
-        self.adam.step()
+        self.inner.step()
         self.count += 1
 
 
 def make_optimizer(lr: Union[float, Schedule], *,
                    params: Iterable[torch.Tensor], kind: str = "adam",
+                   weight_decay: float = 0.0,
                    grad_clip: float | None = None) -> Optimizer:
-    """``lr`` may be a float or a schedule (e.g. ``cosine_decay_schedule``).
-    Only ``kind="adam"`` is ported; AdamW and SGD come with the ECG slice
-    (ROADMAP A.7)."""
-    if kind != "adam":
-        raise NotImplementedError(f"optimiser {kind!r} is not ported yet: "
-                                  "ROADMAP A.7 (ECG)")
-    return Optimizer(params, lr, grad_clip)
+    """``lr`` may be a float or a schedule (e.g. ``cosine_decay_schedule``);
+    ``kind`` is "adam", "adamw" (with ``weight_decay``) or "sgd"."""
+    return Optimizer(params, lr, grad_clip, kind, weight_decay)

@@ -40,7 +40,13 @@ def test_port_imports_no_jax():
     assert report["bad"] == []
     for name in ("fetode_tpu_torch.cli", "fetode_tpu_torch.serve",
                  "fetode_tpu_torch.ops.kanfet_node",
-                 "fetode_tpu_torch.models.predprey"):
+                 "fetode_tpu_torch.models.predprey",
+                 "fetode_tpu_torch.ops.node_common",
+                 "fetode_tpu_torch.ops.logistic_node",
+                 "fetode_tpu_torch.ops.ferro_node",
+                 "fetode_tpu_torch.models.ecg",
+                 "fetode_tpu_torch.data.ecg200",
+                 "fetode_tpu_torch.train.ecg_driver"):
         assert name in report["modules"]
 
 

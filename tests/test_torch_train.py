@@ -333,8 +333,8 @@ def test_refusals(case, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
             train_traj_parallel(TrajParallelRun(n_devices=2, device="cpu"))
     elif case == "optimizer":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            make_optimizer(1e-3, params=[], kind="adamw")
+        with pytest.raises(ValueError, match="unknown optimiser"):
+            make_optimizer(1e-3, params=[], kind="lion")
     elif case == "plots":
         with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
             cli.main(["predprey", "--device", "cpu", "--plots",
