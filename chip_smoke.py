@@ -38,14 +38,17 @@ max_steps 16), random weights from a seed, series from
 ``synthetic_ecg200``:
 
 9. The logistic-mixer kernels (``csrc/logistic_node.cu``) against their
-   plain versions at B = 8 and 256: the forward at rtol = atol = 1e-3;
+   plain versions at every batch the main path gives them, B = 8 (a
+   training step), 32 and 64 (the accuracy evals) and 256 (the largest
+   serving bucket): the forward, with and without records, at rtol =
+   atol = 1e-3;
    the backward on the forward kernel's own records against autograd of
    the plain replay of the same records, relative error < 1e-4 over all
    parameter gradients and over h0bar; full gradients, each on its own
    step mesh, cosine > 0.999.
 10. The same checks for the ferro kernels (``csrc/ferro_node.cu``) at
-    B = 8, clean and with frozen device noise of std 0.2 (one set of
-    draws fed to both).
+    B = 8, 32 and 64, clean and with frozen device noise of std 0.2 (one
+    set of draws for each batch, fed to both).
 11. The training slice: ``cli.main(["ecg", "--device", "cuda",
     "--solver_mode", "pallas", ...])`` for ``kanfet_node``,
     ``kanfet_mlp_node`` and ``kanfet_mlp_node --noise_std 0.2``: both
@@ -89,6 +92,7 @@ GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
+ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -177,8 +181,9 @@ def kanfet_eval_counts(cfg):
 def kanfet_counts(params, cfg, recs, T, kind):
     """(FP32, SFU, bytes) of a predprey kernel call from its records (the
     attempts each trajectory made): ``serve`` (solve and dense output at T
-    times), ``fwd`` (the same plus the records) or ``bwd`` (7 field VJPs
-    of about three evaluations each per accepted attempt)."""
+    times), ``fwd`` (the same plus the records) or ``bwd`` (6 field VJPs
+    of about three evaluations each per accepted attempt: stage 7's
+    cotangent is zero, since b[6] = 0)."""
     ev = kanfet_eval_counts(cfg)
     D = cfg.layers[0].in_features
     B = recs.n_att.shape[0]
@@ -186,7 +191,7 @@ def kanfet_counts(params, cfg, recs, T, kind):
     n_acc = int(recs.rec[:, 2, :].sum())
     n_par = sum(p.numel() for p in params.parameters())
     if kind == "bwd":
-        n = 21 * n_acc
+        n = 18 * n_acc
         nbytes = 4 * (B * T * D + n_att * (3 + 8 * D) + 2 * n_par + B * D)
         return n * ev[0], n * ev[1], nbytes
     n = 2 * B + 6 * n_att
@@ -200,8 +205,9 @@ def kanfet_counts(params, cfg, recs, T, kind):
 def node_counts(ev, vjp, n_params, n_noise, B, D, recs, kind):
     """(FP32, SFU, bytes) of a batch-shared node kernel call: ``fwd`` (2 +
     6 per attempt field evaluations, the step arithmetic and the records)
-    or ``bwd`` (7 field VJPs per accepted attempt); ``ev`` and ``vjp``
-    are (FP32, SFU) of one evaluation and one VJP of the whole batch."""
+    or ``bwd`` (6 field VJPs per accepted attempt: stage 7's cotangent is
+    zero, since b[6] = 0); ``ev`` and ``vjp`` are (FP32, SFU) of one
+    evaluation and one VJP of the whole batch."""
     N = B * D
     n_att = int(recs.misc[0])
     n_acc = int(recs.tda[:n_att, 1].sum())
@@ -210,33 +216,36 @@ def node_counts(ev, vjp, n_params, n_noise, B, D, recs, kind):
         n = 2 + 6 * n_att
         return (n * ev[0] + N * (80 * n_att + 20), n * ev[1],
                 4 * (2 * N + n_params + n_noise + rec_floats))
-    n = 7 * n_acc
+    n = 6 * n_acc
     return (n * vjp[0] + N * 100 * n_acc, n * vjp[1],
             4 * (2 * N + 2 * n_params + n_noise + rec_floats))
 
 
 def logistic_counts(B, D, K):
     """(evaluation, VJP, parameter count) of the logistic-mixer field: two
-    sigmoids per (b, l) and the (B, L) x (L, D) projection; the VJP adds
-    the transposed products for phibar and gW."""
+    sigmoids per (b, l) and the (B, L) x (L, D) projection; the VJP needs
+    the sigmoids again and two products, phibar = w W and gW += w^T phi,
+    but not the projection itself."""
     L = D * K
     ev = (B * L * (3 + 2 * SIG[0]) + 2 * B * D * L + B * D,
           B * L * 2 * SIG[1])
-    vjp = (B * L * (17 + 2 * SIG[0]) + 6 * B * D * L, B * L * 2 * SIG[1])
+    vjp = (B * L * (17 + 2 * SIG[0]) + 4 * B * D * L, B * L * 2 * SIG[1])
     return ev, vjp, 2 * L + D * L + D
 
 
 def ferro_counts(B, D, H, K, noisy):
     """(evaluation, VJP, parameter count) of the two-layer ferro field:
     B (H D K + D H K) terms of a sigmoid, a tanh and about 16 FP32
-    operations; the VJP evaluates each term twice and forms its five
-    gradients."""
+    operations; the VJP needs each term's value and five gradients, all
+    from one sigmoid and one tanh."""
     terms = B * 2 * H * D * K
     per = 16 + SIG[0] + TANH[0] + int(noisy)
     sfu = SIG[1] + TANH[1]
     ev = (terms * per + B * (D + H) * (SIG[0] + TANH[0]),
           terms * sfu + B * (D + H) * (SIG[1] + TANH[1]))
-    vjp = (terms * (2 * per + 30), terms * 2 * sfu)
+    link = B * (D + H)
+    vjp = (terms * (per + 30) + link * (TANH[0] + 3),
+           terms * sfu + link * TANH[1])
     return ev, vjp, 10 * H * D * K
 
 
@@ -396,15 +405,19 @@ def check_node_kernels(case, h0, hbar):
     label = f"{case['name']} B={h0.shape[0]}"
     with torch.no_grad():
         out_k, rec_k = case["fwd"](h0)
+        out_n, _ = case["fwd"](h0, record=False)
         torch.cuda.synchronize()
         out_p, rec_p = NC.record_solve_reference(case["field"], h0,
                                                  **case["opts"])
-    if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
+    if not (torch.isfinite(out_k).all() and torch.isfinite(out_n).all()
+            and torch.isfinite(out_p).all()):
         fail(f"{label}: non-finite forward output")
-    fwd_err = max_abs(out_k, out_p)
-    if not torch.allclose(out_k, out_p, rtol=TOL, atol=TOL):
-        fail(f"{label}: forward kernel disagrees with plain (max |diff| "
-             f"{fwd_err:.3e})")
+    fwd_err, norec_err = max_abs(out_k, out_p), max_abs(out_n, out_p)
+    for what, out, err in (("with records", out_k, fwd_err),
+                           ("without records", out_n, norec_err)):
+        if not torch.allclose(out, out_p, rtol=TOL, atol=TOL):
+            fail(f"{label}: forward kernel {what} disagrees with plain "
+                 f"(max |diff| {err:.3e})")
     g_k, hb_k = case["bwd"](h0, rec_k, hbar)
     g_p, hb_p = NC.replay_vjp_reference(case["field"], case["weights"], h0,
                                         rec_k, hbar)
@@ -426,13 +439,13 @@ def check_node_kernels(case, h0, hbar):
     cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
     if not cos > COS_MIN:
         fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
-    print(f"{label} vs plain: forward max |diff| {fwd_err:.3e}; backward on "
-          f"the kernel's mesh: grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}; "
+    print(f"{label} vs plain: forward max |diff| {fwd_err:.3e} (without "
+          f"records {norec_err:.3e}); backward on the kernel's mesh: grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}; "
           f"own-mesh cosine {cos:.7f}; attempts kernel "
           f"{int(rec_k.misc[0])} (accepted "
           f"{int(rec_k.tda[:int(rec_k.misc[0]), 1].sum())}), plain "
           f"{int(rec_p.misc[0])}")
-    return dict(fwd_err=fwd_err, g_rel=g_rel, h_rel=h_rel, cos=cos,
+    return dict(fwd_err=max(fwd_err, norec_err), g_rel=g_rel, h_rel=h_rel, cos=cos,
                 g_abs=max(max_abs(flat(g_k), flat(g_p)), max_abs(hb_k, hb_p)))
 
 
@@ -546,7 +559,7 @@ def ecg_phases(device, smi):
     xs = {b: torch.from_numpy((series[np.arange(b) % len(series)] + 0.05
                                * rng_e.standard_normal((b, series.shape[1]))
                                ).astype(np.float32)).to(device)
-          for b in ECG_BATCHES}
+          for b in ECG_CHECKS}
     lspec = M.KanFetNODESpec(num_basis=12)
     fspec = M.KanFetMLPNODESpec(num_basis=12)
     lparams = M.kanfet_node_init(torch.Generator().manual_seed(0), lspec,
@@ -560,18 +573,20 @@ def ecg_phases(device, smi):
                for b, x in xs.items()}
     hbars = {b: torch.from_numpy(rng_e.standard_normal(
         (b, lspec.latent_dim)).astype(np.float32)).to(device)
-        for b in ECG_BATCHES}
+        for b in ECG_CHECKS}
     lcase = logistic_case(lparams, lspec)
-    noise = FN.frozen_solve_noise(torch.Generator().manual_seed(3), 8,
-                                  fspec.fc1_cfg, fspec.fc2_cfg,
-                                  noise_std=0.2, device=device)
-    fcase, ncase = (ferro_case(fparams, fspec, None),
-                    ferro_case(fparams, fspec, noise))
+    # Every batch the main path gives each kernel: the training batch,
+    # the accuracy evals' 64 and 32, and (logistic) the serving buckets.
+    ncases = {b: ferro_case(fparams, fspec, FN.frozen_solve_noise(
+        torch.Generator().manual_seed(3), b, fspec.fc1_cfg, fspec.fc2_cfg,
+        noise_std=0.2, device=device)) for b in (8, 32, 64)}
+    fcase, ncase = ferro_case(fparams, fspec, None), ncases[8]
     ecg_checks = {("logistic", b): check_node_kernels(lcase, lh0[b], hbars[b])
-                  for b in (8, 256)}
-    ecg_checks[("ferro", 8)] = check_node_kernels(fcase, fh0[8], hbars[8])
-    ecg_checks[("ferro noisy", 8)] = check_node_kernels(ncase, fh0[8],
-                                                        hbars[8])
+                  for b in ECG_CHECKS}
+    for b in (8, 32, 64):
+        ecg_checks[("ferro", b)] = check_node_kernels(fcase, fh0[b], hbars[b])
+        ecg_checks[("ferro noisy", b)] = check_node_kernels(
+            ncases[b], fh0[b], hbars[b])
 
     # ---- 11. the ECG training slice, through the CLI
     ecg_kernels = (LN.logistic_node_fwd, LN.logistic_node_bwd,
@@ -903,6 +918,10 @@ def main():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
                                            max_steps=spec.max_steps, **kw)
     lt, ft = ecg_times[("logistic", 8)], ecg_times[("ferro", 8)]
+
+    def worst(model, key):
+        return max(c[key] for k, c in ecg_checks.items()
+                   if k[0].split()[0] == model)
     print(json.dumps({"kernels": [
         kernel_entry("kanfet_node_solve", "fetode_tpu_torch/csrc/kanfet_node.cu",
                      "fetode_tpu/ops/pallas_node.py:260",
@@ -926,20 +945,20 @@ def main():
         kernel_entry("logistic_node_fwd",
                      "fetode_tpu_torch/csrc/logistic_node.cu",
                      "fetode_tpu/ops/pallas_logistic_node.py:121",
-                     ecg_launches[0], ecg_checks[("logistic", 8)]["fwd_err"],
+                     ecg_launches[0], worst("logistic", "fwd_err"),
                      lt["fwd"], lt["plain_fwd"], lt["bound_fwd"]),
         kernel_entry("logistic_node_bwd",
                      "fetode_tpu_torch/csrc/logistic_node.cu",
                      "fetode_tpu/ops/pallas_logistic_node.py:141",
-                     ecg_launches[1], ecg_checks[("logistic", 8)]["g_abs"],
+                     ecg_launches[1], worst("logistic", "g_abs"),
                      lt["bwd"], lt["plain_bwd"], lt["bound_bwd"]),
         kernel_entry("ferro_node_fwd", "fetode_tpu_torch/csrc/ferro_node.cu",
                      "fetode_tpu/ops/pallas_ferro_node.py:475",
-                     ecg_launches[2], ecg_checks[("ferro", 8)]["fwd_err"],
+                     ecg_launches[2], worst("ferro", "fwd_err"),
                      ft["fwd"], ft["plain_fwd"], ft["bound_fwd"]),
         kernel_entry("ferro_node_bwd", "fetode_tpu_torch/csrc/ferro_node.cu",
                      "fetode_tpu/ops/pallas_ferro_node.py:505",
-                     ecg_launches[3], ecg_checks[("ferro", 8)]["g_abs"],
+                     ecg_launches[3], worst("ferro", "g_abs"),
                      ft["bwd"], ft["plain_bwd"], ft["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

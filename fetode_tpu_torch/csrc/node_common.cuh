@@ -308,15 +308,17 @@ struct ReplayBufs {
   const float* misc;
   float* h0bar;  // (N) cotangent of the initial state
   float* lam;    // (N)
-  float* kbar;   // (7, N) stage cotangents
+  float* kbar;   // (6, N) stage cotangents (stage 7's is zero)
   float* u;      // (N) stage input
   float* ub;     // (N) the field VJP's output
   int N;
 };
 
 // The discrete adjoint on the recorded mesh (adjoint_replay): attempts in
-// reverse, each accepted one through its seven stages in reverse.  A
-// rejected attempt has a zero cotangent in the JAX replay and is skipped.
+// reverse, each accepted one through its stages in reverse.  A rejected
+// attempt has a zero cotangent in the JAX replay and is skipped.  Stage 7
+// is skipped too: b[6] = 0 and no later stage reads it, so its cotangent
+// is identically zero (the JAX replay runs its VJP on that zero).
 template <class Field>
 __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
   cg::grid_group grid = cg::this_grid();
@@ -331,9 +333,9 @@ __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
     for (int e = tid; e < N; e += nth) {
       const float lam = r.lam[e];
 #pragma unroll
-      for (int j = 0; j < 7; ++j) r.kbar[j * N + e] = (dt * kB[j]) * lam;
+      for (int j = 0; j < 6; ++j) r.kbar[j * N + e] = (dt * kB[j]) * lam;
     }
-    for (int j = 6; j >= 0; --j) {
+    for (int j = 5; j >= 0; --j) {
       for (int e = tid; e < N; e += nth) {
         float incr = kA[j][0] * ks[e];
 #pragma unroll

@@ -1,7 +1,7 @@
 """Training: the optimiser, the step loop and the workload drivers
 (counterpart of ``fetode_tpu/train/__init__.py``).
 
-Ported so far: Adam, AdamW and SGD with global-norm clipping and cosine
+Ported so far: Adam and AdamW with global-norm clipping and cosine
 decay (``optim.py``), the full-batch and minibatch step loops
 (``loop.py``), the predprey drivers, single trajectory
 (``predprey_driver.py``) and a batched population of initial conditions

@@ -2,8 +2,8 @@
 
 The JAX package builds ``optax.chain(clip_by_global_norm(grad_clip),
 core)`` with ``core`` one of ``adam(lr)``, ``adamw(lr, weight_decay)``
-and ``sgd(lr)``, ``lr`` a float or a schedule such as
-``optax.cosine_decay_schedule(lr, epochs, alpha=0.05)``
+and ``sgd(lr)``; the port has the first two.  ``lr`` is a float or a
+schedule such as ``optax.cosine_decay_schedule(lr, epochs, alpha=0.05)``
 (``train/predprey_driver.py:288-294``), and masks the knot grids out by
 their ``_buffers`` key.  Here the grids are module buffers, so only the
 parameters reach the optimiser and there is nothing to mask.
@@ -15,8 +15,7 @@ computed on the device without a host sync; Adam is ``torch.optim.Adam``
 (b1 0.9, b2 0.999, eps 1e-8), whose update equals optax's
 ``scale_by_adam``; AdamW is ``torch.optim.AdamW``, whose step ``p * (1 -
 lr * wd) - lr * adam(g)`` is optax's ``adamw`` update ``-lr * (adam(g) +
-wd * p)``; SGD is ``torch.optim.SGD`` without momentum, optax's ``sgd``.
-The schedule is read at the count before the step, as optax's
+wd * p)``.  The schedule is read at the count before the step, as optax's
 ``scale_by_schedule`` reads it.
 """
 
@@ -55,7 +54,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 class Optimizer:
-    """Adam, AdamW or SGD over ``params`` with an optional global-norm clip
+    """Adam or AdamW over ``params`` with an optional global-norm clip
     first and a learning rate that is a float or a schedule of the step
     count."""
 
@@ -72,8 +71,6 @@ class Optimizer:
         elif kind == "adamw":
             self.inner = torch.optim.AdamW(self.params, **adam,
                                            weight_decay=weight_decay)
-        elif kind == "sgd":
-            self.inner = torch.optim.SGD(self.params, lr=self.lr(0))
         else:
             raise ValueError(f"unknown optimiser {kind!r}")
 
@@ -95,5 +92,5 @@ def make_optimizer(lr: Union[float, Schedule], *,
                    weight_decay: float = 0.0,
                    grad_clip: float | None = None) -> Optimizer:
     """``lr`` may be a float or a schedule (e.g. ``cosine_decay_schedule``);
-    ``kind`` is "adam", "adamw" (with ``weight_decay``) or "sgd"."""
+    ``kind`` is "adam" or "adamw" (with ``weight_decay``)."""
     return Optimizer(params, lr, grad_clip, kind, weight_decay)
