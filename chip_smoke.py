@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main paths — predprey KANFET serving and training — on
-the card and checks them, in phases that run in order; any failure exits
-non-zero.
+Drives the port's main paths — predprey KANFET serving and training, ECG
+classification training and serving, ETT forecasting training and
+serving — on the card and checks them, in phases that run in order; any
+failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -41,7 +42,7 @@ max_steps 16), random weights from a seed, series from
    plain versions at every batch the main path gives them, B = 8 (a
    training step), 32 and 64 (the accuracy evals) and 256 (the largest
    serving bucket): the forward, with and without records, at rtol =
-   atol = 1e-3;
+   atol = 1e-3 and the same attempt counts;
    the backward on the forward kernel's own records against autograd of
    the plain replay of the same records, relative error < 1e-4 over all
    parameter gradients and over h0bar; full gradients, each on its own
@@ -61,6 +62,39 @@ max_steps 16), random weights from a seed, series from
     kernel must have launched.
 13. Timing: each ECG kernel and its plain version at B = 8 and at the
     serving buckets, and one ECG training step of each model, kernels
+    against the eager solve.
+
+The ETT forecasting slice, at the full width of ``ETTPreset`` (context
+96, pred_len 8 at times 0..7, latent 64, hidden 128, dopri5 at rtol 1e-3 /
+atol 1e-4, max_steps 32; diffusion T = 200, eps-head hidden 256, 10
+samples), random weights from a seed, windows of the synthetic series
+(2,000 steps, 7 columns) that ``cli ett`` falls back to:
+
+14. The latent trajectory kernels (``csrc/ode_dyn.cu``) against their
+    plain versions at every batch the path gives them: 64 (a training
+    step), 97 (the validation split), 297 (the point forecaster's test
+    split), 256 and 41 (the diffusion test chunks), 1 (the final
+    forecast) and 8 / 64 / 256 (serving): the forward, with and without
+    records, at rtol = atol = 1e-3 and the same attempt counts; at 64 and
+    297 the backward on the forward kernel's own records against autograd
+    of the plain replay of the same records, relative error < 1e-4, and
+    full gradients, each on its own step mesh, cosine > 0.999.
+15. The DDPM chain kernel (``csrc/ddpm.cu``) against its plain chain on
+    the same y0 and noise tables at every row count the path gives it
+    (10 samples times the batch): 10 (the final forecast), 80, 640 and
+    2,560 (serving), 970, 2,560 and 410 (the validation and test chunks):
+    rtol = atol = 1e-3.
+16. The training slice: ``cli.main(["ett", "--model", "point" |
+    "diffusion", "--solver_mode", "pallas", "--epochs", "2", ...])``: the
+    kernels of each model must have launched and the losses must be
+    finite.
+17. The serving slice: ``cli.main(["serve", "--source", "ett" | "ddpm",
+    "--solver_mode", "pallas", ...])`` with buckets (8, 64, 256), then
+    requests of B = 1, 30 and 300 through the loaded bundle; they must
+    equal direct calls on the same padded batches, and the kernels must
+    have launched.
+18. Timing: each forecasting kernel and its plain version at the path's
+    batches, and one training step of each forecaster at B = 64, kernels
     against the eager solve.
 
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
@@ -90,9 +124,14 @@ T_SERVE = 140
 HORIZON = 14.0
 GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
-KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node")
+KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
+           "ode_dyn", "ddpm")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
+# The forecasting path's latent-solve batches and chain rows (phase 14-15).
+ODE_CHECKS = (1, 8, 41, 64, 97, 256, 297)
+ODE_BACKWARD = (64, 297)
+DDPM_ROWS = (10, 80, 410, 640, 970, 2560)
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -342,6 +381,18 @@ def time_training(params, spec, x0s, ts, targets, smi):
 # ------------------------------------------------------------------- ECG
 
 
+def final_state_plain(field, weights, opts):
+    """The plain versions of a final-state kernel pair (``ops/node_common.py``)
+    as a case's ``plain_fwd``, ``plain_bwd`` and ``plain_solve``."""
+    from fetode_tpu_torch.ops import node_common as NC
+
+    return dict(
+        plain_fwd=lambda h0: NC.record_solve_reference(field, h0, **opts),
+        plain_bwd=lambda h0, recs, hbar: NC.replay_vjp_reference(
+            field, weights, h0, recs, hbar),
+        plain_solve=lambda h0: NC.solve_reference(field, h0, **opts))
+
+
 def logistic_case(params, spec):
     """The logistic-mixer kernels of a ``KanFetNODE`` model as closures,
     with their plain field, weights and operation counts."""
@@ -363,7 +414,8 @@ def logistic_case(params, spec):
                                                          **opts),
         bwd=lambda h0, recs, hbar: LN.logistic_node_bwd(*w, h0, recs, hbar),
         solve=lambda h0: LN.logistic_node_solve(params, h0, spec),
-        field=LN.logistic_field(*w), weights=w, opts=opts, counts=counts)
+        weights=w, counts=counts,
+        **final_state_plain(LN.logistic_field(*w), w, opts))
 
 
 def ferro_case(params, spec, noise):
@@ -392,23 +444,21 @@ def ferro_case(params, spec, noise):
                                                      hbar, cfg, noise=noise),
         solve=lambda h0: FN.ferro_node_solve(fc1, fc2, h0, spec,
                                              noise=noise),
-        field=FN.ferro_field(fc1, fc2, cfg, noise), weights=w, opts=opts,
-        counts=counts)
+        weights=w, counts=counts,
+        **final_state_plain(FN.ferro_field(fc1, fc2, cfg, noise), w, opts))
 
 
-def check_node_kernels(case, h0, hbar):
-    """Phases 9-10 at one batch: the forward kernel against the plain
-    recording solve, the backward kernel against autograd of the plain
-    replay on the kernel's records, and full gradients on own meshes."""
-    from fetode_tpu_torch.ops import node_common as NC
-
+def check_node_kernels(case, h0, hbar, backward=True):
+    """Phases 9-10 and 14 at one batch: both forward kernels against the
+    plain recording solve (values and attempts) and, with ``backward``,
+    the backward kernel against autograd of the plain replay on the
+    kernel's records, and full gradients on own meshes."""
     label = f"{case['name']} B={h0.shape[0]}"
     with torch.no_grad():
         out_k, rec_k = case["fwd"](h0)
         out_n, _ = case["fwd"](h0, record=False)
         torch.cuda.synchronize()
-        out_p, rec_p = NC.record_solve_reference(case["field"], h0,
-                                                 **case["opts"])
+        out_p, rec_p = case["plain_fwd"](h0)
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_n).all()
             and torch.isfinite(out_p).all()):
         fail(f"{label}: non-finite forward output")
@@ -418,43 +468,46 @@ def check_node_kernels(case, h0, hbar):
         if not torch.allclose(out, out_p, rtol=TOL, atol=TOL):
             fail(f"{label}: forward kernel {what} disagrees with plain "
                  f"(max |diff| {err:.3e})")
-    g_k, hb_k = case["bwd"](h0, rec_k, hbar)
-    g_p, hb_p = NC.replay_vjp_reference(case["field"], case["weights"], h0,
-                                        rec_k, hbar)
-    torch.cuda.synchronize()
-    if not (all(torch.isfinite(g).all() for g in g_k)
-            and torch.isfinite(hb_k).all()):
-        fail(f"{label}: non-finite kernel gradients")
-    g_rel, h_rel = rel_err(flat(g_k), flat(g_p)), rel_err(hb_k, hb_p)
-    if not (g_rel < GRAD_TOL and h_rel < GRAD_TOL):
-        fail(f"{label}: backward kernel vs plain replay on the kernel's "
-             f"mesh: param grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}")
+    n_k, n_p = int(rec_k.misc[0]), int(rec_p.misc[0])
+    if n_k != n_p:
+        fail(f"{label}: {n_k} attempts in the kernel, {n_p} in plain")
+    res = dict(fwd_err=max(fwd_err, norec_err))
+    line = (f"{label} vs plain: forward max |diff| {fwd_err:.3e} (without "
+            f"records {norec_err:.3e}); attempts {n_k} (accepted "
+            f"{int(rec_k.tda[:n_k, 1].sum())}) as plain")
+    if backward:
+        g_k, hb_k = case["bwd"](h0, rec_k, hbar)
+        g_p, hb_p = case["plain_bwd"](h0, rec_k, hbar)
+        torch.cuda.synchronize()
+        if not (all(torch.isfinite(g).all() for g in g_k)
+                and torch.isfinite(hb_k).all()):
+            fail(f"{label}: non-finite kernel gradients")
+        g_rel, h_rel = rel_err(flat(g_k), flat(g_p)), rel_err(hb_k, hb_p)
+        if not (g_rel < GRAD_TOL and h_rel < GRAD_TOL):
+            fail(f"{label}: backward kernel vs plain replay on the kernel's "
+                 f"mesh: param grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}")
 
-    def full(solve):
-        return flat(torch.autograd.grad(torch.sum(solve(h0) * hbar),
-                                        case["weights"]))
+        def full(solve):
+            return flat(torch.autograd.grad(torch.sum(solve(h0) * hbar),
+                                            case["weights"]))
 
-    gk = full(case["solve"])
-    gp = full(lambda h: NC.solve_reference(case["field"], h, **case["opts"]))
-    cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
-    if not cos > COS_MIN:
-        fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
-    print(f"{label} vs plain: forward max |diff| {fwd_err:.3e} (without "
-          f"records {norec_err:.3e}); backward on the kernel's mesh: grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}; "
-          f"own-mesh cosine {cos:.7f}; attempts kernel "
-          f"{int(rec_k.misc[0])} (accepted "
-          f"{int(rec_k.tda[:int(rec_k.misc[0]), 1].sum())}), plain "
-          f"{int(rec_p.misc[0])}")
-    return dict(fwd_err=max(fwd_err, norec_err), g_rel=g_rel, h_rel=h_rel, cos=cos,
-                g_abs=max(max_abs(flat(g_k), flat(g_p)), max_abs(hb_k, hb_p)))
+        gk, gp = full(case["solve"]), full(case["plain_solve"])
+        cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
+        if not cos > COS_MIN:
+            fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
+        res.update(g_rel=g_rel, h_rel=h_rel, cos=cos,
+                   g_abs=max(max_abs(flat(g_k), flat(g_p)),
+                             max_abs(hb_k, hb_p)))
+        line += (f"; backward on the kernel's mesh: grads rel {g_rel:.3e}, "
+                 f"h0bar rel {h_rel:.3e}; own-mesh cosine {cos:.7f}")
+    print(line)
+    return res
 
 
 def time_node_kernels(case, h0, hbar, smi, plain=True):
-    """Phase 13 at one batch: CUDA-event ms of the forward kernel with and
-    without records, the backward kernel, and (``plain``) the plain
-    recording solve and the plain replay's autograd."""
-    from fetode_tpu_torch.ops import node_common as NC
-
+    """Phases 13 and 18 at one batch: CUDA-event ms of the forward kernel
+    with and without records, the backward kernel, and (``plain``) the
+    plain recording solve and the plain replay's autograd."""
     B = h0.shape[0]
     with torch.no_grad():
         _, recs = case["fwd"](h0)
@@ -467,10 +520,9 @@ def time_node_kernels(case, h0, hbar, smi, plain=True):
             f"{res['bwd']:.4f} ms")
     if plain:
         with torch.no_grad():
-            res["plain_fwd"] = cuda_ms(lambda: NC.record_solve_reference(
-                case["field"], h0, **case["opts"]), 1)
-        res["plain_bwd"] = cuda_ms(lambda: NC.replay_vjp_reference(
-            case["field"], case["weights"], h0, recs, hbar), 1)
+            res["plain_fwd"] = cuda_ms(lambda: case["plain_fwd"](h0), 1)
+        res["plain_bwd"] = cuda_ms(lambda: case["plain_bwd"](h0, recs, hbar),
+                                   1)
         line += (f"; plain forward {res['plain_fwd']:.3f} ms, plain "
                  f"backward {res['plain_bwd']:.3f} ms")
     for kind in ("fwd", "bwd"):
@@ -532,6 +584,28 @@ def profile_ms(fn, n=5):
             per_kernel[e["name"]] = per_kernel.get(e["name"], 0.0) + e["dur"]
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
     return wall, busy / 1e3 / n, [(k[:60], v / 1e3 / n) for k, v in top]
+
+
+def check_served(sv, fn, reqs, served, label):
+    """Phases 12 and 17: each request's output through the bundle equals
+    direct calls of ``fn`` on the same padded batches (padding rows are
+    copies of a chunk's last row, as ``Servable.predict`` pads)."""
+    with torch.no_grad():
+        for b, x in reqs.items():
+            want = []
+            for off in range(0, b, sv.buckets[-1]):
+                chunk = x[off:off + sv.buckets[-1]]
+                take = chunk.shape[0]
+                bucket = next(k for k in sv.buckets if k >= take)
+                padded = torch.cat([chunk, chunk[-1:].expand(
+                    (bucket - take,) + tuple(chunk.shape[1:]))])
+                want.append(fn(sv.params, padded)[:take])
+            want = torch.cat(want)
+            if served[b].shape != want.shape or \
+                    not torch.isfinite(served[b]).all() or \
+                    not torch.equal(served[b], want):
+                fail(f"{label} request B={b}: served output differs from "
+                     "direct kernel calls on the padded batch")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
@@ -636,22 +710,7 @@ def ecg_phases(device, smi):
         if ecg_counts[0] < 1:
             fail("the ECG serving path launched no logistic_node kernel")
         ecg_launches = [a + b for a, b in zip(ecg_launches, ecg_counts)]
-        with torch.no_grad():
-            for b, x in reqs.items():
-                want = []
-                for off in range(0, b, sv.buckets[-1]):
-                    chunk = x[off:off + sv.buckets[-1]]
-                    take = chunk.shape[0]
-                    bucket = next(k for k in sv.buckets if k >= take)
-                    padded = torch.cat([chunk, chunk[-1:].expand(
-                        bucket - take, -1)])
-                    want.append(sfn(sv.params, padded)[:take])
-                want = torch.cat(want)
-                if served[b].shape != (b, 2) or \
-                        not torch.isfinite(served[b]).all() or \
-                        not torch.equal(served[b], want):
-                    fail(f"ECG request B={b}: served logits differ from "
-                         "direct kernel calls on the padded batch")
+        check_served(sv, sfn, reqs, served, "ECG")
         wall, busy, top = profile_ms(lambda: sv.predict(xs[8]).cpu())
     print(f"ECG served B=1/30/300 through the bundle = direct kernel calls "
           f"on the padded batches; launches {ecg_counts}")
@@ -688,6 +747,283 @@ def ecg_phases(device, smi):
               f"top {[(k, round(v, 4)) for k, v in top]} ({smi})")
 
     return ecg_checks, ecg_times, ecg_launches
+
+
+# --------------------------------------------------------------- forecasting
+
+
+def ode_dyn_counts(B, D, H, ts, recs, kind):
+    """(FP32, SFU, bytes) of a latent trajectory kernel call: ``fwd`` (2 +
+    6 per attempt field evaluations of three products and 2 B H tanhs,
+    the step arithmetic, the dense output and, with records, the
+    records) or ``bwd`` (per accepted attempt 6 field VJPs, 7 when an
+    output time falls in its window: the two hidden layers again and six
+    products)."""
+    N = B * D
+    n_att = int(recs.misc[0])
+    tda = recs.tda[:n_att].cpu().numpy()
+    tsn = ts.cpu().numpy()
+    acc = [(t, dt) for dt, a, t, _ in tda if a > 0.5]
+    n_par = H * (D + 1) + H + H * H + H + D * H + D
+    ev = (2 * B * (D * H + H * H + H * D) + 2 * B * H * TANH[0],
+          2 * B * H * TANH[1])
+    rec_floats = n_att * (4 + 8 * N) + 4
+    if kind == "fwd":
+        n = 2 + 6 * n_att
+        return (n * ev[0] + N * (80 * n_att + 40 * len(tsn)), n * ev[1],
+                4 * (N + len(tsn) + n_par + len(tsn) * N + rec_floats))
+    n_vjp = sum(6 + int(any(t < v <= t + dt for v in tsn)) for t, dt in acc)
+    vjp = (2 * B * (D * H + H * H) + 4 * B * (2 * D * H + H * H)
+           + 2 * B * H * (TANH[0] + 3), 2 * B * H * TANH[1])
+    return (n_vjp * vjp[0] + N * 100 * len(acc), n_vjp * vjp[1],
+            4 * (len(tsn) * N + len(tsn) + rec_floats + 2 * n_par + N))
+
+
+def ddpm_counts(rows, P, H, T):
+    """(FP32, SFU, bytes) of one whole-chain call: per row and step the
+    three products, 2 H SiLUs (a sigmoid each) and the update; each table
+    read once, the samples written once."""
+    per = 2 * P * H + 2 * H * H + 2 * H * P + 2 * H * (SIG[0] + 1) + 6 * P
+    nbytes = 4 * (2 * rows * P + rows * H + T * H + T * rows * P + 3 * T
+                  + 2 * P * H + H * H + H + P)
+    return T * rows * per, T * rows * 2 * H * SIG[1], nbytes
+
+
+def forecast_windows():
+    """The full-width windows of the synthetic series that ``cli ett``
+    falls back to, all splits, as one (M, 96, 7) array."""
+    from fetode_tpu_torch.data.timeseries import synthetic_series
+    from fetode_tpu_torch.train.forecast_driver import (
+        ForecastRun,
+        prepare_windows,
+    )
+
+    X, y = synthetic_series(n=2000, n_features=6)
+    windows, _, _ = prepare_windows(X, y, ForecastRun())
+    return np.concatenate([windows[k][0] for k in ("train", "val",
+                                                   "test")])
+
+
+def ode_dyn_case(layers, ts):
+    """The latent trajectory kernels of a forecaster's field MLP as
+    closures, with their plain versions (the trajectory twins of
+    ``ops/node_common.py``), weights and operation counts."""
+    from fetode_tpu_torch.ops import node_common as NC
+    from fetode_tpu_torch.ops import ode_dyn as OD
+
+    w = OD.layer_weights(layers)
+    field = OD.ode_dyn_field(*w)
+    D, H = w[4].shape[0], w[2].shape[0]
+    return dict(
+        name="ode_dyn",
+        fwd=lambda z0, record=True: OD.ode_dyn_fwd(w, z0, ts, record=record),
+        bwd=lambda z0, recs, ct: OD.ode_dyn_bwd(w, z0, ts, recs, ct),
+        solve=lambda z0: OD.ode_dyn_solve(layers, z0, ts),
+        plain_fwd=lambda z0: NC.record_solve_traj_reference(field, z0, ts),
+        plain_bwd=lambda z0, recs, ct: NC.replay_traj_vjp_reference(
+            field, w, z0, ts, recs, ct),
+        plain_solve=lambda z0: NC.solve_traj_reference(field, z0, ts),
+        weights=w,
+        counts=lambda B, recs, kind: ode_dyn_counts(B, D, H, ts, recs, kind))
+
+
+def ddpm_case(dparams, dspec, sched, x, seed):
+    """Phase 15's tables for the windows ``x`` at 10 samples: the kernel's
+    sampler inputs and the plain chain's arguments on the same draws."""
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn import diffusion as TD
+
+    S, B, P, T = 10, x.shape[0], dspec.pred_len, sched.T
+    head = dparams["eps_head"]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    with torch.no_grad():
+        cond = F._cond(dparams, dspec, x, torch.arange(
+            P, dtype=torch.float32, device=x.device))
+        y0 = torch.randn((S, B, P), generator=g, device=x.device)
+        noise = torch.randn((S, T, B, P), generator=g, device=x.device)
+        cond_h, temb_h, w1y = TD.eps_head_tables(head, dspec.eps_cfg, sched,
+                                                 cond)
+    chain = (y0.reshape(S * B, P), cond_h.repeat(S, 1), temb_h,
+             noise.transpose(0, 1).reshape(T, S * B, P),
+             TD.chain_coefficients(sched), w1y, head[1].w.detach(),
+             head[1].b.detach(), head[2].w.detach(), head[2].b.detach())
+    return dict(cond=cond, y0=y0, noise=noise, chain=chain)
+
+
+def forecast_phases(device, smi):
+    """Phases 14-18, the ETT forecasting slice: returns the kernel checks,
+    the timings and the kernels' launches on the training and serving
+    paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn import diffusion as TD
+    from fetode_tpu_torch.nn.mlp import mlp_apply
+    from fetode_tpu_torch.ops import ddpm as DD
+    from fetode_tpu_torch.ops import ode_dyn as OD
+    from fetode_tpu_torch.serve import load_servable
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    wins = forecast_windows()
+    rng_f = np.random.default_rng(4)
+
+    def xs(b, off=0):
+        return torch.from_numpy(wins[(off + np.arange(b)) % len(wins)]).to(
+            device)
+
+    # ---- 14. B.7 against plain, at ETTPreset's width
+    pspec = F.LatentODEForecasterSpec(num_features=wins.shape[2])
+    pparams = F.latent_ode_forecaster_init(torch.Generator().manual_seed(0),
+                                           pspec, device=device)
+    D = pspec.latent_dim
+    ts = torch.arange(pspec.pred_len, dtype=torch.float32, device=device)
+    ocase = ode_dyn_case(pparams["dynamics"], ts)
+    with torch.no_grad():
+        z0s = {b: mlp_apply(pparams["encoder"], pspec.enc,
+                            xs(b, 37 * b).reshape(b, -1))
+               for b in ODE_CHECKS}
+    cts = {b: torch.from_numpy(rng_f.standard_normal(
+        (len(ts), b, D)).astype(np.float32)).to(device) for b in ODE_CHECKS}
+    ode_checks = {b: check_node_kernels(ocase, z0s[b], cts[b],
+                                        backward=b in ODE_BACKWARD)
+                  for b in ODE_CHECKS}
+
+    # ---- 15. B.9 against plain, at the eps-head's width
+    dspec = F.DiffusionForecasterSpec(num_features=wins.shape[2], diff_T=200)
+    dparams = F.diffusion_forecaster_init(torch.Generator().manual_seed(0),
+                                          dspec, device=device)
+    sched = TD.make_schedule(dspec.diff_T, device=device)
+    ddpm_cases = {r: ddpm_case(dparams, dspec, sched, xs(r // 10, 11 * r), r)
+                  for r in DDPM_ROWS}
+    ddpm_errs = {}
+    for r, c in ddpm_cases.items():
+        got = DD.eps_head_sample(dparams["eps_head"], dspec.eps_cfg, sched,
+                                 c["cond"], n_samples=10, y0=c["y0"],
+                                 noise=c["noise"])
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = DD.ddpm_chain_reference(*c["chain"])
+        got = got.reshape(r, dspec.pred_len)
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail(f"ddpm rows={r}: non-finite samples")
+        ddpm_errs[r] = max_abs(got, want)
+        if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+            fail(f"ddpm rows={r}: chain kernel disagrees with plain (max "
+                 f"|diff| {ddpm_errs[r]:.3e})")
+    print(f"ddpm chain vs plain, rows {list(DDPM_ROWS)}: max |diff| "
+          f"{[float('%.3e' % e) for e in ddpm_errs.values()]}")
+
+    # ---- 16. the training slice, through the CLI
+    kernels = (OD.ode_dyn_fwd, OD.ode_dyn_bwd, DD.ddpm_chain)
+    launches = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in ("point", "diffusion"):
+            for f in kernels:
+                f.launches = 0
+            res = cli.main(["ett", "--model", model, "--device", "cuda",
+                            "--solver_mode", "pallas", "--epochs", "2",
+                            "--out-dir", tmp])
+            torch.cuda.synchronize()
+            counts = [f.launches for f in kernels]
+            need = counts if model == "diffusion" else counts[:2]
+            if min(need) < 1:
+                fail(f"cli ett --model {model}: kernel launches {counts}")
+            curves = res["train_curve"] + res["val_curve"] + [
+                res["test_mse"]]
+            if not np.isfinite(curves).all():
+                fail(f"cli ett --model {model}: non-finite losses {curves}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            print(f"cli ett --model {model} (2 epochs, pallas): train "
+                  f"{[round(v, 5) for v in res['train_curve']]}, val "
+                  f"{[round(v, 5) for v in res['val_curve']]}, test MSE "
+                  f"{res['test_mse']:.5f}; {res['wall_seconds']:.2f} s; "
+                  f"launches (ode_dyn fwd, bwd, ddpm) {counts} ({smi})")
+
+    # ---- 17. the serving slice, through the CLI
+    reqs = {b: xs(b, 5 * b) for b in (1, 30, 300)}
+    serve_rows = {}
+    for source in ("ett", "ddpm"):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["serve", "--source", source, "--solver_mode", "pallas",
+                    "--device", "cuda", "--buckets", "8,64,256",
+                    "--out-dir", tmp]
+            for f in kernels:
+                f.launches = 0
+            sresult = cli.main(argv)
+            cfg = make_config("serve", cli._parse(argv)[1])
+            sparams, sfn, _ = cli.SERVING[source](cfg, device)
+            sv = load_servable(sresult["bundle"], sfn, sparams)
+            served = {b: sv.predict(x) for b, x in reqs.items()}
+            torch.cuda.synchronize()
+            counts = [f.launches for f in kernels]
+            need = counts[:1] + (counts[2:] if source == "ddpm" else [])
+            if min(need) < 1:
+                fail(f"serve --source {source}: kernel launches {counts}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            check_served(sv, sfn, reqs, served, f"serve {source}")
+            wall, busy, top = profile_ms(lambda: sv.predict(xs(8)).cpu())
+        serve_rows[source] = sresult["bench"]
+        print(f"serve {source}: B=1/30/300 through the bundle = direct calls "
+              f"on the padded batches; launches {counts}; profile bucket 8: "
+              f"wall {wall:.4f} ms, device busy {busy:.4f} ms "
+              f"({100 * busy / wall:.1f}%), top "
+              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+        for row in sresult["bench"]:
+            print(f"  serve {source} bucket {row['batch']}: p50 "
+                  f"{row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms, "
+                  f"window p50s {['%.4f' % w for w in row['window_p50_ms']]}"
+                  f" ({smi})")
+
+    # ---- 18. timing: kernels and plain, a training step of each model
+    times = {("ode_dyn", b): time_node_kernels(ocase, z0s[b], cts[b], smi)
+             for b in (64, 297)}
+    for r in (80, 640, 970, 2560):
+        chain = ddpm_cases[r]["chain"]
+        t = dict(ms=cuda_ms(lambda: DD.ddpm_chain(*chain), 5),
+                 bound=bound(*ddpm_counts(r, dspec.pred_len,
+                                          dspec.diff_hidden, dspec.diff_T)))
+        with torch.no_grad():
+            t["plain"] = cuda_ms(lambda: DD.ddpm_chain_reference(*chain), 1)
+        times[("ddpm", r)] = t
+        print(f"time ddpm rows={r}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain']:.3f} ms; bound {t['bound'][0]:.5f} ms "
+              f"({t['bound'][2]}) ({smi})")
+
+    x64, y64 = xs(64), torch.from_numpy(rng_f.standard_normal(
+        (64, pspec.pred_len)).astype(np.float32)).to(device)
+
+    def step_fn(params, loss, mode):
+        p = copy.deepcopy(params)
+        state = init_state(p, make_optimizer(
+            0.0, params=p.parameters(), kind="adamw", weight_decay=1e-4,
+            grad_clip=1.0))
+        step = make_train_step(lambda q, xb, yb: loss(q, mode, xb, yb))
+        return lambda: step(state, x64, y64)
+
+    def point_loss(q, mode, xb, yb):
+        return torch.mean((F.latent_ode_forecast(
+            q, pspec._replace(solver_mode=mode), xb) - yb) ** 2)
+
+    def diff_loss(q, mode, xb, yb):
+        g = torch.Generator(device=device).manual_seed(0)
+        return F.diffusion_forecaster_loss(
+            q, dspec._replace(solver_mode=mode), sched, xb, yb, g)
+
+    for name, params_m, loss in (("point", pparams, point_loss),
+                                 ("diffusion", dparams, diff_loss)):
+        step_k = step_fn(params_m, loss, "pallas")
+        kernel = cuda_ms(step_k, 10)
+        eager = cuda_ms(step_fn(params_m, loss, "scan"), 1)
+        wall, busy, top = profile_ms(step_k)
+        times[("step", name)] = dict(kernel=kernel, eager=eager, wall=wall,
+                                     busy=busy)
+        print(f"time ETT training step {name} B=64: kernels {kernel:.4f} "
+              f"ms, eager scan solve {eager:.3f} ms; profiled: wall "
+              f"{wall:.4f} ms, device busy {busy:.4f} ms "
+              f"({100 * busy / wall:.1f}%), top "
+              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    return ode_checks, ddpm_errs, times, launches
 
 
 def main():
@@ -912,8 +1248,12 @@ def main():
                   for b, x in batches.items()}
 
     ecg_checks, ecg_times, ecg_launches = ecg_phases(device, smi)
+    ode_checks, ddpm_errs, ett_times, ett_launches = forecast_phases(device,
+                                                                     smi)
 
-    # ---- the kernels line: predprey at B = 256, ECG at B = 8
+    # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
+    # solve at the training batch 64, the chain at 2,560 rows
+    ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
                                            max_steps=spec.max_steps, **kw)
@@ -960,6 +1300,19 @@ def main():
                      "fetode_tpu/ops/pallas_ferro_node.py:505",
                      ecg_launches[3], worst("ferro", "g_abs"),
                      ft["bwd"], ft["plain_bwd"], ft["bound_bwd"]),
+        kernel_entry("ode_dyn_fwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
+                     "fetode_tpu/ops/pallas_ode_dyn.py:173", ett_launches[0],
+                     max(c["fwd_err"] for c in ode_checks.values()),
+                     ot["fwd"], ot["plain_fwd"], ot["bound_fwd"]),
+        kernel_entry("ode_dyn_bwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
+                     "fetode_tpu/ops/pallas_ode_dyn.py:192", ett_launches[1],
+                     max(c["g_abs"] for c in ode_checks.values()
+                         if "g_abs" in c),
+                     ot["bwd"], ot["plain_bwd"], ot["bound_bwd"]),
+        kernel_entry("ddpm_chain", "fetode_tpu_torch/csrc/ddpm.cu",
+                     "fetode_tpu/ops/pallas_ddpm.py:160", ett_launches[2],
+                     max(ddpm_errs.values()), dt["ms"], dt["plain"],
+                     dt["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

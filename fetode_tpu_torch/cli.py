@@ -11,8 +11,12 @@ CLI, so one command line drives either package.  Ported so far:
   default) or ``kanfet_mlp_node`` (``train/ecg_driver.py``), on the
   ECG200 files when ``$FETODE_DATA_DIR`` holds them, else on the
   synthetic stand-in, and reports the best test accuracy.
-* ``serve --source ecg`` (the default source) and ``serve --source
-  predprey`` — builds the model, exports a serving bundle, loads it back
+* ``ett`` — trains a forecaster, ``--model point`` (the default),
+  ``diffusion`` or ``kan_diffusion`` (``train/forecast_driver.py``), on
+  the ETT CSV when ``$FETODE_DATA_DIR`` holds it, else on the synthetic
+  stand-in, and reports the test MSE and the wall seconds.
+* ``serve --source ecg`` (the default source), ``predprey``, ``ett`` and
+  ``ddpm`` — builds the model, exports a serving bundle, loads it back
   and reports p50/p99 latency per batch bucket.
 
 The other workloads and serve sources raise an error naming the ROADMAP
@@ -36,15 +40,13 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 
 # Where each workload / serve source not yet ported is queued.
 _WORKLOAD_TODO = {
-    "ett": "ROADMAP A.8 (forecasting)",
-    "timemmd": "ROADMAP A.8 (forecasting)",
+    "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs, data/multimodal.py and "
+               "the kanrnn encoder of A.7)",
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
     "mnist": "ROADMAP A.10 (Kuramoto-MNIST and symbolic)",
     "symbolic": "ROADMAP A.10 (Kuramoto-MNIST and symbolic)",
 }
 _SOURCE_TODO = {
-    "ett": "ROADMAP A.8 (forecasting)",
-    "ddpm": "ROADMAP A.8 (forecasting) and B.9 (pallas_ddpm)",
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
     "mnist": "ROADMAP A.10 (Kuramoto-MNIST) and B.10-B.11 (pallas_kuramoto)",
 }
@@ -186,6 +188,121 @@ def run_ecg(cfg, out_dir, plots):
             "wall_seconds": hist["wall_seconds"]}
 
 
+# ETT models of the JAX CLI not ported yet, and the encoder of each
+# diffusion model that is.
+_ETT_TODO = {"kan_fet_diffusion": "ROADMAP A.7 (its KAN-RNN encoder, "
+                                  "nn/rnn.py)"}
+_ETT_ENCODERS = {"diffusion": "mlp", "kan_diffusion": "kan"}
+
+
+def run_ett(cfg, out_dir, plots):
+    """Train an ETT forecaster: ``point``, ``diffusion`` or
+    ``kan_diffusion``, on the ETT CSV when it is found, else on the
+    synthetic stand-in."""
+    from fetode_tpu_torch.data.timeseries import load_ett_csv, synthetic_series
+    from fetode_tpu_torch.models.forecasting import (
+        DiffusionForecasterSpec,
+        LatentODEForecasterSpec,
+    )
+    from fetode_tpu_torch.train.forecast_driver import (
+        ForecastRun,
+        train_diffusion_forecaster,
+        train_point_forecaster,
+    )
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if cfg.model in _ETT_TODO:
+        raise NotImplementedError(f"ett --model {cfg.model} is not ported "
+                                  f"yet: {_ETT_TODO[cfg.model]}")
+    if cfg.model != "point" and cfg.model not in _ETT_ENCODERS:
+        raise SystemExit(f"unknown ETT model {cfg.model!r}")
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    resolve_device(cfg.device)
+    try:
+        X, y, _ = load_ett_csv(name=cfg.dataset, target_col=cfg.target)
+    except FileNotFoundError:
+        print("ETT csv not found; using synthetic stand-in")
+        X, y = synthetic_series(n=2000, n_features=6)
+    run = ForecastRun(context_len=cfg.context_len, pred_len=cfg.pred_len,
+                      batch_size=cfg.batch_size, epochs=cfg.epochs,
+                      lr=cfg.lr, weight_decay=cfg.weight_decay,
+                      eval_samples=cfg.eval_samples, seed=cfg.seed,
+                      mesh_devices=cfg.mesh_devices,
+                      mesh_model=cfg.mesh_model, ckpt_dir=cfg.ckpt_dir,
+                      ckpt_every=cfg.ckpt_every, resume=cfg.resume,
+                      aot_cache=cfg.aot_cache, device=cfg.device)
+    common = dict(num_features=X.shape[1], context_len=cfg.context_len,
+                  pred_len=cfg.pred_len, latent_dim=cfg.latent_dim,
+                  enc_hidden=cfg.enc_hidden, dyn_hidden=cfg.dyn_hidden,
+                  solver_mode=cfg.solver_mode)
+    log = lambda m: print(m, flush=True)  # noqa: E731
+    if cfg.model == "point":
+        spec = LatentODEForecasterSpec(dec_hidden=cfg.dec_hidden, **common)
+        _, hist = train_point_forecaster(spec, X, y, run, log=log)
+    else:
+        spec = DiffusionForecasterSpec(diff_T=cfg.diff_t,
+                                       diff_hidden=cfg.diff_hidden,
+                                       encoder=_ETT_ENCODERS[cfg.model],
+                                       **common)
+        _, hist = train_diffusion_forecaster(spec, X, y, run, log=log)
+    return {"test_mse": hist["test_mse"],
+            "wall_seconds": hist["wall_seconds"],
+            "train_curve": hist["train"], "val_curve": hist["val"]}
+
+
+def ett_serving(cfg, device: torch.device):
+    """The ETT serving function: ``(params, fn, example)`` with a fresh
+    latent-ODE point forecaster from ``cfg.seed`` and ``fn(params, x) ->
+    (B, pred_len)`` forecasts of ``(B, context_len, num_features)``
+    windows."""
+    from fetode_tpu_torch.models import forecasting as F
+
+    spec = F.LatentODEForecasterSpec(num_features=cfg.num_features,
+                                     context_len=cfg.context_len,
+                                     pred_len=cfg.pred_len,
+                                     latent_dim=cfg.latent_dim,
+                                     solver_mode=cfg.solver_mode)
+    params = F.latent_ode_forecaster_init(
+        torch.Generator().manual_seed(cfg.seed), spec, device=device)
+
+    def fn(p, x):
+        return F.latent_ode_forecast(p, spec, x)
+    example = torch.zeros((1, cfg.context_len, cfg.num_features),
+                          dtype=torch.float32, device=device)
+    return params, fn, example
+
+
+def ddpm_serving(cfg, device: torch.device):
+    """The diffusion forecaster's serving function: ``(params, fn,
+    example)`` with a fresh MLP-encoder diffusion forecaster from
+    ``cfg.seed``; ``fn(params, x)`` is the mean of ``cfg.n_samples``
+    reverse chains of ``cfg.diff_t`` steps, drawn from a generator seeded
+    ``cfg.seed + 1`` on every call, so a forecast is deterministic."""
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn.diffusion import make_schedule
+
+    spec = F.DiffusionForecasterSpec(num_features=cfg.num_features,
+                                     context_len=cfg.context_len,
+                                     pred_len=cfg.pred_len,
+                                     latent_dim=cfg.latent_dim,
+                                     diff_T=cfg.diff_t,
+                                     solver_mode=cfg.solver_mode)
+    sched = make_schedule(cfg.diff_t, device=device)
+    params = F.diffusion_forecaster_init(
+        torch.Generator().manual_seed(cfg.seed), spec, device=device)
+
+    def fn(p, x):
+        g = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        s = F.diffusion_forecaster_sample(p, spec, sched, x, g,
+                                          n_samples=cfg.n_samples)
+        return s if cfg.n_samples == 1 else s.mean(0)
+    example = torch.zeros((1, cfg.context_len, cfg.num_features),
+                          dtype=torch.float32, device=device)
+    return params, fn, example
+
+
 def ecg_serving(cfg, device: torch.device):
     """The ECG serving function: ``(params, fn, example)`` with a fresh
     KanFetNODE classifier from ``cfg.seed`` and ``fn(params, x) ->
@@ -235,7 +352,8 @@ def predprey_serving(cfg, device: torch.device):
     return params, fn, example
 
 
-SERVING = {"ecg": ecg_serving, "predprey": predprey_serving}
+SERVING = {"ecg": ecg_serving, "predprey": predprey_serving,
+           "ett": ett_serving, "ddpm": ddpm_serving}
 
 
 def run_serve(cfg, out_dir, plots):
@@ -281,6 +399,7 @@ def run_serve(cfg, out_dir, plots):
 RUNNERS = {
     "predprey": run_predprey,
     "ecg": run_ecg,
+    "ett": run_ett,
     "serve": run_serve,
 }
 

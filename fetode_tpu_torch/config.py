@@ -1,10 +1,10 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Ported: the ``predprey``, ``ecg`` and ``serve`` presets; their field
-names are the JAX package's, so one command line drives either package.
-The port adds ``device``.  The other workloads' presets arrive with
-their slices.
+Ported: the ``predprey``, ``ecg``, ``ett`` and ``serve`` presets; their
+field names are the JAX package's, so one command line drives either
+package.  The port adds ``device`` and, for ``ett``, the hidden widths.
+The other workloads' presets arrive with their slices.
 """
 
 from __future__ import annotations
@@ -95,11 +95,58 @@ class ECGPreset:
 
 
 @dataclass
+class ETTPreset:
+    """train_kan_fet_ett.py:1341-1351 (ETTh1, context 96, pred 8, batch
+    64, 100 epochs, AdamW 1e-3 wd 1e-4, latent 64)."""
+
+    dataset: str = "ETTh1"
+    target: str = "OT"
+    # Ported: point, diffusion, kan_diffusion.  kan_fet_diffusion raises
+    # naming ROADMAP A.7 (its KAN-RNN encoder).
+    model: str = "point"
+    context_len: int = 96
+    pred_len: int = 8
+    batch_size: int = 64
+    epochs: int = 100
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    latent_dim: int = 64
+    # The port's own width knobs (the JAX preset fixes them at the
+    # forecaster specs' defaults): the encoder's, the point decoder's,
+    # the latent field's and the diffusion eps-head's hidden widths.
+    enc_hidden: int = 128
+    dec_hidden: int = 128
+    dyn_hidden: int = 128
+    diff_hidden: int = 256
+    diff_t: int = 200
+    eval_samples: int = 10
+    # "auto" (the kernels on CUDA; on the CPU the eager scan under
+    # autograd and the eager while solve for evaluation), "scan",
+    # "while", or "pallas" (the latent trajectory kernels of
+    # ops/ode_dyn.py; CUDA only).  Evaluation on the card runs the
+    # forward kernel without records.
+    solver_mode: str = "auto"
+    # Not ported yet (ForecastRun refuses any other value, naming the
+    # ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    mesh_devices: int = 0
+    mesh_model: int = 1
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    resume: bool = False
+    aot_cache: str = ""
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class ServePreset:
     """Serving bundle export + latency bench (``fetode_tpu_torch/serve.py``)."""
 
-    # What to serve.  Ported: "ecg" (the KanFetNODE classifier) and
-    # "predprey" (batched trajectory solve).
+    # What to serve.  Ported: "ecg" (the KanFetNODE classifier),
+    # "predprey" (batched trajectory solve), "ett" (the latent-ODE point
+    # forecaster) and "ddpm" (the mean of n_samples reverse chains of the
+    # diffusion forecaster).
     source: str = "ecg"
     # Batch buckets (requests pad up / chunk down at serve time).
     buckets: tuple = (8, 64, 256)
@@ -120,14 +167,16 @@ class ServePreset:
     solver_mode: str = "auto"
     rtol: float = 1e-2
     atol: float = 1e-3
-    # ETT source hypers
+    # ETT and ddpm source hypers (latent_dim above; the forecaster specs'
+    # own tolerances, rtol 1e-3 / atol 1e-4)
     num_features: int = 7
     context_len: int = 96
     pred_len: int = 8
     # predprey source: serve trajectories over linspace(0, horizon, n_points)
     horizon: float = 14.0
     n_points: int = 140
-    # ddpm source
+    # ddpm source: the forecast is the mean of n_samples reverse chains of
+    # diff_t steps, drawn from a generator seeded seed + 1 on every call.
     n_samples: int = 10
     diff_t: int = 200
     # cond_diffusion source
@@ -142,6 +191,7 @@ class ServePreset:
 PRESETS = {
     "predprey": PredPreyPreset,
     "ecg": ECGPreset,
+    "ett": ETTPreset,
     "serve": ServePreset,
 }
 

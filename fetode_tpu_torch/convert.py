@@ -111,3 +111,60 @@ def ecg_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     parameter without a gradient gets zeros."""
     return _nest({name: torch.zeros_like(p) if p.grad is None else p.grad
                   for name, p in module.named_parameters()}, dtype)
+
+
+def _is_kan(layers: List[Any]) -> bool:
+    return bool(layers) and isinstance(layers[0], dict) \
+        and "base_weight" in layers[0]
+
+
+def forecast_params_from_numpy(tree: Dict[str, Any], device=None,
+                               dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """A forecaster's JAX param tree (``encoder``, ``dynamics``,
+    ``decoder`` | ``eps_head``, each a list of layers) -> a ``state_dict``
+    for its port module (``models/forecasting.py``).  An MLP layer i maps
+    to ``<part>.<i>.w`` / ``.b``; a KAN encoder's to
+    ``encoder.layers.<i>.<name>``, its grid to ``encoder.layers.<i>.grid``.
+    A bare layer list (one MLP) maps to ``<i>.w`` / ``.b``."""
+    if isinstance(tree, list):
+        tree = {"": tree}
+    flat: Dict[str, Any] = {}
+    for part, layers in tree.items():
+        head = f"{part}." if part else ""
+        sub = f"{head}layers." if _is_kan(layers) else head
+        for i, layer in enumerate(layers):
+            _flatten(f"{sub}{i}.", layer, flat)
+    return {k: torch.as_tensor(np.array(v, dtype=dtype), device=device)
+            for k, v in flat.items()}
+
+
+def _forecast_nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
+    tree: Dict[str, Dict[int, Dict[str, Any]]] = {}
+    for key, value in flat.items():
+        path = key.split(".")
+        if path[1] == "layers":                   # a KAN encoder
+            path = [path[0]] + path[2:]
+        part, idx, *rest = path
+        node = tree.setdefault(part, {}).setdefault(int(idx), {})
+        if rest == ["grid"]:
+            rest = ["_buffers", "grid"]
+        for name in rest[:-1]:
+            node = node.setdefault(name, {})
+        node[rest[-1]] = value.detach().cpu().numpy().astype(dtype)
+    return {part: [layers[i] for i in sorted(layers)]
+            for part, layers in tree.items()}
+
+
+def forecast_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """The inverse: a forecaster's port module -> the JAX param tree."""
+    return _forecast_nest(module.state_dict(), dtype)
+
+
+def forecast_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """A forecaster's ``.grad``s -> the JAX gradient tree; a KAN grid (a
+    buffer) and a parameter without a gradient get zeros."""
+    grads = {name: p.grad for name, p in module.named_parameters()}
+    return _forecast_nest({
+        key: torch.zeros_like(value) if grads.get(key) is None
+        else grads[key] for key, value in module.state_dict().items()},
+        dtype)

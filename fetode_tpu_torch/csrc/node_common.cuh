@@ -4,13 +4,22 @@
 // Counterpart of fetode_tpu/ops/pallas_node_common.py: the forward solve
 // over t in [0, 1] that records every attempt (adaptive_solve_final :91)
 // and the reverse replay of those records, the discrete adjoint on the
-// frozen step mesh (adjoint_replay :189).  A field plugs in as a struct
-// with two device methods, the same contract as the Python one (:13-15):
+// frozen step mesh (adjoint_replay :189); and their trajectory twins for
+// a non-autonomous field over [ts[0], ts[T-1]] with CONTD5 dense output
+// at every requested time (adaptive_solve_traj :229) and the replay that
+// injects the dense-output cotangents (adjoint_replay_traj :355).  A
+// field plugs in as a struct with two device methods, the same contract
+// as the Python one (:13-15):
 //
 //   void eval(const float* u, float* out) const;       // out = f(u)
 //   void vjp(const float* u, const float* w, float* ubar) const;
 //       // ubar = w^T df/du(u), parameter gradients accumulated into the
 //       // field's own buffers
+//
+// and, for the trajectory pair, the same two with the stage time:
+//
+//   void eval(const float* u, float t, float* out) const;
+//   void vjp(const float* u, float t, const float* w, float* ubar) const;
 //
 // Both run on the whole grid and may call grid.sync() inside (every
 // thread calls them, with the same arguments).  The scaffold syncs the
@@ -85,6 +94,17 @@ __constant__ float kE[7] = {
     (float)(125.0 / 192.0 - 393.0 / 640.0),
     (float)(-2187.0 / 6784.0 - -92097.0 / 339200.0),
     (float)(11.0 / 84.0 - 187.0 / 2100.0), (float)(0.0 - 1.0 / 40.0)};
+// Stage times c and Hairer's CONTD5 dense-output weights d (the JAX
+// table's columns 6 and 9).
+__constant__ float kC[7] = {0.0f, (float)(1.0 / 5.0), (float)(3.0 / 10.0),
+                            (float)(4.0 / 5.0), (float)(8.0 / 9.0), 1.0f,
+                            1.0f};
+__constant__ float kD[7] = {
+    (float)(-12715105075.0 / 11282082432.0), 0.0f,
+    (float)(87487479700.0 / 32700410799.0),
+    (float)(-10690763975.0 / 1880347072.0),
+    (float)(701980252875.0 / 199316789632.0),
+    (float)(-1453857185.0 / 822651844.0), (float)(69997945.0 / 29380423.0)};
 
 // PI controller (Hairer's DOPRI5 defaults, pallas_node_common.py:51-56).
 constexpr float kSafety = 0.9f, kIFactor = 10.0f, kDFactor = 0.2f;
@@ -161,7 +181,8 @@ __device__ void grid_sum(float (&v)[N], float* part, int& slot) {
 // arrays are written when the solve records.
 struct SolveBufs {
   const float* h0;  // (N) initial state
-  float* out;       // (N) final state
+  float* out;       // (N) final state; (T, N) for the trajectory solve
+  const float* ts;  // (T) output times, trajectory solve only
   float* tda;       // (M, 4)
   float* yrec;      // (M, N)
   float* krec;      // (M, 7, N)
@@ -170,24 +191,49 @@ struct SolveBufs {
   float* ks;        // (7, N) stage derivatives, ks[0] the FSAL one
   float* u;         // (N) stage input, then the step's y1
   float* part;      // (kPartFloats)
-  int N, max_steps;
+  int N, T, max_steps;
   float rtol, atol;
 };
 
-// Adaptive dopri5 over t in [0, 1] with batch-shared step control; with
-// kRecord, records every attempt (adaptive_solve_final).
-template <bool kRecord, class Field>
-__device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
+// A field evaluation and VJP at stage time t: the trajectory contract
+// takes the time, the final-state one does not.
+template <bool kTraj, class Field>
+__device__ __forceinline__ void field_eval(const Field& f, const float* u,
+                                           float t, float* out) {
+  if constexpr (kTraj) f.eval(u, t, out); else f.eval(u, out);
+}
+template <bool kTraj, class Field>
+__device__ __forceinline__ void field_vjp(const Field& f, const float* u,
+                                          float t, const float* w,
+                                          float* ubar) {
+  if constexpr (kTraj) f.vjp(u, t, w, ubar); else f.vjp(u, w, ubar);
+}
+
+// Adaptive dopri5 with batch-shared step control; with kRecord, records
+// every attempt.  kTraj = false: over t in [0, 1], the final state into
+// out (adaptive_solve_final).  kTraj = true: over [ts[0], ts[T-1]], out
+// (T, N) prefilled with h0, the CONTD5 dense output of each accepted step
+// written at the requested times its window (t, t + dt] holds, and the
+// times past the one reached holding the last state (adaptive_solve_traj).
+template <bool kRecord, bool kTraj, class Field>
+__device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
   cg::grid_group grid = cg::this_grid();
-  const int tid = grid_tid(), nth = grid_threads(), N = s.N;
+  const int tid = grid_tid(), nth = grid_threads(), N = s.N, T = s.T;
   const float rtol = s.rtol, atol = s.atol, inv_n = 1.0f / (float)N;
-  const float t_final = 1.0f, tiny = 1e-12f;
+  const float tiny = 1e-12f;
+  const float t0 = kTraj ? s.ts[0] : 0.0f;
+  const float t_final = kTraj ? s.ts[T - 1] : 1.0f;
   int slot = 0;
   float* const f0 = s.ks;  // stage 0 holds the FSAL derivative
 
-  for (int e = tid; e < N; e += nth) s.y[e] = s.h0[e];
+  for (int e = tid; e < N; e += nth) {
+    const float y = s.h0[e];
+    s.y[e] = y;
+    if constexpr (kTraj)
+      for (int tau = 0; tau < T; ++tau) s.out[(size_t)tau * N + e] = y;
+  }
   grid.sync();
-  field.eval(s.y, f0);
+  field_eval<kTraj>(field, s.y, t0, f0);
   grid.sync();
 
   // Hairer's initial step.
@@ -206,7 +252,7 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
   for (int e = tid; e < N; e += nth) s.u[e] = s.y[e] + h0 * ld(f0 + e);
   grid.sync();
   float* const f1 = s.ks + N;  // stage 1's slot, free until the loop
-  field.eval(s.u, f1);
+  field_eval<kTraj>(field, s.u, t0 + h0, f1);
   grid.sync();
   float d2s[1] = {0.0f};
   for (int e = tid; e < N; e += nth) {
@@ -220,9 +266,9 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
   const float h1 = dmax <= 1e-15f
                        ? fmaxf(1e-6f, h0 * 1e-3f)
                        : powf(0.01f / fmaxf(dmax, 1e-30f), kInitExp);
-  float dt = fminf(fminf(100.0f * h0, h1), t_final);
+  float dt = fminf(fminf(100.0f * h0, h1), t_final - t0);
 
-  float t = 0.0f, errp = 1.0f;
+  float t = t0, errp = 1.0f;
   int m = 0;
   // Inside the loop t < t_final - tiny, so the JAX body's `finished` is
   // always false: every accepted attempt advances.
@@ -237,7 +283,7 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
         s.u[e] = s.y[e] + dt * incr;
       }
       grid.sync();
-      field.eval(s.u, s.ks + j * N);
+      field_eval<kTraj>(field, s.u, t + kC[j] * dt, s.ks + j * N);
       grid.sync();
     }
     float err2[1] = {0.0f};
@@ -280,17 +326,43 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
       }
     }
     if (accept) {
+      for (int e = tid; e < N; e += nth) {
+        const float y = s.y[e], y1 = s.u[e], k6 = ld(s.ks + 6 * N + e);
+        if constexpr (kTraj) {
+          // Dense output (CONTD5) at the requested times in (t, t + dt].
+          const float k0 = ld(s.ks + e);
+          float r5s = kD[0] * k0;
+#pragma unroll
+          for (int j = 1; j < 7; ++j) r5s += kD[j] * ld(s.ks + j * N + e);
+          const float dy = y1 - y, r3 = dt * k0 - dy;
+          const float r4 = dy - dt * k6 - r3, r5 = dt * r5s;
+          for (int tau = 0; tau < T; ++tau) {
+            const float tsv = s.ts[tau];
+            if (!(tsv > t && tsv <= t + dt + tiny)) continue;
+            const float theta = fminf(fmaxf((tsv - t) / dt_safe, 0.0f), 1.0f);
+            const float th1 = 1.0f - theta;
+            s.out[(size_t)tau * N + e] =
+                y + theta * (dy + th1 * (r3 + theta * (r4 + th1 * r5)));
+          }
+        }
+        s.y[e] = y1;
+        s.ks[e] = k6;  // FSAL
+      }
       t += dt;
       errp = err;
-      for (int e = tid; e < N; e += nth) {
-        s.y[e] = s.u[e];
-        s.ks[e] = ld(s.ks + 6 * N + e);  // FSAL
-      }
     }
     dt = dt_next;
     ++m;
   }
-  for (int e = tid; e < N; e += nth) s.out[e] = s.y[e];
+  for (int e = tid; e < N; e += nth) {
+    if constexpr (kTraj) {
+      // Step budget exhausted: unreached outputs hold the last state.
+      for (int tau = 0; tau < T; ++tau)
+        if (s.ts[tau] > t + tiny) s.out[(size_t)tau * N + e] = s.y[e];
+    } else {
+      s.out[e] = s.y[e];
+    }
+  }
   if (kRecord && tid == 0) {
     s.misc[0] = (float)m;
     s.misc[1] = t;
@@ -299,43 +371,112 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
   }
 }
 
+template <bool kRecord, class Field>
+__device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
+  adaptive_solve<kRecord, false>(field, s);
+}
+
+template <bool kRecord, class Field>
+__device__ void adaptive_solve_traj(const Field& field, const SolveBufs& s) {
+  adaptive_solve<kRecord, true>(field, s);
+}
+
 // The reverse replay's arrays.  lam, kbar, u, ub are scratch.
 struct ReplayBufs {
-  const float* hbar;  // (N) cotangent of the final state
+  const float* hbar;  // (N) cotangent of the final state; (T, N) of the
+                      // trajectory in the trajectory replay
+  const float* ts;    // (T) output times, trajectory replay only
   const float* tda;   // the forward's records
   const float* yrec;
   const float* krec;
   const float* misc;
   float* h0bar;  // (N) cotangent of the initial state
   float* lam;    // (N)
-  float* kbar;   // (6, N) stage cotangents (stage 7's is zero)
+  float* kbar;   // (6, N) stage cotangents (stage 7's is zero); (7, N)
+                 // in the trajectory replay
   float* u;      // (N) stage input
   float* ub;     // (N) the field VJP's output
-  int N;
+  int N, T;
 };
 
-// The discrete adjoint on the recorded mesh (adjoint_replay): attempts in
-// reverse, each accepted one through its stages in reverse.  A rejected
-// attempt has a zero cotangent in the JAX replay and is skipped.  Stage 7
-// is skipped too: b[6] = 0 and no later stage reads it, so its cotangent
-// is identically zero (the JAX replay runs its VJP on that zero).
-template <class Field>
-__device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
+// The discrete adjoint on the recorded mesh: attempts in reverse, each
+// accepted one through its stages in reverse.  A rejected attempt has a
+// zero cotangent in the JAX replay and is skipped.
+//
+// kTraj = false (adjoint_replay): the final state's cotangent seeds lam.
+// Stage 7 is skipped: b[6] = 0 and no later stage reads it, so its
+// cotangent is identically zero (the JAX replay runs its VJP on that
+// zero).
+//
+// kTraj = true (adjoint_replay_traj): the outputs past the time reached
+// seed lam (they read the final state); each accepted attempt injects the
+// cotangents of the outputs in its window (t, t + dt] through the dense
+// output
+//   y + P1 dy + P3 (dt k1 - dy) + P4 (2 dy - dt k1 - dt k7) + P5 dt sum_j d_j k_j,
+// dy = dt sum_j b_j k_j (:390-420), into y directly and into every stage,
+// stage 7 included: its cotangent dt (d_6 s_5 + s_7) is nonzero whenever
+// an output falls in the window, so its VJP is skipped only when none
+// does.  The outputs at ts <= ts[0] read h0 and add to h0bar last.
+template <bool kTraj, class Field>
+__device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
   cg::grid_group grid = cg::this_grid();
-  const int tid = grid_tid(), nth = grid_threads(), N = r.N;
+  const int tid = grid_tid(), nth = grid_threads(), N = r.N, T = r.T;
+  const float tiny = 1e-12f;
   const int n_att = (int)r.misc[0];
-  for (int e = tid; e < N; e += nth) r.lam[e] = r.hbar[e];
+  for (int e = tid; e < N; e += nth) {
+    if constexpr (kTraj) {
+      const float t_end = r.misc[1];
+      float lam = 0.0f;
+      for (int tau = 0; tau < T; ++tau)
+        if (r.ts[tau] > t_end + tiny) lam += r.hbar[(size_t)tau * N + e];
+      r.lam[e] = lam;
+    } else {
+      r.lam[e] = r.hbar[e];
+    }
+  }
   for (int m = n_att - 1; m >= 0; --m) {
     const float dt = r.tda[4 * m], adv = r.tda[4 * m + 1];
+    const float t = r.tda[4 * m + 2];
     if (adv < 0.5f) continue;
+    const float dt_safe = dt == 0.0f ? 1.0f : dt;
     const float* y = r.yrec + (size_t)m * N;
     const float* ks = r.krec + (size_t)m * 7 * N;
+    bool any_out = false;
+    if constexpr (kTraj)
+      for (int tau = 0; tau < T; ++tau)
+        any_out |= r.ts[tau] > t && r.ts[tau] <= t + dt + tiny;
     for (int e = tid; e < N; e += nth) {
       const float lam = r.lam[e];
+      if constexpr (kTraj) {
+        float s_w = 0.0f, s_dy = 0.0f, s_1 = 0.0f, s_7 = 0.0f, s_5 = 0.0f;
+        for (int tau = 0; tau < T; ++tau) {
+          const float tsv = r.ts[tau];
+          if (!(tsv > t && tsv <= t + dt + tiny)) continue;
+          const float theta = fminf(fmaxf((tsv - t) / dt_safe, 0.0f), 1.0f);
+          const float th1 = 1.0f - theta;
+          const float P1 = theta, P3 = theta * th1;
+          const float P4 = theta * theta * th1, P5 = P4 * th1;
+          const float yb = r.hbar[(size_t)tau * N + e];
+          s_w += yb;
+          s_dy += (P1 - P3 + 2.0f * P4) * yb;
+          s_1 += (P3 - P4) * yb;
+          s_7 -= P4 * yb;
+          s_5 += P5 * yb;
+        }
 #pragma unroll
-      for (int j = 0; j < 6; ++j) r.kbar[j * N + e] = (dt * kB[j]) * lam;
+        for (int j = 0; j < 7; ++j) {
+          float kb = dt * (kB[j] * (lam + s_dy) + kD[j] * s_5);
+          if (j == 0) kb += dt * s_1;
+          if (j == 6) kb += dt * s_7;
+          r.kbar[j * N + e] = kb;
+        }
+        r.lam[e] = lam + s_w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) r.kbar[j * N + e] = (dt * kB[j]) * lam;
+      }
     }
-    for (int j = 5; j >= 0; --j) {
+    for (int j = any_out ? 6 : 5; j >= 0; --j) {
       for (int e = tid; e < N; e += nth) {
         float incr = kA[j][0] * ks[e];
 #pragma unroll
@@ -343,7 +484,7 @@ __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
         r.u[e] = y[e] + dt * incr;
       }
       grid.sync();
-      field.vjp(r.u, r.kbar + j * N, r.ub);
+      field_vjp<kTraj>(field, r.u, t + kC[j] * dt, r.kbar + j * N, r.ub);
       grid.sync();
       for (int e = tid; e < N; e += nth) {
         const float ub = ld(r.ub + e);
@@ -353,7 +494,25 @@ __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
       }
     }
   }
-  for (int e = tid; e < N; e += nth) r.h0bar[e] = r.lam[e];
+  for (int e = tid; e < N; e += nth) {
+    float lam = r.lam[e];
+    if constexpr (kTraj) {
+      const float t0 = r.ts[0];
+      for (int tau = 0; tau < T; ++tau)
+        if (r.ts[tau] <= t0 + tiny) lam += r.hbar[(size_t)tau * N + e];
+    }
+    r.h0bar[e] = lam;
+  }
+}
+
+template <class Field>
+__device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
+  adjoint_replay_impl<false>(field, r);
+}
+
+template <class Field>
+__device__ void adjoint_replay_traj(const Field& field, const ReplayBufs& r) {
+  adjoint_replay_impl<true>(field, r);
 }
 
 // Launches kernel(args) as a cooperative grid of kThreads-thread blocks,

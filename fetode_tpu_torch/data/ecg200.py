@@ -14,24 +14,11 @@ is not built.
 
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import numpy as np
 
-_DATA_ROOTS = (
-    os.environ.get("FETODE_DATA_DIR", ""),
-    os.path.join(os.path.dirname(__file__), "..", "..", "datasets"),
-)
-
-
-def locate(relpath: str) -> str | None:
-    """The first existing path for ``relpath`` under ``$FETODE_DATA_DIR``
-    or the repo's ``datasets/`` directory (``data/paths.py``)."""
-    for root in _DATA_ROOTS:
-        if root and os.path.exists(os.path.join(root, relpath)):
-            return os.path.join(root, relpath)
-    return None
+from fetode_tpu_torch.data.paths import locate
 
 
 def znorm_rows(x: np.ndarray, eps: float = 1e-8) -> np.ndarray:

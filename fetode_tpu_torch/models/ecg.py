@@ -46,26 +46,9 @@ from fetode_tpu_torch.ops.logistic import (
     logistic_init,
 )
 from fetode_tpu_torch.ops.logistic_node import logistic_node_solve
+from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
 from fetode_tpu_torch.utils.init import kaiming_uniform, normal
-
-
-def _use_kernel(spec, x: torch.Tensor) -> bool:
-    """Resolve the latent solve: True for the CUDA kernels, False for the
-    eager dopri5."""
-    if spec.solver != "dopri5":
-        raise NotImplementedError(
-            f"solver={spec.solver!r}: the fixed-step solvers are not ported "
-            "yet (ROADMAP A.3)")
-    mode = spec.solver_mode
-    if mode not in ("auto", "pallas", "scan", "while"):
-        raise ValueError(f"solver_mode={mode!r}: expected 'auto', 'pallas', "
-                         "'scan' or 'while'")
-    if mode == "pallas" and x.device.type != "cuda":
-        raise ValueError("solver_mode='pallas' is the CUDA kernels and takes "
-                         f"CUDA tensors, got one on {x.device}; use 'auto' "
-                         "or 'scan' for the eager solve")
-    return mode == "pallas" or (mode == "auto" and x.device.type == "cuda")
 
 
 def _final_state(rhs, h0: torch.Tensor, spec) -> torch.Tensor:
@@ -169,7 +152,7 @@ def kanfet_node_apply(params: KanFetNODEParams, spec: KanFetNODESpec,
     """x (B, T) -> logits (B, num_classes); latent NODE over [0, 1]."""
     _check_field(spec)
     h0 = x @ params.encoder_w.T + params.encoder_b
-    if _use_kernel(spec, x):
+    if use_kernel(spec, x):
         hT = logistic_node_solve(params, h0, spec)
     else:
         hT = _final_state(lambda t, h: kanfet_node_field(params, spec, t, h),
@@ -280,7 +263,7 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
     if spec.gate_impl != "sigmoid" and spec.solver_mode == "pallas":
         raise ValueError("gate_impl='tanh' requires an eager solve: the "
                          "whole-solve kernel implements the sigmoid form")
-    use_kernel = _use_kernel(spec, x) and spec.gate_impl == "sigmoid"
+    kernel = use_kernel(spec, x) and spec.gate_impl == "sigmoid"
     B = x.shape[0]
     h0 = x @ params.encoder_w.T + params.encoder_b
     noise = None
@@ -289,7 +272,7 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
             raise ValueError("noise_std > 0 requires a generator")
         noise = frozen_solve_noise(generator, B, spec.fc1_cfg, spec.fc2_cfg,
                                    noise_std=noise_std, device=x.device)
-    if use_kernel:
+    if kernel:
         hT = ferro_node_solve(params.fc1, params.fc2, h0, spec, noise=noise)
     else:
         sdt = getattr(torch, spec.state_dtype) if spec.state_dtype \

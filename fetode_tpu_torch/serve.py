@@ -8,8 +8,8 @@ parameters into a model skeleton that the caller builds (a module of the
 same architecture), together with the function that serves them.  A
 request is padded up to its bucket with copies of its last row; for a
 model whose solve steps the whole batch under one controller (the ECG
-classifier) the padding rows enter the step control, as in the JAX
-package.
+classifier, the ETT forecasters) the padding rows enter the step
+control, as in the JAX package.
 
 Not carried over: ``AotCache`` / ``CachedJit`` and the serialized
 per-bucket executables, which answer a TPU compile cost that eager

@@ -128,7 +128,7 @@ def test_logits_and_grads_match_jax(model, path, monkeypatch):
     scan solve."""
     m = model
     if path == "kernel_plain":      # the kernel path; on the CPU its plain
-        monkeypatch.setattr(TM, "_use_kernel", lambda spec, x: True)
+        monkeypatch.setattr(TM, "use_kernel", lambda spec, x: True)
     mod = _module(m)
     x = torch.from_numpy(m["x"][0])
     logits = m["apply"](mod, m["spec"], x)
@@ -383,9 +383,9 @@ def test_refusals(case, tmp_path):
             cli.main(["ecg", "--device", "cpu", "--plots", "--out-dir",
                       str(tmp_path)])
     elif case == "serve_source":
-        with pytest.raises(NotImplementedError, match="A.8"):
-            cli.main(["serve", "--source", "ett", "--device", "cpu",
-                      "--out-dir", str(tmp_path)])
+        with pytest.raises(NotImplementedError, match="A.9"):
+            cli.main(["serve", "--source", "cond_diffusion", "--device",
+                      "cpu", "--out-dir", str(tmp_path)])
     elif case == "run_knob":
         defaults = {f.name: f.default for f in dataclasses.fields(tdrv.ECGRun)}
         for knob in tdrv._NOT_PORTED:

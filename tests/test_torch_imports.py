@@ -46,7 +46,13 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.ops.ferro_node",
                  "fetode_tpu_torch.models.ecg",
                  "fetode_tpu_torch.data.ecg200",
-                 "fetode_tpu_torch.train.ecg_driver"):
+                 "fetode_tpu_torch.train.ecg_driver",
+                 "fetode_tpu_torch.nn.mlp", "fetode_tpu_torch.nn.diffusion",
+                 "fetode_tpu_torch.data.paths",
+                 "fetode_tpu_torch.data.timeseries",
+                 "fetode_tpu_torch.ops.ode_dyn", "fetode_tpu_torch.ops.ddpm",
+                 "fetode_tpu_torch.models.forecasting",
+                 "fetode_tpu_torch.train.forecast_driver"):
         assert name in report["modules"]
 
 

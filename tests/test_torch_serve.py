@@ -150,11 +150,11 @@ def test_cli_refusals(tmp_path):
         pytest.skip("checks the refusal of --device cuda without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["serve", "--source", "predprey", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        cli.main(["serve", "--source", "ett", "--device", "cpu",
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        cli.main(["serve", "--source", "cond_diffusion", "--device", "cpu",
                   "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        cli.main(["ett", "--out-dir", str(tmp_path)])
+        cli.main(["timemmd", "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="checkpoint/resume"):
         cli.main(["serve", "--source", "predprey", "--device", "cpu",
                   "--ckpt_dir", "x", "--out-dir", str(tmp_path)])
