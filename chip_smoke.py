@@ -85,9 +85,9 @@ samples), random weights from a seed, windows of the synthetic series
     2,560 (serving), 970, 2,560 and 410 (the validation and test chunks):
     rtol = atol = 1e-3.
 16. The training slice: ``cli.main(["ett", "--model", "point" |
-    "diffusion", "--solver_mode", "pallas", "--epochs", "2", ...])``: the
-    kernels of each model must have launched and the losses must be
-    finite.
+    "diffusion" | "kan_diffusion", "--solver_mode", "pallas", "--epochs",
+    "2", ...])``: the kernels of each model must have launched and the
+    losses must be finite.
 17. The serving slice: ``cli.main(["serve", "--source", "ett" | "ddpm",
     "--solver_mode", "pallas", ...])`` with buckets (8, 64, 256), then
     requests of B = 1, 30 and 300 through the loaded bundle; they must
@@ -918,7 +918,7 @@ def forecast_phases(device, smi):
     kernels = (OD.ode_dyn_fwd, OD.ode_dyn_bwd, DD.ddpm_chain)
     launches = [0, 0, 0]
     with tempfile.TemporaryDirectory() as tmp:
-        for model in ("point", "diffusion"):
+        for model in ("point", "diffusion", "kan_diffusion"):
             for f in kernels:
                 f.launches = 0
             res = cli.main(["ett", "--model", model, "--device", "cuda",
@@ -926,7 +926,7 @@ def forecast_phases(device, smi):
                             "--out-dir", tmp])
             torch.cuda.synchronize()
             counts = [f.launches for f in kernels]
-            need = counts if model == "diffusion" else counts[:2]
+            need = counts[:2] if model == "point" else counts
             if min(need) < 1:
                 fail(f"cli ett --model {model}: kernel launches {counts}")
             curves = res["train_curve"] + res["val_curve"] + [

@@ -235,15 +235,13 @@ def run_ett(cfg, out_dir, plots):
                       aot_cache=cfg.aot_cache, device=cfg.device)
     common = dict(num_features=X.shape[1], context_len=cfg.context_len,
                   pred_len=cfg.pred_len, latent_dim=cfg.latent_dim,
-                  enc_hidden=cfg.enc_hidden, dyn_hidden=cfg.dyn_hidden,
                   solver_mode=cfg.solver_mode)
     log = lambda m: print(m, flush=True)  # noqa: E731
     if cfg.model == "point":
-        spec = LatentODEForecasterSpec(dec_hidden=cfg.dec_hidden, **common)
+        spec = LatentODEForecasterSpec(**common)
         _, hist = train_point_forecaster(spec, X, y, run, log=log)
     else:
         spec = DiffusionForecasterSpec(diff_T=cfg.diff_t,
-                                       diff_hidden=cfg.diff_hidden,
                                        encoder=_ETT_ENCODERS[cfg.model],
                                        **common)
         _, hist = train_diffusion_forecaster(spec, X, y, run, log=log)

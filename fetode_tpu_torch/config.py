@@ -3,7 +3,7 @@
 
 Ported: the ``predprey``, ``ecg``, ``ett`` and ``serve`` presets; their
 field names are the JAX package's, so one command line drives either
-package.  The port adds ``device`` and, for ``ett``, the hidden widths.
+package.  The port adds ``device``.
 The other workloads' presets arrive with their slices.
 """
 
@@ -111,13 +111,6 @@ class ETTPreset:
     lr: float = 1e-3
     weight_decay: float = 1e-4
     latent_dim: int = 64
-    # The port's own width knobs (the JAX preset fixes them at the
-    # forecaster specs' defaults): the encoder's, the point decoder's,
-    # the latent field's and the diffusion eps-head's hidden widths.
-    enc_hidden: int = 128
-    dec_hidden: int = 128
-    dyn_hidden: int = 128
-    diff_hidden: int = 256
     diff_t: int = 200
     eval_samples: int = 10
     # "auto" (the kernels on CUDA; on the CPU the eager scan under

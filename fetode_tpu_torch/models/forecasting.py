@@ -15,8 +15,8 @@ eager solve for a CPU one; ``"scan"`` / ``"while"`` are the eager solves
 (``odeint_dopri5``; ``"auto"`` there is scan under autograd, while
 otherwise).  On the kernel path a call under autograd runs the kernel
 pair (the forward with records, the replay backward), a call without it
-the forward kernel alone.  The diffusion sampler's ``"pallas"`` is the
-whole-chain kernel of ``ops/ddpm.py``.
+the forward kernel alone.  The diffusion sampler is the whole-chain
+kernel of ``ops/ddpm.py``.
 
 Not ported yet, each raising an error that names its ROADMAP item: the
 fixed-step solvers (A.3) and the ``"kanrnn"`` encoder (A.7, ``nn/rnn.py``).
@@ -34,7 +34,6 @@ from fetode_tpu_torch.nn.diffusion import (
     EpsHeadConfig,
     eps_head_apply,
     eps_head_init,
-    eps_head_sample_loop,
     q_sample,
 )
 from fetode_tpu_torch.nn.kan import KANConfig, kan_init, kan_linear_apply
@@ -263,27 +262,15 @@ def diffusion_forecaster_sample(params: nn.ModuleDict,
                                 spec: DiffusionForecasterSpec,
                                 sched: DiffusionSchedule, x_ctx: torch.Tensor,
                                 generator: Optional[torch.Generator] = None,
-                                t_fut=None, n_samples: int = 1,
-                                sampler: str = "pallas") -> torch.Tensor:
-    """Sample future sequences: (B, P), or (n_samples, B, P).
-
-    ``sampler``: ``"pallas"``, the whole-chain kernel (``ops/ddpm.py``;
-    its plain version on the CPU), the samples folded into its rows;
-    ``"scan"``, the eager hoisted chain (``eps_head_sample_loop``), one
-    sample after another.
-    """
+                                t_fut=None,
+                                n_samples: int = 1) -> torch.Tensor:
+    """Sample future sequences: (B, P), or (n_samples, B, P), through the
+    whole-chain kernel (``ops/ddpm.py``; its plain version on the CPU),
+    the samples folded into its rows."""
     with torch.no_grad():
         cond = _cond(params, spec, x_ctx, _t_fut(spec, x_ctx, t_fut))
-        if sampler == "pallas":
-            return eps_head_sample(params["eps_head"], spec.eps_cfg, sched,
-                                   cond, generator, n_samples=n_samples)
-        if sampler != "scan":
-            raise ValueError(f"sampler={sampler!r}: expected 'pallas' or "
-                             "'scan'")
-        outs = [eps_head_sample_loop(params["eps_head"], spec.eps_cfg, sched,
-                                     cond, generator)
-                for _ in range(n_samples)]
-    return outs[0] if n_samples == 1 else torch.stack(outs)
+        return eps_head_sample(params["eps_head"], spec.eps_cfg, sched, cond,
+                               generator, n_samples=n_samples)
 
 
 # --------------------------------------------------- logistic linear

@@ -39,6 +39,7 @@ from fetode_tpu_torch.convert import (
 from fetode_tpu_torch.data import timeseries as tts
 from fetode_tpu_torch.models import forecasting as TF
 from fetode_tpu_torch.nn import diffusion as TD
+from fetode_tpu_torch.ops import ddpm as DD
 from fetode_tpu_torch.train import forecast_driver as tdrv
 
 SMALL = dict(num_features=4, context_len=12, pred_len=4, latent_dim=8,
@@ -364,9 +365,8 @@ def test_chunked_mean_cuts_as_the_jax_package():
 # ------------------------------------------------------------------ CLI
 
 _CLI_SMALL = ["--device", "cpu", "--epochs", "2", "--latent_dim", "8",
-              "--enc_hidden", "16", "--dec_hidden", "16", "--dyn_hidden",
-              "16", "--context_len", "12", "--pred_len", "4",
-              "--batch_size", "256"]
+              "--context_len", "12", "--pred_len", "4", "--batch_size",
+              "256"]
 
 
 @pytest.mark.parametrize("model", ["point", "diffusion", "kan_diffusion"])
@@ -374,8 +374,7 @@ def test_cli_ett_on_cpu(model, tmp_path):
     argv = ["ett", "--model", model, *_CLI_SMALL, "--out-dir",
             str(tmp_path)]
     if model != "point":
-        argv += ["--diff_hidden", "16", "--diff_t", "10", "--eval_samples",
-                 "2", "--epochs", "1"]
+        argv += ["--diff_t", "10", "--eval_samples", "2", "--epochs", "1"]
     result = cli.main(argv)
     assert np.isfinite(result["test_mse"]) and result["wall_seconds"] > 0
     assert np.isfinite(result["train_curve"]).all()
@@ -410,8 +409,31 @@ def test_cli_serve_forecasters_on_cpu(source, tmp_path):
         np.testing.assert_array_equal(got.numpy(), sv.predict(x).numpy())
 
 
+@pytest.mark.parametrize("n_samples", [1, 3])
+def test_diffusion_sample_is_the_chain_on_the_encoded_condition(n_samples):
+    """The forecaster's sampler is the whole-chain sampler (its plain
+    version on the CPU) on the encoder's condition, with the same
+    generator stream; one sample keeps (B, P)."""
+    _, _, tspec, tp = _diffusion("mlp")
+    x, _ = _inputs()
+    sched = TD.make_schedule(DIFF["diff_T"])
+    with torch.no_grad():
+        cond = TF._cond(tp, tspec, torch.from_numpy(x),
+                        torch.arange(SMALL["pred_len"], dtype=torch.float32))
+        want = DD.eps_head_sample(tp["eps_head"], tspec.eps_cfg, sched, cond,
+                                  torch.Generator().manual_seed(5),
+                                  n_samples=n_samples)
+    got = TF.diffusion_forecaster_sample(tp, tspec, sched,
+                                         torch.from_numpy(x),
+                                         torch.Generator().manual_seed(5),
+                                         n_samples=n_samples)
+    assert got.shape == ((B, SMALL["pred_len"]) if n_samples == 1 else
+                         (n_samples, B, SMALL["pred_len"]))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("case", ["kanrnn", "kan_fet_diffusion", "run_knob",
-                                  "plots", "no_card", "sampler"])
+                                  "plots", "no_card"])
 def test_refusals(case, tmp_path):
     if case == "kanrnn":
         with pytest.raises(NotImplementedError, match="A.7"):
@@ -444,12 +466,6 @@ def test_refusals(case, tmp_path):
                      ["serve", "--source", "ddpm"]):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 cli.main(argv + ["--out-dir", str(tmp_path)])
-    elif case == "sampler":
-        _, _, tspec, tp = _diffusion("mlp")
-        with pytest.raises(ValueError, match="sampler"):
-            TF.diffusion_forecaster_sample(
-                tp, tspec, TD.make_schedule(DIFF["diff_T"]),
-                torch.zeros(2, 12, 4), sampler="nope")
 
 
 @pytest.mark.cuda
