@@ -2,8 +2,8 @@
 
 Drives the port's main paths — predprey KANFET serving and training, ECG
 classification training and serving, ETT forecasting training and
-serving — on the card and checks them, in phases that run in order; any
-failure exits non-zero.
+serving, Kuramoto-MNIST training and serving — on the card and checks
+them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -97,6 +97,39 @@ samples), random weights from a seed, windows of the synthetic series
     batches, and one training step of each forecaster at B = 64, kernels
     against the eager solve.
 
+The Kuramoto-MNIST slice, at the full width of ``MNISTPreset`` (28 x 28
+lattice, 10 Euler steps of 0.15, KANLinear(1568 -> 10) head with grid 5,
+order 3 and 8 logistic bases), random weights from a seed with omega =
+0.3 randn and K = 0.7 in the kernel checks, images from
+``synthetic_digits`` (the data ``cli mnist`` falls back to):
+
+19. The rollout kernels (``csrc/kuramoto.cu``, B.10) against their plain
+    versions at every batch the path launches: 128 (a training step and
+    the synthetic test eval) and 1,024 (a larger eval batch; the synthetic
+    data leaves no partial batch): features max |diff| <= 1e-4; the
+    backward (theta0bar, omegabar, Kbar) against autograd of the plain
+    rollout and against ``kuramoto_rollout_bwd_reference``, relative <
+    1e-4; omegabar and Kbar the same bits in two calls.
+20. The fused classifier kernel (B.11) against
+    ``kuramoto_logits_reference`` at 8, 64 and 256 (serving), 128 and
+    1,024: rtol = atol = 1e-3; the ``pallas_fused`` gradient against the
+    ``pallas`` path's, relative < 1e-4.
+21. The training slice: ``cli.main(["mnist", "--rollout", "pallas" |
+    "pallas_fused", ...])``, 3 epochs each (the preset), and ``--rollout
+    auto`` for one epoch: the kernels of each path must have launched and
+    the epoch losses must be finite.
+22. The serving slice: ``cli.main(["serve", "--source", "mnist", ...])``
+    (the fused kernel) with buckets (8, 64, 256), then requests of B = 1,
+    30 and 300 through the loaded bundle; they must equal direct calls on
+    the unpadded batch (the images are independent), and the kernel must
+    have launched.
+23. Timing: each Kuramoto kernel and its plain version at B = 128, 256
+    and 1,024 (the fused kernel also at 8 and 64), and one training step
+    at B = 128 with the rollout kernels, the fused kernel and the scan.
+    A Kuramoto kernel's time is its device time in a profiler trace: back
+    to back, the host's launch overhead paces these small kernels, and
+    that per-call time is printed beside it.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -125,13 +158,17 @@ HORIZON = 14.0
 GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
-           "ode_dyn", "ddpm")
+           "ode_dyn", "ddpm", "kuramoto")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
 ODE_CHECKS = (1, 8, 41, 64, 97, 256, 297)
 ODE_BACKWARD = (64, 297)
 DDPM_ROWS = (10, 80, 410, 640, 970, 2560)
+# The Kuramoto path's batches (phases 19-20, 23).
+KURA_CHECKS = (128, 1024)
+KURA_LOGITS = (8, 64, 128, 256, 1024)
+KURA_TIMES = (128, 256, 1024)
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -143,6 +180,13 @@ SFU_OPS_S = 132 * 16 * 1.98e9
 # What the counts below assume for one call, as (FP32 operations, SFU
 # results): a sigmoid 1 / (1 + exp(-z)) and a tanhf each (4, 2).
 SIG = TANH = (4, 2)
+# Read off the SASS that nvcc -O3 emits for sm_90a (cuobjdump -sass),
+# counting an FFMA as two operations and any other FP32 instruction as
+# one: sincosf's fast path (|x| < 105615, always taken by the phases) is
+# 11 FFMA, 2 FMUL, 4 FSEL, FSETP, F2I and I2FP, 31 operations and no SFU
+# result; expf is 4 FFMA, FADD and FMUL plus MUFU.EX2, (10, 1); an IEEE
+# division is 5 FFMA and FCHK plus MUFU.RCP, (11, 1).
+SINCOS, EXP, DIV = (31, 0), (10, 1), (11, 1)
 
 
 def fail(msg):
@@ -551,11 +595,9 @@ def ecg_step_fn(apply, params, spec, x, y, mode):
     return lambda: step(state, x, y)
 
 
-def profile_ms(fn, n=5):
-    """torch.profiler over ``n`` calls after a warm one: (wall ms per call,
-    device-busy ms per call, the union of the kernels' and copies'
-    intervals in the trace, and the three kernels with the most device
-    time as (name, ms per call))."""
+def device_trace(fn, n):
+    """torch.profiler over ``n`` calls of ``fn`` after a warm one: (wall ms
+    per call, the trace's kernel and copy events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -572,8 +614,15 @@ def profile_ms(fn, n=5):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    device = [e for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return wall, [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def profile_ms(fn, n=5):
+    """(wall ms per call, device-busy ms per call, the union of the kernels'
+    and copies' intervals in the trace, and the three kernels with the
+    most device time as (name, ms per call)) over ``n`` profiled calls."""
+    wall, device = device_trace(fn, n)
     busy, end = 0.0, -1.0
     for t, d in sorted((float(e["ts"]), float(e["dur"])) for e in device):
         busy += max(0.0, t + d - max(t, end))
@@ -584,6 +633,24 @@ def profile_ms(fn, n=5):
             per_kernel[e["name"]] = per_kernel.get(e["name"], 0.0) + e["dur"]
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
     return wall, busy / 1e3 / n, [(k[:60], v / 1e3 / n) for k, v in top]
+
+
+def kernel_device_ms(fn, names, n=10, attempts=3):
+    """The device time per call of ``fn``'s kernels whose names contain one
+    of ``names``, from a profiler trace of ``n`` calls: the kernel's own
+    time, without the host's launch overhead that paces back-to-back
+    calls of a small kernel.  A trace that holds none of them (seen once
+    on the card) is taken again; after ``attempts`` such traces it fails."""
+    for _ in range(attempts):
+        _, device = device_trace(fn, n)
+        durs = [float(e["dur"]) for e in device if e["cat"] == "kernel"
+                and any(k in e["name"] for k in names)]
+        if durs:
+            return sum(durs) / 1e3 / n
+        print(f"  the profiler trace held no kernel named {names} "
+              f"({len(device)} device events); tracing again")
+    fail(f"{attempts} profiler traces held no kernel named {names} "
+         f"({len(device)} device events)")
 
 
 def check_served(sv, fn, reqs, served, label):
@@ -1026,6 +1093,298 @@ def forecast_phases(device, smi):
     return ode_checks, ddpm_errs, times, launches
 
 
+# --------------------------------------------------------------- Kuramoto
+
+
+def kuramoto_counts(B, H, W, steps, kind, C=10, n_logistic=8, n_knots=12,
+                    order=3):
+    """(FP32, SFU, bytes) of a Kuramoto kernel call: per site and step of a
+    rollout a sincosf, two neighbour sums, the coupling and the update (44
+    operations); ``bwd`` replays the rollout and walks back (sincosf, four
+    neighbour sums, the coupling, tbar and the sums of omegabar and Kbar:
+    64 a site and step); ``logits`` adds per feature the Cox-de Boor
+    recursion (two divisions a term), SiLU, n_logistic sigmoids and 2 C
+    operations for each of the 1 + n_coeff + n_logistic terms.  Each
+    operand is read once and each result written once; the head's weights
+    count once, though every block reads them anew from L2."""
+    HW, F = H * W, 2 * H * W
+    step = SINCOS[0] + 6 + 3 + 4
+    roll = HW * (steps * step + SINCOS[0])
+    io = 4 * (B * HW + HW + 1)
+    if kind == "fwd":
+        return B * roll, 0, io + 4 * B * F
+    if kind == "bwd":
+        back = SINCOS[0] + 2 + 12 + 3 + 2 + 3 + 3 + 5 + 3
+        fp32 = B * (HW * steps * (step + back) + HW * (SINCOS[0] + 3)) \
+            + B * (HW + 1)
+        return fp32, 0, io + 4 * (B * F + B * HW + HW + 1)
+    n_coeff = n_knots - 1 - order
+    rec = sum(n_knots - 1 - k for k in range(1, order + 1))
+    per = (3 * (n_knots - 1) + rec * (7 + 2 * DIV[0]) + EXP[0] + 1 + DIV[0]
+           + n_logistic * (3 + EXP[0] + DIV[0]) + 2 * C * (
+               1 + n_coeff + n_logistic))
+    sfu = rec * 2 * DIV[1] + EXP[1] + DIV[1] + n_logistic * (EXP[1] + DIV[1])
+    nbytes = io + 4 * (F * n_knots + 2 * F * n_logistic
+                       + C * F * (1 + n_coeff + n_logistic) + B * C)
+    return B * (roll + F * per), B * F * sfu, nbytes
+
+
+def kuramoto_case(device, B, seed):
+    """A batch of ``B`` synthetic digits as initial phases, with a
+    cotangent of the features and labels."""
+    from fetode_tpu_torch.data.mnist import synthetic_digits
+    from fetode_tpu_torch.ops import kuramoto as KO
+
+    x, y = synthetic_digits(seed=seed, n=B)
+    rng = np.random.default_rng(seed)
+    xt = torch.from_numpy(x).to(device)
+    return dict(x=xt, y=torch.from_numpy(y).long().to(device),
+                theta0=KO.theta0_of(xt, 28, 28),
+                ct=torch.from_numpy(rng.standard_normal(
+                    (B, 2 * 28 * 28)).astype(np.float32)).to(device))
+
+
+def check_kuramoto_rollout(params, lat, case):
+    """Phase 19 at one batch: (features max |diff|, the worst relative
+    error of (theta0bar, omegabar, Kbar) against the two plain versions,
+    their max |diff| against the written-out replay)."""
+    from fetode_tpu_torch.ops import kuramoto as KO
+
+    om, K, th0, ct = params.omega, params.K, case["theta0"], case["ct"]
+    B = th0.shape[0]
+    with torch.no_grad():
+        feat = KO.kuramoto_fwd(om, K, th0, lat)
+        torch.cuda.synchronize()
+        want = KO.kuramoto_rollout_reference(om, K, th0, lat)
+    if feat.shape != (B, 2 * lat.H * lat.W) or not torch.isfinite(feat).all():
+        fail(f"kuramoto_fwd B={B}: shape {tuple(feat.shape)} or non-finite")
+    fwd_err = max_abs(feat, want)
+    if fwd_err > 1e-4:
+        fail(f"kuramoto_fwd B={B}: max |diff| {fwd_err:.3e} from plain")
+    got = KO.kuramoto_bwd(om, K, th0, ct, lat)
+    again = KO.kuramoto_bwd(om, K, th0, ct, lat)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+        fail(f"kuramoto_bwd B={B}: omegabar or Kbar differ between two calls")
+    replay = KO.kuramoto_rollout_bwd_reference(om, K, th0, ct, lat)
+    leaves = [t.detach().clone().requires_grad_() for t in (th0, om, K)]
+    torch.sum(KO.kuramoto_rollout_reference(leaves[1], leaves[2], leaves[0],
+                                            lat) * ct).backward()
+    auto = [t.grad for t in leaves]
+    errs = [rel_err(g, w) for ref in (replay, auto) for g, w in zip(got, ref)]
+    if max(errs) >= GRAD_TOL or not all(torch.isfinite(g).all() for g in got):
+        fail(f"kuramoto_bwd B={B}: relative errors (theta0bar, omegabar, "
+             f"Kbar) vs replay, autograd {[float('%.3e' % e) for e in errs]}")
+    g_abs = max(max_abs(g, w) for g, w in zip(got, replay))
+    print(f"kuramoto B={B}: features max |diff| {fwd_err:.3e}; backward rel "
+          f"vs replay / autograd {[float('%.3e' % e) for e in errs]}; "
+          "omegabar, Kbar bit-identical over two calls")
+    return dict(fwd_err=fwd_err, g_rel=max(errs), g_abs=g_abs)
+
+
+def mnist_step_fn(params, spec, x, y, rollout):
+    """One MNIST training step (forward, cross-entropy, backward, AdamW) with
+    the rollout ``rollout``, as a closure; learning rate 0."""
+    import torch.nn.functional as F
+
+    from fetode_tpu_torch.models.kuramoto import kuramoto_kan_apply
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    p = copy.deepcopy(params)
+    state = init_state(p, make_optimizer(0.0, params=p.parameters(),
+                                         kind="adamw", weight_decay=1e-4))
+    s = spec._replace(rollout=rollout)
+    step = make_train_step(lambda q, xb, yb: F.cross_entropy(
+        kuramoto_kan_apply(q, s, xb), yb))
+    return lambda: step(state, x, y)
+
+
+def run_mnist_cli(cli, argv, epochs):
+    """``cli.main(argv)`` with its output captured and echoed: returns the
+    result and the epoch losses it printed."""
+    import contextlib
+    import io
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = cli.main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    losses = [float(v) for v in re.findall(r"^epoch \d+: loss (\S+) ", text,
+                                           re.M)]
+    if len(losses) != epochs or not np.isfinite(losses).all():
+        fail(f"cli {' '.join(argv)}: epoch losses {losses}")
+    return res, losses
+
+
+def kuramoto_phases(device, smi):
+    """Phases 19-23, the Kuramoto-MNIST slice: returns the kernel checks,
+    the timings and the kernels' launches on the training and serving
+    paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.models import kuramoto as TK
+    from fetode_tpu_torch.ops import kuramoto as KO
+    from fetode_tpu_torch.serve import load_servable
+
+    spec = TK.KuramotoSpec(rollout="pallas")
+    lat = spec.lattice
+    params = TK.kuramoto_init(torch.Generator().manual_seed(0), spec,
+                              device=device)
+    with torch.no_grad():
+        params.omega.copy_(torch.from_numpy(0.3 * np.random.default_rng(
+            5).standard_normal((28, 28)).astype(np.float32)))
+        params.K.fill_(0.7)
+    cases = {b: kuramoto_case(device, b, 20 + i)
+             for i, b in enumerate(sorted(set(KURA_LOGITS + KURA_TIMES)))}
+
+    # ---- 19. B.10 against plain
+    checks = {b: check_kuramoto_rollout(params, lat, cases[b])
+              for b in KURA_CHECKS}
+
+    # ---- 20. B.11 against plain; the fused gradient against the pallas one
+    head = TK.head_operands(params.head)
+    logit_errs = {}
+    for b in KURA_LOGITS:
+        args = (params.omega, params.K, cases[b]["theta0"], *head, lat)
+        with torch.no_grad():
+            got = KO.kuramoto_logits(*args)
+            torch.cuda.synchronize()
+            want = KO.kuramoto_logits_reference(*args)
+        if got.shape != (b, 10) or not torch.isfinite(got).all():
+            fail(f"kuramoto_logits B={b}: shape {tuple(got.shape)} or "
+                 "non-finite")
+        logit_errs[b] = max_abs(got, want)
+        if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+            fail(f"kuramoto_logits B={b}: max |diff| {logit_errs[b]:.3e} "
+                 "from plain")
+    print(f"kuramoto_logits vs plain, B {list(KURA_LOGITS)}: max |diff| "
+          f"{[float('%.3e' % e) for e in logit_errs.values()]}")
+    grads = []
+    for rollout in ("pallas_fused", "pallas"):
+        params.zero_grad()
+        torch.nn.functional.cross_entropy(TK.kuramoto_kan_apply(
+            params, spec._replace(rollout=rollout), cases[128]["x"]),
+            cases[128]["y"]).backward()
+        grads.append(flat([p.grad for p in params.parameters()]).clone())
+    fused_rel = rel_err(grads[0], grads[1])
+    if not fused_rel < GRAD_TOL:
+        fail(f"pallas_fused gradient vs pallas: relative {fused_rel:.3e}")
+    print(f"pallas_fused gradient vs pallas, B=128: relative {fused_rel:.3e}")
+
+    # ---- 21. the training slice, through the CLI
+    kernels = (KO.kuramoto_fwd, KO.kuramoto_bwd, KO.kuramoto_logits)
+    launches = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        for rollout, epochs in (("pallas", 3), ("pallas_fused", 3),
+                                ("auto", 1)):
+            for f in kernels:
+                f.launches = 0
+            t0 = time.perf_counter()
+            res, losses = run_mnist_cli(cli, [
+                "mnist", "--device", "cuda", "--rollout", rollout,
+                "--epochs", str(epochs), "--out-dir", tmp], epochs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = [f.launches for f in kernels]
+            need = counts if rollout == "pallas_fused" else counts[:2]
+            if min(need) < 1 or (rollout != "pallas_fused" and counts[2]):
+                fail(f"cli mnist --rollout {rollout}: launches {counts}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            print(f"cli mnist --rollout {rollout} ({epochs} epochs): losses "
+                  f"{losses}, test acc {res['test_acc']}; {wall:.2f} s; "
+                  f"launches (kuramoto fwd, bwd, logits) {counts} ({smi})")
+
+    # ---- 22. the serving slice, through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["serve", "--source", "mnist", "--device", "cuda",
+                "--buckets", "8,64,256", "--out-dir", tmp]
+        for f in kernels:
+            f.launches = 0
+        sresult = cli.main(argv)
+        cfg = make_config("serve", cli._parse(argv)[1])
+        sparams, sfn, _ = cli.mnist_serving(cfg, device)
+        sv = load_servable(sresult["bundle"], sfn, sparams)
+        reqs = {b: cases[1024]["x"][:b] for b in (1, 30, 300)}
+        served = {b: sv.predict(x) for b, x in reqs.items()}
+        torch.cuda.synchronize()
+        counts = [f.launches for f in kernels]
+        if counts[2] < 1:
+            fail(f"serve --source mnist: launches {counts}")
+        launches = [a + b for a, b in zip(launches, counts)]
+        with torch.no_grad():
+            for b, x in reqs.items():
+                want = sfn(sv.params, x)
+                if served[b].shape != (b, 10) or \
+                        not torch.isfinite(served[b]).all() or \
+                        not torch.equal(served[b], want):
+                    fail(f"serve mnist request B={b}: served output differs "
+                         "from a direct call on the unpadded batch")
+        wall, busy, top = profile_ms(lambda: sv.predict(cases[8]["x"]).cpu())
+    print(f"serve mnist: B=1/30/300 through the bundle = direct calls on the "
+          f"unpadded batches; launches {counts}; profile bucket 8: wall "
+          f"{wall:.4f} ms, device busy {busy:.4f} ms "
+          f"({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    for row in sresult["bench"]:
+        print(f"  serve mnist bucket {row['batch']}: p50 {row['p50_ms']:.4f} "
+              f"ms, p99 {row['p99_ms']:.4f} ms, window p50s "
+              f"{['%.4f' % w for w in row['window_p50_ms']]} ({smi})")
+
+    # ---- 23. timing: kernels and plain, a training step
+    times = {}
+    om, K = params.omega.detach(), params.K.detach()
+    for b in sorted(set(KURA_TIMES + KURA_LOGITS)):
+        c = cases[b]
+        th0, ct = c["theta0"], c["ct"]
+        args = (om, K, th0, *[None if t is None else t.detach()
+                              for t in head], lat)
+        t = {}
+        with torch.no_grad():
+            t["logits_events"] = cuda_ms(lambda: KO.kuramoto_logits(*args),
+                                         20)
+            t["logits"] = kernel_device_ms(
+                lambda: KO.kuramoto_logits(*args), ("kuramoto_logits",))
+            t["plain_logits"] = cuda_ms(
+                lambda: KO.kuramoto_logits_reference(*args), 3)
+            if b in KURA_TIMES:
+                fwd = lambda: KO.kuramoto_fwd(om, K, th0, lat)  # noqa: E731
+                bwd = lambda: KO.kuramoto_bwd(om, K, th0, ct, lat)  # noqa
+                t["fwd_events"], t["bwd_events"] = cuda_ms(fwd, 20), \
+                    cuda_ms(bwd, 20)
+                t["fwd"] = kernel_device_ms(fwd, ("kuramoto_fwd",))
+                t["bwd"] = kernel_device_ms(bwd, ("kuramoto_bwd",
+                                                  "kuramoto_reduce"))
+                t["plain_fwd"] = cuda_ms(
+                    lambda: KO.kuramoto_rollout_reference(om, K, th0, lat), 3)
+                t["plain_bwd"] = cuda_ms(
+                    lambda: KO.kuramoto_rollout_bwd_reference(om, K, th0, ct,
+                                                              lat), 3)
+        for kind in ("fwd", "bwd", "logits"):
+            if kind in t:
+                t[f"bound_{kind}"] = bound(*kuramoto_counts(b, 28, 28, 10,
+                                                            kind))
+        times[b] = t
+        print(f"time kuramoto B={b}: " + ", ".join(
+            f"{k} {t[k]:.4f} ms on the device ({t[k + '_events']:.4f} ms a "
+            f"call back to back) vs plain {t['plain_' + k]:.4f} ms, bound "
+            f"{t['bound_' + k][0]:.5f} ms ({t['bound_' + k][2]})"
+            for k in ("fwd", "bwd", "logits") if k in t) + f" ({smi})")
+    c = cases[128]
+    for rollout in ("pallas", "pallas_fused", "scan"):
+        step = mnist_step_fn(params, spec, c["x"], c["y"], rollout)
+        ms = cuda_ms(step, 10 if rollout != "scan" else 3)
+        wall, busy, top = profile_ms(step)
+        times[("step", rollout)] = ms
+        print(f"time MNIST training step B=128 --rollout {rollout}: {ms:.4f} "
+              f"ms; profiled: wall {wall:.4f} ms, device busy {busy:.4f} ms "
+              f"({100 * busy / wall:.1f}%), top "
+              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    return checks, logit_errs, times, launches
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1250,14 +1609,19 @@ def main():
     ecg_checks, ecg_times, ecg_launches = ecg_phases(device, smi)
     ode_checks, ddpm_errs, ett_times, ett_launches = forecast_phases(device,
                                                                      smi)
+    kura_checks, kura_errs, kura_times, kura_launches = kuramoto_phases(
+        device, smi)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
-    # solve at the training batch 64, the chain at 2,560 rows
+    # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
+    # rollout at the training batch 128 and the fused classifier at the
+    # largest serving bucket, 256
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
                                            max_steps=spec.max_steps, **kw)
     lt, ft = ecg_times[("logistic", 8)], ecg_times[("ferro", 8)]
+    kt, kl = kura_times[128], kura_times[256]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -1313,6 +1677,20 @@ def main():
                      "fetode_tpu/ops/pallas_ddpm.py:160", ett_launches[2],
                      max(ddpm_errs.values()), dt["ms"], dt["plain"],
                      dt["bound"]),
+        kernel_entry("kuramoto_fwd", "fetode_tpu_torch/csrc/kuramoto.cu",
+                     "fetode_tpu/ops/pallas_kuramoto.py:241",
+                     kura_launches[0],
+                     max(c["fwd_err"] for c in kura_checks.values()),
+                     kt["fwd"], kt["plain_fwd"], kt["bound_fwd"]),
+        kernel_entry("kuramoto_bwd", "fetode_tpu_torch/csrc/kuramoto.cu",
+                     "fetode_tpu/ops/pallas_kuramoto.py:261",
+                     kura_launches[1],
+                     max(c["g_abs"] for c in kura_checks.values()),
+                     kt["bwd"], kt["plain_bwd"], kt["bound_bwd"]),
+        kernel_entry("kuramoto_logits", "fetode_tpu_torch/csrc/kuramoto.cu",
+                     "fetode_tpu/ops/pallas_kuramoto.py:471",
+                     kura_launches[2], max(kura_errs.values()),
+                     kl["logits"], kl["plain_logits"], kl["bound_logits"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,12 @@ CLI, so one command line drives either package.  Ported so far:
   ``diffusion`` or ``kan_diffusion`` (``train/forecast_driver.py``), on
   the ETT CSV when ``$FETODE_DATA_DIR`` holds it, else on the synthetic
   stand-in, and reports the test MSE and the wall seconds.
-* ``serve --source ecg`` (the default source), ``predprey``, ``ett`` and
-  ``ddpm`` — builds the model, exports a serving bundle, loads it back
-  and reports p50/p99 latency per batch bucket.
+* ``mnist`` — trains the Kuramoto-lattice KAN classifier
+  (``models/kuramoto.py``) on the MNIST idx files when they are found,
+  else on synthetic digits, and reports the test accuracy.
+* ``serve --source ecg`` (the default source), ``predprey``, ``ett``,
+  ``ddpm`` and ``mnist`` — builds the model, exports a serving bundle,
+  loads it back and reports p50/p99 latency per batch bucket.
 
 The other workloads and serve sources raise an error naming the ROADMAP
 item that ports them.  ``--device cuda`` (the default) without CUDA
@@ -43,12 +46,10 @@ _WORKLOAD_TODO = {
     "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs, data/multimodal.py and "
                "the kanrnn encoder of A.7)",
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
-    "mnist": "ROADMAP A.10 (Kuramoto-MNIST and symbolic)",
-    "symbolic": "ROADMAP A.10 (Kuramoto-MNIST and symbolic)",
+    "symbolic": "ROADMAP A.10 (symbolic regression)",
 }
 _SOURCE_TODO = {
     "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
-    "mnist": "ROADMAP A.10 (Kuramoto-MNIST) and B.10-B.11 (pallas_kuramoto)",
 }
 
 
@@ -250,6 +251,108 @@ def run_ett(cfg, out_dir, plots):
             "train_curve": hist["train"], "val_curve": hist["val"]}
 
 
+def _mnist_data():
+    """Train and test (images, labels): the MNIST train and t10k files,
+    else an 80/20 split of t10k, else synthetic digits (512 / 128), as
+    the JAX CLI falls back."""
+    from fetode_tpu_torch.data.mnist import load_mnist, synthetic_digits
+
+    try:
+        return load_mnist("train"), load_mnist("test")
+    except FileNotFoundError:
+        pass
+    try:
+        x_all, y_all = load_mnist("test")
+    except FileNotFoundError:
+        print("MNIST files not found; using synthetic digits")
+        return synthetic_digits(n=512), synthetic_digits(seed=1, n=128)
+    n_tr = int(0.8 * len(x_all))
+    print(f"MNIST train images not found; using a {n_tr}/"
+          f"{len(x_all) - n_tr} split of the real t10k set")
+    return (x_all[:n_tr], y_all[:n_tr]), (x_all[n_tr:], y_all[n_tr:])
+
+
+def run_mnist(cfg, out_dir, plots):
+    """Train the Kuramoto-lattice KAN classifier: AdamW, cross-entropy,
+    minibatches in a seeded order; the test accuracy after each epoch."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from fetode_tpu_torch.models.kuramoto import (
+        KuramotoSpec,
+        kuramoto_init,
+        kuramoto_kan_apply,
+    )
+    from fetode_tpu_torch.train.loop import init_state, make_minibatch_epoch
+    from fetode_tpu_torch.train.optim import make_optimizer
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if cfg.mesh_devices or cfg.mesh_model != 1:
+        raise NotImplementedError("mnist --mesh_devices / --mesh_model: the "
+                                  "sharded trainers are not ported yet: "
+                                  "ROADMAP A.11")
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    device = resolve_device(cfg.device)
+    (x_train, y_train), (x_test, y_test) = _mnist_data()
+    spec = KuramotoSpec(H=x_train.shape[1], W=x_train.shape[2],
+                        steps=cfg.kuramoto_steps, dt=cfg.dt,
+                        num_basis=cfg.num_basis, rollout=cfg.rollout)
+    params = kuramoto_init(torch.Generator().manual_seed(cfg.seed), spec,
+                           device=device)
+    state = init_state(params, make_optimizer(
+        cfg.lr, params=params.parameters(), kind="adamw", weight_decay=1e-4))
+
+    def loss_fn(p, x, y):
+        return F.cross_entropy(kuramoto_kan_apply(p, spec, x), y)
+
+    epoch_fn = make_minibatch_epoch(loss_fn)
+    xt = torch.from_numpy(x_test).to(device)
+    yt = torch.from_numpy(y_test).long().to(device)
+
+    def eval_acc(p):
+        with torch.no_grad():
+            logits = kuramoto_kan_apply(p, spec, xt)
+        return float((logits.argmax(-1) == yt).float().mean())
+
+    bs = min(cfg.batch_size, len(x_train))
+    acc = None
+    for ep in range(cfg.epochs):
+        rng = np.random.default_rng(cfg.seed + ep)
+        idx = rng.permutation(len(x_train))[: (len(x_train) // bs) * bs]
+        bx = torch.from_numpy(x_train[idx].reshape(-1, bs, *x_train.shape[1:]))
+        by = torch.from_numpy(y_train[idx].reshape(-1, bs)).long()
+        state, losses = epoch_fn(state, (bx.to(device), by.to(device)))
+        acc = eval_acc(state.params)
+        print(f"epoch {ep}: loss {float(losses.mean()):.4f} test acc "
+              f"{acc:.4f}", flush=True)
+    if acc is None:  # epochs == 0: report the untrained accuracy
+        acc = eval_acc(state.params)
+    return {"test_acc": acc}
+
+
+def mnist_serving(cfg, device: torch.device):
+    """The MNIST serving function: ``(params, fn, example)`` with a fresh
+    Kuramoto classifier from ``cfg.seed`` under ``cfg.rollout`` and
+    ``fn(params, x) -> (B, 10)`` logits of ``(B, 28, 28)`` images."""
+    from fetode_tpu_torch.models.kuramoto import (
+        KuramotoSpec,
+        kuramoto_init,
+        kuramoto_kan_apply,
+    )
+
+    spec = KuramotoSpec(rollout=cfg.rollout)
+    params = kuramoto_init(torch.Generator().manual_seed(cfg.seed), spec,
+                           device=device)
+
+    def fn(p, x):
+        return kuramoto_kan_apply(p, spec, x)
+    example = torch.zeros((1, spec.H, spec.W), dtype=torch.float32,
+                          device=device)
+    return params, fn, example
+
+
 def ett_serving(cfg, device: torch.device):
     """The ETT serving function: ``(params, fn, example)`` with a fresh
     latent-ODE point forecaster from ``cfg.seed`` and ``fn(params, x) ->
@@ -351,7 +454,7 @@ def predprey_serving(cfg, device: torch.device):
 
 
 SERVING = {"ecg": ecg_serving, "predprey": predprey_serving,
-           "ett": ett_serving, "ddpm": ddpm_serving}
+           "ett": ett_serving, "ddpm": ddpm_serving, "mnist": mnist_serving}
 
 
 def run_serve(cfg, out_dir, plots):
@@ -398,6 +501,7 @@ RUNNERS = {
     "predprey": run_predprey,
     "ecg": run_ecg,
     "ett": run_ett,
+    "mnist": run_mnist,
     "serve": run_serve,
 }
 

@@ -1,9 +1,9 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Ported: the ``predprey``, ``ecg``, ``ett`` and ``serve`` presets; their
-field names are the JAX package's, so one command line drives either
-package.  The port adds ``device``.
+Ported: the ``predprey``, ``ecg``, ``ett``, ``mnist`` and ``serve``
+presets; their field names are the JAX package's, so one command line
+drives either package.  The port adds ``device``.
 The other workloads' presets arrive with their slices.
 """
 
@@ -133,13 +133,37 @@ class ETTPreset:
 
 
 @dataclass
+class MNISTPreset:
+    """mnist_kuramoto_kan.py:210-247 (10 Kuramoto steps dt 0.15,
+    3 epochs, batch 128, AdamW 1e-3)."""
+
+    kuramoto_steps: int = 10
+    dt: float = 0.15
+    num_basis: int = 8
+    epochs: int = 3
+    batch_size: int = 128
+    lr: float = 1e-3
+    # "auto" (the kernels on CUDA, the scan on the CPU), "scan" (the plain
+    # rollout), "pallas" (the rollout kernels of ops/kuramoto.py) or
+    # "pallas_fused" (the fused rollout + head kernel; CUDA only).
+    rollout: str = "auto"
+    # Not ported yet (run_mnist refuses any other value, naming ROADMAP
+    # A.11): the mesh.
+    mesh_devices: int = 0
+    mesh_model: int = 1
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class ServePreset:
     """Serving bundle export + latency bench (``fetode_tpu_torch/serve.py``)."""
 
     # What to serve.  Ported: "ecg" (the KanFetNODE classifier),
     # "predprey" (batched trajectory solve), "ett" (the latent-ODE point
-    # forecaster) and "ddpm" (the mean of n_samples reverse chains of the
-    # diffusion forecaster).
+    # forecaster), "ddpm" (the mean of n_samples reverse chains of the
+    # diffusion forecaster) and "mnist" (the Kuramoto classifier).
     source: str = "ecg"
     # Batch buckets (requests pad up / chunk down at serve time).
     buckets: tuple = (8, 64, 256)
@@ -174,7 +198,8 @@ class ServePreset:
     diff_t: int = 200
     # cond_diffusion source
     denoiser: str = "kan_node"
-    # mnist source
+    # mnist source: the rollout of KuramotoSpec ("pallas_fused", the fused
+    # rollout + head kernel, is the serving path; "scan", "pallas", "auto")
     rollout: str = "pallas_fused"
     seed: int = 0
     # "cuda" (refused when CUDA is absent) or "cpu".
@@ -185,6 +210,7 @@ PRESETS = {
     "predprey": PredPreyPreset,
     "ecg": ECGPreset,
     "ett": ETTPreset,
+    "mnist": MNISTPreset,
     "serve": ServePreset,
 }
 

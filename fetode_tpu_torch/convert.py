@@ -13,7 +13,10 @@ The ECG models' parameters are one dict tree in the JAX package
 ...) and one module in the port whose ``state_dict`` keys are the dotted
 paths of that tree (``field_mixer.a``, ``fc1.k``):
 ``ecg_params_from_numpy`` / ``ecg_params_to_numpy`` /
-``ecg_grads_to_numpy``.
+``ecg_grads_to_numpy``.  The Kuramoto classifier's tree (``K``,
+``omega``, ``head``: one KAN layer with its grid under ``_buffers``) maps
+the same way (``kuramoto_params_{from,to}_numpy``,
+``kuramoto_grads_to_numpy``).
 
 Everything converts to float32 unless asked otherwise: the JAX package's
 tests run with x64 on, and the port works in float32 throughout.
@@ -165,6 +168,35 @@ def forecast_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     buffer) and a parameter without a gradient get zeros."""
     grads = {name: p.grad for name, p in module.named_parameters()}
     return _forecast_nest({
+        key: torch.zeros_like(value) if grads.get(key) is None
+        else grads[key] for key, value in module.state_dict().items()},
+        dtype)
+
+
+# The Kuramoto classifier's JAX param tree (``K``, ``omega``, ``head``: one
+# KAN layer) -> a ``state_dict`` for ``models/kuramoto.py: KuramotoKAN``
+# (``K``, ``omega``, ``head.<name>``, the grid as ``head.grid``): the ECG
+# models' dotted mapping.
+kuramoto_params_from_numpy = ecg_params_from_numpy
+
+
+def _kuramoto_nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
+    tree = _nest(flat, dtype)
+    head = tree["head"]
+    head["_buffers"] = {"grid": head.pop("grid")}
+    return tree
+
+
+def kuramoto_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """The inverse: a ``KuramotoKAN`` -> the JAX param tree."""
+    return _kuramoto_nest(module.state_dict(), dtype)
+
+
+def kuramoto_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """A ``KuramotoKAN``'s ``.grad``s -> the JAX gradient tree; the knot
+    grid (a buffer) and a parameter without a gradient get zeros."""
+    grads = {name: p.grad for name, p in module.named_parameters()}
+    return _kuramoto_nest({
         key: torch.zeros_like(value) if grads.get(key) is None
         else grads[key] for key, value in module.state_dict().items()},
         dtype)

@@ -52,7 +52,10 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.data.timeseries",
                  "fetode_tpu_torch.ops.ode_dyn", "fetode_tpu_torch.ops.ddpm",
                  "fetode_tpu_torch.models.forecasting",
-                 "fetode_tpu_torch.train.forecast_driver"):
+                 "fetode_tpu_torch.train.forecast_driver",
+                 "fetode_tpu_torch.data.mnist",
+                 "fetode_tpu_torch.models.kuramoto",
+                 "fetode_tpu_torch.ops.kuramoto"):
         assert name in report["modules"]
 
 
