@@ -1098,35 +1098,47 @@ def forecast_phases(device, smi):
 
 def kuramoto_counts(B, H, W, steps, kind, C=10, n_logistic=8, n_knots=12,
                     order=3):
-    """(FP32, SFU, bytes) of a Kuramoto kernel call: per site and step of a
-    rollout a sincosf, two neighbour sums, the coupling and the update (44
-    operations); ``bwd`` replays the rollout and walks back (sincosf, four
-    neighbour sums, the coupling, tbar and the sums of omegabar and Kbar:
-    64 a site and step); ``logits`` adds per feature the Cox-de Boor
-    recursion (two divisions a term), SiLU, n_logistic sigmoids and 2 C
-    operations for each of the 1 + n_coeff + n_logistic terms.  Each
-    operand is read once and each result written once; the head's weights
-    count once, though every block reads them anew from L2."""
+    """(FP32, SFU, bytes) of a Kuramoto kernel call, counting each value
+    the function needs once.  Per site and step of a rollout: a sincosf,
+    two neighbour sums (one add fewer than a site's neighbours), the
+    coupling (3) and the update theta + dt omega + (dt K) coupling (3;
+    dt omega and dt K are made once a call).  ``bwd`` replays the rollout and
+    keeps what it made (sin, cos, the sums, the coupling), then per site
+    and step: g cos and g sin (2), their neighbour sums, tbar = cos (S(g
+    cos) - g S(cos)) + sin (S(g sin) - g S(sin)) (7), the update (2) and
+    the omegabar and Kbar sums (3); one sincosf a site starts the walk.
+    ``logits`` adds, per image and feature: x - g_j for each knot, the
+    order-0 indicators from their signs (a compare a knot, a subtract an
+    interval), per recursion level k the weights w_j = (x - g_j) r_jk
+    with r_jk = 1 / (g_j+k - g_j), and per term w_j B_j + (1 - w_j+1)
+    B_j+1 (4); SiLU; n_logistic sigmoids 2 / (1 + exp(-a (x - b))); and
+    2 C operations for each of the 1 + n_coeff + n_logistic terms.  The
+    reciprocals r_jk depend only on the knots: they count once a
+    feature, not once an image.  Each operand is read once and each
+    result written once; the head's weights count once, though every
+    block reads them anew from L2."""
     HW, F = H * W, 2 * H * W
-    step = SINCOS[0] + 6 + 3 + 4
-    roll = HW * (steps * step + SINCOS[0])
+    nsum = 3 * HW - 2 * (H + W)            # adds of one lattice's sums
+    step = HW * (SINCOS[0] + 3 + 3) + 2 * nsum
+    roll = steps * step + HW * SINCOS[0]
     io = 4 * (B * HW + HW + 1)
     if kind == "fwd":
-        return B * roll, 0, io + 4 * B * F
+        return B * roll + HW + 1, 0, io + 4 * B * F
     if kind == "bwd":
-        back = SINCOS[0] + 2 + 12 + 3 + 2 + 3 + 3 + 5 + 3
-        fp32 = B * (HW * steps * (step + back) + HW * (SINCOS[0] + 3)) \
-            + B * (HW + 1)
+        back = HW * (2 + 7 + 2 + 3) + 2 * nsum
+        fp32 = B * (roll + steps * back + 3 * HW) + B * (HW + 1) + HW + 1
         return fp32, 0, io + 4 * (B * F + B * HW + HW + 1)
     n_coeff = n_knots - 1 - order
-    rec = sum(n_knots - 1 - k for k in range(1, order + 1))
-    per = (3 * (n_knots - 1) + rec * (7 + 2 * DIV[0]) + EXP[0] + 1 + DIV[0]
-           + n_logistic * (3 + EXP[0] + DIV[0]) + 2 * C * (
-               1 + n_coeff + n_logistic))
-    sfu = rec * 2 * DIV[1] + EXP[1] + DIV[1] + n_logistic * (EXP[1] + DIV[1])
+    n_w = sum(n_knots - k for k in range(1, order + 1))
+    n_terms = sum(n_knots - 1 - k for k in range(1, order + 1))
+    per = (n_knots + n_knots + (n_knots - 1) + n_w + 4 * n_terms
+           + EXP[0] + 1 + DIV[0] + n_logistic * (3 + EXP[0] + DIV[0])
+           + 2 * C * (1 + n_coeff + n_logistic))
+    sfu = EXP[1] + DIV[1] + n_logistic * (EXP[1] + DIV[1])
     nbytes = io + 4 * (F * n_knots + 2 * F * n_logistic
                        + C * F * (1 + n_coeff + n_logistic) + B * C)
-    return B * (roll + F * per), B * F * sfu, nbytes
+    return (B * (roll + F * per) + HW + 1 + F * n_w * (1 + DIV[0]),
+            B * F * sfu + F * n_w * DIV[1], nbytes)
 
 
 def kuramoto_case(device, B, seed):
@@ -1246,16 +1258,21 @@ def kuramoto_phases(device, smi):
 
     # ---- 20. B.11 against plain; the fused gradient against the pallas one
     head = TK.head_operands(params.head)
+    packed = KO.pack_head(*head)
     logit_errs = {}
     for b in KURA_LOGITS:
         args = (params.omega, params.K, cases[b]["theta0"], *head, lat)
         with torch.no_grad():
             got = KO.kuramoto_logits(*args)
+            prepacked = KO.kuramoto_logits(*args, packed=packed)
             torch.cuda.synchronize()
             want = KO.kuramoto_logits_reference(*args)
         if got.shape != (b, 10) or not torch.isfinite(got).all():
             fail(f"kuramoto_logits B={b}: shape {tuple(got.shape)} or "
                  "non-finite")
+        if not torch.equal(prepacked, got):
+            fail(f"kuramoto_logits B={b}: the head packed once gives other "
+                 "logits than one packed in the call")
         logit_errs[b] = max_abs(got, want)
         if not torch.allclose(got, want, rtol=TOL, atol=TOL):
             fail(f"kuramoto_logits B={b}: max |diff| {logit_errs[b]:.3e} "
@@ -1343,10 +1360,10 @@ def kuramoto_phases(device, smi):
                               for t in head], lat)
         t = {}
         with torch.no_grad():
-            t["logits_events"] = cuda_ms(lambda: KO.kuramoto_logits(*args),
-                                         20)
-            t["logits"] = kernel_device_ms(
-                lambda: KO.kuramoto_logits(*args), ("kuramoto_logits",))
+            logits = lambda: KO.kuramoto_logits(  # noqa: E731
+                *args, packed=packed)
+            t["logits_events"] = cuda_ms(logits, 20)
+            t["logits"] = kernel_device_ms(logits, ("kuramoto_logits",))
             t["plain_logits"] = cuda_ms(
                 lambda: KO.kuramoto_logits_reference(*args), 3)
             if b in KURA_TIMES:

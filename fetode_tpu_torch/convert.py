@@ -109,11 +109,22 @@ def ecg_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     return _nest(module.state_dict(), dtype)
 
 
+def _grads_or_zeros(module, buffers: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """A module's ``.grad``s under its ``state_dict`` keys: zeros for a
+    parameter without a gradient and, with ``buffers``, for every buffer
+    (a KAN grid)."""
+    grads = {name: p.grad for name, p in module.named_parameters()}
+    names = module.state_dict() if buffers else dict(
+        module.named_parameters())
+    return {key: torch.zeros_like(value) if grads.get(key) is None
+            else grads[key] for key, value in names.items()}
+
+
 def ecg_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """An ECG port module's ``.grad``s -> the JAX gradient tree; a
     parameter without a gradient gets zeros."""
-    return _nest({name: torch.zeros_like(p) if p.grad is None else p.grad
-                  for name, p in module.named_parameters()}, dtype)
+    return _nest(_grads_or_zeros(module), dtype)
 
 
 def _is_kan(layers: List[Any]) -> bool:
@@ -166,11 +177,7 @@ def forecast_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
 def forecast_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """A forecaster's ``.grad``s -> the JAX gradient tree; a KAN grid (a
     buffer) and a parameter without a gradient get zeros."""
-    grads = {name: p.grad for name, p in module.named_parameters()}
-    return _forecast_nest({
-        key: torch.zeros_like(value) if grads.get(key) is None
-        else grads[key] for key, value in module.state_dict().items()},
-        dtype)
+    return _forecast_nest(_grads_or_zeros(module, buffers=True), dtype)
 
 
 # The Kuramoto classifier's JAX param tree (``K``, ``omega``, ``head``: one
@@ -195,8 +202,4 @@ def kuramoto_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
 def kuramoto_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """A ``KuramotoKAN``'s ``.grad``s -> the JAX gradient tree; the knot
     grid (a buffer) and a parameter without a gradient get zeros."""
-    grads = {name: p.grad for name, p in module.named_parameters()}
-    return _kuramoto_nest({
-        key: torch.zeros_like(value) if grads.get(key) is None
-        else grads[key] for key, value in module.state_dict().items()},
-        dtype)
+    return _kuramoto_nest(_grads_or_zeros(module, buffers=True), dtype)

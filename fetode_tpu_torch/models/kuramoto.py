@@ -67,24 +67,24 @@ class KuramotoSpec(NamedTuple):
 
 class KuramotoKAN(nn.Module):
     """The coupling ``K`` (a scalar), the natural frequencies ``omega`` (H,
-    W) and the ``head`` KANLinear(2 H W -> num_classes)."""
+    W) and the ``head`` KANLinear(2 H W -> num_classes): ``head`` if given,
+    else an uninitialised skeleton for ``load_state_dict``."""
 
-    def __init__(self, spec: KuramotoSpec, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, spec: KuramotoSpec, *, head: KANLinear | None = None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.K = nn.Parameter(torch.full((), 0.5, **kw))
         self.omega = nn.Parameter(torch.zeros((spec.H, spec.W), **kw))
-        self.head = KANLinear(spec.head_cfg, **kw)
+        self.head = KANLinear(spec.head_cfg, **kw) if head is None else head
 
 
 def kuramoto_init(generator: torch.Generator, spec: KuramotoSpec, *,
                   device=None, dtype=torch.float32) -> KuramotoKAN:
     """K = 0.5, omega = 0 and a freshly initialised head."""
-    params = KuramotoKAN(spec, device=device, dtype=dtype)
-    params.head = kan_linear_init(generator, spec.head_cfg, device=device,
-                                  dtype=dtype)
-    return params
+    return KuramotoKAN(spec, head=kan_linear_init(
+        generator, spec.head_cfg, device=device, dtype=dtype),
+        device=device, dtype=dtype)
 
 
 def _uses_kernel(spec: KuramotoSpec, x: torch.Tensor) -> bool:
@@ -124,15 +124,38 @@ def head_operands(head: KANLinear):
     return head.grid, head.base_weight, sw, lg.a, lg.b, lw
 
 
+def _packed_head(head: KANLinear):
+    """``head_operands(head)`` and their ``pack_head`` for the fused kernel,
+    made once for each version of the head's tensors (an optimiser step or
+    ``load_state_dict`` writes them in place, which bumps the version):
+    calls that do not differentiate reuse them."""
+    key = tuple((t.data_ptr(), t._version)
+                for t in (*head.parameters(), *head.buffers()))
+    cached = getattr(head, "_fused_operands", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            ops = head_operands(head)
+            cached = (key, ops, KO.pack_head(*ops))
+        head._fused_operands = cached
+    return cached[1], cached[2]
+
+
 def kuramoto_kan_apply(params: KuramotoKAN, spec: KuramotoSpec,
                        x_img: torch.Tensor) -> torch.Tensor:
     """The classifier: features -> KANLinear logits (B, num_classes).
     ``rollout="pallas_fused"`` runs rollout and head in one kernel, its
-    gradient through the rollout kernels and the plain head."""
+    gradient through the rollout kernels and the plain head; without
+    autograd it reuses the head's packing while the weights stay the
+    same."""
     if spec.rollout == "pallas_fused" and _uses_kernel(spec, x_img):
-        return KO.kuramoto_logits(params.omega, params.K,
-                                  KO.theta0_of(x_img, spec.H, spec.W),
-                                  *head_operands(params.head), spec.lattice)
+        theta0 = KO.theta0_of(x_img, spec.H, spec.W)
+        if torch.is_grad_enabled():
+            return KO.kuramoto_logits(params.omega, params.K, theta0,
+                                      *head_operands(params.head),
+                                      spec.lattice)
+        ops, packed = _packed_head(params.head)
+        return KO.kuramoto_logits(params.omega, params.K, theta0, *ops,
+                                  spec.lattice, packed=packed)
     feat = kuramoto_features(params, spec, x_img)
     logits, _ = kan_linear_apply(params.head, feat)
     return logits

@@ -24,7 +24,8 @@ scalar tensor.
 * ``kuramoto_logits`` — the fused classifier (rollout + head -> logits),
   with a launch counter; on CUDA its gradient recomputes the features
   through the rollout kernels and differentiates the plain head, as the
-  JAX VJP does (:516-530).
+  JAX VJP does (:516-530); ``pack_head`` lays the head out for it once,
+  so that serving does not repack weights that do not change.
 * The plain versions: ``kuramoto_rollout_reference`` (the scan,
   differentiated by autograd), ``kuramoto_rollout_bwd_reference`` (the
   replay and the reverse walk written out as the kernel runs them) and
@@ -270,21 +271,6 @@ def kuramoto_rollout(omega: torch.Tensor, K: torch.Tensor,
     return _Rollout.apply(omega, K, theta0, lat)
 
 
-def _pack_head(grid, wb, sw, la, lb, lw):
-    """The fused kernel's head operands: knots (n_knots, F), la / lb
-    (n_logistic, F) and the weights wp (C, 1 + n_coeff + n_logistic, F),
-    feature-minor so that a warp reads contiguous floats."""
-    terms = [wb[:, None, :], sw.transpose(1, 2)]
-    if la is not None:
-        terms.append(lw.transpose(1, 2))
-    wp = torch.cat(terms, dim=1)
-    if la is None:
-        la = lb = grid.new_zeros((0, grid.shape[0]))
-    else:
-        la, lb = la.T, lb.T
-    return [grid.T, la, lb, wp]
-
-
 def _check_head(grid, wb, sw, la, lw, F_: int) -> None:
     C = wb.shape[0]
     if tuple(grid.shape) != (F_, HEAD_KNOTS) or sw.shape[2] != \
@@ -302,21 +288,61 @@ def _check_head(grid, wb, sw, la, lw, F_: int) -> None:
                          f"features ({F_}) and classes ({C})")
 
 
-def _fused_launch(omega, K, theta0, head, lat: Lattice) -> torch.Tensor:
+class PackedHead(NamedTuple):
+    """The fused kernel's head operands: knots (n_knots, F), la / lb
+    (n_logistic, F) and the weights wp (C, 1 + n_coeff + n_logistic, F),
+    feature-minor so that a warp reads contiguous floats."""
+
+    knots: torch.Tensor
+    la: torch.Tensor
+    lb: torch.Tensor
+    wp: torch.Tensor
+
+    @property
+    def n_logistic(self) -> int:
+        return self.la.shape[0]
+
+    @property
+    def n_classes(self) -> int:
+        return self.wp.shape[0]
+
+
+def pack_head(grid, wb, sw, la, lb, lw) -> PackedHead:
+    """The head operands of ``kuramoto_logits`` packed for the fused kernel
+    (no autograd).  Serving packs once and passes the result to every call
+    while the weights stay the same."""
+    _check_head(grid, wb, sw, la, lw, grid.shape[0])
+    with torch.no_grad():
+        terms = [wb[:, None, :], sw.transpose(1, 2)]
+        if la is not None:
+            terms.append(lw.transpose(1, 2))
+            la, lb = la.T, lb.T
+        else:
+            la = lb = grid.new_zeros((0, grid.shape[0]))
+        return PackedHead(*(NC.kernel_operand(t, wb.device,
+                                              "kuramoto_logits head operand")
+                            for t in (grid.T, la, lb,
+                                      torch.cat(terms, dim=1))))
+
+
+def _fused_launch(omega, K, theta0, packed: PackedHead,
+                  lat: Lattice) -> torch.Tensor:
     """One launch of the fused classifier kernel; counted on
     ``kuramoto_logits``."""
-    grid, wb, sw, la, lb, lw = head
-    _check_head(grid, wb, sw, la, lw, 2 * lat.H * lat.W)
+    F_ = 2 * lat.H * lat.W
+    if packed.knots.shape[1] != F_:
+        raise ValueError(f"kuramoto_logits: the head takes "
+                         f"{packed.knots.shape[1]} features, the lattice "
+                         f"gives {F_}")
     dev, ops = _kernel_args(omega, K, theta0, lat, "kuramoto_logits")
-    with torch.no_grad():
-        packed = [NC.kernel_operand(t, dev, "kuramoto_logits head operand")
-                  for t in _pack_head(grid, wb, sw, la, lb, lw)]
-    B, C = theta0.shape[0], wb.shape[0]
-    n_logistic = 0 if la is None else la.shape[1]
+    if packed.wp.device != dev:
+        raise ValueError(f"kuramoto_logits: the packed head on "
+                         f"{packed.wp.device}, the phases on {dev}")
+    B, C = theta0.shape[0], packed.n_classes
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    NC.launch(_lib().kuramoto_logits, *(NC.ptr(t) for t in ops + packed),
-              NC.ptr(out), B, lat.H, lat.W, lat.steps, lat.dt, n_logistic, C,
-              name="kuramoto_logits", device=dev)
+    NC.launch(_lib().kuramoto_logits, *(NC.ptr(t) for t in ops + [*packed]),
+              NC.ptr(out), B, lat.H, lat.W, lat.steps, lat.dt,
+              packed.n_logistic, C, name="kuramoto_logits", device=dev)
     kuramoto_logits.launches += 1
     return out
 
@@ -326,11 +352,13 @@ class _Logits(torch.autograd.Function):
     through the rollout kernels and differentiates the plain head."""
 
     @staticmethod
-    def forward(ctx, lat, omega, K, theta0, grid, wb, sw, la, lb, lw):
+    def forward(ctx, lat, packed, omega, K, theta0, grid, wb, sw, la, lb,
+                lw):
         ctx.lat = lat
         ctx.save_for_backward(omega, K, theta0, grid, wb, sw, la, lb, lw)
-        return _fused_launch(omega, K, theta0, (grid, wb, sw, la, lb, lw),
-                             lat)
+        if packed is None:
+            packed = pack_head(grid, wb, sw, la, lb, lw)
+        return _fused_launch(omega, K, theta0, packed, lat)
 
     @staticmethod
     def backward(ctx, gout):
@@ -343,7 +371,7 @@ class _Logits(torch.autograd.Function):
             y = head_reference(feat, grid, *head)
         grads = iter(torch.autograd.grad(
             y, lattice + [t for t in head if t is not None], gout))
-        return (None, *(next(grads) for _ in lattice), None,
+        return (None, None, *(next(grads) for _ in lattice), None,
                 *(None if t is None else next(grads) for t in head))
 
 
@@ -351,18 +379,20 @@ def kuramoto_logits(omega: torch.Tensor, K: torch.Tensor,
                     theta0: torch.Tensor, grid: torch.Tensor,
                     wb: torch.Tensor, sw: torch.Tensor,
                     la: Optional[torch.Tensor], lb: Optional[torch.Tensor],
-                    lw: Optional[torch.Tensor], lat: Lattice
-                    ) -> torch.Tensor:
+                    lw: Optional[torch.Tensor], lat: Lattice,
+                    packed: Optional[PackedHead] = None) -> torch.Tensor:
     """The whole classifier, rollout and KANLinear head, as one kernel
     launch on CUDA (differentiable: see ``_Logits``); the plain version for
     CPU tensors.  Operands as ``head_reference`` takes them; ``la``, ``lb``
     and ``lw`` are None without the logistic branch.  The knot grid gets no
-    gradient."""
+    gradient.  ``packed`` is ``pack_head`` of the same head operands, made
+    once while they stay the same; without it the call packs them."""
     _check(omega, K, theta0, lat, "kuramoto_logits")
     if theta0.device.type == "cpu":
         return kuramoto_logits_reference(omega, K, theta0, grid, wb, sw, la,
                                          lb, lw, lat)
-    return _Logits.apply(lat, omega, K, theta0, grid, wb, sw, la, lb, lw)
+    return _Logits.apply(lat, packed, omega, K, theta0, grid, wb, sw, la, lb,
+                         lw)
 
 
 kuramoto_logits.launches = 0

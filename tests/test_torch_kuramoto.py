@@ -240,6 +240,53 @@ def test_logits_match_jax(heads):
                                        atol=5e-5)
 
 
+def test_pack_head_layout(heads):
+    """The fused kernel's head operands: knots and logistic parameters
+    feature-minor, the weights term-major (base, spline, logistic) and
+    feature-minor, all without autograd."""
+    mod = _module(heads["tree"], heads["tspec"])
+    grid, wb, sw, la, lb, lw = TK.head_operands(mod.head)
+    p = KO.pack_head(grid, wb, sw, la, lb, lw)
+    n_coeff, n_l = sw.shape[2], 0 if la is None else la.shape[1]
+    assert (p.n_classes, p.n_logistic) == (10, n_l)
+    assert p.wp.shape == (10, 1 + n_coeff + n_l, 2 * H * W)
+    assert all(t.is_contiguous() and not t.requires_grad for t in p)
+    assert torch.equal(p.knots, grid.T)
+    assert torch.equal(p.wp[:, 0], wb.detach())
+    assert torch.equal(p.wp[:, 1:1 + n_coeff], sw.detach().transpose(1, 2))
+    if n_l:
+        assert torch.equal(p.la, la.detach().T)
+        assert torch.equal(p.lb, lb.detach().T)
+        assert torch.equal(p.wp[:, 1 + n_coeff:], lw.detach().transpose(1, 2))
+    else:
+        assert p.la.shape == p.lb.shape == (0, 2 * H * W)
+
+
+def test_packed_head_made_once_per_weight_version(setup):
+    """Calls without autograd reuse the head's packing until its weights
+    are written: in place (an optimiser step) or by ``load_state_dict``."""
+    mod = _module(setup["tree"], setup["tspec"])
+    ops, packed = TK._packed_head(mod.head)
+    assert TK._packed_head(mod.head)[1] is packed
+    with torch.no_grad():
+        mod.head.base_weight.add_(1.0)
+    _, stepped = TK._packed_head(mod.head)
+    assert stepped is not packed
+    assert torch.equal(stepped.wp[:, 0], mod.head.base_weight.detach())
+    mod.load_state_dict(kuramoto_params_from_numpy(setup["tree"]))
+    _, loaded = TK._packed_head(mod.head)
+    assert loaded is not stepped
+    for a, b in zip(loaded, packed):
+        assert torch.equal(a, b)
+    opt = make_optimizer(1e-2, params=mod.parameters(), kind="adamw")
+    for p in mod.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    _, adamw = TK._packed_head(mod.head)
+    assert adamw is not loaded
+    assert torch.equal(adamw.wp[:, 0], mod.head.base_weight.detach())
+
+
 def test_fused_grads_match_jax(heads):
     """The fused classifier's gradients (the plain version under autograd,
     as the CPU takes it) against ``jax.grad`` of JAX's ``pallas_fused``
@@ -436,6 +483,8 @@ def test_fused_kernel_matches_plain_on_card(heads):
             s["tspec"].lattice)
     with torch.no_grad():
         got = KO.kuramoto_logits(*args)
+        packed = KO.kuramoto_logits(*args, packed=KO.pack_head(*args[3:-1]))
         want = KO.kuramoto_logits_reference(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(packed, got)
