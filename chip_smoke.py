@@ -2,7 +2,8 @@
 
 Drives the port's main paths — predprey KANFET serving and training, ECG
 classification training and serving, ETT forecasting training and
-serving, Kuramoto-MNIST training and serving — on the card and checks
+serving, Kuramoto-MNIST training and serving, conditional-diffusion
+training and serving — on the card and checks
 them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
@@ -121,14 +122,47 @@ order 3 and 8 logistic bases), random weights from a seed with omega =
 22. The serving slice: ``cli.main(["serve", "--source", "mnist", ...])``
     (the fused kernel) with buckets (8, 64, 256), then requests of B = 1,
     30 and 300 through the loaded bundle; they must equal direct calls on
-    the unpadded batch (the images are independent), and the kernel must
-    have launched.
+    the unpadded batch (the images are independent), the kernel must
+    have launched, and the serving function must have packed the head
+    once for all requests.
 23. Timing: each Kuramoto kernel and its plain version at B = 128, 256
     and 1,024 (the fused kernel also at 8 and 64), and one training step
     at B = 128 with the rollout kernels, the fused kernel and the scan.
     A Kuramoto kernel's time is its device time in a profiler trace: back
     to back, the host's launch overhead paces these small kernels, and
     that per-call time is printed beside it.
+
+The conditional-diffusion slice, at the full width of
+``CondDiffusionPreset`` (seq_len 96, pred_len 24, T = 250, batch 64; the
+NODE encoder at C = P = H = 128, dopri5 at rtol 1e-3 / atol 1e-4,
+max_steps 24) and of ``ServePreset``'s cond_diffusion source (kan_node, 7
+features, context 96, pred_len 8, T = 200, 10 samples), random weights
+from a seed, windows of the synthetic series (1,500 steps, 7 columns)
+that ``cli cond_diffusion`` falls back to:
+
+24. The node-encoder kernels (``csrc/node_enc.cu``, B.8) against their
+    plain versions at every batch the path launches: 64 (a training
+    step), 31 and 181 (the validation loss and the test forecast) and
+    8 / 64 / 256 (serving), which phases 25-26 confirm by logging the
+    batch of every launch: the forward, with and without records, at
+    rtol = atol = 1e-3 and the same attempt counts; the backward on the
+    forward kernel's own records against autograd of the plain replay of
+    the same records, relative error < 1e-4 over the nine field / LN
+    gradients, z0bar and the x_seq cotangent, the same bits in two calls;
+    full gradients, each on its own step mesh, cosine > 0.999.
+25. The training slice: ``cli.main(["cond_diffusion", "--denoiser",
+    "kan_fet_all_node" | "kan_node", "--epochs", "1", ...])`` under the
+    default ``solver_mode="auto"``: both kernels of each run must have
+    launched and the losses must be finite.
+26. The serving slice: ``cli.main(["serve", "--source", "cond_diffusion",
+    ...])`` with buckets (8, 64, 256) and ``SERVE_ITERS`` timed calls a
+    window, then requests of B = 1, 30 and 300 through the loaded bundle;
+    they must equal direct calls on the same padded batches (the padding
+    rows share the encoder's step control), and the forward kernel must
+    have launched.
+27. Timing: the node-encoder kernels and their plain versions at B = 64
+    and 256, and one ``kan_fet_all_node`` training step at B = 64,
+    kernels against the eager solve, with its device-busy share.
 
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
@@ -158,7 +192,7 @@ HORIZON = 14.0
 GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
-           "ode_dyn", "ddpm", "kuramoto")
+           "ode_dyn", "ddpm", "kuramoto", "node_enc")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
@@ -169,6 +203,13 @@ DDPM_ROWS = (10, 80, 410, 640, 970, 2560)
 KURA_CHECKS = (128, 1024)
 KURA_LOGITS = (8, 64, 128, 256, 1024)
 KURA_TIMES = (128, 256, 1024)
+# The conditional-diffusion path's node-encoder batches (phase 24): 64 (a
+# training step), 31 and 181 (the validation loss and the test forecast
+# on the synthetic stand-in), 8 / 64 / 256 (serving).
+NODE_ENC_CHECKS = (8, 31, 64, 181, 256)
+# Timed calls per window of the cond_diffusion serving bench (3 windows a
+# bucket): each call runs 10 reverse chains of 200 steps.
+SERVE_ITERS = 3
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -493,7 +534,7 @@ def ferro_case(params, spec, noise):
 
 
 def check_node_kernels(case, h0, hbar, backward=True):
-    """Phases 9-10 and 14 at one batch: both forward kernels against the
+    """Phases 9-10, 14 and 24 at one batch: both forward kernels against the
     plain recording solve (values and attempts) and, with ``backward``,
     the backward kernel against autograd of the plain replay on the
     kernel's records, and full gradients on own meshes."""
@@ -549,7 +590,7 @@ def check_node_kernels(case, h0, hbar, backward=True):
 
 
 def time_node_kernels(case, h0, hbar, smi, plain=True):
-    """Phases 13 and 18 at one batch: CUDA-event ms of the forward kernel
+    """Phases 13, 18 and 27 at one batch: CUDA-event ms of the forward kernel
     with and without records, the backward kernel, and (``plain``) the
     plain recording solve and the plain replay's autograd."""
     B = h0.shape[0]
@@ -1325,11 +1366,20 @@ def kuramoto_phases(device, smi):
         sparams, sfn, _ = cli.mnist_serving(cfg, device)
         sv = load_servable(sresult["bundle"], sfn, sparams)
         reqs = {b: cases[1024]["x"][:b] for b in (1, 30, 300)}
-        served = {b: sv.predict(x) for b, x in reqs.items()}
+        # The serving function packs the head once, not per request.
+        packs, pack_head = [], KO.pack_head
+        KO.pack_head = lambda *a: packs.append(1) or pack_head(*a)
+        try:
+            served = {b: sv.predict(x) for b, x in reqs.items()}
+        finally:
+            KO.pack_head = pack_head
         torch.cuda.synchronize()
         counts = [f.launches for f in kernels]
         if counts[2] < 1:
             fail(f"serve --source mnist: launches {counts}")
+        if len(packs) != 1:
+            fail(f"serve --source mnist: the head was packed {len(packs)} "
+                 f"times over {counts[2]} served calls, not once")
         launches = [a + b for a, b in zip(launches, counts)]
         with torch.no_grad():
             for b, x in reqs.items():
@@ -1341,7 +1391,8 @@ def kuramoto_phases(device, smi):
                          "from a direct call on the unpadded batch")
         wall, busy, top = profile_ms(lambda: sv.predict(cases[8]["x"]).cpu())
     print(f"serve mnist: B=1/30/300 through the bundle = direct calls on the "
-          f"unpadded batches; launches {counts}; profile bucket 8: wall "
+          f"unpadded batches, the head packed once; launches {counts}; "
+          f"profile bucket 8: wall "
           f"{wall:.4f} ms, device busy {busy:.4f} ms "
           f"({100 * busy / wall:.1f}%), top "
           f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
@@ -1400,6 +1451,284 @@ def kuramoto_phases(device, smi):
               f"({100 * busy / wall:.1f}%), top "
               f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
     return checks, logit_errs, times, launches
+
+# ------------------------------------------------------ cond diffusion
+
+
+def node_enc_counts(B, C, P, H, L, recs, kind):
+    """(FP32, SFU, bytes) of a node-encoder kernel call: ``fwd`` (2 + 6
+    per attempt field evaluations of four products (2 B (C H + P H + H H
+    + H C)), the layer norm, the x(t) lerp and 2 B H SiLUs; the step
+    arithmetic, the dense output at t = 1 and, with records, the records)
+    or ``bwd`` (per accepted attempt 6 field VJPs, 7 in the step that
+    reaches t = 1: the hidden layers again and eight products, the SiLU
+    derivatives, the LN backward and the two-row scatter)."""
+    N = B * C
+    n_att = int(recs.misc[0])
+    tda = recs.tda[:n_att].cpu().numpy()
+    n_acc = int(tda[:, 1].sum())
+    n_par = 2 * C + H * (C + P) + H + H * H + H + C * H + C
+    rec_floats = n_att * (4 + 8 * N) + 4
+    table = L * B * P
+    hidden = (2 * B * (C * H + P * H + H * H) + 8 * N + 3 * B * P
+              + 2 * B * H * (SIG[0] + 2), 2 * B * H * SIG[1])
+    ev = (hidden[0] + 2 * B * H * C + N, hidden[1])
+    if kind == "fwd":
+        n = 2 + 6 * n_att
+        return (n * ev[0] + N * (80 * n_att + 40), n * ev[1],
+                4 * (N + table + 2 + n_par + N + rec_floats))
+    n_vjp = 6 * n_acc + 1
+    vjp = (hidden[0] + 4 * B * (2 * C * H + H * H + H * P)
+           + 2 * B * H * 4 + 10 * N + 4 * B * P, hidden[1])
+    return (n_vjp * vjp[0] + N * 100 * n_acc, n_vjp * vjp[1],
+            4 * (N + 2 + rec_floats + table + 2 * n_par + table + N))
+
+
+def cond_windows():
+    """The past windows (96 steps of 7 columns) of every split of the
+    synthetic series that ``cli cond_diffusion`` falls back to, as one
+    array: 931 train, 31 validation and 181 test windows."""
+    from fetode_tpu_torch.data.timeseries import (
+        make_windows,
+        split_time_series,
+        standardize_fit,
+        synthetic_series,
+    )
+
+    X, _ = synthetic_series(n=1500, n_features=6)
+    splits = split_time_series(len(X))
+    Xs = standardize_fit(X[splits[0]]).apply(X)
+    return np.concatenate([make_windows(Xs[sl], Xs[sl][:, -1], 96, 24)[0]
+                           for sl in splits])
+
+
+def node_enc_case(enc, cfg, x_seq):
+    """B.8's kernels for one batch's projected past ``x_seq`` as closures,
+    with their plain versions, weights and operation counts (the
+    ``check_node_kernels`` / ``time_node_kernels`` contract): the x_seq
+    cotangent comes last among the gradients, and the full gradients are
+    taken of the field / LN tensors and of x_seq."""
+    from fetode_tpu_torch.ops import node_common as NC
+    from fetode_tpu_torch.ops import node_enc as NE
+
+    w = NE.field_weights(enc)
+    x = x_seq.detach().requires_grad_(True)
+    ts = NE._ts(x_seq.device)
+    _, L, P = x_seq.shape
+
+    def bwd(z0, recs, ct):
+        grads, z0bar, xbar = NE.node_enc_bwd(w, z0, x_seq, recs, ct)
+        return list(grads) + [xbar], z0bar
+
+    def plain_bwd(z0, recs, ct):
+        # autograd of the plain replay, x_seq a leaf among the weights
+        leaves = [t.detach().requires_grad_(True) for t in w + [x_seq]]
+        ybar = torch.stack([torch.zeros_like(ct), ct])
+        return NC.replay_traj_vjp_reference(
+            NE.node_enc_field(leaves[:-1], leaves[-1]), leaves, z0, ts,
+            recs, ybar)
+
+    def plain_fwd(z0):
+        traj, recs = NC.record_solve_traj_reference(
+            NE.node_enc_field(w, x_seq), z0, ts, max_steps=cfg.max_steps)
+        return traj[1], recs
+
+    return dict(
+        name="node_enc",
+        fwd=lambda z0, record=True: NE.node_enc_fwd(w, z0, x_seq,
+                                                    record=record),
+        bwd=bwd,
+        solve=lambda z0: NE.node_enc_solve(enc, cfg, z0, x),
+        plain_fwd=plain_fwd,
+        plain_bwd=plain_bwd,
+        plain_solve=lambda z0: NC.solve_traj_reference(
+            NE.node_enc_field(NE.field_weights(enc), x), z0, ts,
+            max_steps=cfg.max_steps)[1],
+        weights=[enc.ln_scale, enc.ln_bias] + [
+            t for layer in enc.field for t in (layer.w, layer.b)] + [x],
+        counts=lambda B, recs, kind: node_enc_counts(
+            B, cfg.cond_dim, P, cfg.ode_hidden, L, recs, kind))
+
+
+def log_batches(module, names, batches):
+    """Wrap ``module``'s launchers so that each call records the batch it
+    launches at into ``batches``; ``names`` maps a launcher's name to the
+    position of its argument whose first axis is the batch.  Returns the
+    undo."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def launch(*args, **kw):
+            batches.add((n, args[names[n]].shape[0]))
+            return fn(*args, **kw)
+        return launch
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def cond_diffusion_phases(device, smi):
+    """Phases 24-27, the conditional-diffusion slice: returns the kernel
+    checks, the timings and the kernels' launches on the training and
+    serving paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.models import cond_diffusion as CD
+    from fetode_tpu_torch.nn.diffusion import make_schedule
+    from fetode_tpu_torch.ops import node_enc as NE
+    from fetode_tpu_torch.serve import load_servable
+    from fetode_tpu_torch.train import cond_diffusion_driver as drv
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    wins = cond_windows()
+    rng_c = np.random.default_rng(6)
+
+    def xs(b, off=0):
+        return torch.from_numpy(wins[(off + np.arange(b)) % len(wins)]).to(
+            device)
+
+    # ---- 24. B.8 against plain, at the encoder's width
+    cfg = CD.NodeEncoderCfg(d_in=wins.shape[2])
+    enc = CD.node_encoder_init(torch.Generator().manual_seed(0), cfg,
+                               device=device)
+    inputs, cases, checks = {}, {}, {}
+    for b in NODE_ENC_CHECKS:
+        with torch.no_grad():
+            x_seq = xs(b, 13 * b) @ enc.x_proj_w.T + enc.x_proj_b
+            z0 = x_seq[:, 0] @ enc.z0_w.T + enc.z0_b
+        ct = torch.from_numpy(rng_c.standard_normal(
+            (b, cfg.cond_dim)).astype(np.float32)).to(device)
+        inputs[b], cases[b] = (z0, ct), node_enc_case(enc, cfg, x_seq)
+        checks[b] = check_node_kernels(cases[b], z0, ct)
+        # the x_seq cotangent on its own, and the same bits in two calls
+        with torch.no_grad():
+            _, recs = cases[b]["fwd"](z0)
+        got = [cases[b]["bwd"](z0, recs, ct) for _ in range(2)]
+        want, _ = cases[b]["plain_bwd"](z0, recs, ct)
+        torch.cuda.synchronize()
+        x_rel = rel_err(got[0][0][-1], want[-1])
+        if not x_rel < GRAD_TOL:
+            fail(f"node_enc B={b}: x_seq cotangent rel {x_rel:.3e}")
+        if not all(torch.equal(p, q) for p, q in zip(
+                got[0][0] + [got[0][1]], got[1][0] + [got[1][1]])):
+            fail(f"node_enc B={b}: the backward kernel's gradients differ "
+                 "between two calls")
+        print(f"node_enc B={b}: x_seq cotangent rel {x_rel:.3e}; the same "
+              "bits in two calls")
+
+    # ---- 25. the training slice, through the CLI
+    kernels = (NE.node_enc_fwd, NE.node_enc_bwd)
+    launches = [0, 0]
+    batches = set()
+    undo = log_batches(NE, {"_launch_fwd": 1, "_launch_bwd": 2}, batches)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for denoiser in ("kan_fet_all_node", "kan_node"):
+                for f in kernels:
+                    f.launches = 0
+                t0 = time.perf_counter()
+                res = cli.main(["cond_diffusion", "--denoiser", denoiser,
+                                "--device", "cuda", "--epochs", "1",
+                                "--out-dir", tmp])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = [f.launches for f in kernels]
+                if min(counts) < 1:
+                    fail(f"cli cond_diffusion --denoiser {denoiser}: kernel "
+                         f"launches {counts}")
+                curves = res["train_curve"] + res["val_curve"] + [
+                    res["test_mse"], res["test_mae"]]
+                if not np.isfinite(curves).all():
+                    fail(f"cli cond_diffusion --denoiser {denoiser}: "
+                         f"non-finite losses {curves}")
+                launches = [a + b for a, b in zip(launches, counts)]
+                print(f"cli cond_diffusion --denoiser {denoiser} (1 epoch, "
+                      f"auto): train {res['train_curve']}, val "
+                      f"{res['val_curve']}, test MSE {res['test_mse']:.5f} "
+                      f"MAE {res['test_mae']:.5f}; training "
+                      f"{res['wall_seconds']:.2f} s, whole run {wall:.2f} s;"
+                      f" launches (node_enc fwd, bwd) {counts} ({smi})")
+
+        # ---- 26. the serving slice, through the CLI
+        reqs = {b: xs(b, 3 * b) for b in (1, 30, 300)}
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["serve", "--source", "cond_diffusion", "--device", "cuda",
+                    "--buckets", "8,64,256", "--iters", str(SERVE_ITERS),
+                    "--out-dir", tmp]
+            for f in kernels:
+                f.launches = 0
+            t0 = time.perf_counter()
+            sresult = cli.main(argv)
+            serve_wall = time.perf_counter() - t0
+            cfg_s = make_config("serve", cli._parse(argv)[1])
+            sparams, sfn, _ = cli.SERVING["cond_diffusion"](cfg_s, device)
+            sv = load_servable(sresult["bundle"], sfn, sparams)
+            served = {b: sv.predict(x) for b, x in reqs.items()}
+            torch.cuda.synchronize()
+            counts = [f.launches for f in kernels]
+            if counts[0] < 1 or counts[1]:
+                fail(f"serve --source cond_diffusion: kernel launches "
+                     f"{counts}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            check_served(sv, sfn, reqs, served, "serve cond_diffusion")
+            wall, busy, top = profile_ms(lambda: sv.predict(xs(8)).cpu(), 2)
+    finally:
+        undo()
+    seen = sorted(b for _, b in batches)
+    if not set(seen) <= set(NODE_ENC_CHECKS):
+        fail(f"the path launched node_enc at batches {seen}, phase 24 "
+             f"checked {list(NODE_ENC_CHECKS)}")
+    print(f"node_enc launches on the path at batches "
+          f"{sorted(batches)}; all checked in phase 24")
+    print(f"serve cond_diffusion: B=1/30/300 through the bundle = direct "
+          f"calls on the padded batches; launches {counts}; the CLI call "
+          f"{serve_wall:.2f} s; profile bucket 8: wall {wall:.4f} ms, device"
+          f" busy {busy:.4f} ms ({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    for row in sresult["bench"]:
+        print(f"  serve cond_diffusion bucket {row['batch']}: p50 "
+              f"{row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms, window "
+              f"p50s {['%.4f' % w for w in row['window_p50_ms']]} "
+              f"({row['windows']} x {row['iters']} calls) ({smi})")
+
+    # ---- 27. timing: kernels and plain, a training step
+    times = {b: time_node_kernels(cases[b], *inputs[b], smi)
+             for b in (64, 256)}
+
+    spec = CD.make_denoiser_spec("kan_fet_all_node", d_in=wins.shape[2],
+                                 pred_len=24)
+    params = CD.cond_denoiser_init(torch.Generator().manual_seed(0), spec,
+                                   device=device)
+    sched = make_schedule(250, device=device)
+    past = xs(64)
+    fut = torch.from_numpy(rng_c.standard_normal((64, 24, 7)).astype(
+        np.float32)).to(device)
+
+    def step_fn(mode):
+        p = copy.deepcopy(params)
+        state = init_state(p, make_optimizer(
+            0.0, params=p.parameters(), kind="adamw", weight_decay=1e-4,
+            grad_clip=1.0))
+        s = spec._replace(solver_mode=mode)
+
+        def loss(q, xb, yb):
+            g = torch.Generator(device=device).manual_seed(0)
+            return drv.cond_diffusion_loss(q, s, sched, xb, yb, g)
+        step = make_train_step(loss)
+        return lambda: step(state, past, fut)
+
+    step_k = step_fn("auto")
+    kernel = cuda_ms(step_k, 5)
+    eager = cuda_ms(step_fn("scan"), 1)
+    wall, busy, top = profile_ms(step_k)
+    times["step"] = dict(kernel=kernel, eager=eager, wall=wall, busy=busy)
+    print(f"time cond_diffusion training step kan_fet_all_node B=64: "
+          f"kernels {kernel:.4f} ms, eager scan solve {eager:.3f} ms; "
+          f"profiled: wall {wall:.4f} ms, device busy {busy:.4f} ms "
+          f"({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    return checks, times, launches
 
 
 def main():
@@ -1628,17 +1957,20 @@ def main():
                                                                      smi)
     kura_checks, kura_errs, kura_times, kura_launches = kuramoto_phases(
         device, smi)
+    enc_checks, enc_times, enc_launches = cond_diffusion_phases(device, smi)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
-    # rollout at the training batch 128 and the fused classifier at the
-    # largest serving bucket, 256
+    # rollout at the training batch 128, the fused classifier at the
+    # largest serving bucket, 256, and the node encoder at the training
+    # batch 64
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
                                            max_steps=spec.max_steps, **kw)
     lt, ft = ecg_times[("logistic", 8)], ecg_times[("ferro", 8)]
     kt, kl = kura_times[128], kura_times[256]
+    et = enc_times[64]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -1708,6 +2040,16 @@ def main():
                      "fetode_tpu/ops/pallas_kuramoto.py:471",
                      kura_launches[2], max(kura_errs.values()),
                      kl["logits"], kl["plain_logits"], kl["bound_logits"]),
+        kernel_entry("node_enc_fwd", "fetode_tpu_torch/csrc/node_enc.cu",
+                     "fetode_tpu/ops/pallas_node_enc.py:196",
+                     enc_launches[0],
+                     max(c["fwd_err"] for c in enc_checks.values()),
+                     et["fwd"], et["plain_fwd"], et["bound_fwd"]),
+        kernel_entry("node_enc_bwd", "fetode_tpu_torch/csrc/node_enc.cu",
+                     "fetode_tpu/ops/pallas_node_enc.py:217",
+                     enc_launches[1],
+                     max(c["g_abs"] for c in enc_checks.values()),
+                     et["bwd"], et["plain_bwd"], et["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,15 +15,22 @@ CLI, so one command line drives either package.  Ported so far:
   ``diffusion`` or ``kan_diffusion`` (``train/forecast_driver.py``), on
   the ETT CSV when ``$FETODE_DATA_DIR`` holds it, else on the synthetic
   stand-in, and reports the test MSE and the wall seconds.
+* ``cond_diffusion`` — trains a conditional-diffusion forecaster, one of
+  the five denoisers (``--denoiser``, default ``kan_fet_all_node``;
+  ``train/cond_diffusion_driver.py``), on the ETT CSV when
+  ``$FETODE_DATA_DIR`` holds it, else on the synthetic stand-in, and
+  reports the last validation loss and the test MSE / MAE of the sample
+  mean.
 * ``mnist`` — trains the Kuramoto-lattice KAN classifier
   (``models/kuramoto.py``) on the MNIST idx files when they are found,
   else on synthetic digits, and reports the test accuracy.
 * ``serve --source ecg`` (the default source), ``predprey``, ``ett``,
-  ``ddpm`` and ``mnist`` — builds the model, exports a serving bundle,
-  loads it back and reports p50/p99 latency per batch bucket.
+  ``ddpm``, ``cond_diffusion`` and ``mnist`` — builds the model, exports
+  a serving bundle, loads it back and reports p50/p99 latency per batch
+  bucket.
 
-The other workloads and serve sources raise an error naming the ROADMAP
-item that ports them.  ``--device cuda`` (the default) without CUDA
+The other workloads raise an error naming the ROADMAP item that ports
+them.  ``--device cuda`` (the default) without CUDA
 raises; nothing falls back to the CPU.
 """
 
@@ -45,11 +52,7 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 _WORKLOAD_TODO = {
     "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs, data/multimodal.py and "
                "the kanrnn encoder of A.7)",
-    "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
     "symbolic": "ROADMAP A.10 (symbolic regression)",
-}
-_SOURCE_TODO = {
-    "cond_diffusion": "ROADMAP A.9 (conditional diffusion)",
 }
 
 
@@ -251,6 +254,69 @@ def run_ett(cfg, out_dir, plots):
             "train_curve": hist["train"], "val_curve": hist["val"]}
 
 
+def run_cond_diffusion(cfg, out_dir, plots):
+    """Train a conditional-diffusion forecaster on the ETT CSV when it is
+    found, else on the synthetic stand-in; the test forecast MSE / MAE of
+    the sample mean over the first (at most) 256 test windows."""
+    import numpy as np
+
+    from fetode_tpu_torch.data.timeseries import (
+        load_ett_csv,
+        make_windows,
+        split_time_series,
+        standardize_fit,
+        synthetic_series,
+        window_gather,
+    )
+    from fetode_tpu_torch.models.cond_diffusion import make_denoiser_spec
+    from fetode_tpu_torch.train.cond_diffusion_driver import (
+        CondDiffusionRun,
+        evaluate_forecast,
+        train_conditional_diffusion,
+    )
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    device = resolve_device(cfg.device)
+    try:
+        X, _, _ = load_ett_csv(name=cfg.dataset)
+    except FileNotFoundError:
+        print("ETT csv not found; using synthetic stand-in")
+        X, _ = synthetic_series(n=1500, n_features=6)
+    tr, va, te = split_time_series(len(X))
+    Xs = standardize_fit(X[tr]).apply(X)
+    data = {}
+    for name, sl in (("train", tr), ("val", va), ("test", te)):
+        past, _ = make_windows(Xs[sl], Xs[sl][:, -1], cfg.seq_len,
+                               cfg.pred_len)
+        starts = np.arange(len(past), dtype=np.int64) + cfg.seq_len
+        data[name] = (past, window_gather(Xs[sl], starts, cfg.pred_len))
+    spec = make_denoiser_spec(cfg.denoiser, d_in=Xs.shape[1],
+                              pred_len=cfg.pred_len, seq_len=cfg.seq_len,
+                              solver_mode=cfg.solver_mode)
+    run = CondDiffusionRun(seq_len=cfg.seq_len, pred_len=cfg.pred_len,
+                           diff_T=cfg.diff_t, epochs=cfg.epochs,
+                           batch_size=cfg.batch_size, lr=cfg.lr,
+                           eval_samples=cfg.eval_samples, seed=cfg.seed,
+                           mesh_devices=cfg.mesh_devices,
+                           mesh_model=cfg.mesh_model, ckpt_dir=cfg.ckpt_dir,
+                           ckpt_every=cfg.ckpt_every, resume=cfg.resume,
+                           aot_cache=cfg.aot_cache, device=cfg.device)
+    params, hist = train_conditional_diffusion(
+        spec, data, run, log=lambda m: print(m, flush=True))
+    past_te, fut_te = data["test"]
+    n_eval = min(len(past_te), 256)
+    ev = evaluate_forecast(params, spec, run, past_te[:n_eval],
+                           fut_te[:n_eval],
+                           torch.Generator(device=device).manual_seed(
+                               cfg.seed + 1))
+    return {"final_val": hist["val"][-1], "test_mse": ev["mse"],
+            "test_mae": ev["mae"], "train_curve": hist["train"],
+            "val_curve": hist["val"], "wall_seconds": hist["wall_seconds"]}
+
+
 def _mnist_data():
     """Train and test (images, labels): the MNIST train and t10k files,
     else an 80/20 split of t10k, else synthetic digits (512 / 128), as
@@ -335,19 +401,28 @@ def run_mnist(cfg, out_dir, plots):
 def mnist_serving(cfg, device: torch.device):
     """The MNIST serving function: ``(params, fn, example)`` with a fresh
     Kuramoto classifier from ``cfg.seed`` under ``cfg.rollout`` and
-    ``fn(params, x) -> (B, 10)`` logits of ``(B, 28, 28)`` images."""
+    ``fn(params, x) -> (B, 10)`` logits of ``(B, 28, 28)`` images.  Under
+    the fused rollout ``fn`` packs the head of the module it serves on its
+    first call and passes that packing to every later call of the same
+    module: served weights stay as they were loaded."""
     from fetode_tpu_torch.models.kuramoto import (
         KuramotoSpec,
         kuramoto_init,
         kuramoto_kan_apply,
+        packed_head,
     )
 
     spec = KuramotoSpec(rollout=cfg.rollout)
     params = kuramoto_init(torch.Generator().manual_seed(cfg.seed), spec,
                            device=device)
+    served = {}
 
     def fn(p, x):
-        return kuramoto_kan_apply(p, spec, x)
+        if spec.rollout != "pallas_fused":
+            return kuramoto_kan_apply(p, spec, x)
+        if served.get("params") is not p:
+            served.update(params=p, packed=packed_head(p.head))
+        return kuramoto_kan_apply(p, spec, x, packed=served["packed"])
     example = torch.zeros((1, spec.H, spec.W), dtype=torch.float32,
                           device=device)
     return params, fn, example
@@ -453,8 +528,39 @@ def predprey_serving(cfg, device: torch.device):
     return params, fn, example
 
 
+def cond_diffusion_serving(cfg, device: torch.device):
+    """The conditional-diffusion serving function: ``(params, fn,
+    example)`` with a fresh ``cfg.denoiser`` from ``cfg.seed``; ``fn(params,
+    past)`` is the mean (B, pred_len, num_features) of ``cfg.n_samples``
+    reverse chains of ``cfg.diff_t`` steps on the conditioning encoded once,
+    drawn from a generator seeded ``cfg.seed + 1`` on every call, so a
+    forecast is deterministic."""
+    from fetode_tpu_torch.models.cond_diffusion import (
+        cond_denoiser_init,
+        make_denoiser_spec,
+    )
+    from fetode_tpu_torch.nn.diffusion import make_schedule
+    from fetode_tpu_torch.train.cond_diffusion_driver import sample_forecasts
+
+    spec = make_denoiser_spec(cfg.denoiser, d_in=cfg.num_features,
+                              pred_len=cfg.pred_len, seq_len=cfg.context_len,
+                              solver_mode=cfg.solver_mode)
+    sched = make_schedule(cfg.diff_t, device=device)
+    params = cond_denoiser_init(torch.Generator().manual_seed(cfg.seed), spec,
+                                device=device)
+
+    def fn(p, past):
+        g = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        return sample_forecasts(p, spec, sched, past, g,
+                                n_samples=cfg.n_samples).mean(0)
+    example = torch.zeros((1, cfg.context_len, cfg.num_features),
+                          dtype=torch.float32, device=device)
+    return params, fn, example
+
+
 SERVING = {"ecg": ecg_serving, "predprey": predprey_serving,
-           "ett": ett_serving, "ddpm": ddpm_serving, "mnist": mnist_serving}
+           "ett": ett_serving, "ddpm": ddpm_serving,
+           "cond_diffusion": cond_diffusion_serving, "mnist": mnist_serving}
 
 
 def run_serve(cfg, out_dir, plots):
@@ -463,9 +569,8 @@ def run_serve(cfg, out_dir, plots):
     from fetode_tpu_torch.utils.device import resolve_device
 
     if cfg.source not in SERVING:
-        raise NotImplementedError(
-            f"serve source {cfg.source!r} is not ported yet: "
-            f"{_SOURCE_TODO.get(cfg.source, 'unknown source')}")
+        raise ValueError(f"unknown serve source {cfg.source!r}; ported: "
+                         f"{sorted(SERVING)}")
     if cfg.ckpt_dir:
         raise NotImplementedError("serving a training checkpoint needs "
                                   "checkpoint/resume: ROADMAP A.5 "
@@ -501,6 +606,7 @@ RUNNERS = {
     "predprey": run_predprey,
     "ecg": run_ecg,
     "ett": run_ett,
+    "cond_diffusion": run_cond_diffusion,
     "mnist": run_mnist,
     "serve": run_serve,
 }

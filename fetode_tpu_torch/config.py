@@ -1,9 +1,10 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Ported: the ``predprey``, ``ecg``, ``ett``, ``mnist`` and ``serve``
-presets; their field names are the JAX package's, so one command line
-drives either package.  The port adds ``device``.
+Ported: the ``predprey``, ``ecg``, ``ett``, ``cond_diffusion``,
+``mnist`` and ``serve`` presets; their field names are the JAX
+package's, so one command line drives either package.  The port adds
+``device``.
 The other workloads' presets arrive with their slices.
 """
 
@@ -133,6 +134,39 @@ class ETTPreset:
 
 
 @dataclass
+class CondDiffusionPreset:
+    """kan_diffusion_ett.py:870-924 (seq 96, pred 24, T=250, batch 64,
+    AdamW 2e-4, five denoiser variants)."""
+
+    dataset: str = "ETTh1"
+    # mlp, kan, kan_fet_linear_ode, kan_node or kan_fet_all_node
+    denoiser: str = "kan_fet_all_node"
+    seq_len: int = 96
+    pred_len: int = 24
+    diff_t: int = 250
+    batch_size: int = 64
+    epochs: int = 10
+    lr: float = 2e-4
+    eval_samples: int = 10
+    # The NODE encoder's solve (kan_node, kan_fet_all_node): "auto" (the
+    # kernels of ops/node_enc.py on CUDA, the eager solve on the CPU),
+    # "scan", "while", or "pallas" (the kernels; CUDA only).  Evaluation
+    # on the card runs the forward kernel without records.
+    solver_mode: str = "auto"
+    # Not ported yet (CondDiffusionRun refuses any other value, naming
+    # the ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    mesh_devices: int = 0
+    mesh_model: int = 1
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    resume: bool = False
+    aot_cache: str = ""
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class MNISTPreset:
     """mnist_kuramoto_kan.py:210-247 (10 Kuramoto steps dt 0.15,
     3 epochs, batch 128, AdamW 1e-3)."""
@@ -163,7 +197,9 @@ class ServePreset:
     # What to serve.  Ported: "ecg" (the KanFetNODE classifier),
     # "predprey" (batched trajectory solve), "ett" (the latent-ODE point
     # forecaster), "ddpm" (the mean of n_samples reverse chains of the
-    # diffusion forecaster) and "mnist" (the Kuramoto classifier).
+    # diffusion forecaster), "cond_diffusion" (the mean of n_samples
+    # reverse chains of a conditional denoiser, the conditioning encoded
+    # once) and "mnist" (the Kuramoto classifier).
     source: str = "ecg"
     # Batch buckets (requests pad up / chunk down at serve time).
     buckets: tuple = (8, 64, 256)
@@ -184,19 +220,21 @@ class ServePreset:
     solver_mode: str = "auto"
     rtol: float = 1e-2
     atol: float = 1e-3
-    # ETT and ddpm source hypers (latent_dim above; the forecaster specs'
-    # own tolerances, rtol 1e-3 / atol 1e-4)
+    # ETT, ddpm and cond_diffusion source hypers (ETT and ddpm also take
+    # latent_dim above; the specs' own tolerances, rtol 1e-3 / atol 1e-4)
     num_features: int = 7
     context_len: int = 96
     pred_len: int = 8
     # predprey source: serve trajectories over linspace(0, horizon, n_points)
     horizon: float = 14.0
     n_points: int = 140
-    # ddpm source: the forecast is the mean of n_samples reverse chains of
-    # diff_t steps, drawn from a generator seeded seed + 1 on every call.
+    # ddpm and cond_diffusion sources: the forecast is the mean of
+    # n_samples reverse chains of diff_t steps, drawn from a generator
+    # seeded seed + 1 on every call.
     n_samples: int = 10
     diff_t: int = 200
-    # cond_diffusion source
+    # cond_diffusion source: which of the five denoiser variants to serve
+    # (its node encoder takes solver_mode above).
     denoiser: str = "kan_node"
     # mnist source: the rollout of KuramotoSpec ("pallas_fused", the fused
     # rollout + head kernel, is the serving path; "scan", "pallas", "auto")
@@ -210,6 +248,7 @@ PRESETS = {
     "predprey": PredPreyPreset,
     "ecg": ECGPreset,
     "ett": ETTPreset,
+    "cond_diffusion": CondDiffusionPreset,
     "mnist": MNISTPreset,
     "serve": ServePreset,
 }

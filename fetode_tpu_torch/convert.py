@@ -18,6 +18,12 @@ paths of that tree (``field_mixer.a``, ``fc1.k``):
 the same way (``kuramoto_params_{from,to}_numpy``,
 ``kuramoto_grads_to_numpy``).
 
+A conditional denoiser's tree (``encoder``: the conv dict or the node
+dict with its ``field`` MLP list; ``net``: an MLP or KAN layer list) maps
+to ``encoder.<key>`` / ``encoder.field.<i>.w`` and ``net.<i>.w`` or
+``net.layers.<i>.<name>`` (``cond_diffusion_params_{from,to}_numpy``,
+``cond_diffusion_grads_to_numpy``).
+
 Everything converts to float32 unless asked otherwise: the JAX package's
 tests run with x64 on, and the port works in float32 throughout.
 ``grads_to_numpy`` maps a module's gradients onto the JAX tree, so tests
@@ -203,3 +209,67 @@ def kuramoto_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """A ``KuramotoKAN``'s ``.grad``s -> the JAX gradient tree; the knot
     grid (a buffer) and a parameter without a gradient get zeros."""
     return _kuramoto_nest(_grads_or_zeros(module, buffers=True), dtype)
+
+
+# ------------------------------------------------- conditional diffusion
+
+
+def _net_prefix(layers: List[Any]) -> str:
+    return "net.layers." if _is_kan(layers) else "net."
+
+
+def cond_diffusion_params_from_numpy(tree: Dict[str, Any], device=None,
+                                     dtype=np.float32
+                                     ) -> Dict[str, torch.Tensor]:
+    """A conditional denoiser's JAX param tree (``cond_denoiser_init``) ->
+    a ``state_dict`` for its port module (``models/cond_diffusion.py``):
+    either encoder, the MLP, KAN or KANFET net (its ferro tensors
+    included)."""
+    flat: Dict[str, Any] = {}
+    enc = dict(tree["encoder"])
+    for i, layer in enumerate(enc.pop("field", [])):
+        _flatten(f"encoder.field.{i}.", layer, flat)
+    _flatten("encoder.", enc, flat)
+    for i, layer in enumerate(tree["net"]):
+        _flatten(f"{_net_prefix(tree['net'])}{i}.", layer, flat)
+    return {k: torch.as_tensor(np.array(v, dtype=dtype), device=device)
+            for k, v in flat.items()}
+
+
+def _cond_diffusion_nest(flat: Dict[str, torch.Tensor],
+                         dtype) -> Dict[str, Any]:
+    enc: Dict[str, Any] = {}
+    field: Dict[int, Dict[str, Any]] = {}
+    net: Dict[int, Dict[str, Any]] = {}
+    for key, value in flat.items():
+        part, *path = key.split(".")
+        if part == "encoder" and path[0] == "field":
+            node, path = field.setdefault(int(path[1]), {}), path[2:]
+        elif part == "encoder":
+            node = enc
+        else:
+            if path[0] == "layers":
+                path = path[1:]
+            node, path = net.setdefault(int(path[0]), {}), path[1:]
+            if path == ["grid"]:
+                path = ["_buffers", "grid"]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value.detach().cpu().numpy().astype(dtype)
+    if field:
+        enc["field"] = [field[i] for i in sorted(field)]
+    return {"encoder": enc, "net": [net[i] for i in sorted(net)]}
+
+
+def cond_diffusion_params_to_numpy(module, dtype=np.float32
+                                   ) -> Dict[str, Any]:
+    """The inverse: a conditional denoiser's port module -> the JAX param
+    tree."""
+    return _cond_diffusion_nest(module.state_dict(), dtype)
+
+
+def cond_diffusion_grads_to_numpy(module, dtype=np.float32
+                                  ) -> Dict[str, Any]:
+    """A conditional denoiser's ``.grad``s -> the JAX gradient tree; a KAN
+    grid (a buffer) and a parameter without a gradient get zeros."""
+    return _cond_diffusion_nest(_grads_or_zeros(module, buffers=True), dtype)

@@ -6,8 +6,10 @@ gather (the JAX package's ``data/native.py: window_gather`` without its
 C++ runtime); ``window_batches`` shuffles with the port's
 ``epoch_batches`` (``data/ecg200.py``).  ``load_ett_csv`` reads the CSV
 with numpy and keeps its numeric columns, so it needs no pandas.
-``synthetic_series`` is the stand-in the CLI uses when the ETT files are
-absent.  The Time-MMD loader waits for ROADMAP A.8's Time-MMD remainder.
+``window_gather`` cuts windows at given starts (the conditional-diffusion
+futures).  ``synthetic_series`` is the stand-in the CLI uses when the ETT
+files are absent.  The Time-MMD loader waits for ROADMAP A.8's Time-MMD
+remainder.
 """
 
 from __future__ import annotations
@@ -73,6 +75,14 @@ def make_windows(X: np.ndarray, y: np.ndarray, context_len: int,
     starts = np.arange(m)[:, None]
     return (X[starts + np.arange(context_len)[None, :]],
             y[starts + context_len + np.arange(pred_len)[None, :]])
+
+
+def window_gather(X: np.ndarray, starts: np.ndarray, ctx: int) -> np.ndarray:
+    """(n, f) array + m start indices -> (m, ctx, f) windows (the numpy
+    form of ``fetode_tpu/data/native.py: window_gather``)."""
+    X = np.ascontiguousarray(X, np.float32)
+    starts = np.ascontiguousarray(starts, np.int64)
+    return X[starts[:, None] + np.arange(ctx)[None, :]]
 
 
 def window_batches(x_ctx: np.ndarray, y_fut: np.ndarray, batch_size: int,

@@ -124,38 +124,29 @@ def head_operands(head: KANLinear):
     return head.grid, head.base_weight, sw, lg.a, lg.b, lw
 
 
-def _packed_head(head: KANLinear):
-    """``head_operands(head)`` and their ``pack_head`` for the fused kernel,
-    made once for each version of the head's tensors (an optimiser step or
-    ``load_state_dict`` writes them in place, which bumps the version):
-    calls that do not differentiate reuse them."""
-    key = tuple((t.data_ptr(), t._version)
-                for t in (*head.parameters(), *head.buffers()))
-    cached = getattr(head, "_fused_operands", None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            ops = head_operands(head)
-            cached = (key, ops, KO.pack_head(*ops))
-        head._fused_operands = cached
-    return cached[1], cached[2]
+def packed_head(head: KANLinear) -> KO.PackedHead:
+    """The head's current weights packed for the fused kernel
+    (``ops/kuramoto.py: pack_head``), no autograd.  A packing is a copy:
+    a caller that packs once (serving) keeps it only while the weights
+    stay as they were."""
+    with torch.no_grad():
+        return KO.pack_head(*head_operands(head))
 
 
 def kuramoto_kan_apply(params: KuramotoKAN, spec: KuramotoSpec,
-                       x_img: torch.Tensor) -> torch.Tensor:
+                       x_img: torch.Tensor,
+                       packed: KO.PackedHead | None = None) -> torch.Tensor:
     """The classifier: features -> KANLinear logits (B, num_classes).
     ``rollout="pallas_fused"`` runs rollout and head in one kernel, its
-    gradient through the rollout kernels and the plain head; without
-    autograd it reuses the head's packing while the weights stay the
-    same."""
+    gradient through the rollout kernels and the plain head.  ``packed``
+    is ``packed_head(params.head)``, made by the caller while the weights
+    stay the same (the serving function packs once); without it a call
+    packs the head's current weights."""
     if spec.rollout == "pallas_fused" and _uses_kernel(spec, x_img):
         theta0 = KO.theta0_of(x_img, spec.H, spec.W)
-        if torch.is_grad_enabled():
-            return KO.kuramoto_logits(params.omega, params.K, theta0,
-                                      *head_operands(params.head),
-                                      spec.lattice)
-        ops, packed = _packed_head(params.head)
-        return KO.kuramoto_logits(params.omega, params.K, theta0, *ops,
-                                  spec.lattice, packed=packed)
+        return KO.kuramoto_logits(params.omega, params.K, theta0,
+                                  *head_operands(params.head), spec.lattice,
+                                  packed=packed)
     feat = kuramoto_features(params, spec, x_img)
     logits, _ = kan_linear_apply(params.head, feat)
     return logits

@@ -1,5 +1,5 @@
-"""Plain MLP stacks (counterpart of ``fetode_tpu/nn/mlp.py: MLPConfig,
-mlp_init, mlp_apply``).
+"""Plain MLP stacks and layer norm (counterpart of ``fetode_tpu/nn/mlp.py:
+MLPConfig, mlp_init, mlp_apply, layer_norm``).
 
 A stack is an ``nn.ModuleList`` of ``Dense`` layers, each holding ``w``
 (out, in) and ``b`` (out,), so its ``state_dict`` keys (``0.w``,
@@ -64,3 +64,13 @@ def mlp_apply(params: nn.ModuleList, cfg: MLPConfig,
         if i < len(params) - 1:
             x = act(x)
     return _ACTS[cfg.final_activation](x)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Plain layer norm over the last axis: the biased variance, as the
+    JAX package takes it (the conditional-diffusion node encoder
+    normalises its latent state with it)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias

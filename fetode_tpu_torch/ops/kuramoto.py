@@ -25,7 +25,8 @@ scalar tensor.
   with a launch counter; on CUDA its gradient recomputes the features
   through the rollout kernels and differentiates the plain head, as the
   JAX VJP does (:516-530); ``pack_head`` lays the head out for it once,
-  so that serving does not repack weights that do not change.
+  so that serving does not repack weights that do not change, and
+  ``unpack_head`` reads a packing back.
 * The plain versions: ``kuramoto_rollout_reference`` (the scan,
   differentiated by autograd), ``kuramoto_rollout_bwd_reference`` (the
   replay and the reverse walk written out as the kernel runs them) and
@@ -325,6 +326,20 @@ def pack_head(grid, wb, sw, la, lb, lw) -> PackedHead:
                                       torch.cat(terms, dim=1))))
 
 
+def unpack_head(packed: PackedHead):
+    """The inverse of ``pack_head``: (grid, wb, sw, la, lb, lw) as
+    ``head_reference`` takes them, la / lb / lw None without the logistic
+    branch."""
+    n_coeff = packed.knots.shape[0] - 1 - HEAD_ORDER
+    wp = packed.wp
+    grid, wb = packed.knots.T, wp[:, 0]
+    sw = wp[:, 1:1 + n_coeff].transpose(1, 2)
+    if not packed.n_logistic:
+        return grid, wb, sw, None, None, None
+    return (grid, wb, sw, packed.la.T, packed.lb.T,
+            wp[:, 1 + n_coeff:].transpose(1, 2))
+
+
 def _fused_launch(omega, K, theta0, packed: PackedHead,
                   lat: Lattice) -> torch.Tensor:
     """One launch of the fused classifier kernel; counted on
@@ -386,9 +401,13 @@ def kuramoto_logits(omega: torch.Tensor, K: torch.Tensor,
     CPU tensors.  Operands as ``head_reference`` takes them; ``la``, ``lb``
     and ``lw`` are None without the logistic branch.  The knot grid gets no
     gradient.  ``packed`` is ``pack_head`` of the same head operands, made
-    once while they stay the same; without it the call packs them."""
+    once while they stay the same; without it the call packs them.  On
+    the CPU a given packing is what the plain version reads (through
+    ``unpack_head``), as the kernel reads it."""
     _check(omega, K, theta0, lat, "kuramoto_logits")
     if theta0.device.type == "cpu":
+        if packed is not None:
+            grid, wb, sw, la, lb, lw = unpack_head(packed)
         return kuramoto_logits_reference(omega, K, theta0, grid, wb, sw, la,
                                          lb, lw, lat)
     return _Logits.apply(lat, packed, omega, K, theta0, grid, wb, sw, la, lb,

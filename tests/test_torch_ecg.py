@@ -383,8 +383,8 @@ def test_refusals(case, tmp_path):
             cli.main(["ecg", "--device", "cpu", "--plots", "--out-dir",
                       str(tmp_path)])
     elif case == "serve_source":
-        with pytest.raises(NotImplementedError, match="A.9"):
-            cli.main(["serve", "--source", "cond_diffusion", "--device",
+        with pytest.raises(ValueError, match="unknown serve source"):
+            cli.main(["serve", "--source", "no_such_source", "--device",
                       "cpu", "--out-dir", str(tmp_path)])
     elif case == "run_knob":
         defaults = {f.name: f.default for f in dataclasses.fields(tdrv.ECGRun)}

@@ -55,7 +55,11 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.train.forecast_driver",
                  "fetode_tpu_torch.data.mnist",
                  "fetode_tpu_torch.models.kuramoto",
-                 "fetode_tpu_torch.ops.kuramoto"):
+                 "fetode_tpu_torch.ops.kuramoto",
+                 "fetode_tpu_torch.ops.interp",
+                 "fetode_tpu_torch.ops.node_enc",
+                 "fetode_tpu_torch.models.cond_diffusion",
+                 "fetode_tpu_torch.train.cond_diffusion_driver"):
         assert name in report["modules"]
 
 

@@ -263,28 +263,58 @@ def test_pack_head_layout(heads):
 
 
 def test_packed_head_made_once_per_weight_version(setup):
-    """Calls without autograd reuse the head's packing until its weights
-    are written: in place (an optimiser step) or by ``load_state_dict``."""
+    """A packing is made from the weights as they are when it is made: after
+    an in-place write (an optimiser step) or ``load_state_dict`` the next
+    packing carries the new weights, and the plain version of the fused
+    kernel, which reads a given packing, gives the logits of those
+    weights; ``unpack_head`` inverts ``pack_head``."""
     mod = _module(setup["tree"], setup["tspec"])
-    ops, packed = TK._packed_head(mod.head)
-    assert TK._packed_head(mod.head)[1] is packed
+    spec, x = setup["tspec"], torch.from_numpy(setup["x"])
+    theta0 = KO.theta0_of(x, H, W)
+
+    def fused_plain(packed):
+        return KO.kuramoto_logits(mod.omega, mod.K, theta0,
+                                  *TK.head_operands(mod.head), spec.lattice,
+                                  packed=packed)
+
+    packed = TK.packed_head(mod.head)
+    for got, want in zip(KO.unpack_head(packed), TK.head_operands(mod.head)):
+        assert torch.equal(got, want.detach())
     with torch.no_grad():
         mod.head.base_weight.add_(1.0)
-    _, stepped = TK._packed_head(mod.head)
-    assert stepped is not packed
-    assert torch.equal(stepped.wp[:, 0], mod.head.base_weight.detach())
+        stepped = TK.packed_head(mod.head)
+        assert torch.equal(stepped.wp[:, 0], mod.head.base_weight)
+        torch.testing.assert_close(fused_plain(stepped),
+                                   TK.kuramoto_kan_apply(mod, spec, x))
+        assert not torch.allclose(fused_plain(packed), fused_plain(stepped))
     mod.load_state_dict(kuramoto_params_from_numpy(setup["tree"]))
-    _, loaded = TK._packed_head(mod.head)
-    assert loaded is not stepped
-    for a, b in zip(loaded, packed):
+    for a, b in zip(TK.packed_head(mod.head), packed):
         assert torch.equal(a, b)
     opt = make_optimizer(1e-2, params=mod.parameters(), kind="adamw")
     for p in mod.parameters():
         p.grad = torch.ones_like(p)
     opt.step()
-    _, adamw = TK._packed_head(mod.head)
-    assert adamw is not loaded
-    assert torch.equal(adamw.wp[:, 0], mod.head.base_weight.detach())
+    assert torch.equal(TK.packed_head(mod.head).wp[:, 0],
+                       mod.head.base_weight.detach())
+
+
+def test_packing_sees_writes_through_data(setup):
+    """A write through ``.data`` bumps no version counter; the next packing
+    and the fused path's plain version on it must still see it."""
+    mod = _module(setup["tree"], setup["tspec"])
+    spec, x = setup["tspec"], torch.from_numpy(setup["x"])
+    before = TK.packed_head(mod.head)
+    mod.head.spline_scaler.data.mul_(2.0)
+    mod.head.logistic.b.data.add_(0.5)
+    after = TK.packed_head(mod.head)
+    assert not torch.equal(after.wp, before.wp)
+    assert torch.equal(after.lb, mod.head.logistic.b.detach().T)
+    with torch.no_grad():
+        got = KO.kuramoto_logits(mod.omega, mod.K, KO.theta0_of(x, H, W),
+                                 *TK.head_operands(mod.head), spec.lattice,
+                                 packed=after)
+        want = TK.kuramoto_kan_apply(mod, spec, x)
+    torch.testing.assert_close(got, want)
 
 
 def test_fused_grads_match_jax(heads):
