@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main paths — predprey KANFET serving and training, ECG
-classification training and serving, ETT forecasting training and
-serving, Kuramoto-MNIST training and serving, conditional-diffusion
-training and serving — on the card and checks
+classification training and serving (the 'plain' and 'mlp' latent
+fields and the ferro model), ETT forecasting training and serving,
+Kuramoto-MNIST training and serving, conditional-diffusion training and
+serving — on the card and checks
 them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
@@ -164,6 +165,38 @@ that ``cli cond_diffusion`` falls back to:
     and 256, and one ``kan_fet_all_node`` training step at B = 64,
     kernels against the eager solve, with its device-busy share.
 
+The ECG ``kanfet_node --field mlp`` slice, at the full width of
+``ECGPreset`` (T = 96, latent 64, 12 bases, the KAN [768, 128, 128] with
+grid 5 and order 3, dopri5 at rtol 1e-2 / atol 1e-3, max_steps 16),
+random weights from a seed, series from ``synthetic_ecg200``:
+
+28. The 'mlp' field kernels (``csrc/mlp_node.cu``, B.6) against their
+    plain versions at every batch the path launches, B = 8 (a training
+    step), 64 and 32 (the accuracy evals) and 256 (the largest serving
+    bucket), which phases 29-30 confirm by logging the batch of every
+    launch, for two parameter sets: the init (its field is tiny, one
+    step) and a scaled one (out_w with std 4, log_alpha 0.5, the KAN
+    weights tripled; several attempts): the forward, with and without
+    records, at rtol = atol = 1e-3 and the same attempt counts; the
+    backward on the forward kernel's own records against autograd of the
+    plain replay of the same records, relative error < 1e-4 over all
+    gradients together, over each of the 11 on its own and over h0bar,
+    the same bits in two calls; full gradients, each on its own step
+    mesh, cosine > 0.999.
+29. The training slice: ``cli.main(["ecg", "--model", "kanfet_node",
+    "--field", "mlp", "--solver_mode", "pallas", "--epochs", "3",
+    ...])``: both kernels must have launched and the losses must be
+    finite.
+30. The serving slice: ``cli.main(["serve", "--source", "ecg", "--field",
+    "mlp", "--solver_mode", "pallas", ...])`` with buckets (8, 64, 256),
+    then requests of B = 1, 30 and 300 through the loaded bundle; they
+    must equal direct kernel calls on the same padded batches, and the
+    forward kernel must have launched.
+31. Timing: the B.6 kernels and their plain versions at B = 8 and 64
+    (the kernels also at 256 and with the scaled set at 8), and one
+    training step at B = 8, kernels against the eager solve, with its
+    device-busy share.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -192,7 +225,7 @@ HORIZON = 14.0
 GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
-           "ode_dyn", "ddpm", "kuramoto", "node_enc")
+           "ode_dyn", "ddpm", "kuramoto", "node_enc", "mlp_node")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
@@ -207,6 +240,10 @@ KURA_TIMES = (128, 256, 1024)
 # training step), 31 and 181 (the validation loss and the test forecast
 # on the synthetic stand-in), 8 / 64 / 256 (serving).
 NODE_ENC_CHECKS = (8, 31, 64, 181, 256)
+# The ECG 'mlp' field's B.6 batches (phase 28): 8 (a training step), 64
+# and 32 (the train and test accuracy evals), 8 / 64 / 256 (serving),
+# which phases 29-30 confirm by logging the batch of every launch.
+MLP_CHECKS = (8, 32, 64, 256)
 # Timed calls per window of the cond_diffusion serving bench (3 windows a
 # bucket): each call runs 10 reverse chains of 200 steps.
 SERVE_ITERS = 3
@@ -371,6 +408,56 @@ def ferro_counts(B, D, H, K, noisy):
     vjp = (terms * (per + 30) + link * (TANH[0] + 3),
            terms * sfu + link * TANH[1])
     return ev, vjp, 10 * H * D * K
+
+
+def bspline_counts(n_knots=12, order=3):
+    """(FP32 per point, FP32 per feature, SFU per feature) of the degree-
+    ``order`` B-spline columns of one value on its feature's knots, counted
+    as ``kuramoto_counts`` counts them: x - g_j for each knot, the order-0
+    indicators (a compare a knot, a subtract an interval), per level k the
+    weights w_j = (x - g_j) r_jk and per term w_j B_j + (1 - w_j+1) B_j+1
+    (4); the reciprocals r_jk = 1 / (g_j+k - g_j) once a feature."""
+    n_w = sum(n_knots - k for k in range(1, order + 1))
+    n_terms = sum(n_knots - 1 - k for k in range(1, order + 1))
+    per = n_knots + n_knots + (n_knots - 1) + n_w + 4 * n_terms
+    return per, n_w * (1 + DIV[0]), n_w * DIV[1]
+
+
+def mlp_counts(B, D, K, H, recs, kind, C=8, n_knots=12):
+    """(FP32, SFU, bytes) of a B.6 kernel call ('mlp' field), each value
+    the function needs counted once.  An evaluation: the layer norm and
+    tanh bound (13 a value, a reciprocal square root a row), the mixer's
+    two sigmoids and silu(phi) a (b, l), the B-spline columns of the B L
+    layer-1 and B H layer-2 inputs, the two layers' products 2 B H n (1 +
+    C), silu(y1) and silu(y2), the output product and the eff scale.  A VJP
+    repeats all but the output product, then: t = w W (2 B D H), y2bar
+    (6 a value), gW and gbo, geff (2 B H + 2 B D); per layer the weight
+    gradients and the input cotangent, two products of 2 B H n (1 + C)
+    each, the analytic derivative (4 a column) with silu' and the
+    combination; the mixer's cotangent (6), ga and gb (4), the K-sum
+    (2 B L) and the layer-norm backward (15 a value).  The knot
+    reciprocals count once a feature; the grids get no gradient."""
+    L = D * K
+    per, recip, recip_sfu = bspline_counts(n_knots)
+    hidden = (B * D * (13 + TANH[0]) + B * DIV[0]
+              + B * L * (3 + 2 * SIG[0] + 1 + SIG[0] + per)
+              + 2 * B * H * L * (1 + C) + B * H * (1 + SIG[0] + per)
+              + 2 * B * H * H * (1 + C) + B * H * (1 + SIG[0]),
+              B * D * TANH[1] + B * DIV[1] + B * L * 3 * SIG[1]
+              + 2 * B * H * SIG[1])
+    ev = (hidden[0] + 2 * B * D * H + 2 * B * D, hidden[1])
+    layer_vjp = sum(4 * B * H * n * (1 + C) + B * n * (4 * C + 4 + 2 * C)
+                    for n in (H, L))
+    vjp = (hidden[0] + 4 * B * D * H + 6 * B * H + B * D + D * H
+           + 2 * B * H + 2 * B * D + layer_vjp + B * L * (6 + 4 + 2)
+           + 15 * B * D, hidden[1])
+    grids = (L + H) * n_knots
+    n_par = (2 * D + 2 * L + grids + H * L * (1 + C) + H * H * (1 + C)
+             + D * H + D + 1)
+    fp32, sfu, nbytes = node_counts(ev, vjp, n_par, 0, B, D, recs, kind)
+    if kind == "bwd":
+        nbytes -= 4 * grids                # no gradient of the grids
+    return (fp32 + (L + H) * recip, sfu + (L + H) * recip_sfu, nbytes)
 
 
 def check_training_kernels(params, spec, x0s, ts, targets):
@@ -1731,6 +1818,195 @@ def cond_diffusion_phases(device, smi):
     return checks, times, launches
 
 
+# ------------------------------------------------------- ECG 'mlp' field
+
+
+def mlp_case(params, spec, name="mlp_node"):
+    """B.6's kernels for a 'mlp' ``KanFetNODE`` as closures (the
+    ``check_node_kernels`` / ``time_node_kernels`` contract): the
+    operands are formed once from ``params``; the full gradients are taken
+    of the field's parameters, each solve forming its operands anew."""
+    from fetode_tpu_torch.ops import mlp_node as MN
+    from fetode_tpu_torch.ops import node_common as NC
+
+    w = MN.mlp_weights(params)
+    hb = spec.h_bound
+    opts = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    field = MN.mlp_field(w, hb)
+    layers = params.kan.layers
+    return dict(
+        name=name,
+        fwd=lambda h0, record=True: MN.mlp_node_fwd(w, h0, h_bound=hb,
+                                                    record=record, **opts),
+        bwd=lambda h0, recs, hbar: MN.mlp_node_bwd(w, h0, recs, hbar,
+                                                   h_bound=hb),
+        solve=lambda h0: MN.mlp_node_solve(params, h0, spec),
+        plain_fwd=lambda h0: NC.record_solve_reference(field, h0, **opts),
+        plain_bwd=lambda h0, recs, hbar: NC.replay_vjp_reference(
+            field, MN.grad_weights(w), h0, recs, hbar),
+        plain_solve=lambda h0: NC.solve_reference(
+            MN.mlp_field(MN.mlp_weights(params), hb), h0, **opts),
+        weights=[params.ln_scale, params.ln_bias, params.field_mixer.a,
+                 params.field_mixer.b] + [
+            t for layer in layers for t in (layer.base_weight,
+                                            layer.spline_weight,
+                                            layer.spline_scaler)] + [
+            params.out_w, params.out_b, params.log_alpha, params.scale],
+        counts=lambda B, recs, kind: mlp_counts(
+            B, spec.latent_dim, spec.num_basis, spec.ode_hidden, recs, kind))
+
+
+def mlp_phases(device, smi):
+    """Phases 28-31, the ECG 'mlp' field slice: returns the kernel checks,
+    the timings and the kernels' launches on the training and serving
+    paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import mlp_node as MN
+    from fetode_tpu_torch.serve import load_servable
+
+    # ---- 28. B.6 against plain, at ECGPreset's width
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])        # 96 series of 96
+    rng_m = np.random.default_rng(8)
+    spec = M.KanFetNODESpec(num_basis=12, field="mlp")
+    params = M.kanfet_node_init(torch.Generator().manual_seed(0), spec,
+                                device=device)
+    # The init's field is tiny (out_w std 1e-3, log_alpha -3): one step
+    # reaches t = 1.  A second set, out_w with std 4, log_alpha 0.5 and
+    # both KAN layers' weights tripled, takes several attempts.
+    scaled = copy.deepcopy(params)
+    with torch.no_grad():
+        scaled.out_w.copy_(4.0 * torch.from_numpy(rng_m.standard_normal(
+            tuple(scaled.out_w.shape)).astype(np.float32)).to(device))
+        scaled.log_alpha.fill_(0.5)
+        for layer in scaled.kan.layers:
+            layer.base_weight.mul_(3.0)
+            layer.spline_weight.mul_(3.0)
+    cases = {"init": mlp_case(params, spec),
+             "scaled": mlp_case(scaled, spec, "mlp_node scaled")}
+    xs = {b: torch.from_numpy((series[np.arange(b) % len(series)] + 0.05
+                               * rng_m.standard_normal((b, series.shape[1]))
+                               ).astype(np.float32)).to(device)
+          for b in MLP_CHECKS}
+    with torch.no_grad():
+        h0s = {b: x @ params.encoder_w.T + params.encoder_b
+               for b, x in xs.items()}
+    hbars = {b: torch.from_numpy(rng_m.standard_normal(
+        (b, spec.latent_dim)).astype(np.float32)).to(device)
+        for b in MLP_CHECKS}
+    checks = {}
+    for regime, case in cases.items():
+        for b in MLP_CHECKS:
+            checks[(regime, b)] = check_node_kernels(case, h0s[b], hbars[b])
+            # every gradient on its own, and the same bits in two calls
+            with torch.no_grad():
+                _, recs = case["fwd"](h0s[b])
+            got = [case["bwd"](h0s[b], recs, hbars[b]) for _ in range(2)]
+            want, want_h = case["plain_bwd"](h0s[b], recs, hbars[b])
+            torch.cuda.synchronize()
+            rels = [rel_err(g, r) for g, r in zip(got[0][0], want)
+                    if r.norm() > 0] + [rel_err(got[0][1], want_h)]
+            if not max(rels) < GRAD_TOL:
+                fail(f"mlp_node {regime} B={b}: gradient rel errors {rels}")
+            if not all(torch.equal(p, q) for p, q in zip(
+                    got[0][0] + [got[0][1]], got[1][0] + [got[1][1]])):
+                fail(f"mlp_node {regime} B={b}: the backward kernel's "
+                     "gradients differ between two calls")
+            print(f"mlp_node {regime} B={b}: worst of the 11 gradients and "
+                  f"h0bar rel {max(rels):.3e}; the same bits in two calls")
+
+    # ---- 29. the training slice, through the CLI
+    kernels = (MN.mlp_node_fwd, MN.mlp_node_bwd)
+    launches = [0, 0]
+    batches = set()
+    undo = log_batches(MN, {"_launch_fwd": 1, "_launch_bwd": 2}, batches)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for f in kernels:
+                f.launches = 0
+            res = cli.main(["ecg", "--model", "kanfet_node", "--field", "mlp",
+                            "--solver_mode", "pallas", "--device", "cuda",
+                            "--epochs", "3", "--out-dir", tmp])
+            torch.cuda.synchronize()
+            counts = [f.launches for f in kernels]
+            if min(counts) < 1:
+                fail(f"cli ecg --field mlp: kernel launches {counts}")
+            if not np.isfinite(res["loss_curve"]).all():
+                fail(f"cli ecg --field mlp: non-finite losses "
+                     f"{res['loss_curve']}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            print(f"cli ecg --model kanfet_node --field mlp (3 epochs, "
+                  f"pallas): losses {[round(v, 4) for v in res['loss_curve']]}"
+                  f", test acc {res['test_acc_curve']}, best "
+                  f"{res['best_test_acc']}; {res['wall_seconds']:.2f} s; "
+                  f"launches (mlp fwd, bwd) {counts} ({smi})")
+
+        # ---- 30. the serving slice, through the CLI
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["serve", "--source", "ecg", "--field", "mlp",
+                    "--solver_mode", "pallas", "--device", "cuda",
+                    "--buckets", "8,64,256", "--out-dir", tmp]
+            for f in kernels:
+                f.launches = 0
+            sresult = cli.main(argv)
+            cfg = make_config("serve", cli._parse(argv)[1])
+            sparams, sfn, _ = cli.ecg_serving(cfg, device)
+            sv = load_servable(sresult["bundle"], sfn, sparams)
+            reqs = {b: torch.from_numpy(np.resize(series, (b, cfg.t_len))).to(
+                device) for b in (1, 30, 300)}
+            served = {b: sv.predict(x) for b, x in reqs.items()}
+            torch.cuda.synchronize()
+            counts = [f.launches for f in kernels]
+            if counts[0] < 1 or counts[1]:
+                fail(f"serve --source ecg --field mlp: kernel launches "
+                     f"{counts}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            check_served(sv, sfn, reqs, served, "ECG mlp")
+            wall, busy, top = profile_ms(lambda: sv.predict(xs[8]).cpu())
+    finally:
+        undo()
+    seen = sorted(b for _, b in batches)
+    if not set(seen) <= set(MLP_CHECKS):
+        fail(f"the path launched mlp_node at batches {seen}, phase 28 "
+             f"checked {list(MLP_CHECKS)}")
+    print(f"mlp_node launches on the path at batches {sorted(batches)}; all "
+          f"checked in phase 28")
+    print(f"serve --source ecg --field mlp: B=1/30/300 through the bundle = "
+          f"direct kernel calls on the padded batches; launches {counts}; "
+          f"profile bucket 8: wall {wall:.4f} ms, device busy {busy:.4f} ms "
+          f"({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    for row in sresult["bench"]:
+        print(f"  serve ecg mlp bucket {row['batch']}: p50 {row['p50_ms']:.4f}"
+              f" ms, p99 {row['p99_ms']:.4f} ms, window p50s "
+              f"{['%.4f' % w for w in row['window_p50_ms']]} ({smi})")
+
+    # ---- 31. timing: kernels and plain, a training step
+    times = {b: time_node_kernels(cases["init"], h0s[b], hbars[b], smi)
+             for b in (8, 64)}
+    times[256] = time_node_kernels(cases["init"], h0s[256], hbars[256], smi,
+                                   plain=False)
+    times["scaled"] = time_node_kernels(cases["scaled"], h0s[8], hbars[8],
+                                        smi)
+    y8 = torch.from_numpy(data[1][:8]).long().to(device)
+    step_k = ecg_step_fn(M.kanfet_node_apply, params, spec, xs[8], y8,
+                         "pallas")
+    kernel = cuda_ms(step_k, 10)
+    eager = cuda_ms(ecg_step_fn(M.kanfet_node_apply, params, spec, xs[8], y8,
+                                "scan"), 1)
+    wall, busy, top = profile_ms(step_k)
+    times["step"] = dict(kernel=kernel, eager=eager, wall=wall, busy=busy)
+    print(f"time ECG training step kanfet_node --field mlp B=8: kernels "
+          f"{kernel:.4f} ms, eager scan solve {eager:.3f} ms; profiled: wall "
+          f"{wall:.4f} ms, device busy {busy:.4f} ms "
+          f"({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    return checks, times, launches
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1958,19 +2234,20 @@ def main():
     kura_checks, kura_errs, kura_times, kura_launches = kuramoto_phases(
         device, smi)
     enc_checks, enc_times, enc_launches = cond_diffusion_phases(device, smi)
+    mlp_checks, mlp_times, mlp_launches = mlp_phases(device, smi)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
     # rollout at the training batch 128, the fused classifier at the
-    # largest serving bucket, 256, and the node encoder at the training
-    # batch 64
+    # largest serving bucket, 256, the node encoder at the training batch
+    # 64, and the 'mlp' field at the training batch 8
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
                                            max_steps=spec.max_steps, **kw)
     lt, ft = ecg_times[("logistic", 8)], ecg_times[("ferro", 8)]
     kt, kl = kura_times[128], kura_times[256]
-    et = enc_times[64]
+    et, mt = enc_times[64], mlp_times[8]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -2050,6 +2327,16 @@ def main():
                      enc_launches[1],
                      max(c["g_abs"] for c in enc_checks.values()),
                      et["bwd"], et["plain_bwd"], et["bound_bwd"]),
+        kernel_entry("mlp_node_fwd", "fetode_tpu_torch/csrc/mlp_node.cu",
+                     "fetode_tpu/ops/pallas_mlp_node.py:280",
+                     mlp_launches[0],
+                     max(c["fwd_err"] for c in mlp_checks.values()),
+                     mt["fwd"], mt["plain_fwd"], mt["bound_fwd"]),
+        kernel_entry("mlp_node_bwd", "fetode_tpu_torch/csrc/mlp_node.cu",
+                     "fetode_tpu/ops/pallas_mlp_node.py:308",
+                     mlp_launches[1],
+                     max(c["g_abs"] for c in mlp_checks.values()),
+                     mt["bwd"], mt["plain_bwd"], mt["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ CLI, so one command line drives either package.  Ported so far:
   (``train/predprey_driver.py``) and reports epochs/s and the final
   training loss.
 * ``ecg`` — trains an ECG200 classifier, ``--model kanfet_node`` (the
-  default) or ``kanfet_mlp_node`` (``train/ecg_driver.py``), on the
-  ECG200 files when ``$FETODE_DATA_DIR`` holds them, else on the
-  synthetic stand-in, and reports the best test accuracy.
+  default; its latent field ``--field plain`` or ``mlp``) or
+  ``kanfet_mlp_node`` (``train/ecg_driver.py``), on the ECG200 files when
+  ``$FETODE_DATA_DIR`` holds them, else on the synthetic stand-in, and
+  reports the best test accuracy.
 * ``ett`` — trains a forecaster, ``--model point`` (the default),
   ``diffusion`` or ``kan_diffusion`` (``train/forecast_driver.py``), on
   the ETT CSV when ``$FETODE_DATA_DIR`` holds it, else on the synthetic
@@ -481,8 +482,9 @@ def ddpm_serving(cfg, device: torch.device):
 
 def ecg_serving(cfg, device: torch.device):
     """The ECG serving function: ``(params, fn, example)`` with a fresh
-    KanFetNODE classifier from ``cfg.seed`` and ``fn(params, x) ->
-    (B, num_classes)`` logits of ``(B, t_len)`` series."""
+    KanFetNODE classifier (latent field ``cfg.field``) from ``cfg.seed``
+    and ``fn(params, x) -> (B, num_classes)`` logits of ``(B, t_len)``
+    series."""
     from fetode_tpu_torch.models import ecg as M
 
     spec = M.KanFetNODESpec(T=cfg.t_len, latent_dim=cfg.latent_dim,

@@ -78,7 +78,9 @@ class ECGPreset:
     # autograd and the eager while solve for evaluation), "scan",
     # "while", or "pallas" (the whole-solve CUDA kernels; CUDA only).
     solver_mode: str = "auto"
-    # kanfet_node latent field: "plain" ("mlp" waits for ROADMAP B.6).
+    # kanfet_node latent field: "plain" (No_MLP_KANODEFunc) or "mlp"
+    # (MLPKANODEFunc: layer norm, mixer, a two-layer B-spline KAN; the
+    # kernels of ops/mlp_node.py on CUDA).
     field: str = "plain"
     # Epochs per call of the block scanner (ECGRun.epochs_per_call).
     epochs_per_call: int = 1
@@ -214,6 +216,7 @@ class ServePreset:
     t_len: int = 96
     latent_dim: int = 64
     num_basis: int = 12
+    # KanFetNODE latent field: "plain" or "mlp" (as ECGPreset.field).
     field: str = "plain"
     # "auto" (the kernel on CUDA, eager elsewhere), "pallas" (the
     # whole-solve kernel), "while" (eager early-exit solve).

@@ -11,12 +11,13 @@ keys are ``layers.<i>.<name>`` with the grid as ``layers.<i>.grid``.
 The ECG models' parameters are one dict tree in the JAX package
 (``encoder_w``, ``field_mixer: {a, b}``, ``fc1: {k, ec, ps, bias, coef}``
 ...) and one module in the port whose ``state_dict`` keys are the dotted
-paths of that tree (``field_mixer.a``, ``fc1.k``):
-``ecg_params_from_numpy`` / ``ecg_params_to_numpy`` /
-``ecg_grads_to_numpy``.  The Kuramoto classifier's tree (``K``,
-``omega``, ``head``: one KAN layer with its grid under ``_buffers``) maps
-the same way (``kuramoto_params_{from,to}_numpy``,
-``kuramoto_grads_to_numpy``).
+paths of that tree (``field_mixer.a``, ``fc1.k``); the 'mlp' field's
+``kan`` layer list maps as a KAN stack does, to ``kan.layers.<i>.<name>``
+with the grid as ``kan.layers.<i>.grid``: ``ecg_params_from_numpy`` /
+``ecg_params_to_numpy`` / ``ecg_grads_to_numpy``.  The Kuramoto
+classifier's tree (``K``, ``omega``, ``head``: one KAN layer with its
+grid under ``_buffers``) maps the same way
+(``kuramoto_params_{from,to}_numpy``, ``kuramoto_grads_to_numpy``).
 
 A conditional denoiser's tree (``encoder``: the conv dict or the node
 dict with its ``field`` MLP list; ``net``: an MLP or KAN layer list) maps
@@ -92,21 +93,31 @@ def grads_to_numpy(params, dtype=np.float32) -> List[Dict[str, Any]]:
 def ecg_params_from_numpy(tree: Dict[str, Any], device=None,
                           dtype=np.float32) -> Dict[str, torch.Tensor]:
     """An ECG model's JAX param tree -> a ``state_dict`` for its port
-    module (``models/ecg.py``)."""
+    module (``models/ecg.py``); a KAN layer list (``kan``) maps to
+    ``kan.layers.<i>.<name>``."""
     flat: Dict[str, Any] = {}
-    _flatten("", tree, flat)
+    _flatten("", {k: v for k, v in tree.items() if k != "kan"}, flat)
+    for i, layer in enumerate(tree.get("kan", [])):
+        _flatten(f"kan.layers.{i}.", layer, flat)
     return {k: torch.as_tensor(np.array(v, dtype=dtype), device=device)
             for k, v in flat.items()}
 
 
 def _nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
+    kan: Dict[int, Dict[str, Any]] = {}
     for key, value in flat.items():
         *path, leaf = key.split(".")
         node = tree
+        if path[:2] == ["kan", "layers"]:         # a KAN layer list
+            node, path = kan.setdefault(int(path[2]), {}), path[3:]
+            if leaf == "grid":
+                path = ["_buffers"]
         for name in path:
             node = node.setdefault(name, {})
         node[leaf] = value.detach().cpu().numpy().astype(dtype)
+    if kan:
+        tree["kan"] = [kan[i] for i in sorted(kan)]
     return tree
 
 
@@ -129,8 +140,8 @@ def _grads_or_zeros(module, buffers: bool = False
 
 def ecg_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """An ECG port module's ``.grad``s -> the JAX gradient tree; a
-    parameter without a gradient gets zeros."""
-    return _nest(_grads_or_zeros(module), dtype)
+    parameter without a gradient and a KAN grid (a buffer) get zeros."""
+    return _nest(_grads_or_zeros(module, buffers=True), dtype)
 
 
 def _is_kan(layers: List[Any]) -> bool:

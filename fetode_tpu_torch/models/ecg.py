@@ -3,11 +3,13 @@
 
 Ported: ``KanFetNODE`` with the 'plain' latent field (logistic mixer and
 a projection; its whole-solve kernels are ``ops/logistic_node.py``) and
+with the 'mlp' field (layer norm, tanh bound, logistic mixer, a two-layer
+B-spline KAN and an output layer; ``ops/mlp_node.py``), and
 ``KanFetMLPNODE``, the two-layer ferro field (``ops/ferro_node.py``),
-both with the adaptive dopri5 latent solve over [0, 1].  Parameters live
+all with the adaptive dopri5 latent solve over [0, 1].  Parameters live
 in ``nn.Module``s whose ``state_dict`` keys are the JAX package's dict
-keys (``encoder_w``, ``field_mixer.a``, ``fc1.k`` ...), so
-``convert.ecg_params_from_numpy`` loads a JAX tree.
+keys (``encoder_w``, ``field_mixer.a``, ``kan.layers.0.base_weight``,
+``fc1.k`` ...), so ``convert.ecg_params_from_numpy`` loads a JAX tree.
 
 Solver dispatch (``solver_mode``): ``"pallas"`` takes the whole-solve
 CUDA kernels and raises for a CPU tensor; ``"auto"`` takes them for a
@@ -17,9 +19,9 @@ autograd, while otherwise).  On the kernel path a call under autograd
 runs the kernel pair (forward with records, replay backward), a call
 without it the forward kernel alone.
 
-Not ported yet, each raising an error that names its ROADMAP item:
-``field="mlp"`` (B.6), the fixed-step solvers (A.3), the ``mesh``
-argument (A.11), and the RNN models (A.7).
+Not ported yet, each raising an error that names its ROADMAP item: the
+fixed-step solvers (A.3), the ``mesh`` argument (A.11), and the RNN
+models (A.7).
 """
 
 from __future__ import annotations
@@ -27,8 +29,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from fetode_tpu_torch.nn.kan import KANConfig, kan_apply, kan_init
+from fetode_tpu_torch.nn.mlp import layer_norm
 from fetode_tpu_torch.ops.ferro import (
     FerroConfig,
     ferro_apply,
@@ -46,6 +51,7 @@ from fetode_tpu_torch.ops.logistic import (
     logistic_init,
 )
 from fetode_tpu_torch.ops.logistic_node import logistic_node_solve
+from fetode_tpu_torch.ops.mlp_node import mlp_node_solve
 from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
 from fetode_tpu_torch.utils.init import kaiming_uniform, normal
@@ -92,7 +98,7 @@ class KanFetNODESpec(NamedTuple):
     latent_dim: int = 64
     num_basis: int = 10
     ode_hidden: int = 128
-    field: str = "plain"        # 'plain'; 'mlp' waits for ROADMAP B.6
+    field: str = "plain"        # No_MLP_KANODEFunc; 'mlp': MLPKANODEFunc
     solver: str = "dopri5"
     rtol: float = 1e-2
     atol: float = 1e-3
@@ -101,19 +107,31 @@ class KanFetNODESpec(NamedTuple):
     init_out_std: float = 1e-3
     solver_mode: str = "auto"   # see the module docstring
 
+    @property
+    def kan_cfg(self) -> KANConfig:
+        """The 'mlp' field's KAN: [D*K, hidden, hidden]."""
+        return KANConfig.make([self.latent_dim * self.num_basis,
+                               self.ode_hidden, self.ode_hidden])
+
+
+_FIELDS = ("plain", "mlp")
+
 
 def _check_field(spec: KanFetNODESpec) -> None:
-    if spec.field != "plain":
-        raise NotImplementedError(
-            f"KanFetNODESpec.field={spec.field!r}: the 'mlp' field and its "
-            "kernel are not ported yet (ROADMAP B.6)")
+    if spec.field not in _FIELDS:
+        raise ValueError(f"KanFetNODESpec.field={spec.field!r}: expected one "
+                         f"of {_FIELDS}")
 
 
 class KanFetNODEParams(nn.Module):
-    """Parameters of the 'plain' KanFetNODE, named as the JAX dict."""
+    """Parameters of a KanFetNODE, named as the JAX dict: the encoder, the
+    two mixers and the classifier, then the field's own (``field``):
+    'plain' ``proj_w``, ``proj_b``; 'mlp' ``ln_scale``, ``ln_bias``,
+    ``kan`` (a ``KAN``), ``out_w``, ``out_b``, ``log_alpha``, ``scale``.
+    A tensor becomes a parameter, a module a submodule."""
 
     def __init__(self, encoder_w, encoder_b, field_mixer: Mixer,
-                 cls_mixer: Mixer, cls_w, cls_b, proj_w, proj_b):
+                 cls_mixer: Mixer, cls_w, cls_b, **field):
         super().__init__()
         self.encoder_w = nn.Parameter(encoder_w)
         self.encoder_b = nn.Parameter(encoder_b)
@@ -121,8 +139,9 @@ class KanFetNODEParams(nn.Module):
         self.cls_mixer = cls_mixer
         self.cls_w = nn.Parameter(cls_w)
         self.cls_b = nn.Parameter(cls_b)
-        self.proj_w = nn.Parameter(proj_w)
-        self.proj_b = nn.Parameter(proj_b)
+        for name, value in field.items():
+            setattr(self, name, value if isinstance(value, nn.Module)
+                    else nn.Parameter(value))
 
 
 def kanfet_node_init(generator: torch.Generator, spec: KanFetNODESpec, *,
@@ -134,17 +153,35 @@ def kanfet_node_init(generator: torch.Generator, spec: KanFetNODESpec, *,
     field_mixer = mixer_init(generator, D, K, **kw)
     cls_mixer = mixer_init(generator, D, K, **kw)
     cls_w = kaiming_uniform(generator, (spec.num_classes, D * K), **kw)
-    proj_w = normal(generator, (D, D * K), **kw) * 0.01
+    if spec.field == "plain":
+        # small-init projection (B, D*K) -> (B, D)
+        field = dict(proj_w=normal(generator, (D, D * K), **kw) * 0.01,
+                     proj_b=torch.zeros(D, **kw))
+    else:
+        field = dict(
+            ln_scale=torch.ones(D, **kw), ln_bias=torch.zeros(D, **kw),
+            kan=kan_init(generator, spec.kan_cfg, **kw),
+            out_w=normal(generator, (D, spec.ode_hidden), **kw)
+            * spec.init_out_std,
+            out_b=torch.zeros(D, **kw),
+            log_alpha=torch.tensor(-3.0, **kw), scale=torch.tensor(1.0, **kw))
     return KanFetNODEParams(
         encoder_w, torch.zeros(D, **kw), field_mixer, cls_mixer, cls_w,
-        torch.zeros(spec.num_classes, **kw), proj_w, torch.zeros(D, **kw))
+        torch.zeros(spec.num_classes, **kw), **field)
 
 
 def kanfet_node_field(params: KanFetNODEParams, spec: KanFetNODESpec, t,
                       h: torch.Tensor) -> torch.Tensor:
     _check_field(spec)
+    if spec.field == "plain":
+        phi = mixer_apply(params.field_mixer, h)
+        return phi @ params.proj_w.T + params.proj_b
+    h = layer_norm(h, params.ln_scale, params.ln_bias)
+    h = spec.h_bound * torch.tanh(h / spec.h_bound)
     phi = mixer_apply(params.field_mixer, h)
-    return phi @ params.proj_w.T + params.proj_b
+    z, _ = kan_apply(params.kan, phi)
+    dh = F.silu(z) @ params.out_w.T + params.out_b
+    return params.scale * F.softplus(params.log_alpha) * dh
 
 
 def kanfet_node_apply(params: KanFetNODEParams, spec: KanFetNODESpec,
@@ -153,7 +190,9 @@ def kanfet_node_apply(params: KanFetNODEParams, spec: KanFetNODESpec,
     _check_field(spec)
     h0 = x @ params.encoder_w.T + params.encoder_b
     if use_kernel(spec, x):
-        hT = logistic_node_solve(params, h0, spec)
+        solve = logistic_node_solve if spec.field == "plain" \
+            else mlp_node_solve
+        hT = solve(params, h0, spec)
     else:
         hT = _final_state(lambda t, h: kanfet_node_field(params, spec, t, h),
                           h0, spec)

@@ -1,0 +1,304 @@
+"""Whole-solve ECG KanFetNODE 'mlp' latent field: dopri5 over [0, 1]
+with batch-shared step control and its discrete adjoint, as two CUDA
+kernels.
+
+Counterpart of ``fetode_tpu/ops/pallas_mlp_node.py:
+make_mlp_node_solver`` (the TPU kernels ``_make_fwd_kernel`` :150 and
+``_make_bwd_kernel`` :173, called at :280 and :308).  The CUDA source is
+``fetode_tpu_torch/csrc/mlp_node.cu`` on the shared scaffold
+``csrc/node_common.cuh``; its header gives the design and what bounds
+it.  With L = D*K and C = 8 cubic B-spline columns on 12 knots a
+feature:
+
+    h   = LayerNorm(y; ln_scale, ln_bias)            (B, D)
+    hb  = h_bound tanh(h / h_bound)
+    phi = sigmoid(2 sigmoid(a (hb[l / K] - b)))       (B, L)
+    y1  = silu(phi) bw1^T + sum_c B_c(phi) sw1_c^T    (B, H)  KAN layer 1
+    y2  = silu(y1) bw2^T + sum_c B_c(y1) sw2_c^T      (B, H)  KAN layer 2
+    dy  = eff (silu(y2) out_w^T + out_b)              (B, D)
+
+The kernels take the scaled spline weights ``sw = spline_weight *
+spline_scaler`` and ``eff = scale * softplus(log_alpha)``, formed per
+call outside them (``mlp_weights``); autograd carries their gradients
+back to the scaler, the spline weights, ``scale`` and ``log_alpha``, as
+the JAX package applies those chain rules outside its kernel.  The knot
+grids are buffers and get no gradient.  Only the KAN geometry that
+``KanFetNODESpec.kan_cfg`` builds is supported: two layers [L, H, H],
+grid 5, order 3, a standalone scaler, no other branch.
+
+* ``mlp_node_solve`` — the public solve of the model's parameters.  On
+  CUDA, under autograd, a ``torch.autograd.Function`` launches
+  ``mlp_node_fwd`` (which records every attempt) and, in its backward,
+  ``mlp_node_bwd``; without autograd the forward kernel alone, recording
+  nothing.  On the CPU it takes the plain version.
+* ``mlp_node_fwd`` / ``mlp_node_bwd`` — the kernel wrappers on the 13
+  operands of ``mlp_weights``, each with a launch counter
+  (``.launches``).  For CPU tensors they take the plain versions
+  ``record_solve_reference`` and ``replay_vjp_reference`` of
+  ``ops/node_common.py`` around ``mlp_field``; they never fall back from
+  a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from fetode_tpu_torch.nn.mlp import layer_norm
+from fetode_tpu_torch.ops import node_common as NC
+from fetode_tpu_torch.ops.bsplines import bspline_basis
+from fetode_tpu_torch.ops.logistic import LogisticParams, logistic_basis
+from fetode_tpu_torch.solvers.dopri5 import _under_autograd
+
+_KERNEL_NAME = "mlp_node"
+GRID_SIZE, ORDER = 5, 3
+N_COEFF = GRID_SIZE + ORDER               # 8 basis columns
+N_KNOTS = GRID_SIZE + 2 * ORDER + 1       # 12 knots a feature
+N_WEIGHTS = 13
+# Positions of the knot grids in ``mlp_weights``: they get no gradient.
+_GRIDS = (4, 7)
+
+
+def _scaled_spline(layer) -> torch.Tensor:
+    return layer.spline_weight * layer.spline_scaler[..., None]
+
+
+def check_geometry(kan, D: int, K: int, H: int) -> None:
+    """The kernels' KAN: two layers [D*K, H, H], grid 5, order 3, a
+    standalone spline scaler and no logistic or ferro branch."""
+    cfgs = [layer.cfg for layer in kan.layers]
+    dims = [(c.in_features, c.out_features) for c in cfgs]
+    if dims != [(D * K, H), (H, H)] or any(
+            c.grid_size != GRID_SIZE or c.spline_order != ORDER
+            or not c.standalone_spline_scaler or c.logistic_num_basis
+            or c.ferro_num_basis for c in cfgs):
+        raise NotImplementedError(
+            f"mlp_node: the kernels take the init-time KAN of "
+            f"KanFetNODESpec.kan_cfg ([{D * K}, {H}, {H}], grid {GRID_SIZE}, "
+            f"order {ORDER}, standalone scaler, no other branch), got layers "
+            f"{dims}; other geometries wait for grid refinement (ROADMAP "
+            "A.2)")
+
+
+def mlp_weights(params) -> List[torch.Tensor]:
+    """The kernels' 13 operands from a 'mlp' ``KanFetNODEParams``, in
+    kernel order: ln_scale, ln_bias (D); mixer a, b (D, K); layer 1's grid
+    (L, 12), base weight (H, L), scaled spline weight (H, L, 8); layer 2's
+    grid (H, 12), base weight (H, H), scaled spline weight (H, H, 8);
+    out_w (D, H), out_b (D); eff (1,).  The scaled weights and eff are new
+    tensors on every call, differentiable in the parameters."""
+    l1, l2 = params.kan.layers
+    eff = params.scale * F.softplus(params.log_alpha)
+    return [params.ln_scale, params.ln_bias, params.field_mixer.a,
+            params.field_mixer.b, l1.grid, l1.base_weight, _scaled_spline(l1),
+            l2.grid, l2.base_weight, _scaled_spline(l2), params.out_w,
+            params.out_b, eff.reshape(1)]
+
+
+def grad_weights(weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The 11 operands the backward kernel returns gradients of: all but
+    the two knot grids."""
+    return [w for i, w in enumerate(weights) if i not in _GRIDS]
+
+
+def mlp_field(weights: Sequence[torch.Tensor],
+              h_bound: float = 1.0) -> NC.Field:
+    """The 'mlp' field as a callable on (B, D) over the operands of
+    ``mlp_weights`` (``models/ecg.py: kanfet_node_field``)."""
+    ls, lb, a, b, g1, bw1, sw1, g2, bw2, sw2, ow, ob, eff = weights
+    mixer = LogisticParams(a, b)
+
+    def layer(x, g, bw, sw):
+        bases = bspline_basis(x, g, ORDER).reshape(x.shape[0], -1)
+        return F.silu(x) @ bw.T + bases @ sw.reshape(sw.shape[0], -1).T
+
+    def field(y):
+        h = h_bound * torch.tanh(layer_norm(y, ls, lb) / h_bound)
+        phi = torch.sigmoid(logistic_basis(mixer, h)).reshape(y.shape[0], -1)
+        z = F.silu(layer(layer(phi, g1, bw1, sw1), g2, bw2, sw2))
+        return eff * (z @ ow.T + ob)
+    return field
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from fetode_tpu_torch.ops._build import load_library
+
+    lib = load_library(_KERNEL_NAME)
+    P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mlp_node_fwd.argtypes = [P] * 8 + [I] * 5 + [F32] * 3 + [I, P]
+    lib.mlp_node_bwd.argtypes = [P] * 9 + [I] * 4 + [F32, P]
+    lib.mlp_node_fwd.restype = lib.mlp_node_bwd.restype = ctypes.c_int
+    lib.mlp_node_work_floats.argtypes = [I] * 4
+    lib.mlp_node_work_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def _dims(weights, h0, name) -> Tuple[int, int, int]:
+    """(D, K, H), checked against every operand's shape."""
+    if len(weights) != N_WEIGHTS:
+        raise ValueError(f"{name}: expected the {N_WEIGHTS} operands of "
+                         f"mlp_weights, got {len(weights)}")
+    D, K = weights[2].shape
+    H, L = weights[5].shape
+    NC.check_state(h0, D, name)
+    want = [(D,), (D,), (D, K), (D, K), (L, N_KNOTS), (H, L),
+            (H, L, N_COEFF), (H, N_KNOTS), (H, H), (H, H, N_COEFF), (D, H),
+            (D,), (1,)]
+    got = [tuple(w.shape) for w in weights]
+    if L != D * K or got != want:
+        raise ValueError(f"{name}: operand shapes {got}, expected {want} "
+                         f"(D={D}, K={K}, H={H}, L=D*K)")
+    return D, K, H
+
+
+def _operands(weights, h0, name) -> List[torch.Tensor]:
+    """The kernels' float32 operands, checked."""
+    _dims(weights, h0, name)
+    return [NC.kernel_operand(w, h0.device, f"{name} operand {i}")
+            for i, w in enumerate(weights)]
+
+
+def _pointers(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _work(B, D, K, H, device):
+    n = _lib().mlp_node_work_floats(B, D, K, H)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def _launch_fwd(ops, h0, h_bound, rtol, atol, max_steps, record):
+    B, D = h0.shape
+    K, H = ops[2].shape[1], ops[5].shape[0]
+    dev = h0.device
+    h0 = h0.detach().contiguous()
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    recs = NC.new_records(max_steps, B, D, dev) if record else None
+    r = recs if record else (None,) * 4
+    w, work = _pointers(ops), _work(B, D, K, H, dev)
+    NC.launch(_lib().mlp_node_fwd, NC.ptr(h0), ctypes.addressof(w),
+              NC.ptr(out), *(NC.ptr(t) for t in r), NC.ptr(work), B, D, K,
+              H, int(max_steps), float(rtol), float(atol), float(h_bound),
+              int(record), name="mlp_node_fwd", device=dev)
+    mlp_node_fwd.launches += 1
+    return out, recs
+
+
+def _launch_bwd(ops, records, hbar, h_bound):
+    B, D = hbar.shape
+    K, H = ops[2].shape[1], ops[5].shape[0]
+    dev = hbar.device
+    NC.check_records(records, B, D, dev, "mlp_node_bwd")
+    hbar = hbar.detach().to(torch.float32).contiguous()
+    grads = [torch.empty_like(t) for t in grad_weights(ops)]
+    h0bar = torch.empty((B, D), dtype=torch.float32, device=dev)
+    w, g = _pointers(ops), _pointers(grads)
+    work = _work(B, D, K, H, dev)
+    NC.launch(_lib().mlp_node_bwd, NC.ptr(hbar),
+              *(NC.ptr(t) for t in records), ctypes.addressof(w),
+              ctypes.addressof(g), NC.ptr(h0bar), NC.ptr(work), B, D, K, H,
+              float(h_bound), name="mlp_node_bwd", device=dev)
+    mlp_node_bwd.launches += 1
+    return grads, h0bar
+
+
+def mlp_node_fwd(weights: Sequence[torch.Tensor], h0: torch.Tensor, *,
+                 h_bound: float = 1.0, rtol: float = 1e-2,
+                 atol: float = 1e-3, max_steps: int = 16,
+                 record: bool = True
+                 ) -> Tuple[torch.Tensor, NC.SolveRecords | None]:
+    """The forward kernel on the operands of ``mlp_weights``: ``(final
+    state (B, D), records or None)``, no autograd.  A CPU tensor gets
+    ``record_solve_reference``."""
+    if h0.device.type == "cpu":
+        _dims(weights, h0, "mlp_node_fwd")
+        hT, recs = NC.record_solve_reference(
+            mlp_field(weights, h_bound), h0, rtol=rtol, atol=atol,
+            max_steps=max_steps)
+        return hT, recs if record else None
+    NC.check_cuda(h0, "mlp_node_fwd")
+    ops = _operands(weights, h0, "mlp_node_fwd")
+    return _launch_fwd(ops, h0, h_bound, rtol, atol, max_steps, record)
+
+
+def mlp_node_bwd(weights: Sequence[torch.Tensor], h0: torch.Tensor,
+                 records: NC.SolveRecords, hbar: torch.Tensor, *,
+                 h_bound: float = 1.0
+                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The reverse-replay kernel: the final-state cotangent ``hbar`` ->
+    (gradients of the 11 operands of ``grad_weights``; h0bar).  The kernel
+    reads the recorded states and does not need ``h0``; a CPU tensor gets
+    ``replay_vjp_reference``, which does."""
+    if h0.device.type == "cpu":
+        _dims(weights, h0, "mlp_node_bwd")
+        return NC.replay_vjp_reference(mlp_field(weights, h_bound),
+                                       grad_weights(weights), h0, records,
+                                       hbar)
+    NC.check_cuda(h0, "mlp_node_bwd")
+    ops = _operands(weights, h0, "mlp_node_bwd")
+    return _launch_bwd(ops, records, hbar, h_bound)
+
+
+mlp_node_fwd.launches = 0
+mlp_node_bwd.launches = 0
+
+
+class _SolveTrain(torch.autograd.Function):
+    """Forward kernel with records; the backward is the replay kernel.
+    The 13 operands are saved as given, so autograd refuses a backward
+    after they changed in place; the grids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, opts, h0, *weights):
+        h_bound, rtol, atol, max_steps = opts
+        ops = _operands(weights, h0, "mlp_node_solve")
+        out, recs = _launch_fwd(ops, h0, h_bound, rtol, atol, max_steps,
+                                record=True)
+        ctx.h_bound = h_bound
+        ctx.save_for_backward(*weights, *recs)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, hbar):
+        saved = ctx.saved_tensors
+        ops = [t.detach().contiguous() for t in saved[:N_WEIGHTS]]
+        grads, h0bar = _launch_bwd(ops, NC.SolveRecords(*saved[N_WEIGHTS:]),
+                                   hbar, ctx.h_bound)
+        grads = iter(grads)
+        full = [None if i in _GRIDS else next(grads)
+                for i in range(N_WEIGHTS)]
+        need = ctx.needs_input_grad
+        return (None, h0bar if need[1] else None,
+                *(g if need[2 + i] else None for i, g in enumerate(full)))
+
+
+def mlp_node_solve(params, h0: torch.Tensor, spec) -> torch.Tensor:
+    """Solve the ``KanFetNODESpec`` (field='mlp') latent ODE over [0, 1]
+    from ``h0`` (B, D) -> the final state.  ``params`` is the model's
+    parameter module.  Autograd gives the gradients of the field's
+    parameters and of ``h0``: on CUDA through the kernel pair, on the CPU
+    through the plain replay."""
+    check_geometry(params.kan, spec.latent_dim, spec.num_basis,
+                   spec.ode_hidden)
+    w = mlp_weights(params)
+    opts = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    grad = _under_autograd(h0, *w)
+    if h0.device.type == "cpu":
+        _dims(w, h0, "mlp_node_solve")
+        field = mlp_field(w, spec.h_bound)
+        if grad:
+            return NC.solve_reference(field, h0, **opts)
+        return NC.record_solve_reference(field, h0, **opts)[0]
+    NC.check_cuda(h0, "mlp_node_solve")
+    if grad:
+        return _SolveTrain.apply(
+            (spec.h_bound, spec.rtol, spec.atol, spec.max_steps), h0, *w)
+    return mlp_node_fwd(w, h0, h_bound=spec.h_bound, record=False,
+                        **opts)[0]
