@@ -4,7 +4,8 @@ Drives the port's main paths — predprey KANFET serving and training, ECG
 classification training and serving (the 'plain' and 'mlp' latent
 fields and the ferro model), ETT forecasting training and serving,
 Kuramoto-MNIST training and serving, conditional-diffusion training and
-serving — on the card and checks
+serving, predprey training on wide KANFET stacks and symbolic
+regression — on the card and checks
 them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
@@ -197,6 +198,47 @@ random weights from a seed, series from ``synthetic_ecg200``:
     training step at B = 8, kernels against the eager solve, with its
     device-busy share.
 
+The wide predprey slice, the preset of ``cli predprey`` (dopri5 at rtol
+1e-7 / atol 1e-9, ``max_steps`` 256, the 35 fit times over [0, 3.5], x0 =
+(1, 1)) with ``--layers`` widened, random weights from a seed:
+
+32. The wide-stack kernels (``csrc/kanfet_wide.cu``, B.3) against their
+    plain versions at [2, 32, 2], [2, 24, 24, 2] and [2, 64, 64, 2] (ferro
+    N = 512, 4,608, 32,768), B = 1 (the path's batch) and 3, for the init
+    and a scaled set (every ferro coef and base weight times 1.5), at two
+    tolerances: rtol 1e-3 / atol 1e-5, where float32 rounding decides no
+    accept decision and the kernel must take plain's attempts, and the
+    preset's, where it decides some and the kernel must take plain's
+    attempts within 5% (at least 3) and reach plain's time: both
+    forward kernels against plain's replay of the kernel's mesh at rtol =
+    atol = 1e-3, the same output with and without records, and at the
+    preset against the plain solve on its own mesh on the times both
+    reached (at 1e-3 the two meshes' outputs part by the solve's own
+    error); with the training loss's
+    cotangent, the backward on the kernel's own records, twice the same
+    bits, against autograd of the float64 plain replay of the same
+    records, relative error < 1e-4 over the operands' gradients and over
+    x0bar; a number that misses 1e-4 is held to 4× the float32 plain
+    replay's own error, at most 1e-3, and its line says so (an x0bar that
+    cancels to 1% of its terms: float32 cannot reach 1e-4 there); at
+    rtol 1e-3, where the two meshes part
+    most, the kernel's gradient against plain's, each on its own mesh,
+    cosine > 0.999.
+33. B.3 against B.2 (``kanfet_adjoint_fwd`` / ``bwd``) at [2, 32, 2] and
+    B = 1: at rtol 1e-3 the same attempts; at the preset trajectories and
+    gradients on their own meshes within 1e-4,
+    and B.3's backward on B.2's records within 1e-4 of B.2's; both timed
+    there and at the flagship [2, 10, 2] (N = 160, trajectories within
+    1e-4), and B.3 at N = 512 and 4,608.
+34. A ``predict`` training step at [2, 64, 64, 2] (forward, backward,
+    clip, Adam at learning rate 0): its time (CUDA events, median of 3
+    windows), its device-busy share, B.3's forward and backward against
+    plain, the attempts, and the launches: B.3 only, B.1 and B.2 none.
+35. The training slice: ``cli.main(["predprey", "--layers", "2,64,64,2",
+    "--epochs", "20", ...])`` under ``solver_mode="auto"``: B.3 launched
+    (and B.1 and B.2 not), finite losses; then ``cli.main(["symbolic",
+    "--device", "cuda"])``: its loss finite and falling.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -208,6 +250,7 @@ lists each kernel with its launches, error, times and bound.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -225,7 +268,8 @@ HORIZON = 14.0
 GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
-           "ode_dyn", "ddpm", "kuramoto", "node_enc", "mlp_node")
+           "ode_dyn", "ddpm", "kuramoto", "node_enc", "mlp_node",
+           "kanfet_wide")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
@@ -244,6 +288,19 @@ NODE_ENC_CHECKS = (8, 31, 64, 181, 256)
 # and 32 (the train and test accuracy evals), 8 / 64 / 256 (serving),
 # which phases 29-30 confirm by logging the batch of every launch.
 MLP_CHECKS = (8, 32, 64, 256)
+# The wide predprey stacks of phase 32: the dispatch boundary (ferro N =
+# 512), 4,608 and 32,768; and the tolerance at which float32 rounding
+# decides no accept decision, where B.3 must take its plain version's
+# attempts (at the preset's rtol 1e-7 two float32 solves part by a few).
+WIDE_STACKS = ((2, 32, 2), (2, 24, 24, 2), (2, 64, 64, 2))
+WIDE_LOOSE = dict(rtol=1e-3, atol=1e-5)
+# At the preset B.3 must reach plain's time in plain's attempts within
+# this share of them, and at least 3 (float32 rounding of the error
+# estimate parts two right solves: 105 against 101 at [2, 64, 64, 2]).
+WIDE_ATTEMPTS = 0.05
+# A backward check that misses GRAD_TOL is held instead to 4x the float32
+# plain replay's own error against float64, never above this.
+GRAD_CAP = 1e-3
 # Timed calls per window of the cond_diffusion serving bench (3 windows a
 # bucket): each call runs 10 reverse chains of 200 steps.
 SERVE_ITERS = 3
@@ -2007,6 +2064,464 @@ def mlp_phases(device, smi):
     return checks, times, launches
 
 
+# ------------------------------------------------- wide predprey stacks
+
+
+def kanfet_wide_eval_counts(cfg):
+    """(FP32, SFU) of one B.3 field evaluation and of one field VJP, for
+    one trajectory.  As ``kanfet_eval_counts`` counts an evaluation, but
+    at the fresh frozen state a ferro term is one sigmoid and one tanh
+    (target = 1 - 2 (1 - mu) cn, the TPU kernel's form) and mu one
+    sigmoid an input.  The VJP's least work takes cn and tanh once per
+    edge and k (the layers' inputs with them) and forms every derivative
+    from those values (sech^2 = 1 - th^2, dcn = -g cn (1 - cn)): the
+    evaluation's SFU, and on top of its FP32, per term 24 (the input
+    cotangent and the five ferro gradients), per edge 4 + 4 C (base and
+    spline, forward and gradient), per input 3 + 4 C (silu' and B')."""
+    ev = [0, 0]
+    vjp_fp32 = 0
+    for c in cfg.layers:
+        i, o, K = c.in_features, c.out_features, c.ferro_num_basis
+        C = c.grid_size + c.spline_order
+        nk = c.grid_size + 2 * c.spline_order + 1
+        fp32 = (i * (2 + SIG[0]) + i * (1 + SIG[0])
+                + i * nk * (1 + 10 * c.spline_order)
+                + i * o * (2 + 2 * C) + i * o * K * (10 + SIG[0] + TANH[0]))
+        ev[0] += fp32
+        ev[1] += 2 * i * SIG[1] + i * o * K * (SIG[1] + TANH[1])
+        vjp_fp32 += (fp32 + i * o * K * 24 + i * o * (4 + 4 * C)
+                     + i * (3 + 4 * C))
+    return tuple(ev), (vjp_fp32, ev[1])
+
+
+def kanfet_wide_counts(n_par, cfg, B, ts, recs, kind):
+    """(FP32, SFU, bytes) of a B.3 call ([D, ..., D] KANFET stack, batch
+    B): ``fwd`` (2 + 6 per attempt field evaluations of B rows, the step
+    arithmetic, the dense output and the records) or ``bwd`` (per
+    accepted attempt 6 field VJPs of B rows, 7 when an output time falls
+    in its window), from ``kanfet_wide_eval_counts``; ``n_par`` operand
+    floats, the grids among them (they get no gradient)."""
+    ev, vjp = kanfet_wide_eval_counts(cfg)
+    D = cfg.layers[0].in_features
+    N = B * D
+    n_att = int(recs.misc[0])
+    tda = recs.tda[:n_att].cpu().numpy()
+    tsn = ts.cpu().numpy()
+    T = len(tsn)
+    acc = [(t, dt) for dt, a, t, _ in tda if a > 0.5]
+    rec_floats = n_att * (4 + 8 * N) + 4
+    if kind == "fwd":
+        n = (2 + 6 * n_att) * B
+        return (n * ev[0] + N * (80 * n_att + 40 * T), n * ev[1],
+                4 * (N + T + n_par + T * N + rec_floats))
+    grids = sum(c.in_features * (c.grid_size + 2 * c.spline_order + 1)
+                for c in cfg.layers)
+    n = B * sum(6 + int(any(t < v <= t + dt for v in tsn)) for t, dt in acc)
+    return (n * vjp[0] + N * 100 * len(acc), n * vjp[1],
+            4 * (T * N + T + rec_floats + 2 * n_par - grids + N))
+
+
+def wide_params(spec, device, regime):
+    """A stack's parameters from a seed: the init, or ("scaled") every
+    layer's ferro coef and base weight times 1.5 (a stiffer field)."""
+    from fetode_tpu_torch.models.predprey import predprey_init
+
+    params = predprey_init(torch.Generator().manual_seed(0), spec,
+                           device=device)
+    if regime == "scaled":
+        with torch.no_grad():
+            for layer in params.layers:
+                layer.ferro.coef.mul_(1.5)
+                layer.base_weight.mul_(1.5)
+    return params
+
+
+def check_wide(params, cfg, x0, target, ts, opts, label, same_attempts):
+    """Phase 32 at one stack, batch, parameter set and tolerance: both
+    forward kernels against plain's replay of the kernel's records, the
+    attempts against the plain recording solve's (equal when
+    ``same_attempts``, the loose tolerance; otherwise within
+    ``WIDE_ATTEMPTS`` of plain's and at least 3, the same time reached,
+    and the outputs of the two
+    solves on the times both reached); with the cotangent of the training
+    loss's MSE against ``target`` (T, B, D), the backward on the kernel's
+    records, twice, against autograd of the float64 plain replay of the
+    same records (gradients and x0bar each within 1e-4; one that misses
+    it within 4x the float32 plain replay's own error, capped at
+    ``GRAD_CAP``, and the line says so), and, with ``same_attempts``, the
+    kernel's gradient against the plain one, each on its own mesh."""
+    from fetode_tpu_torch.ops import kanfet_wide as KW
+    from fetode_tpu_torch.ops import node_common as NC
+
+    w = KW.wide_weights(params)
+    field = KW.wide_field(w, cfg)
+    with torch.no_grad():
+        y_k, r_k = KW.kanfet_wide_fwd(w, cfg, x0, ts, **opts)
+        y_n, _ = KW.kanfet_wide_fwd(w, cfg, x0, ts, record=False, **opts)
+        torch.cuda.synchronize()
+        y_p, r_p = NC.record_solve_traj_reference(field, x0, ts, **opts)
+    if not (torch.isfinite(y_k).all() and torch.isfinite(y_p).all()):
+        fail(f"{label}: non-finite forward output")
+    if not torch.equal(y_k, y_n):
+        fail(f"{label}: the forward kernel's output depends on recording")
+    n_k, n_p = int(r_k.misc[0]), int(r_p.misc[0])
+    t_k, t_p = float(r_k.misc[1]), float(r_p.misc[1])
+    if same_attempts and n_k != n_p:
+        fail(f"{label}: {n_k} attempts in the kernel, {n_p} in plain")
+    n_tol = max(3, math.ceil(WIDE_ATTEMPTS * n_p))
+    if abs(n_k - n_p) > n_tol or abs(t_k - t_p) > 1e-6 * abs(t_p):
+        fail(f"{label}: the kernel took {n_k} attempts to t = {t_k}, plain "
+             f"{n_p} to t = {t_p} (at most {n_tol} apart)")
+    # The forward on the kernel's own mesh: plain's replay of its records.
+    with torch.no_grad():
+        y_r = NC.replay_traj_reference(field, x0, ts, r_k)
+    mesh_err = max_abs(y_k, y_r)
+    if not torch.allclose(y_k, y_r, rtol=TOL, atol=TOL):
+        fail(f"{label}: forward kernel disagrees with plain's replay of its "
+             f"mesh (max |diff| {mesh_err:.3e})")
+    # Each on its own mesh, on the times both reached: the two meshes part
+    # by float32 rounding, so the outputs part by about the solve's own
+    # error; held where that is far below TOL (the preset's rtol 1e-7).
+    t_both = float(min(r_k.misc[1], r_p.misc[1]))
+    reached = ts <= t_both
+    fwd_err = max_abs(y_k[reached], y_p[reached])
+    if not same_attempts and not torch.allclose(
+            y_k[reached], y_p[reached], rtol=TOL, atol=TOL):
+        fail(f"{label}: forward kernel disagrees with plain (max |diff| "
+             f"{fwd_err:.3e})")
+    ct = 2.0 * (y_k - target) / y_k.numel()
+    got = [KW.kanfet_wide_bwd(w, cfg, x0, ts, r_k, ct) for _ in range(2)]
+    torch.cuda.synchronize()
+    (g_k, xb_k), (g_k2, xb_k2) = got
+    if not all(torch.isfinite(g).all() for g in g_k + [xb_k]):
+        fail(f"{label}: non-finite kernel gradients")
+    if not all(torch.equal(a, b) for a, b in zip(g_k + [xb_k],
+                                                 g_k2 + [xb_k2])):
+        fail(f"{label}: the backward kernel's gradients differ between two "
+             "calls")
+    w64 = [t.double() for t in w]
+    g_p, xb_p = NC.replay_traj_vjp_reference(
+        KW.wide_field(w64, cfg), KW.grad_weights(w64), x0.double(), ts,
+        NC.SolveRecords(*(r.double() for r in r_k)), ct.double())
+    g_rel = rel_err(flat(g_k).double(), flat(g_p))
+    x_rel = rel_err(xb_k.double(), xb_p)
+    g_tol = x_tol = GRAD_TOL
+    widened = ""
+    if not (g_rel < g_tol and x_rel < x_tol):
+        # float32's own reach: the float32 plain replay against float64,
+        # for the number that missed 1e-4 only.
+        g_32, xb_32 = NC.replay_traj_vjp_reference(
+            field, KW.grad_weights(w), x0, ts, r_k, ct)
+        if not g_rel < g_tol:
+            e32 = rel_err(flat(g_32).double(), flat(g_p))
+            g_tol = min(GRAD_CAP, max(g_tol, 4 * e32))
+            widened += f"; grads bound widened (float32 plain {e32:.2e})"
+        if not x_rel < x_tol:
+            e32 = rel_err(xb_32.double(), xb_p)
+            x_tol = min(GRAD_CAP, max(x_tol, 4 * e32))
+            widened += f"; x0bar bound widened (float32 plain {e32:.2e})"
+    if not (g_rel < g_tol and x_rel < x_tol):
+        fail(f"{label}: backward kernel vs float64 plain replay on the "
+             f"kernel's mesh: grads rel {g_rel:.3e} (bound {g_tol:.1e}), "
+             f"x0bar rel {x_rel:.3e} (bound {x_tol:.1e})")
+    gk = flat(g_k)
+    cos = None
+    if same_attempts:      # at the preset the meshes part by rounding only
+        g_o, _ = NC.replay_traj_vjp_reference(field, KW.grad_weights(w), x0,
+                                              ts, r_p, ct)
+        go = flat(g_o)
+        cos = float(torch.dot(gk, go) / (gk.norm() * go.norm()))
+        if not cos > COS_MIN:
+            fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
+    print(f"{label}: attempts kernel {n_k} (accepted "
+          f"{int(r_k.tda[:n_k, 1].sum())}), plain {n_p}; forward max |diff| "
+          f"{mesh_err:.3e} on the kernel's mesh, {fwd_err:.3e} on own meshes "
+          f"to t = {t_both:.4f}; backward on the kernel's mesh "
+          f"vs float64 plain: grads rel {g_rel:.3e} (bound {g_tol:.1e}), "
+          f"x0bar rel {x_rel:.3e} (bound {x_tol:.1e}){widened}, the same "
+          "bits twice"
+          + (f"; own-mesh cosine {cos:.7f}" if same_attempts else ""))
+    return dict(fwd_err=mesh_err, own_err=fwd_err, g_rel=g_rel, x_rel=x_rel,
+                cos=cos,
+                g_abs=max(max_abs(gk.double(), flat(g_p)),
+                          max_abs(xb_k.double(), xb_p)),
+                n_k=n_k, n_p=n_p, recs=r_k)
+
+
+def b2_records_as_traj(records, D):
+    """B.2's per-trajectory records of one trajectory as node_common's
+    ``SolveRecords`` (the layout B.3 replays)."""
+    from fetode_tpu_torch.ops import node_common as NC
+
+    rec, n_att, t_end = records
+    M = rec.shape[0]
+    r = rec[:, :, 0]                                    # (M, 3 + 8D)
+    tda = torch.stack([r[:, 1], r[:, 2], r[:, 0], torch.zeros_like(r[:, 0])],
+                      dim=1)
+    misc = torch.zeros(4, dtype=rec.dtype, device=rec.device)
+    misc[0], misc[1] = n_att[0].to(rec.dtype), t_end[0]
+    return NC.SolveRecords(tda.contiguous(),
+                           r[:, 3:3 + D].reshape(M, 1, D).contiguous(),
+                           r[:, 3 + D:].reshape(M, 7, 1, D).contiguous(),
+                           misc)
+
+
+def module_grads(params, g_ops):
+    """B.3's operand gradients (7 a layer) on the module's parameters, in
+    ``kanfet_adjoint.train_weights`` order: the spline scaler's chain."""
+    out = []
+    for i, layer in enumerate(params.layers):
+        g = g_ops[7 * i:7 * i + 7]
+        out += [g[0], g[1] * layer.spline_scaler.detach()[..., None],
+                (g[1] * layer.spline_weight.detach()).sum(-1), *g[2:]]
+    return out
+
+
+def time_b3_b2(params, spec, x0, ts, opts, r3, r2, ct, smi):
+    """Phase 33's times of B.3 and B.2 at one trajectory, forward and
+    backward (on each kernel's own records), as a line's tail."""
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_wide as KW
+
+    w = KW.wide_weights(params)
+    with torch.no_grad():
+        t3f = cuda_ms(lambda: KW.kanfet_wide_fwd(w, spec.kan, x0, ts,
+                                                 **opts), 5)
+        t2f = cuda_ms(lambda: KA.kanfet_adjoint_fwd(params, spec.kan, x0, ts,
+                                                    **opts), 5)
+    t3b = cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0, ts, r3, ct), 5)
+    ct2 = ct.transpose(0, 1).contiguous()
+    t2b = cuda_ms(lambda: KA.kanfet_adjoint_bwd(params, spec.kan, x0, ts, r2,
+                                                ct2), 5)
+    return (f"; forward B.3 {t3f:.4f} ms, B.2 {t2f:.4f} ms; backward B.3 "
+            f"{t3b:.4f} ms, B.2 {t2b:.4f} ms ({smi})")
+
+
+def wide_phases(device, smi, ts_fit, x0_task):
+    """Phases 32-35, the wide predprey stacks: returns the kernel checks,
+    the timings and the kernels' launches on the main path."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.models.predprey import (
+        PredPreyNODE,
+        PredPreyTask,
+        lotka_volterra_field,
+        trajectory_loss,
+    )
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+    from fetode_tpu_torch.ops import kanfet_wide as KW
+    from fetode_tpu_torch.ops import node_common as NC
+    from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(32)
+    x0s = {1: x0_task, 3: torch.cat([x0_task, torch.from_numpy(rng.uniform(
+        0.5, 2.0, (2, 2)).astype(np.float32)).to(device)])}
+    lv = lotka_volterra_field(PredPreyTask())
+    targets = {b: odeint_dopri5(lv, x, ts_fit, rtol=1e-8, atol=1e-10,
+                                max_steps=2048, mode="while",
+                                per_row=True).transpose(0, 1)
+               for b, x in x0s.items()}
+    preset = PredPreyNODE.kanfet()
+    tols = {"preset": dict(rtol=preset.rtol, atol=preset.atol,
+                           max_steps=preset.max_steps),
+            "loose": dict(WIDE_LOOSE, max_steps=preset.max_steps)}
+
+    # ---- 32. B.3 against plain
+    checks = {}
+    for layers in WIDE_STACKS:
+        spec = PredPreyNODE.kanfet(layers_hidden=layers)
+        for regime in ("init", "scaled"):
+            params = wide_params(spec, device, regime)
+            for B in (1, 3):
+                for tol, opts in tols.items():
+                    label = (f"kanfet_wide {list(layers)} {regime} B={B} "
+                             f"rtol {opts['rtol']:g}")
+                    checks[(layers, regime, B, tol)] = check_wide(
+                        params, spec.kan, x0s[B], targets[B], ts_fit, opts,
+                        label, same_attempts=tol == "loose")
+
+    # ---- 33. B.3 against B.2 at the dispatch boundary, B = 1
+    spec = PredPreyNODE.kanfet(layers_hidden=(2, 32, 2))
+    params = wide_params(spec, device, "init")
+    w = KW.wide_weights(params)
+    for tol, opts in tols.items():
+        with torch.no_grad():
+            y3, r3 = KW.kanfet_wide_fwd(w, spec.kan, x0_task, ts_fit, **opts)
+            y2, r2 = KA.kanfet_adjoint_fwd(params, spec.kan, x0_task, ts_fit,
+                                           **opts)
+        ct = 2.0 * (y3 - targets[1]) / y3.numel()
+        g3, xb3 = KW.kanfet_wide_bwd(w, spec.kan, x0_task, ts_fit, r3, ct)
+        g2, xb2 = KA.kanfet_adjoint_bwd(params, spec.kan, x0_task, ts_fit,
+                                        r2, ct.transpose(0, 1))
+        torch.cuda.synchronize()
+        n3, n2 = int(r3.misc[0]), int(r2.n_att[0])
+        y3 = y3.transpose(0, 1)
+        traj = max_abs(y3, y2)
+        g_rel = rel_err(flat(module_grads(params, g3)), flat(g2))
+        x_rel = rel_err(xb3, xb2)
+        line = (f"B.3 vs B.2 [2, 32, 2] B=1 rtol {opts['rtol']:g}: attempts "
+                f"{n3} / {n2}; trajectories max |diff| {traj:.3e}; gradients "
+                f"on own meshes rel {g_rel:.3e}, x0bar {x_rel:.3e}")
+        if tol == "loose":
+            if n3 != n2:
+                fail(f"{line}: other attempts")
+        else:
+            if not (torch.allclose(y3, y2, rtol=GRAD_TOL, atol=GRAD_TOL)
+                    and g_rel < GRAD_TOL and x_rel < GRAD_TOL):
+                fail(f"{line}: beyond 1e-4")
+            # B.3's backward on B.2's own mesh.
+            g3s, xb3s = KW.kanfet_wide_bwd(w, spec.kan, x0_task, ts_fit,
+                                           b2_records_as_traj(r2, 2), ct)
+            gs_rel = rel_err(flat(module_grads(params, g3s)), flat(g2))
+            xs_rel = rel_err(xb3s, xb2)
+            line += (f"; B.3's backward on B.2's mesh: grads rel "
+                     f"{gs_rel:.3e}, x0bar {xs_rel:.3e}")
+            if not (gs_rel < GRAD_TOL and xs_rel < GRAD_TOL):
+                fail(f"{line}: beyond 1e-4")
+            line += time_b3_b2(params, spec, x0_task, ts_fit, opts, r3, r2,
+                               ct, smi)
+        print(line)
+    # Below the boundary, at the flagship [2, 10, 2] (ferro N = 160, where
+    # predict takes B.2): both kernels timed at the preset, B = 1.
+    spec = PredPreyNODE.kanfet()
+    params = wide_params(spec, device, "init")
+    opts = tols["preset"]
+    with torch.no_grad():
+        y3, r3 = KW.kanfet_wide_fwd(KW.wide_weights(params), spec.kan,
+                                    x0_task, ts_fit, **opts)
+        y2, r2 = KA.kanfet_adjoint_fwd(params, spec.kan, x0_task, ts_fit,
+                                       **opts)
+    torch.cuda.synchronize()
+    traj = max_abs(y3.transpose(0, 1), y2)
+    line = (f"B.3 vs B.2 [2, 10, 2] B=1 rtol {opts['rtol']:g}: attempts "
+            f"{int(r3.misc[0])} / {int(r2.n_att[0])}; trajectories max "
+            f"|diff| {traj:.3e}")
+    if not torch.allclose(y3.transpose(0, 1), y2, rtol=GRAD_TOL,
+                          atol=GRAD_TOL):
+        fail(f"{line}: beyond 1e-4")
+    ct = 2.0 * (y3 - targets[1]) / y3.numel()
+    print(line + time_b3_b2(params, spec, x0_task, ts_fit, opts, r3, r2, ct,
+                            smi))
+
+    # B.3's times at the preset tolerance and B = 1 over ferro N: 512,
+    # 4,608 and 32,768 (the last is phase 34's).
+    times = {}
+    for layers in WIDE_STACKS[:2]:
+        spec = PredPreyNODE.kanfet(layers_hidden=layers)
+        w = KW.wide_weights(wide_params(spec, device, "init"))
+        with torch.no_grad():
+            _, recs = KW.kanfet_wide_fwd(w, spec.kan, x0_task, ts_fit,
+                                         **tols["preset"])
+            fwd = cuda_ms(lambda: KW.kanfet_wide_fwd(
+                w, spec.kan, x0_task, ts_fit, **tols["preset"]), 5)
+        bwd = cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0_task, ts_fit,
+                                                 recs, ct), 5)
+        times[layers] = dict(fwd=fwd, bwd=bwd, n=int(recs.misc[0]))
+        print(f"time kanfet_wide {list(layers)} B=1: forward {fwd:.4f} ms, "
+              f"backward {bwd:.4f} ms, {int(recs.misc[0])} attempts ({smi})")
+
+    # ---- 34. a predict training step at [2, 64, 64, 2]
+    layers = WIDE_STACKS[-1]
+    spec = PredPreyNODE.kanfet(layers_hidden=layers)
+    params = wide_params(spec, device, "init")
+    w = KW.wide_weights(params)
+    n_par = sum(t.numel() for t in w)
+    kernels = (KN.kanfet_solve, KA.kanfet_adjoint_fwd, KA.kanfet_adjoint_bwd,
+               KW.kanfet_wide_fwd, KW.kanfet_wide_bwd)
+
+    def loss_fn(q, x, tgt):
+        return trajectory_loss(q, spec, x, ts_fit, tgt)
+
+    p = copy.deepcopy(params)
+    state = init_state(p, make_optimizer(0.0, params=p.parameters(),
+                                         grad_clip=1.0))
+    step = make_train_step(loss_fn)
+    for f in kernels:
+        f.launches = 0
+    target = targets[1][:, 0]
+    step_ms = cuda_ms(lambda: step(state, x0_task[0], target), 3)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in kernels]
+    if counts[:3] != [0, 0, 0] or min(counts[3:]) < 1:
+        fail(f"predict step at {list(layers)}: launches (B.1, B.2 fwd, B.2 "
+             f"bwd, B.3 fwd, B.3 bwd) {counts}")
+    wall, busy, top = profile_ms(lambda: step(state, x0_task[0], target))
+    field = KW.wide_field(w, spec.kan)
+    with torch.no_grad():
+        y1, recs = KW.kanfet_wide_fwd(w, spec.kan, x0_task, ts_fit,
+                                      **tols["preset"])
+    ct1 = 2.0 * (y1 - targets[1]) / y1.numel()
+    with torch.no_grad():
+        t = dict(fwd=cuda_ms(lambda: KW.kanfet_wide_fwd(
+            w, spec.kan, x0_task, ts_fit, **tols["preset"]), 5),
+            plain_fwd=cuda_ms(lambda: NC.record_solve_traj_reference(
+                field, x0_task, ts_fit, **tols["preset"]), 1, windows=1))
+    t["bwd"] = cuda_ms(lambda: KW.kanfet_wide_bwd(
+        w, spec.kan, x0_task, ts_fit, recs, ct1), 5)
+    t["plain_bwd"] = cuda_ms(lambda: NC.replay_traj_vjp_reference(
+        field, KW.grad_weights(w), x0_task, ts_fit, recs, ct1), 1, windows=1)
+    t.update(step=step_ms, wall=wall, busy=busy, n=int(recs.misc[0]),
+             bound_fwd=bound(*kanfet_wide_counts(n_par, spec.kan, 1, ts_fit,
+                                                 recs, "fwd")),
+             bound_bwd=bound(*kanfet_wide_counts(n_par, spec.kan, 1, ts_fit,
+                                                 recs, "bwd")))
+    times[layers] = t
+    print(f"time predict training step {list(layers)} B=1 (forward, backward,"
+          f" clip, Adam): {step_ms:.4f} ms; profiled: wall {wall:.4f} ms, "
+          f"device busy {busy:.4f} ms ({100 * busy / wall:.1f}%), top "
+          f"{[(k, round(v, 4)) for k, v in top]}; launches (B.1, B.2 fwd, "
+          f"B.2 bwd, B.3 fwd, B.3 bwd) {counts} ({smi})")
+    print(f"time kanfet_wide {list(layers)} B=1: forward {t['fwd']:.4f} ms "
+          f"(plain {t['plain_fwd']:.3f}), backward {t['bwd']:.4f} ms (plain "
+          f"{t['plain_bwd']:.3f}), {t['n']} attempts; bounds fwd "
+          f"{t['bound_fwd'][0]:.5f} ms ({t['bound_fwd'][2]}), bwd "
+          f"{t['bound_bwd'][0]:.5f} ms ({t['bound_bwd'][2]}) ({smi})")
+
+    # ---- 35. the training slice, through the CLI: cli predprey on the
+    # widest stack, then cli symbolic
+    batches = set()
+    undo = log_batches(KW, {"_launch_fwd": 3}, batches)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for f in kernels:
+                f.launches = 0
+            res = cli.main(["predprey", "--layers", "2,64,64,2", "--device",
+                            "cuda", "--epochs", "20", "--epochs_per_call",
+                            "10", "--out-dir", tmp])
+            torch.cuda.synchronize()
+            launches = [f.launches for f in kernels]
+            with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+                curve = [json.loads(line) for line in fh]
+    finally:
+        undo()
+    losses = [r["train"] for r in curve] + [r["test"] for r in curve]
+    if launches[:3] != [0, 0, 0] or min(launches[3:]) < 1:
+        fail(f"cli predprey --layers 2,64,64,2: launches (B.1, B.2 fwd, B.2 "
+             f"bwd, B.3 fwd, B.3 bwd) {launches}")
+    if not np.isfinite(losses).all():
+        fail(f"cli predprey --layers 2,64,64,2: non-finite losses {curve}")
+    print(f"cli predprey --layers 2,64,64,2 (20 epochs, auto): train "
+          f"{[round(r['train'], 6) for r in curve]}, test "
+          f"{[round(r['test'], 6) for r in curve]}; "
+          f"{res['epochs_per_sec']:.2f} epochs/s; launches (B.1, B.2 fwd, "
+          f"B.2 bwd, B.3 fwd, B.3 bwd) {launches}, B.3 batches "
+          f"{sorted(b for _, b in batches)} ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = cli.main(["symbolic", "--device", "cuda", "--out-dir", tmp])
+        wall_s = time.perf_counter() - t0
+        if not os.path.exists(os.path.join(tmp, "symbolic_trained.npz")):
+            fail("cli symbolic wrote no symbolic_trained.npz")
+    if not (np.isfinite([res["initial_loss"], res["final_loss"]]).all()
+            and res["final_loss"] < res["initial_loss"]):
+        fail(f"cli symbolic: losses {res}")
+    print(f"cli symbolic (300 epochs, cuda): loss {res['initial_loss']:.4f} "
+          f"-> {res['final_loss']:.4f}, {wall_s:.2f} s ({smi})")
+    return checks, times, launches[3:]
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2235,12 +2750,15 @@ def main():
         device, smi)
     enc_checks, enc_times, enc_launches = cond_diffusion_phases(device, smi)
     mlp_checks, mlp_times, mlp_launches = mlp_phases(device, smi)
+    wide_checks, wide_times, wide_launches = wide_phases(device, smi,
+                                                         ts_fit, x0_task)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
     # rollout at the training batch 128, the fused classifier at the
     # largest serving bucket, 256, the node encoder at the training batch
-    # 64, and the 'mlp' field at the training batch 8
+    # 64, the 'mlp' field at the training batch 8, and the wide stack
+    # [2, 64, 64, 2] at its training batch, 1
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
@@ -2248,6 +2766,7 @@ def main():
     lt, ft = ecg_times[("logistic", 8)], ecg_times[("ferro", 8)]
     kt, kl = kura_times[128], kura_times[256]
     et, mt = enc_times[64], mlp_times[8]
+    wt = wide_times[WIDE_STACKS[-1]]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -2337,6 +2856,16 @@ def main():
                      mlp_launches[1],
                      max(c["g_abs"] for c in mlp_checks.values()),
                      mt["bwd"], mt["plain_bwd"], mt["bound_bwd"]),
+        kernel_entry("kanfet_wide_fwd", "fetode_tpu_torch/csrc/kanfet_wide.cu",
+                     "fetode_tpu/ops/pallas_kanfet_wide.py:632",
+                     wide_launches[0],
+                     max(c["fwd_err"] for c in wide_checks.values()),
+                     wt["fwd"], wt["plain_fwd"], wt["bound_fwd"]),
+        kernel_entry("kanfet_wide_bwd", "fetode_tpu_torch/csrc/kanfet_wide.cu",
+                     "fetode_tpu/ops/pallas_kanfet_wide.py:663",
+                     wide_launches[1],
+                     max(c["g_abs"] for c in wide_checks.values()),
+                     wt["bwd"], wt["plain_bwd"], wt["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

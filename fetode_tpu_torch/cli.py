@@ -25,6 +25,9 @@ CLI, so one command line drives either package.  Ported so far:
 * ``mnist`` — trains the Kuramoto-lattice KAN classifier
   (``models/kuramoto.py``) on the MNIST idx files when they are found,
   else on synthetic digits, and reports the test accuracy.
+* ``symbolic`` — fits the two-layer ferro KAN of ``models/symbolic.py`` to
+  y = sin x + 0.1 x^2, saves ``symbolic_trained.npz`` with the JAX CLI's
+  keys and reports the first and last loss.
 * ``serve --source ecg`` (the default source), ``predprey``, ``ett``,
   ``ddpm``, ``cond_diffusion`` and ``mnist`` — builds the model, exports
   a serving bundle, loads it back and reports p50/p99 latency per batch
@@ -53,7 +56,6 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 _WORKLOAD_TODO = {
     "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs, data/multimodal.py and "
                "the kanrnn encoder of A.7)",
-    "symbolic": "ROADMAP A.10 (symbolic regression)",
 }
 
 
@@ -399,6 +401,38 @@ def run_mnist(cfg, out_dir, plots):
     return {"test_acc": acc}
 
 
+def run_symbolic(cfg, out_dir, plots):
+    """The reference's symbolic-regression demo (smooth_test_KAN_ferro.py):
+    fit y = sin x + 0.1 x^2 with a 2-layer ferro-KAN and save the trained
+    params (its `torch.save` of KAN_ferro_SR_trained.pth) as the JAX CLI
+    saves them."""
+    import numpy as np
+
+    from fetode_tpu_torch.convert import symbolic_params_to_numpy
+    from fetode_tpu_torch.models.symbolic import (
+        SymbolicNetSpec,
+        train_symbolic,
+    )
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if plots:
+        raise NotImplementedError("--plots: the hysteresis-loop and loss "
+                                  "plots are not ported yet: ROADMAP A.11")
+    device = resolve_device(cfg.device)
+    spec = SymbolicNetSpec(hidden=cfg.hidden, num_basis=cfg.num_basis,
+                           l1_coef=cfg.l1_coef)
+    params, losses = train_symbolic(spec, epochs=cfg.epochs, lr=cfg.lr,
+                                    n_points=cfg.n_points, seed=cfg.seed,
+                                    log=lambda m: print(m, flush=True),
+                                    device=device)
+    np.savez(os.path.join(out_dir, "symbolic_trained.npz"),
+             **{f"{layer}.{k}": v
+                for layer, d in symbolic_params_to_numpy(params).items()
+                for k, v in d.items()})
+    return {"final_loss": float(losses[-1]) if len(losses) else None,
+            "initial_loss": float(losses[0]) if len(losses) else None}
+
+
 def mnist_serving(cfg, device: torch.device):
     """The MNIST serving function: ``(params, fn, example)`` with a fresh
     Kuramoto classifier from ``cfg.seed`` under ``cfg.rollout`` and
@@ -610,6 +644,7 @@ RUNNERS = {
     "ett": run_ett,
     "cond_diffusion": run_cond_diffusion,
     "mnist": run_mnist,
+    "symbolic": run_symbolic,
     "serve": run_serve,
 }
 

@@ -2,7 +2,7 @@
 ``fetode_tpu/config.py``).
 
 Ported: the ``predprey``, ``ecg``, ``ett``, ``cond_diffusion``,
-``mnist`` and ``serve`` presets; their field names are the JAX
+``mnist``, ``symbolic`` and ``serve`` presets; their field names are the JAX
 package's, so one command line drives either package.  The port adds
 ``device``.
 The other workloads' presets arrive with their slices.
@@ -193,6 +193,22 @@ class MNISTPreset:
 
 
 @dataclass
+class SymbolicPreset:
+    """smooth_test_KAN_ferro.py:125-160 (2-layer ferro-KAN symbolic
+    regression of y = sin x + 0.1 x^2 with L1 coef pruning)."""
+
+    hidden: int = 8
+    num_basis: int = 6
+    l1_coef: float = 1e-3
+    epochs: int = 300
+    lr: float = 5e-3
+    n_points: int = 128
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class ServePreset:
     """Serving bundle export + latency bench (``fetode_tpu_torch/serve.py``)."""
 
@@ -253,6 +269,7 @@ PRESETS = {
     "ett": ETTPreset,
     "cond_diffusion": CondDiffusionPreset,
     "mnist": MNISTPreset,
+    "symbolic": SymbolicPreset,
     "serve": ServePreset,
 }
 

@@ -23,7 +23,9 @@ A conditional denoiser's tree (``encoder``: the conv dict or the node
 dict with its ``field`` MLP list; ``net``: an MLP or KAN layer list) maps
 to ``encoder.<key>`` / ``encoder.field.<i>.w`` and ``net.<i>.w`` or
 ``net.layers.<i>.<name>`` (``cond_diffusion_params_{from,to}_numpy``,
-``cond_diffusion_grads_to_numpy``).
+``cond_diffusion_grads_to_numpy``).  The symbolic net's ``{"l1", "l2"}``
+dict of ferro layers maps to ``l1.<name>`` / ``l2.<name>``
+(``symbolic_params_{from,to}_numpy``, ``symbolic_grads_to_numpy``).
 
 Everything converts to float32 unless asked otherwise: the JAX package's
 tests run with x64 on, and the port works in float32 throughout.
@@ -284,3 +286,28 @@ def cond_diffusion_grads_to_numpy(module, dtype=np.float32
     """A conditional denoiser's ``.grad``s -> the JAX gradient tree; a KAN
     grid (a buffer) and a parameter without a gradient get zeros."""
     return _cond_diffusion_nest(_grads_or_zeros(module, buffers=True), dtype)
+
+
+# -------------------------------------------------- symbolic regression
+
+
+def symbolic_params_from_numpy(tree: Dict[str, Any], device=None,
+                               dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The symbolic net's JAX param dict (``{"l1": {k, ec, ps, bias, coef},
+    "l2": {...}}``) -> a ``state_dict`` for its port module
+    (``models/symbolic.py: SymbolicNet``), keys ``l1.k`` ..."""
+    flat: Dict[str, Any] = {}
+    _flatten("", tree, flat)
+    return {k: torch.as_tensor(np.array(v, dtype=dtype), device=device)
+            for k, v in flat.items()}
+
+
+def symbolic_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """The inverse: a ``SymbolicNet`` -> the JAX param dict."""
+    return _nest(module.state_dict(), dtype)
+
+
+def symbolic_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
+    """A ``SymbolicNet``'s ``.grad``s -> the JAX gradient dict; a parameter
+    without a gradient gets zeros."""
+    return _nest(_grads_or_zeros(module), dtype)

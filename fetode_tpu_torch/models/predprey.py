@@ -11,10 +11,19 @@ Solver dispatch in ``predict`` / ``predict_batch`` (by ``solver_mode``
 and the tensor's device; a failure on CUDA raises, nothing falls back):
 
 * ``"pallas"`` — the whole-solve CUDA kernels, the mode string of the
-  JAX package.  CUDA tensors only.  Under autograd (a parameter or x0
-  that requires grad) the discrete-adjoint kernels
-  (``ops/kanfet_adjoint.py: kanfet_solve_train``), otherwise the serving
-  kernel (``ops/kanfet_node.py: kanfet_solve``); both run the same solve.
+  JAX package.  CUDA tensors only.  ``predict`` (one trajectory) takes,
+  for a stack whose largest in·out·K is below ``WIDE_DISPATCH_FERRO_N``,
+  the discrete-adjoint kernels (``ops/kanfet_adjoint.py:
+  kanfet_solve_train``) under autograd (a parameter or x0 that requires
+  grad) and otherwise the serving kernel (``ops/kanfet_node.py:
+  kanfet_solve``), both the same solve; from that width up the wide
+  stack's batch-shared kernels (``ops/kanfet_wide.py:
+  kanfet_wide_solve_train``), recording and replaying under autograd,
+  the forward alone otherwise.  ``predict_batch`` steps each trajectory
+  under its own controller, so it takes the per-trajectory kernels at
+  every width, as the JAX trajectory driver does; they take two-layer
+  [D, H, D] stacks whose parameters fit their shared memory, and others
+  raise.
 * ``"auto"`` — the kernels on a CUDA tensor; on a CPU tensor the eager
   solve, ``"scan"`` under autograd and ``"while"`` otherwise.
 * ``"while"`` — the eager early-exit solve on any device, no gradient.
@@ -39,12 +48,13 @@ from fetode_tpu_torch.nn.kan import (
     kanfet_config,
 )
 from fetode_tpu_torch.ops.kanfet_adjoint import kanfet_solve_train
-from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
+from fetode_tpu_torch.ops.kanfet_node import _kernel_geometry, kanfet_solve
+from fetode_tpu_torch.ops.kanfet_wide import kanfet_wide_solve_train
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
 
-# Stacks with max(in*out*K) >= this go to the wide-layout training kernel
-# in the JAX package (measured crossover on a TPU).  The port has no
-# wide kernel yet, so such stacks raise on the kernel path.
+# ``predict`` sends stacks with max(in*out*K) >= this to the wide stack's
+# kernels, as the JAX package does (its crossover, measured on a TPU;
+# chip_smoke.py phase 33 times both kernels at the boundary on the card).
 WIDE_DISPATCH_FERRO_N = 512
 
 
@@ -110,7 +120,7 @@ def predprey_init(generator: torch.Generator, spec: PredPreyNODE, *,
 
 
 def _use_kernel(params: KAN, spec: PredPreyNODE, x: torch.Tensor) -> bool:
-    """Resolve the solver: True for the CUDA kernel, False for eager."""
+    """Resolve the solver: True for the CUDA kernels, False for eager."""
     if spec.method != "dopri5":
         raise NotImplementedError(
             f"method={spec.method!r}: the fixed-step solvers are not ported "
@@ -123,15 +133,13 @@ def _use_kernel(params: KAN, spec: PredPreyNODE, x: torch.Tensor) -> bool:
         raise ValueError("solver_mode='pallas' is the CUDA kernel and takes "
                          f"CUDA tensors, got one on {x.device}; use 'auto' "
                          "or 'while' for the eager solve")
-    if not (mode == "pallas" or (mode == "auto" and x.device.type == "cuda")):
-        return False
-    max_ferro_n = max(c.in_features * c.out_features * c.ferro_num_basis
-                      for c in spec.kan.layers)
-    if max_ferro_n >= WIDE_DISPATCH_FERRO_N:
-        raise NotImplementedError(
-            f"ferro N = {max_ferro_n} >= {WIDE_DISPATCH_FERRO_N} goes to the "
-            "wide-layout kernel, not ported yet (ROADMAP B.3)")
-    return True
+    return mode == "pallas" or (mode == "auto" and x.device.type == "cuda")
+
+
+def max_ferro_n(spec: PredPreyNODE) -> int:
+    """The largest in*out*K of the stack's layers."""
+    return max(c.in_features * c.out_features * c.ferro_num_basis
+               for c in spec.kan.layers)
 
 
 def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
@@ -149,6 +157,10 @@ def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
             raise ValueError("the kernel solve takes one (D,) trajectory from "
                              "the fresh hysteresis state; use predict_batch "
                              "for a batch")
+        if max_ferro_n(spec) >= WIDE_DISPATCH_FERRO_N:
+            return kanfet_wide_solve_train(
+                params, spec.kan, x0[None], ts, rtol=spec.rtol,
+                atol=spec.atol, max_steps=spec.max_steps)[0]
         return predict_batch(params, spec, x0[None], ts)[0]
     if ferro_state is None:
         ferro_state = kan_state_init(x0.shape[:-1], spec.kan, device=x0.device,
@@ -167,6 +179,17 @@ def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
     stepped on its own: ``jax.vmap(lambda x0: predict(params, spec, x0,
     ts))`` of the JAX package, written out for PyTorch."""
     if _use_kernel(params, spec, x0s):
+        try:
+            _kernel_geometry(spec.kan, ts.shape[0])
+        except ValueError as e:
+            raise NotImplementedError(
+                "predict_batch steps each trajectory under its own "
+                "controller, which the per-trajectory kernels "
+                "(ops/kanfet_node.py, ops/kanfet_adjoint.py) do; they take "
+                "two-layer [D, H, D] stacks whose parameters fit their 48 KB "
+                f"of shared memory, and this stack does not ({e}).  Solve "
+                "one trajectory with predict, or use solver_mode='while' or "
+                "'scan'") from e
         solve = (kanfet_solve_train
                  if _under_autograd(x0s, *params.parameters())
                  else kanfet_solve)

@@ -8,7 +8,10 @@ are ported: global-norm clipping and cosine decay, the KAN regulariser
 (``reg_lambda``), validation-window best-snapshot selection
 (``val_points``) and the consistent time base.  On the card the training
 solve is the discrete-adjoint kernel pair and the evaluation solves the
-serving kernel; on the CPU both are the eager solves.
+serving kernel; a stack whose largest in·out·K reaches
+``WIDE_DISPATCH_FERRO_N`` (``--layers 2,32,2`` and wider) takes the wide
+stack's kernels instead, the recording forward and replay to train and
+the forward alone to evaluate.  On the CPU both are the eager solves.
 
 The other ``PredPreyRun`` knobs keep their fields and defaults; setting
 one raises ``NotImplementedError`` naming the ROADMAP item that ports it.

@@ -59,6 +59,8 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.ops.interp",
                  "fetode_tpu_torch.ops.node_enc",
                  "fetode_tpu_torch.ops.mlp_node",
+                 "fetode_tpu_torch.ops.kanfet_wide",
+                 "fetode_tpu_torch.models.symbolic",
                  "fetode_tpu_torch.models.cond_diffusion",
                  "fetode_tpu_torch.train.cond_diffusion_driver"):
         assert name in report["modules"]

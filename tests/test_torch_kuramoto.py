@@ -459,10 +459,7 @@ def test_cli_serve_mnist_on_cpu(tmp_path):
                                   ["mnist", "--device", "cpu",
                                    "--mesh_devices", "2"], ["symbolic"]])
 def test_cli_refusals(tmp_path, argv):
-    if argv[-1] == "symbolic":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            cli.main(argv + ["--out-dir", str(tmp_path)])
-    elif "--mesh_devices" in argv:
+    if "--mesh_devices" in argv:
         with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
             cli.main(argv + ["--out-dir", str(tmp_path)])
     else:

@@ -150,7 +150,7 @@ def test_cli_refusals(tmp_path):
         pytest.skip("checks the refusal of --device cuda without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["serve", "--source", "predprey", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["symbolic", "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         cli.main(["timemmd", "--out-dir", str(tmp_path)])
