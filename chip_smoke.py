@@ -4,8 +4,9 @@ Drives the port's main paths — predprey KANFET serving and training, ECG
 classification training and serving (the 'plain' and 'mlp' latent
 fields and the ferro model), ETT forecasting training and serving,
 Kuramoto-MNIST training and serving, conditional-diffusion training and
-serving, predprey training on wide KANFET stacks and symbolic
-regression — on the card and checks
+serving, predprey training on wide KANFET stacks, symbolic regression,
+and the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
+``--model all``) with ETT's KAN-RNN encoder — on the card and checks
 them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
@@ -239,6 +240,39 @@ The wide predprey slice, the preset of ``cli predprey`` (dopri5 at rtol
     (and B.1 and B.2 not), finite losses; then ``cli.main(["symbolic",
     "--device", "cuda"])``: its loss finite and falling.
 
+The ECG recurrent slice, at the full width of ``ECGPreset`` (T = 96,
+hidden = latent 64, 12 bases, batch 8, AdamW 1e-3), random weights from
+a seed, series from ``synthetic_ecg200``:
+
+36. The ferro layer op (``csrc/ferro_fused.cu``, B.13) against the plain
+    ``ferro_apply`` at every shape its paths give it (``RNN_SHAPES``: 1 ->
+    64, 64 -> 64, 65 -> 64 with K = 12, at B = 8, 32 and 64;
+    ``SYM_SHAPES``: cli symbolic's 1 -> 8 and 8 -> 1 with K = 6 at its 128
+    points), states fresh, after one call and after 96 calls on random
+    inputs, float32 and bfloat16 states, both gate forms: y within rtol =
+    atol = 1e-4 against max |y|, the float32 branch within 1e-5 and a
+    bfloat16 branch within one bfloat16 unit of plain's rounding, prev_x
+    equal, and the gradients of a random cotangent through the
+    ``autograd.Function`` within 1e-6 relative of autograd of the plain
+    op; ``update_branch=False`` returns the old branch.
+37. The sequence paths, kernel against plain: ``ferro_kan_rnn_apply`` at
+    B = 8 and 64, ``node_rnn_apply`` (rk4, 96 steps) at B = 8 and 32:
+    logits and cross-entropy gradients within 1e-4 relative, and exactly
+    2 T + 1 = 193 and 4 * 96 + 2 = 386 B.13 launches a forward.
+38. The CLI paths with ``--device cuda``: ``cli ecg --model fepa_rnn``
+    and ``node_rnn`` (2 epochs; B.13 launched), ``fepa_rnn --noise_std
+    0.2`` (B.13 not launched: its noise takes the plain op), ``digital_rnn``,
+    ``all`` (1 epoch), ``cli ett --model kan_fet_diffusion`` (1 epoch) and
+    ``cli symbolic`` (B.13 launched): finite losses, the batches B.13
+    launched at logged.
+39. Times: at each shape at B = 8 and 64, B.13's device time per call
+    (profiler trace; back to back the host's launch overhead paces it,
+    and that per-call time, CUDA events, is printed beside it) and the
+    plain op's device-busy time, with B.13's bound; a training step of
+    ``fepa_rnn``, ``node_rnn`` (each also with the plain op) and
+    ``digital_rnn`` at B = 8, learning rate 0 (CUDA events, median of 3
+    windows), with its device-busy share.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -269,7 +303,7 @@ GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
            "ode_dyn", "ddpm", "kuramoto", "node_enc", "mlp_node",
-           "kanfet_wide")
+           "kanfet_wide", "ferro_fused")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
@@ -304,6 +338,16 @@ GRAD_CAP = 1e-3
 # Timed calls per window of the cond_diffusion serving bench (3 windows a
 # bucket): each call runs 10 reverse chains of 200 steps.
 SERVE_ITERS = 3
+# The ferro layer ops (P -> O, K) of the ECG recurrent models at ECGPreset's
+# width (phases 36-39): the FEPA-RNN's input op, its hidden op and head
+# (and node_rnn's cell), node_rnn's field on [h, x(t)]; cli symbolic's two
+# layers.  The batches: 8 (a training step), 64 and 32 (the train and test
+# accuracy evals), symbolic's 128 points; states after 0, 1 and T calls.
+RNN_SHAPES = ((1, 64, 12), (64, 64, 12), (65, 64, 12))
+SYM_SHAPES = ((1, 8, 6), (8, 1, 6))
+RNN_BATCHES = (8, 32, 64)
+SYM_BATCH = 128
+RNN_T = 96
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -2522,6 +2566,351 @@ def wide_phases(device, smi, ts_fit, x0_task):
     return checks, times, launches[3:]
 
 
+# ------------------------------------------ ECG recurrent models (B.13)
+
+
+def ferro_fused_counts(B, P, O, K, state_bytes):
+    """(FP32, SFU, bytes) of one B.13 call, each value counted once: per
+    term (b, i, o, k) the two crossing sigmoids, the tanhf and about 22
+    FP32 operations (the gate arguments, the switch and EMA updates, the
+    basis and its weighted sum); per (b, i) the up sigmoid; the K-fold of
+    the column sums.  Bytes: x, the state (prev_x, the branch read and the
+    new branch written, in the state's type), the five parameter tensors
+    and y, each once."""
+    terms = B * P * O * K
+    fp32 = (terms * (22 + 2 * SIG[0] + TANH[0]) + B * P * (2 + SIG[0])
+            + B * O * K)
+    sfu = terms * (2 * SIG[1] + TANH[1]) + B * P * SIG[1]
+    nbytes = (4 * B * P + state_bytes * (B * P + 2 * terms)
+              + 4 * 5 * P * O * K + 4 * B * O)
+    return fp32, sfu, nbytes
+
+
+def bf16_units(a, b):
+    """How many bfloat16 values apart a and b (bfloat16 tensors) lie,
+    elementwise: the distance of their bit patterns on the line of
+    bfloat16 numbers in order (-0 and +0 one point)."""
+    def ordinal(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+class plain_ferro_layers:
+    """Within it the RNN modules and the symbolic net take the plain
+    ``ferro_apply`` where they take B.13 (the comparison runs)."""
+
+    def __enter__(self):
+        from fetode_tpu_torch.models import symbolic as SY
+        from fetode_tpu_torch.nn import rnn as TR
+        from fetode_tpu_torch.ops.ferro import ferro_apply
+
+        self.mods = (TR, SY)
+        self.saved = [m.ferro_apply_fused for m in self.mods]
+        for m in self.mods:
+            m.ferro_apply_fused = ferro_apply
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.mods, self.saved):
+            m.ferro_apply_fused = fn
+
+
+def ferro_state_after(params, cfg, B, n_calls, dtype, device, rng):
+    """The state after ``n_calls`` plain calls on random inputs."""
+    from fetode_tpu_torch.ops.ferro import ferro_apply, ferro_state_init
+
+    state = ferro_state_init((B,), cfg, device=device, dtype=dtype)
+    with torch.no_grad():
+        for _ in range(n_calls):
+            x = torch.from_numpy(rng.standard_normal(
+                (B, cfg.in_dim)).astype(np.float32)).to(device)
+            _, state = ferro_apply(params, state, x, cfg)
+    return state
+
+
+def check_ferro_fused(params, cfg, state, x, ybar, label):
+    """B.13 against the plain op on one input: y, the new state, and the
+    gradients of <y, ybar> through the Function against autograd of the
+    plain op.  Returns (max |y diff|, max |branch diff|)."""
+    from fetode_tpu_torch.ops import ferro_fused as FF
+    from fetode_tpu_torch.ops.ferro import ferro_apply
+
+    weights = [getattr(params, n) for n in FF._NAMES]
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    yk, sk = FF.ferro_apply_fused(params, state, xk, cfg)
+    gk = torch.autograd.grad((yk * ybar).sum(), [xk] + weights)
+    yp, sp = ferro_apply(params, state, xp, cfg)
+    gp = torch.autograd.grad((yp * ybar).sum(), [xp] + weights)
+    torch.cuda.synchronize()
+    y_err = max_abs(yk.detach(), yp.detach())
+    scale = float(yp.detach().abs().max())
+    if not (torch.isfinite(yk).all() and y_err <= 1e-4 + 1e-4 * scale):
+        fail(f"B.13 {label}: y max |diff| {y_err:.3e} against max |y| "
+             f"{scale:.3e}")
+    if sk.branch.dtype != state.branch.dtype or \
+            not torch.equal(sk.prev_x, sp.prev_x):
+        fail(f"B.13 {label}: the new state's dtype or prev_x differs")
+    d = (sk.branch.float() - sp.branch.float()).abs()
+    if state.branch.dtype == torch.bfloat16:
+        units = bf16_units(sk.branch, sp.branch)
+        if int(units.max()) > 1:
+            i = int(units.argmax())
+            fail(f"B.13 {label}: a bfloat16 branch {int(units.max())} units "
+                 f"from plain's rounding: {float(sk.branch.view(-1)[i])} "
+                 f"against {float(sp.branch.view(-1)[i])}")
+    elif not float(d.max()) <= 1e-5:
+        fail(f"B.13 {label}: branch max |diff| {float(d.max()):.3e}")
+    g_err = max(rel_err(a, b) for a, b in zip(gk, gp) if b.norm() > 0)
+    if not g_err <= 1e-6:
+        fail(f"B.13 {label}: gradient rel error {g_err:.3e}")
+    return y_err, float(d.max())
+
+
+def rnn_step_fn(apply, params, x, y):
+    """One training step of an RNN classifier (forward, cross-entropy,
+    backward, clip and AdamW) at learning rate 0, as a closure."""
+    from fetode_tpu_torch.train.ecg_driver import cross_entropy
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    state = init_state(params, make_optimizer(
+        0.0, params=params.parameters(), kind="adamw", weight_decay=1e-4,
+        grad_clip=1.0))
+    step = make_train_step(lambda q, xb, yb: cross_entropy(apply(q, xb), yb))
+    return lambda: step(state, x, y)
+
+
+def rnn_phases(device, smi):
+    """Phases 36-39, the ECG recurrent models and B.13: returns the
+    kernel's worst y error, its timings and its launches on the CLI
+    paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.nn import rnn as TR
+    from fetode_tpu_torch.ops import ferro_fused as FF
+    from fetode_tpu_torch.ops.ferro import (
+        FerroConfig,
+        ferro_apply,
+        ferro_init,
+        ferro_state_init,
+    )
+    from fetode_tpu_torch.train.ecg_driver import cross_entropy
+
+    # ---- 36. B.13 against the plain op at every shape its paths give it
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(36)
+    cases = [(s, b) for s in RNN_SHAPES for b in RNN_BATCHES] + \
+        [(s, SYM_BATCH) for s in SYM_SHAPES]
+    y_worst, n_checks = 0.0, 0
+    for shape, B in cases:
+        P, O, K = shape
+        for gate in ("sigmoid", "tanh"):
+            cfg = FerroConfig(P, O, K, gate_impl=gate)
+            params = ferro_init(torch.Generator().manual_seed(P + O + K),
+                                cfg, device=device)
+            for dtype in (torch.float32, torch.bfloat16):
+                states = {n: ferro_state_after(params, cfg, B, n, dtype,
+                                               device, rng)
+                          for n in (0, 1, RNN_T)}
+                for n, state in states.items():
+                    x = torch.from_numpy(rng.standard_normal(
+                        (B, P)).astype(np.float32)).to(device)
+                    ybar = torch.from_numpy(rng.standard_normal(
+                        (B, O)).astype(np.float32)).to(device)
+                    label = (f"({P}->{O}, K={K}) B={B} {gate} "
+                             f"{str(dtype)[6:]} after {n} calls")
+                    y_err, _ = check_ferro_fused(params, cfg, state, x, ybar,
+                                                 label)
+                    y_worst = max(y_worst, y_err)
+                    n_checks += 1
+    # update_branch=False returns the old branch
+    cfg = FerroConfig(64, 64, 12, update_branch=False)
+    params = ferro_init(torch.Generator().manual_seed(1), cfg, device=device)
+    state = ferro_state_after(params, cfg._replace(update_branch=True), 8, 1,
+                              torch.float32, device, rng)
+    with torch.no_grad():
+        _, s1 = FF.ferro_apply_fused(params, state, torch.zeros(
+            (8, 64), device=device), cfg)
+    if s1.branch is not state.branch:
+        fail("B.13 with update_branch=False did not return the old branch")
+    print(f"B.13 against plain ferro_apply: {n_checks} cases (shapes "
+          f"{list(RNN_SHAPES) + list(SYM_SHAPES)}, B {RNN_BATCHES} / "
+          f"{SYM_BATCH}, fresh / 1 / {RNN_T} calls of state, float32 and "
+          f"bfloat16 state, both gates): y max |diff| {y_worst:.3e}, "
+          f"branch within 1e-5 (bfloat16: one unit), prev_x equal, "
+          f"gradients within 1e-6; {time.perf_counter() - t0:.1f} s")
+
+    # ---- 37. the sequence paths, kernel against plain, at full width
+    t0 = time.perf_counter()
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])
+    labels = np.concatenate([data[1], data[3]])
+    fcfg = TR.FerroKANRNNConfig(hidden_size=64, num_basis=12)
+    nspec = M.NodeRNNSpec(hidden_size=64, num_basis=12)
+    models = {
+        "fepa_rnn": (TR.ferro_kan_rnn_init(torch.Generator().manual_seed(0),
+                                           fcfg, device=device),
+                     lambda p, x: TR.ferro_kan_rnn_apply(p, fcfg, x),
+                     2 * series.shape[1] + 1, (8, 64)),
+        "node_rnn": (M.node_rnn_init(torch.Generator().manual_seed(0), nspec,
+                                     device=device),
+                     lambda p, x: M.node_rnn_apply(p, nspec, x),
+                     4 * nspec.n_steps + 2, (8, 32))}
+    seq_errs = {}
+    for name, (params, apply, per_fwd, batches) in models.items():
+        for B in batches:
+            x = torch.from_numpy(series[:B].astype(np.float32)).to(device)
+            y = torch.from_numpy(labels[:B]).long().to(device)
+            FF.ferro_apply_fused.launches = 0
+            with torch.no_grad():
+                lk = apply(params, x)
+            torch.cuda.synchronize()
+            if FF.ferro_apply_fused.launches != per_fwd:
+                fail(f"{name} B={B}: {FF.ferro_apply_fused.launches} B.13 "
+                     f"launches a forward, not {per_fwd}")
+            gk = torch.autograd.grad(cross_entropy(apply(params, x), y),
+                                     list(params.parameters()),
+                                     allow_unused=True)
+            with plain_ferro_layers():
+                with torch.no_grad():
+                    lp = apply(params, x)
+                gp = torch.autograd.grad(cross_entropy(apply(params, x), y),
+                                         list(params.parameters()),
+                                         allow_unused=True)
+            torch.cuda.synchronize()
+            pairs = [(a, b) for a, b in zip(gk, gp) if b is not None]
+            l_err = max_abs(lk, lp) / float(lp.abs().max())
+            g_err = rel_err(flat([a for a, _ in pairs]),
+                            flat([b for _, b in pairs]))
+            if not (torch.isfinite(lk).all() and l_err <= 1e-4
+                    and g_err <= 1e-4):
+                fail(f"{name} B={B}: logits rel {l_err:.3e}, loss gradient "
+                     f"rel {g_err:.3e} (limit 1e-4)")
+            seq_errs[(name, B)] = (l_err, g_err)
+            print(f"{name} B={B}, kernel against plain: logits rel "
+                  f"{l_err:.3e}, loss gradient rel {g_err:.3e}; {per_fwd} "
+                  f"B.13 launches a forward")
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 38. the CLI paths
+    t0 = time.perf_counter()
+    launches = {}
+    batches = set()
+    undo = log_batches(FF, {"_launch": 0}, batches)
+    try:
+        runs = {
+            "ecg fepa_rnn": ["ecg", "--model", "fepa_rnn", "--epochs", "2"],
+            "ecg node_rnn": ["ecg", "--model", "node_rnn", "--epochs", "2"],
+            "ecg fepa_rnn noisy": ["ecg", "--model", "fepa_rnn", "--epochs",
+                                   "2", "--noise_std", "0.2"],
+            "ecg digital_rnn": ["ecg", "--model", "digital_rnn", "--epochs",
+                                "2"],
+            "ecg all": ["ecg", "--model", "all", "--epochs", "1"],
+            "ett kan_fet_diffusion": ["ett", "--model", "kan_fet_diffusion",
+                                      "--epochs", "1"],
+            "symbolic": ["symbolic"]}
+        for label, argv in runs.items():
+            with tempfile.TemporaryDirectory() as tmp:
+                FF.ferro_apply_fused.launches = 0
+                t1 = time.perf_counter()
+                res = cli.main(argv + ["--device", "cuda", "--out-dir", tmp])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches[label] = FF.ferro_apply_fused.launches
+            if label == "symbolic":
+                losses = [res["initial_loss"], res["final_loss"]]
+            elif label.startswith("ett"):
+                losses = res["train_curve"] + res["val_curve"] + \
+                    [res["test_mse"]]
+            elif label == "ecg all":
+                losses = sum(res["loss_curves"].values(), [])
+            else:
+                losses = res["loss_curve"]
+            if not np.isfinite(losses).all():
+                fail(f"cli {label}: non-finite losses {losses}")
+            print(f"cli {label} (cuda): {wall:.2f} s, B.13 launches "
+                  f"{launches[label]}, "
+                  + (f"best test acc {res['best_test_acc']}"
+                     if label.startswith("ecg") else f"losses {losses}")
+                  + f" ({smi})")
+    finally:
+        undo()
+    for label in ("ecg fepa_rnn", "ecg node_rnn", "symbolic"):
+        if launches[label] < 1:
+            fail(f"cli {label} launched no B.13 kernel")
+    if launches["ecg fepa_rnn noisy"] != 0:
+        fail("cli ecg fepa_rnn --noise_std 0.2 launched B.13, which has no "
+             "noise operand")
+    print(f"B.13 launches by CLI path {launches}; the noisy fepa_rnn "
+          f"launches none by design (device noise takes the plain op); "
+          f"batches launched {sorted(b for _, b in batches)}; phase 38 "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 39. times, CUDA events, median of 3 windows
+    t0 = time.perf_counter()
+    times = {}
+    for shape in list(RNN_SHAPES) + list(SYM_SHAPES):
+        P, O, K = shape
+        cfg = FerroConfig(P, O, K)
+        params = ferro_init(torch.Generator().manual_seed(2), cfg,
+                            device=device)
+        for B in (8, 64):
+            state = ferro_state_after(params, cfg, B, 1, torch.float32,
+                                      device, rng)
+            x = torch.from_numpy(rng.standard_normal((B, P)).astype(
+                np.float32)).to(device)
+            with torch.no_grad():
+                def kern():
+                    return FF.ferro_apply_fused(params, state, x, cfg)
+
+                def plain():
+                    return ferro_apply(params, state, x, cfg)
+                row = dict(
+                    ms=kernel_device_ms(kern, ["ferro_fused_kernel"], n=20),
+                    wall=cuda_ms(kern, 50),
+                    plain=profile_ms(plain, n=10)[1],
+                    plain_wall=cuda_ms(plain, 20),
+                    bound=bound(*ferro_fused_counts(B, P, O, K, 4)))
+            times[(shape, B)] = row
+            print(f"time B.13 ({P}->{O}, K={K}) B={B}: kernel {row['ms']:.4f}"
+                  f" device ms ({row['wall']:.4f} ms a call back to back), "
+                  f"plain {row['plain']:.4f} device ms ({row['plain_wall']:.4f}"
+                  f" ms a call), bound {row['bound'][0]:.5f} ms "
+                  f"({row['bound'][2]}) ({smi})")
+    x8 = torch.from_numpy(series[:8].astype(np.float32)).to(device)
+    y8 = torch.from_numpy(labels[:8]).long().to(device)
+    dcfg = TR.DigitalRNNConfig(hidden_size=64)
+    steps = {
+        "fepa_rnn": (models["fepa_rnn"][0], models["fepa_rnn"][1]),
+        "node_rnn": (models["node_rnn"][0], models["node_rnn"][1]),
+        "digital_rnn": (TR.digital_rnn_init(torch.Generator().manual_seed(0),
+                                            dcfg, device=device),
+                        lambda p, x: TR.digital_rnn_apply(p, dcfg, x))}
+    for name, (params, apply) in steps.items():
+        reps = 1 if name == "node_rnn" else 3     # node_rnn: about 1 s a step
+        fn = rnn_step_fn(apply, copy.deepcopy(params), x8, y8)
+        step_ms = cuda_ms(fn, reps)
+        wall, busy, top = profile_ms(fn, n=reps)
+        row = dict(step=step_ms, wall=wall, busy=busy)
+        msg = ""
+        if name != "digital_rnn":
+            with plain_ferro_layers():
+                row["plain_step"] = cuda_ms(rnn_step_fn(
+                    apply, copy.deepcopy(params), x8, y8), reps)
+            msg = f", with the plain op {row['plain_step']:.2f} ms"
+        times[name] = row
+        print(f"time {name} training step B=8 (forward, backward, clip, "
+              f"AdamW, lr 0): {step_ms:.3f} ms{msg}; profiled: wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}%), top "
+              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+    return y_worst, times, sum(launches.values())
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2752,13 +3141,15 @@ def main():
     mlp_checks, mlp_times, mlp_launches = mlp_phases(device, smi)
     wide_checks, wide_times, wide_launches = wide_phases(device, smi,
                                                          ts_fit, x0_task)
+    ff_err, ff_times, ff_launches = rnn_phases(device, smi)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
     # rollout at the training batch 128, the fused classifier at the
     # largest serving bucket, 256, the node encoder at the training batch
-    # 64, the 'mlp' field at the training batch 8, and the wide stack
-    # [2, 64, 64, 2] at its training batch, 1
+    # 64, the 'mlp' field at the training batch 8, the wide stack [2, 64,
+    # 64, 2] at its training batch, 1, and the ferro layer op at the
+    # FEPA-RNN's hidden shape (64 -> 64, K = 12) and training batch, 8
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
@@ -2767,6 +3158,7 @@ def main():
     kt, kl = kura_times[128], kura_times[256]
     et, mt = enc_times[64], mlp_times[8]
     wt = wide_times[WIDE_STACKS[-1]]
+    ff = ff_times[(RNN_SHAPES[1], 8)]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -2866,6 +3258,9 @@ def main():
                      wide_launches[1],
                      max(c["g_abs"] for c in wide_checks.values()),
                      wt["bwd"], wt["plain_bwd"], wt["bound_bwd"]),
+        kernel_entry("ferro_apply_fused", "fetode_tpu_torch/csrc/ferro_fused.cu",
+                     "fetode_tpu/ops/pallas_ferro.py:107", ff_launches,
+                     ff_err, ff["ms"], ff["plain"], ff["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

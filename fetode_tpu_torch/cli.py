@@ -8,14 +8,19 @@ CLI, so one command line drives either package.  Ported so far:
   (``train/predprey_driver.py``) and reports epochs/s and the final
   training loss.
 * ``ecg`` — trains an ECG200 classifier, ``--model kanfet_node`` (the
-  default; its latent field ``--field plain`` or ``mlp``) or
-  ``kanfet_mlp_node`` (``train/ecg_driver.py``), on the ECG200 files when
+  default; its latent field ``--field plain`` or ``mlp``),
+  ``kanfet_mlp_node``, ``fepa_rnn``, ``digital_rnn`` or ``node_rnn``
+  (``train/ecg_driver.py``), on the ECG200 files when
   ``$FETODE_DATA_DIR`` holds them, else on the synthetic stand-in, and
-  reports the best test accuracy.
+  reports the best test accuracy; ``--model all`` trains the JAX CLI's
+  comparison set (``digital_rnn``, ``fepa_rnn``, ``kanfet_node``,
+  ``kanfet_mlp_node`` clean and noisy) and writes
+  ``accuracy_table.json``.
 * ``ett`` — trains a forecaster, ``--model point`` (the default),
-  ``diffusion`` or ``kan_diffusion`` (``train/forecast_driver.py``), on
-  the ETT CSV when ``$FETODE_DATA_DIR`` holds it, else on the synthetic
-  stand-in, and reports the test MSE and the wall seconds.
+  ``diffusion``, ``kan_diffusion`` or ``kan_fet_diffusion`` (the KAN-RNN
+  context encoder; ``train/forecast_driver.py``), on the ETT CSV when
+  ``$FETODE_DATA_DIR`` holds it, else on the synthetic stand-in, and
+  reports the test MSE and the wall seconds.
 * ``cond_diffusion`` — trains a conditional-diffusion forecaster, one of
   the five denoisers (``--denoiser``, default ``kan_fet_all_node``;
   ``train/cond_diffusion_driver.py``), on the ETT CSV when
@@ -120,18 +125,104 @@ def run_predprey(cfg, out_dir, plots):
 
 
 # ECG models of the JAX CLI not ported yet.
-_ECG_TODO = {m: "ROADMAP A.7 (the remaining ECG models: the RNNs, 'all' "
-                "and the noise study)"
-             for m in ("fepa_rnn", "digital_rnn", "node_rnn", "all",
-                       "noise_study")}
+_ECG_TODO = {"noise_study": "ROADMAP A.7c (the noise study and its "
+                            "population trainer)"}
+# ``ecg --model all``: the JAX CLI's comparison set, then kanfet_mlp_node
+# with device noise (the --noise_std given, else 0.2).
+_ECG_ALL_MODELS = ("digital_rnn", "fepa_rnn", "kanfet_node",
+                   "kanfet_mlp_node")
 
 
-def run_ecg(cfg, out_dir, plots):
-    """Train an ECG200 classifier: ``kanfet_node`` or ``kanfet_mlp_node``,
-    on the ECG200 files when they are found, else on the synthetic
-    stand-in."""
+def _ecg_data():
     from fetode_tpu_torch.data.ecg200 import load_ecg200, synthetic_ecg200
+
+    try:
+        return load_ecg200()
+    except FileNotFoundError:
+        print("ECG200 files not found; using synthetic stand-in")
+        return synthetic_ecg200()
+
+
+def _ecg_model(cfg, T, device):
+    """``(init_fn, apply_fn)`` of ``cfg.model``, as the trainer takes them."""
     from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.nn import rnn as R
+
+    noisy = cfg.noise_std > 0
+
+    def gen(g):
+        return g if noisy else None
+
+    if cfg.model == "kanfet_node":
+        spec = M.KanFetNODESpec(T=T, latent_dim=cfg.latent_dim,
+                                num_basis=cfg.num_basis, solver=cfg.solver,
+                                rtol=cfg.rtol, atol=cfg.atol, field=cfg.field,
+                                solver_mode=cfg.solver_mode)
+        return (lambda g: M.kanfet_node_init(g, spec, device=device),
+                lambda p, x, g: M.kanfet_node_apply(p, spec, x))
+    if cfg.model == "kanfet_mlp_node":
+        spec = M.KanFetMLPNODESpec(T=T, latent_dim=cfg.latent_dim,
+                                   num_basis=cfg.num_basis, solver=cfg.solver,
+                                   rtol=cfg.rtol, atol=cfg.atol,
+                                   noise_std=cfg.noise_std,
+                                   solver_mode=cfg.solver_mode,
+                                   gate_impl=cfg.gate_impl)
+        return (lambda g: M.kanfet_mlp_node_init(g, spec, device=device),
+                lambda p, x, g: M.kanfet_mlp_node_apply(p, spec, x,
+                                                        generator=gen(g)))
+    if cfg.model == "fepa_rnn":
+        rcfg = R.FerroKANRNNConfig(hidden_size=cfg.latent_dim,
+                                   num_basis=cfg.num_basis,
+                                   noise_std=cfg.noise_std)
+        return (lambda g: R.ferro_kan_rnn_init(g, rcfg, device=device),
+                lambda p, x, g: R.ferro_kan_rnn_apply(p, rcfg, x,
+                                                      generator=gen(g)))
+    if cfg.model == "digital_rnn":
+        dcfg = R.DigitalRNNConfig(hidden_size=cfg.latent_dim)
+        return (lambda g: R.digital_rnn_init(g, dcfg, device=device),
+                lambda p, x, g: R.digital_rnn_apply(p, dcfg, x))
+    if cfg.model == "node_rnn":
+        spec = M.NodeRNNSpec(hidden_size=cfg.latent_dim,
+                             num_basis=cfg.num_basis, noise_std=cfg.noise_std)
+        return (lambda g: M.node_rnn_init(g, spec, device=device),
+                lambda p, x, g: M.node_rnn_apply(p, spec, x,
+                                                 generator=gen(g)))
+    raise SystemExit(f"unknown ECG model {cfg.model!r}")
+
+
+def _run_ecg_all(cfg, data, out_dir):
+    """The JAX CLI's ``ecg --model all``: each variant in its own
+    sub-directory, the best test accuracies in ``accuracy_table.json``;
+    returns them and each variant's loss curve."""
+    import dataclasses
+
+    variants = [(m, 0.0) for m in _ECG_ALL_MODELS]
+    variants.append(("kanfet_mlp_node",
+                     cfg.noise_std if cfg.noise_std > 0 else 0.2))
+    table, curves = {}, {}
+    for name, noise in variants:
+        label = f"{name}_noisy" if noise > 0 else name
+        sub = os.path.join(out_dir, label)
+        os.makedirs(sub, exist_ok=True)
+        print(f"[ecg all] training {label}", flush=True)
+        res = run_ecg(dataclasses.replace(cfg, model=name, noise_std=noise),
+                      sub, False, data=data)
+        table[label] = res["best_test_acc"]
+        curves[label] = res["loss_curve"]
+        print(f"[ecg all] {label}: best test acc {res['best_test_acc']:.4f}",
+              flush=True)
+    with open(os.path.join(out_dir, "accuracy_table.json"), "w") as f:
+        json.dump(table, f, indent=2)
+    print("model".ljust(26), "best test acc")
+    for label, acc in sorted(table.items(), key=lambda kv: -kv[1]):
+        print(label.ljust(26), f"{acc:.4f}")
+    return {"best_test_acc": table, "loss_curves": curves}
+
+
+def run_ecg(cfg, out_dir, plots, data=None):
+    """Train an ECG200 classifier (``cfg.model``; ``all``, the comparison
+    set), on the ECG200 files when they are found, else on the synthetic
+    stand-in."""
     from fetode_tpu_torch.train.ecg_driver import ECGRun, train_ecg_model
     from fetode_tpu_torch.utils.device import resolve_device
 
@@ -147,39 +238,11 @@ def run_ecg(cfg, out_dir, plots):
         raise NotImplementedError("--plots: the plotting diagnostics are not "
                                   "ported yet: ROADMAP A.11")
     device = resolve_device(cfg.device)
-    try:
-        data = load_ecg200()
-    except FileNotFoundError:
-        print("ECG200 files not found; using synthetic stand-in")
-        data = synthetic_ecg200()
-    T = data[0].shape[1]
-    if cfg.model == "kanfet_node":
-        spec = M.KanFetNODESpec(T=T, latent_dim=cfg.latent_dim,
-                                num_basis=cfg.num_basis, solver=cfg.solver,
-                                rtol=cfg.rtol, atol=cfg.atol, field=cfg.field,
-                                solver_mode=cfg.solver_mode)
-
-        def init_fn(g):
-            return M.kanfet_node_init(g, spec, device=device)
-
-        def apply_fn(p, x, g):
-            return M.kanfet_node_apply(p, spec, x)
-    elif cfg.model == "kanfet_mlp_node":
-        spec = M.KanFetMLPNODESpec(T=T, latent_dim=cfg.latent_dim,
-                                   num_basis=cfg.num_basis, solver=cfg.solver,
-                                   rtol=cfg.rtol, atol=cfg.atol,
-                                   noise_std=cfg.noise_std,
-                                   solver_mode=cfg.solver_mode,
-                                   gate_impl=cfg.gate_impl)
-
-        def init_fn(g):
-            return M.kanfet_mlp_node_init(g, spec, device=device)
-
-        def apply_fn(p, x, g):
-            return M.kanfet_mlp_node_apply(
-                p, spec, x, generator=g if cfg.noise_std > 0 else None)
-    else:
-        raise SystemExit(f"unknown ECG model {cfg.model!r}")
+    if data is None:
+        data = _ecg_data()
+    if cfg.model == "all":
+        return _run_ecg_all(cfg, data, out_dir)
+    init_fn, apply_fn = _ecg_model(cfg, data[0].shape[1], device)
     run = ECGRun(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
                  weight_decay=cfg.weight_decay, seed=cfg.seed,
                  epochs_per_call=cfg.epochs_per_call,
@@ -195,17 +258,15 @@ def run_ecg(cfg, out_dir, plots):
             "wall_seconds": hist["wall_seconds"]}
 
 
-# ETT models of the JAX CLI not ported yet, and the encoder of each
-# diffusion model that is.
-_ETT_TODO = {"kan_fet_diffusion": "ROADMAP A.7 (its KAN-RNN encoder, "
-                                  "nn/rnn.py)"}
-_ETT_ENCODERS = {"diffusion": "mlp", "kan_diffusion": "kan"}
+# The context encoder of each diffusion model.
+_ETT_ENCODERS = {"diffusion": "mlp", "kan_diffusion": "kan",
+                 "kan_fet_diffusion": "kanrnn"}
 
 
 def run_ett(cfg, out_dir, plots):
-    """Train an ETT forecaster: ``point``, ``diffusion`` or
-    ``kan_diffusion``, on the ETT CSV when it is found, else on the
-    synthetic stand-in."""
+    """Train an ETT forecaster: ``point``, ``diffusion``,
+    ``kan_diffusion`` or ``kan_fet_diffusion``, on the ETT CSV when it is
+    found, else on the synthetic stand-in."""
     from fetode_tpu_torch.data.timeseries import load_ett_csv, synthetic_series
     from fetode_tpu_torch.models.forecasting import (
         DiffusionForecasterSpec,
@@ -218,9 +279,6 @@ def run_ett(cfg, out_dir, plots):
     )
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if cfg.model in _ETT_TODO:
-        raise NotImplementedError(f"ett --model {cfg.model} is not ported "
-                                  f"yet: {_ETT_TODO[cfg.model]}")
     if cfg.model != "point" and cfg.model not in _ETT_ENCODERS:
         raise SystemExit(f"unknown ETT model {cfg.model!r}")
     if plots:

@@ -56,8 +56,9 @@ class ECGPreset:
     """train_ecg_kan_fet_nn_ode.py:1181-1261 (100 epochs, batch 8, latent
     64, basis 12, dopri5 rtol 1e-2 atol 1e-3, AdamW 1e-3 wd 1e-4)."""
 
-    # Ported: kanfet_node, kanfet_mlp_node.  fepa_rnn, digital_rnn,
-    # node_rnn, "all" and "noise_study" raise naming ROADMAP A.7.
+    # kanfet_node | kanfet_mlp_node | fepa_rnn | digital_rnn | node_rnn;
+    # "all": the comparison set (cli.py: _run_ecg_all).  "noise_study"
+    # raises naming ROADMAP A.7c.
     model: str = "kanfet_node"
     noise_stds: str = "0,0.1,0.2,0.5"
     noise_seeds: str = "0,1,2"
@@ -104,8 +105,8 @@ class ETTPreset:
 
     dataset: str = "ETTh1"
     target: str = "OT"
-    # Ported: point, diffusion, kan_diffusion.  kan_fet_diffusion raises
-    # naming ROADMAP A.7 (its KAN-RNN encoder).
+    # point | diffusion | kan_diffusion | kan_fet_diffusion (the KAN-RNN
+    # context encoder).
     model: str = "point"
     context_len: int = 96
     pred_len: int = 8

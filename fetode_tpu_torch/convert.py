@@ -157,13 +157,18 @@ def forecast_params_from_numpy(tree: Dict[str, Any], device=None,
     ``decoder`` | ``eps_head``, each a list of layers) -> a ``state_dict``
     for its port module (``models/forecasting.py``).  An MLP layer i maps
     to ``<part>.<i>.w`` / ``.b``; a KAN encoder's to
-    ``encoder.layers.<i>.<name>``, its grid to ``encoder.layers.<i>.grid``.
-    A bare layer list (one MLP) maps to ``<i>.w`` / ``.b``."""
+    ``encoder.layers.<i>.<name>``, its grid to ``encoder.layers.<i>.grid``;
+    the kanrnn encoder's dict to its dotted paths (``encoder.cell.
+    input_basis.a``, ``encoder.to_latent_w``).  A bare layer list (one
+    MLP) maps to ``<i>.w`` / ``.b``."""
     if isinstance(tree, list):
         tree = {"": tree}
     flat: Dict[str, Any] = {}
     for part, layers in tree.items():
         head = f"{part}." if part else ""
+        if isinstance(layers, dict):              # the kanrnn encoder
+            _flatten(head, layers, flat)
+            continue
         sub = f"{head}layers." if _is_kan(layers) else head
         for i, layer in enumerate(layers):
             _flatten(f"{sub}{i}.", layer, flat)
@@ -171,9 +176,17 @@ def forecast_params_from_numpy(tree: Dict[str, Any], device=None,
             for k, v in flat.items()}
 
 
+def _is_layer_index(name: str) -> bool:
+    return name.isdigit() or name == "layers"
+
+
 def _forecast_nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
     tree: Dict[str, Dict[int, Dict[str, Any]]] = {}
+    rnn = {key: value for key, value in flat.items()       # kanrnn encoder
+           if not _is_layer_index(key.split(".")[1])}
     for key, value in flat.items():
+        if key in rnn:
+            continue
         path = key.split(".")
         if path[1] == "layers":                   # a KAN encoder
             path = [path[0]] + path[2:]
@@ -184,8 +197,10 @@ def _forecast_nest(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, Any]:
         for name in rest[:-1]:
             node = node.setdefault(name, {})
         node[rest[-1]] = value.detach().cpu().numpy().astype(dtype)
-    return {part: [layers[i] for i in sorted(layers)]
-            for part, layers in tree.items()}
+    out: Dict[str, Any] = {part: [layers[i] for i in sorted(layers)]
+                           for part, layers in tree.items()}
+    out.update(_nest(rnn, dtype))
+    return out
 
 
 def forecast_params_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:

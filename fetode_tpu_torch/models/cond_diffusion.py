@@ -25,8 +25,9 @@ times [0, 1]); ``"pallas"`` raises for a CPU tensor; ``"auto"`` on the CPU,
 ``"scan"`` and ``"while"`` take the eager dopri5 over ``linspace(0, 1,
 n_eval)``, as the JAX package's XLA path does.  The JAX package takes its
 kernel only under ``"pallas"``; the port follows the rule that a CUDA
-tensor goes to the kernel by default.  The fixed-step solvers raise
-(ROADMAP A.3).
+tensor goes to the kernel by default.  A fixed-step ``solver`` takes
+``odeint_fixed`` over the same times in every mode, as the JAX package
+does.
 
 The samplers take their draws from a ``torch.Generator`` or explicitly
 (``y0``, ``noise``), so a test can feed both packages the same numbers.
@@ -62,6 +63,7 @@ from fetode_tpu_torch.ops.interp import linear_interp
 from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.ops.node_enc import node_enc_solve
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+from fetode_tpu_torch.solvers.fixed import odeint_fixed
 from fetode_tpu_torch.utils.init import kaiming_uniform
 
 # ------------------------------------------------------- past encoders
@@ -185,6 +187,8 @@ def node_encoder_apply(params: NodeEncoder, cfg: NodeEncoderCfg,
 
     ts = torch.linspace(0.0, 1.0, cfg.n_eval, dtype=past.dtype,
                         device=past.device)
+    if cfg.solver != "dopri5":
+        return odeint_fixed(rhs, z0, ts, method=cfg.solver)[-1]
     return odeint_dopri5(rhs, z0, ts, rtol=cfg.rtol, atol=cfg.atol,
                          max_steps=cfg.max_steps, mode=cfg.solver_mode)[-1]
 

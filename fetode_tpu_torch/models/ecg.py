@@ -19,9 +19,18 @@ autograd, while otherwise).  On the kernel path a call under autograd
 runs the kernel pair (forward with records, replay backward), a call
 without it the forward kernel alone.
 
-Not ported yet, each raising an error that names its ROADMAP item: the
-fixed-step solvers (A.3), the ``mesh`` argument (A.11), and the RNN
-models (A.7).
+A fixed-step ``solver`` (euler, rk2, rk4 ...) takes the eager
+final-state integration of ``solvers/fixed.py`` in every mode, as the JAX
+package does (its whole-solve kernels are dopri5 only); there a noisy
+``KanFetMLPNODE`` draws fresh device noise at every right-hand-side
+evaluation.
+
+The input-driven NODE encoders: ``NodeRNN`` (dh/dt = tanh(ferro([h,
+x(t)])) gain + bias by rk4, then one ferro KAN cell and a linear head; its
+ferro layer ops are ``ops/ferro_fused.py`` on the card) and
+``OdeRnnEncoder``.  The RNN classifiers themselves are ``nn/rnn.py``.
+
+Not ported yet: the ``mesh`` argument (ROADMAP A.11), which raises.
 """
 
 from __future__ import annotations
@@ -34,6 +43,17 @@ from torch import nn
 
 from fetode_tpu_torch.nn.kan import KANConfig, kan_apply, kan_init
 from fetode_tpu_torch.nn.mlp import layer_norm
+from fetode_tpu_torch.nn.rnn import (
+    FerroKANCellConfig,
+    LogisticKANCellConfig,
+    ParamTree,
+    ferro_kan_cell_apply,
+    ferro_kan_cell_init,
+    ferro_kan_cell_state,
+    ferro_layer,
+    logistic_kan_cell_apply,
+    logistic_kan_cell_init,
+)
 from fetode_tpu_torch.ops.ferro import (
     FerroConfig,
     ferro_apply,
@@ -50,15 +70,22 @@ from fetode_tpu_torch.ops.logistic import (
     logistic_basis,
     logistic_init,
 )
+from fetode_tpu_torch.ops.interp import linear_interp
 from fetode_tpu_torch.ops.logistic_node import logistic_node_solve
 from fetode_tpu_torch.ops.mlp_node import mlp_node_solve
 from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+from fetode_tpu_torch.solvers.fixed import integrate_final
 from fetode_tpu_torch.utils.init import kaiming_uniform, normal
 
 
-def _final_state(rhs, h0: torch.Tensor, spec) -> torch.Tensor:
-    """The eager latent solve over [0, 1] -> the final state."""
+def _final_state(rhs, h0: torch.Tensor, spec, n_steps: int = 8
+                 ) -> torch.Tensor:
+    """The eager latent solve over [0, 1] -> the final state: dopri5, or
+    ``n_steps`` steps of a fixed-step ``spec.solver``."""
+    if spec.solver != "dopri5":
+        return integrate_final(rhs, h0, 0.0, 1.0, method=spec.solver,
+                               n_steps=n_steps)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     return odeint_dopri5(rhs, h0, ts, rtol=spec.rtol, atol=spec.atol,
                          max_steps=spec.max_steps, mode=spec.solver_mode)[-1]
@@ -209,7 +236,7 @@ class KanFetMLPNODESpec(NamedTuple):
     latent_dim: int = 64
     num_basis: int = 10
     ode_hidden: int = 128
-    solver: str = "dopri5"      # fixed-step rollouts wait for ROADMAP A.3
+    solver: str = "dopri5"      # or euler/rk2/rk4 -> final-state rollout
     rtol: float = 1e-2
     atol: float = 1e-3
     max_steps: int = 16
@@ -264,18 +291,22 @@ def kanfet_mlp_node_init(generator: torch.Generator,
 
 def kanfet_mlp_node_field(params: KanFetMLPNODEParams,
                           spec: KanFetMLPNODESpec, t, h: torch.Tensor,
-                          states, noise=None) -> torch.Tensor:
+                          states, noise=None, generator=None,
+                          noise_std=None) -> torch.Tensor:
     """Two-layer ferro field with the reference's stability armor: latent
     tanh bound, ferro, tanh, ferro, non-finite scrub, slope clamp.
     Hysteresis state is frozen during the solve.  ``noise``: the frozen
-    per-solve draws of both layers in the basis shape, or None (the
-    adaptive solve cannot budget fresh noise per evaluation)."""
+    per-solve draws of both layers in the basis shape (the adaptive solve
+    cannot budget fresh noise per evaluation); else, with ``generator``,
+    fresh draws at this evaluation (the fixed-step solves), scaled by
+    ``noise_std`` when given."""
     s1, s2 = states
     n1, n2 = noise if noise is not None else (None, None)
+    kw = dict(generator=generator, noise_std=noise_std)
     h = spec.h_bound * torch.tanh(h / spec.h_bound)
-    z, _ = ferro_apply(params.fc1, s1, h, spec.fc1_cfg, noise=n1)
+    z, _ = ferro_apply(params.fc1, s1, h, spec.fc1_cfg, noise=n1, **kw)
     z = torch.tanh(z)
-    dh, _ = ferro_apply(params.fc2, s2, z, spec.fc2_cfg, noise=n2)
+    dh, _ = ferro_apply(params.fc2, s2, z, spec.fc2_cfg, noise=n2, **kw)
     dh = torch.nan_to_num(dh, nan=0.0, posinf=1e3, neginf=-1e3)
     return torch.clamp(dh, -spec.dh_clip, spec.dh_clip)
 
@@ -287,9 +318,10 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
     """x (B, T) -> logits.  One batched latent solve.
 
     Device noise (``spec.noise_std > 0``, or ``noise_std`` overriding
-    it) is frozen per solve: ``frozen_solve_noise`` draws it once from
-    ``generator``, and the kernels and the eager solve add the same
-    draws."""
+    it) comes from ``generator``.  Under dopri5 it is frozen per solve:
+    ``frozen_solve_noise`` draws it once, and the kernels and the eager
+    solve add the same draws.  A fixed-step solve draws it afresh at every
+    right-hand-side evaluation."""
     if mesh is not None:
         raise NotImplementedError("kanfet_mlp_node_apply(mesh=...): the "
                                   "multi-device solve is not ported yet "
@@ -305,22 +337,156 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
     kernel = use_kernel(spec, x) and spec.gate_impl == "sigmoid"
     B = x.shape[0]
     h0 = x @ params.encoder_w.T + params.encoder_b
+    noisy = spec.noise_std > 0.0 or noise_std is not None
+    if noisy and generator is None:
+        raise ValueError("noise_std > 0 requires a generator")
     noise = None
-    if spec.noise_std > 0.0 or noise_std is not None:
-        if generator is None:
-            raise ValueError("noise_std > 0 requires a generator")
+    if noisy and spec.solver == "dopri5":
         noise = frozen_solve_noise(generator, B, spec.fc1_cfg, spec.fc2_cfg,
                                    noise_std=noise_std, device=x.device)
     if kernel:
         hT = ferro_node_solve(params.fc1, params.fc2, h0, spec, noise=noise)
-    else:
-        sdt = getattr(torch, spec.state_dtype) if spec.state_dtype \
-            else x.dtype
-        states = tuple(ferro_state_init((B,), cfg, device=x.device, dtype=sdt)
-                       for cfg in (spec.fc1_cfg, spec.fc2_cfg))
-        if noise is not None:
-            noise = (basis_layout(noise[0], spec.latent_dim),
-                     basis_layout(noise[1], spec.ode_hidden))
-        hT = _final_state(lambda t, h: kanfet_mlp_node_field(
-            params, spec, t, h, states, noise), h0, spec)
+        return hT @ params.cls_w.T + params.cls_b
+    sdt = getattr(torch, spec.state_dtype) if spec.state_dtype else x.dtype
+    states = tuple(ferro_state_init((B,), cfg, device=x.device, dtype=sdt)
+                   for cfg in (spec.fc1_cfg, spec.fc2_cfg))
+    fresh = {}
+    if noise is not None:
+        noise = (basis_layout(noise[0], spec.latent_dim),
+                 basis_layout(noise[1], spec.ode_hidden))
+    elif noisy:
+        fresh = dict(generator=generator, noise_std=noise_std)
+    hT = _final_state(lambda t, h: kanfet_mlp_node_field(
+        params, spec, t, h, states, noise, **fresh), h0, spec,
+        n_steps=spec.n_steps)
     return hT @ params.cls_w.T + params.cls_b
+
+
+# --------------------------------------------- input-driven NODE encoders
+
+
+class NodeRNNSpec(NamedTuple):
+    """OneODEEncoder + ferro KAN cell + linear head (NODE_RNN):
+    dh/dt = tanh(ferro([h, x(t)])) * gain + bias."""
+
+    input_size: int = 1
+    hidden_size: int = 64
+    num_classes: int = 2
+    num_basis: int = 10
+    solver: str = "rk4"
+    n_steps: int = 96
+    noise_std: float = 0.0
+
+    @property
+    def basis_cfg(self) -> FerroConfig:
+        return FerroConfig(self.hidden_size + self.input_size,
+                           self.hidden_size, self.num_basis,
+                           noise_std=self.noise_std)
+
+    @property
+    def cell_cfg(self) -> FerroKANCellConfig:
+        return FerroKANCellConfig(self.hidden_size, self.hidden_size,
+                                  self.num_basis, noise_std=self.noise_std)
+
+
+def node_rnn_init(generator: torch.Generator, spec: NodeRNNSpec, *,
+                  device=None, dtype=torch.float32) -> ParamTree:
+    """Parameters named as the JAX dict: ``lift_w``, ``lift_b``, ``basis``
+    (a ferro layer), ``gain``, ``bias``, ``cell``, ``head_w``, ``head_b``."""
+    kw = dict(device=device, dtype=dtype)
+    H = spec.hidden_size
+    return ParamTree(
+        lift_w=kaiming_uniform(generator, (H, spec.input_size), **kw),
+        lift_b=torch.zeros(H, **kw),
+        basis=ferro_init(generator, spec.basis_cfg, coef_scale=0.1, **kw),
+        gain=torch.ones(H, **kw), bias=torch.zeros(H, **kw),
+        cell=ferro_kan_cell_init(generator, spec.cell_cfg, **kw),
+        head_w=kaiming_uniform(generator, (spec.num_classes, H), **kw),
+        head_b=torch.zeros(spec.num_classes, **kw))
+
+
+def node_rnn_encode(params: ParamTree, spec: NodeRNNSpec, x: torch.Tensor, *,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """x (B, T, D) -> (B, H): the JAX package's per-sample encoder over a
+    batch axis.  The hysteresis state is fresh and frozen at every
+    right-hand-side evaluation; device noise is drawn afresh at each one
+    (per sample and per evaluation, as the reference draws it; the JAX
+    package's key folding shares a draw between evaluations at one time)."""
+    T = x.shape[1]
+    t_grid = torch.linspace(0.0, 1.0, T, dtype=x.dtype, device=x.device)
+    h0 = x[:, 0] @ params.lift_w.T + params.lift_b
+    state = ferro_state_init((x.shape[0],), spec.basis_cfg, device=x.device,
+                             dtype=x.dtype)
+
+    def rhs(t, h):
+        hx = torch.cat([h, linear_interp(t_grid, x, t)], dim=-1)
+        phi, _ = ferro_layer(params.basis, state, hx, spec.basis_cfg,
+                             generator)
+        return torch.tanh(phi) * params.gain + params.bias
+
+    return integrate_final(rhs, h0, 0.0, 1.0, method=spec.solver,
+                           n_steps=spec.n_steps)
+
+
+def node_rnn_apply(params: ParamTree, spec: NodeRNNSpec, x: torch.Tensor, *,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """(B, T) or (B, T, D) -> logits: the encoder, one ferro KAN cell
+    refinement from h = 0, the head.  With rk4 that is 4 n_steps + 2
+    ferro layer ops."""
+    if x.ndim == 2:
+        x = x[..., None]
+    B = x.shape[0]
+    hT = node_rnn_encode(params, spec, x, generator=generator)
+    kw = dict(device=x.device, dtype=x.dtype)
+    h1, _ = ferro_kan_cell_apply(
+        params.cell, spec.cell_cfg, hT, torch.zeros((B, spec.hidden_size),
+                                                    **kw),
+        ferro_kan_cell_state((B,), spec.cell_cfg, **kw), generator=generator)
+    return h1 @ params.head_w.T + params.head_b
+
+
+class OdeRnnEncoderSpec(NamedTuple):
+    """ODE-integrated RNN encoder: dh/dt = alpha (cell(lift(x(t)), h) - h)."""
+
+    input_size: int = 1
+    hidden_size: int = 64
+    num_basis: int = 10
+    alpha: float = 10.0
+    solver: str = "rk4"
+    n_steps: int = 96
+
+    @property
+    def cell_cfg(self) -> LogisticKANCellConfig:
+        return LogisticKANCellConfig(self.hidden_size, self.hidden_size,
+                                     self.num_basis)
+
+
+def ode_rnn_encoder_init(generator: torch.Generator, spec: OdeRnnEncoderSpec,
+                         *, device=None, dtype=torch.float32) -> ParamTree:
+    kw = dict(device=device, dtype=dtype)
+    H = spec.hidden_size
+    return ParamTree(
+        lift_w=kaiming_uniform(generator, (H, spec.input_size), **kw),
+        lift_b=torch.zeros(H, **kw),
+        h0_w=kaiming_uniform(generator, (H, spec.input_size), **kw),
+        h0_b=torch.zeros(H, **kw),
+        cell=logistic_kan_cell_init(generator, spec.cell_cfg, **kw))
+
+
+def ode_rnn_encode(params: ParamTree, spec: OdeRnnEncoderSpec,
+                   x_seq: torch.Tensor) -> torch.Tensor:
+    """x_seq (..., T, D) -> (..., H): relaxation toward the cell's discrete
+    update (the JAX package's single-sample encoder, with batch axes)."""
+    T = x_seq.shape[-2]
+    t_grid = torch.linspace(0.0, 1.0, T, dtype=x_seq.dtype,
+                            device=x_seq.device)
+    h0 = x_seq[..., 0, :] @ params.h0_w.T + params.h0_b
+
+    def rhs(t, h):
+        z_t = linear_interp(t_grid, x_seq, t) @ params.lift_w.T \
+            + params.lift_b
+        h_next = logistic_kan_cell_apply(params.cell, spec.cell_cfg, z_t, h)
+        return spec.alpha * (h_next - h)
+
+    return integrate_final(rhs, h0, 0.0, 1.0, method=spec.solver,
+                           n_steps=spec.n_steps)

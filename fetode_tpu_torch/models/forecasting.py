@@ -18,8 +18,10 @@ pair (the forward with records, the replay backward), a call without it
 the forward kernel alone.  The diffusion sampler is the whole-chain
 kernel of ``ops/ddpm.py``.
 
-Not ported yet, each raising an error that names its ROADMAP item: the
-fixed-step solvers (A.3) and the ``"kanrnn"`` encoder (A.7, ``nn/rnn.py``).
+A fixed-step ``solver`` takes ``odeint_fixed`` (``n_substeps`` steps an
+interval) in every mode, as the JAX package does.  The diffusion
+forecaster's context encoder is an MLP (``"mlp"``), a two-layer KAN
+(``"kan"``) or the logistic KAN-RNN of ``nn/rnn.py`` (``"kanrnn"``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ from fetode_tpu_torch.nn.diffusion import (
 )
 from fetode_tpu_torch.nn.kan import KANConfig, kan_init, kan_linear_apply
 from fetode_tpu_torch.nn.mlp import MLPConfig, mlp_apply, mlp_init
+from fetode_tpu_torch.nn.rnn import (
+    KANRNNEncoderConfig,
+    kan_rnn_encoder_apply,
+    kan_rnn_encoder_init,
+)
 from fetode_tpu_torch.ops.ddpm import eps_head_sample
 from fetode_tpu_torch.ops.logistic import (
     LogisticParams,
@@ -47,6 +54,7 @@ from fetode_tpu_torch.ops.logistic import (
 from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.ops.ode_dyn import ode_dyn_solve
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+from fetode_tpu_torch.solvers.fixed import odeint_fixed
 from fetode_tpu_torch.utils.init import kaiming_uniform
 
 # -------------------------------------------------------------- dynamics
@@ -83,8 +91,14 @@ def _solve_latent(params: nn.ModuleList, cfg: ODEDynamicsConfig,
     if use_kernel(spec, z0):
         return ode_dyn_solve(params, z0, t_fut, rtol=spec.rtol,
                              atol=spec.atol, max_steps=spec.max_steps)
-    return odeint_dopri5(lambda t, z: ode_dynamics_apply(params, cfg, t, z),
-                         z0, t_fut, rtol=spec.rtol, atol=spec.atol,
+
+    def rhs(t, z):
+        return ode_dynamics_apply(params, cfg, t, z)
+
+    if spec.solver != "dopri5":
+        return odeint_fixed(rhs, z0, t_fut, method=spec.solver,
+                            n_substeps=spec.n_substeps)
+    return odeint_dopri5(rhs, z0, t_fut, rtol=spec.rtol, atol=spec.atol,
                          max_steps=spec.max_steps, mode=spec.solver_mode)
 
 
@@ -161,7 +175,7 @@ class DiffusionForecasterSpec(NamedTuple):
     dyn_hidden: int = 128
     diff_T: int = 100
     diff_hidden: int = 256
-    encoder: str = "mlp"        # 'mlp' | 'kan'; 'kanrnn' waits for A.7
+    encoder: str = "mlp"        # 'mlp' | 'kan' | 'kanrnn'
     rnn_hidden: int = 64
     num_basis: int = 10
     solver: str = "dopri5"
@@ -182,6 +196,11 @@ class DiffusionForecasterSpec(NamedTuple):
                                self.enc_hidden, self.latent_dim])
 
     @property
+    def enc_rnn(self) -> KANRNNEncoderConfig:
+        return KANRNNEncoderConfig(self.num_features, self.rnn_hidden,
+                                   self.latent_dim, self.num_basis)
+
+    @property
     def dyn(self) -> ODEDynamicsConfig:
         return ODEDynamicsConfig(self.latent_dim, self.dyn_hidden)
 
@@ -193,11 +212,7 @@ class DiffusionForecasterSpec(NamedTuple):
 
 
 def _check_encoder(spec: DiffusionForecasterSpec) -> None:
-    if spec.encoder == "kanrnn":
-        raise NotImplementedError(
-            "DiffusionForecasterSpec.encoder='kanrnn': the KAN-RNN encoder "
-            "(nn/rnn.py) is not ported yet (ROADMAP A.7)")
-    if spec.encoder not in ("mlp", "kan"):
+    if spec.encoder not in ("mlp", "kan", "kanrnn"):
         raise ValueError(f"unknown encoder {spec.encoder!r}")
 
 
@@ -206,8 +221,12 @@ def diffusion_forecaster_init(generator: torch.Generator,
                               dtype=torch.float32) -> nn.ModuleDict:
     _check_encoder(spec)
     kw = dict(device=device, dtype=dtype)
-    enc = (mlp_init(generator, spec.enc_mlp, **kw) if spec.encoder == "mlp"
-           else kan_init(generator, spec.enc_kan, **kw))
+    if spec.encoder == "mlp":
+        enc = mlp_init(generator, spec.enc_mlp, **kw)
+    elif spec.encoder == "kan":
+        enc = kan_init(generator, spec.enc_kan, **kw)
+    else:
+        enc = kan_rnn_encoder_init(generator, spec.enc_rnn, **kw)
     return nn.ModuleDict({
         "encoder": enc,
         "dynamics": ode_dynamics_init(generator, spec.dyn, **kw),
@@ -218,6 +237,8 @@ def diffusion_forecaster_init(generator: torch.Generator,
 def _encode(params: nn.ModuleDict, spec: DiffusionForecasterSpec,
             x_ctx: torch.Tensor) -> torch.Tensor:
     _check_encoder(spec)
+    if spec.encoder == "kanrnn":
+        return kan_rnn_encoder_apply(params["encoder"], spec.enc_rnn, x_ctx)
     x = x_ctx.reshape(x_ctx.shape[0], -1)
     if spec.encoder == "mlp":
         return mlp_apply(params["encoder"], spec.enc_mlp, x)

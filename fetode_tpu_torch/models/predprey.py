@@ -123,8 +123,9 @@ def _use_kernel(params: KAN, spec: PredPreyNODE, x: torch.Tensor) -> bool:
     """Resolve the solver: True for the CUDA kernels, False for eager."""
     if spec.method != "dopri5":
         raise NotImplementedError(
-            f"method={spec.method!r}: the fixed-step solvers are not ported "
-            "yet (ROADMAP A.3)")
+            f"method={spec.method!r}: predprey's fixed-step methods "
+            "(solvers/fixed.py under checkpointing) are not wired yet "
+            "(ROADMAP A.3)")
     mode = spec.solver_mode
     if mode not in ("auto", "pallas", "while", "scan"):
         raise ValueError(f"solver_mode={mode!r}: expected 'auto', 'pallas', "

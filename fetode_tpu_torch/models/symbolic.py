@@ -7,8 +7,8 @@ hysteretic basis (``ops/ferro.py``), trained on ``y = sin(x) + 0.1 x^2``
 with an L1 pruning penalty on the mixing coefficients and the hysteresis
 state fresh at every call (the reference's per-epoch ``reset_state``).
 Training is full-batch Adam through ``train/loop.py: make_epoch_scanner``.
-The net has no kernel: its two ferro layers are plain PyTorch on either
-device.
+Its two ferro layers are ``ops/ferro_fused.py: ferro_apply_fused``: the
+CUDA kernel on the card, the plain ``ferro_apply`` on the CPU.
 """
 
 from __future__ import annotations
@@ -22,10 +22,10 @@ from torch import nn
 
 from fetode_tpu_torch.ops.ferro import (
     FerroConfig,
-    ferro_apply,
     ferro_init,
     ferro_state_init,
 )
+from fetode_tpu_torch.ops.ferro_fused import ferro_apply_fused
 
 
 class SymbolicNetSpec(NamedTuple):
@@ -70,8 +70,9 @@ def symbolic_net_apply(params: SymbolicNet, spec: SymbolicNetSpec,
         kw = dict(device=x.device, dtype=x.dtype)
         state = (ferro_state_init((B,), spec.l1_cfg, **kw),
                  ferro_state_init((B,), spec.l2_cfg, **kw))
-    h, s1 = ferro_apply(params.l1, state[0], x, spec.l1_cfg)
-    y, s2 = ferro_apply(params.l2, state[1], torch.tanh(h), spec.l2_cfg)
+    h, s1 = ferro_apply_fused(params.l1, state[0], x, spec.l1_cfg)
+    y, s2 = ferro_apply_fused(params.l2, state[1], torch.tanh(h),
+                              spec.l2_cfg)
     return y, (s1, s2)
 
 

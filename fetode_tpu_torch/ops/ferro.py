@@ -114,7 +114,9 @@ def ferro_basis(params: FerroParams, state: FerroState, x: torch.Tensor,
     """
     xe = x[..., :, None, None]                                   # (..., in, 1, 1)
     prev = state.prev_x.detach()[..., :, None, None]
-    branch_prev = state.branch.detach()                          # (..., in, out, K)
+    # The arithmetic runs in x's dtype whatever the state's (a bfloat16
+    # state is read up once), as the fused kernels compute it.
+    branch_prev = state.branch.detach().to(x.dtype)              # (..., in, out, K)
 
     if cfg.gate_impl == "tanh":
         def sig(z):

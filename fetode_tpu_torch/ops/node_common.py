@@ -39,6 +39,7 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 import torch
 
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+from fetode_tpu_torch.solvers.fixed import fixed_tableau
 from fetode_tpu_torch.solvers.rk_common import combination, rk_stage_loop
 from fetode_tpu_torch.solvers.tableaux import DOPRI5, DOPRI5_DENSE_D
 
@@ -261,15 +262,16 @@ def use_kernel(spec, x: torch.Tensor) -> bool:
     """Resolve a model's latent solve from ``spec.solver`` and
     ``spec.solver_mode``: True for the CUDA kernels ('pallas', or 'auto'
     on a CUDA tensor), False for the eager dopri5 ('auto' on the CPU,
-    'scan', 'while').  'pallas' on the CPU raises."""
-    if spec.solver != "dopri5":
-        raise NotImplementedError(
-            f"solver={spec.solver!r}: the fixed-step solvers are not ported "
-            "yet (ROADMAP A.3)")
+    'scan', 'while') and for a fixed-step solver in every mode (the
+    whole-solve kernels are dopri5 only, as the JAX package's are).
+    'pallas' with dopri5 on the CPU raises."""
     mode = spec.solver_mode
     if mode not in ("auto", "pallas", "scan", "while"):
         raise ValueError(f"solver_mode={mode!r}: expected 'auto', 'pallas', "
                          "'scan' or 'while'")
+    if spec.solver != "dopri5":
+        fixed_tableau(spec.solver)
+        return False
     if mode == "pallas" and x.device.type != "cuda":
         raise ValueError("solver_mode='pallas' is the CUDA kernels and takes "
                          f"CUDA tensors, got one on {x.device}; use 'auto' "

@@ -1,10 +1,11 @@
 """Explicit Runge-Kutta Butcher tableaux (counterpart of
 ``fetode_tpu/solvers/tableaux.py``).
 
-Only the Dormand-Prince 5(4) pair and its dense-output coefficients are
-ported; the fixed-step tableaux arrive with ``solvers/fixed.py``.
-Coefficients are plain Python floats, so a product with a float32
-tensor stays float32.
+The fixed-step methods of ``solvers/fixed.py`` (Euler, explicit
+midpoint, Heun, the classical RK4 and Dormand-Prince's 5th-order row
+without step control) and the Dormand-Prince 5(4) pair with its
+dense-output coefficients.  Coefficients are plain Python floats, so a
+product with a float32 tensor stays float32.
 """
 
 from __future__ import annotations
@@ -38,6 +39,22 @@ def _tab(a, b, c, order, b_err=None) -> ButcherTableau:
         order=order,
         b_err=tuple(float(v) for v in b_err) if b_err is not None else None)
 
+
+EULER = _tab(a=[[]], b=[1.0], c=[0.0], order=1)
+
+MIDPOINT = _tab(a=[[], [0.5]], b=[0.0, 1.0], c=[0.0, 0.5], order=2)
+
+HEUN = _tab(a=[[], [1.0]], b=[0.5, 0.5], c=[0.0, 1.0], order=2)
+
+# The reference's "RK2" is the explicit midpoint method.
+RK2 = MIDPOINT
+
+RK4 = _tab(
+    a=[[], [0.5], [0.0, 0.5], [0.0, 0.0, 1.0]],
+    b=[1 / 6, 1 / 3, 1 / 3, 1 / 6],
+    c=[0.0, 0.5, 0.5, 1.0],
+    order=4,
+)
 
 # Dormand-Prince 5(4) pair, FSAL: the b row equals the last a row, so the
 # 7th stage of an accepted step is the first stage of the next.
@@ -74,3 +91,12 @@ DOPRI5_DENSE_D = (
     -1453857185 / 822651844,
     69997945 / 29380423,
 )
+
+FIXED_TABLEAUX = {
+    "euler": EULER,
+    "midpoint": MIDPOINT,
+    "rk2": RK2,
+    "heun": HEUN,
+    "rk4": RK4,
+    "dopri5_fixed": DOPRI5,
+}

@@ -78,7 +78,13 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # A parameter the loss did not reach steps with a zero gradient, as
+        # optax updates every leaf (AdamW still decays it); torch's
+        # optimisers would skip it.
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         if self.grad_clip is not None and grads:
             clip_by_global_norm_(grads, self.grad_clip)
         for group in self.inner.param_groups:

@@ -369,9 +369,11 @@ def test_cli_serve_cond_diffusion_on_cpu(tmp_path):
                                   "no_card"])
 def test_refusals(case, tmp_path):
     if case == "solver":
-        cfg = CD.NodeEncoderCfg(d_in=2, cond_dim=8, solver="rk4")
+        # Fixed-step solvers run (tests/test_torch_fixed.py); an unknown
+        # one names the choices.
+        cfg = CD.NodeEncoderCfg(d_in=2, cond_dim=8, solver="rk9")
         enc = CD.node_encoder_init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="A.3"):
+        with pytest.raises(ValueError, match="rk4"):
             CD.node_encoder_apply(enc, cfg, torch.zeros((2, 12, 2)))
     elif case == "run_knob":
         defaults = {f.name: f.default

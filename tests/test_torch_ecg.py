@@ -48,6 +48,11 @@ from fetode_tpu_torch.convert import (
 )
 from fetode_tpu_torch.data import ecg200 as tdata
 from fetode_tpu_torch.models import ecg as TM
+from fetode_tpu_torch.models.predprey import (
+    PredPreyNODE,
+    predict,
+    predprey_init,
+)
 from fetode_tpu_torch.nn.kan import KANConfig, kan_init
 from fetode_tpu_torch.ops.mlp_node import mlp_node_solve
 from fetode_tpu_torch.train import ecg_driver as tdrv
@@ -423,16 +428,18 @@ def test_refusals(case, tmp_path):
         with pytest.raises(NotImplementedError, match="A.2"):
             mlp_node_solve(params, torch.zeros(2, 8), mspec)
     elif case == "fixed_step":
-        params = TM.kanfet_node_init(torch.Generator(), spec)
+        # The ECG models take the fixed-step solvers (tests/
+        # test_torch_fixed.py); predprey's fixed-step methods still refuse.
+        pspec = PredPreyNODE.kanfet(layers_hidden=(2, 3, 2), method="rk4")
+        params = predprey_init(torch.Generator(), pspec)
         with pytest.raises(NotImplementedError, match="A.3"):
-            TM.kanfet_node_apply(params, spec._replace(solver="rk4"),
-                                 torch.zeros(2, spec.T))
+            predict(params, pspec, torch.ones(2), torch.linspace(0, 1, 3))
     elif case == "rnn_model":
-        for name in ("fepa_rnn", "digital_rnn", "node_rnn", "all",
-                     "noise_study"):
-            with pytest.raises(NotImplementedError, match="A.7"):
-                cli.main(["ecg", "--device", "cpu", "--model", name,
-                          "--out-dir", str(tmp_path)])
+        # The RNN models and 'all' are ported (tests/test_torch_rnn.py);
+        # the noise study is not.
+        with pytest.raises(NotImplementedError, match="A.7c"):
+            cli.main(["ecg", "--device", "cpu", "--model", "noise_study",
+                      "--out-dir", str(tmp_path)])
     elif case == "plots":
         with pytest.raises(NotImplementedError, match="A.11"):
             cli.main(["ecg", "--device", "cpu", "--plots", "--out-dir",

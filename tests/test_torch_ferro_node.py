@@ -362,8 +362,8 @@ def test_refusals(setup):
         TM.kanfet_mlp_node_apply(m, spec._replace(noise_std=0.1), x)
     with pytest.raises(NotImplementedError, match="A.11"):
         TM.kanfet_mlp_node_apply(m, spec, x, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.3"):
-        TM.kanfet_mlp_node_apply(m, spec._replace(solver="rk4"), x)
+    with pytest.raises(ValueError, match="rk4"):      # fixed-step: ported
+        TM.kanfet_mlp_node_apply(m, spec._replace(solver="rk9"), x)
     with pytest.raises(ValueError, match="D -> hidden -> D"):
         FN.ferro_node_fwd(m.fc1, m.fc1, torch.zeros((2, SPEC["latent_dim"])),
                           CFG)

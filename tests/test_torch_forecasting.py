@@ -224,11 +224,16 @@ def test_point_gradients_match_jax_float64():
                 _flat(_np(g, np.float64))) < 1e-9
 
 
-@pytest.mark.parametrize("encoder", ["mlp", "kan"])
+# The kanrnn encoder at a small width: hidden 8, 3 logistic bases.
+RNN = dict(rnn_hidden=8, num_basis=3)
+
+
+@pytest.mark.parametrize("encoder", ["mlp", "kan", "kanrnn"])
 def test_diffusion_loss_matches_jax(encoder):
     """float32: the epsilon loss on the JAX package's own draws; float64:
     its gradients (the mlp encoder) against ``jax.grad``."""
-    jspec, jp, tspec, tp = _diffusion(encoder)
+    jspec, jp, tspec, tp = _diffusion(encoder,
+                                      **(RNN if encoder == "kanrnn" else {}))
     x, y = _inputs()
     key = jax.random.PRNGKey(4)
     t_idx, eps = _jax_loss_draws(key, DIFF["diff_T"])
@@ -281,9 +286,10 @@ def test_diffusion_gradients_match_jax_float64():
                 _flat(_zero_grids(_np(g, np.float64)))) < 1e-6
 
 
-@pytest.mark.parametrize("kind", ["point", "mlp", "kan"])
+@pytest.mark.parametrize("kind", ["point", "mlp", "kan", "kanrnn"])
 def test_convert_round_trip(kind):
-    _, jp, _, tp = _point() if kind == "point" else _diffusion(kind)
+    _, jp, _, tp = _point() if kind == "point" else _diffusion(
+        kind, **(RNN if kind == "kanrnn" else {}))
     back = forecast_params_to_numpy(tp)
     assert jax.tree_util.tree_structure(back) == \
         jax.tree_util.tree_structure(_np(jp))
@@ -369,7 +375,8 @@ _CLI_SMALL = ["--device", "cpu", "--epochs", "2", "--latent_dim", "8",
               "256"]
 
 
-@pytest.mark.parametrize("model", ["point", "diffusion", "kan_diffusion"])
+@pytest.mark.parametrize("model", ["point", "diffusion", "kan_diffusion",
+                                   "kan_fet_diffusion"])
 def test_cli_ett_on_cpu(model, tmp_path):
     argv = ["ett", "--model", model, *_CLI_SMALL, "--out-dir",
             str(tmp_path)]
@@ -435,16 +442,19 @@ def test_diffusion_sample_is_the_chain_on_the_encoded_condition(n_samples):
 @pytest.mark.parametrize("case", ["kanrnn", "kan_fet_diffusion", "run_knob",
                                   "plots", "no_card"])
 def test_refusals(case, tmp_path):
+    # The kanrnn encoder and kan_fet_diffusion are ported (the kanrnn
+    # cases of test_diffusion_loss_matches_jax, test_convert_round_trip and
+    # test_cli_ett_on_cpu); an unknown encoder or model is still refused.
     if case == "kanrnn":
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(ValueError, match="unknown encoder"):
             TF.diffusion_forecaster_init(torch.Generator(), TF.
                                          DiffusionForecasterSpec(
                                              num_features=3,
-                                             encoder="kanrnn"))
+                                             encoder="kanrnn2"))
     elif case == "kan_fet_diffusion":
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(SystemExit, match="unknown ETT model"):
             cli.main(["ett", "--device", "cpu", "--model",
-                      "kan_fet_diffusion", "--out-dir", str(tmp_path)])
+                      "kan_fet_diffusion2", "--out-dir", str(tmp_path)])
     elif case == "run_knob":
         defaults = {f.name: f.default
                     for f in dataclasses.fields(tdrv.ForecastRun)}

@@ -62,7 +62,10 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.ops.kanfet_wide",
                  "fetode_tpu_torch.models.symbolic",
                  "fetode_tpu_torch.models.cond_diffusion",
-                 "fetode_tpu_torch.train.cond_diffusion_driver"):
+                 "fetode_tpu_torch.train.cond_diffusion_driver",
+                 "fetode_tpu_torch.ops.ferro_fused",
+                 "fetode_tpu_torch.nn.rnn",
+                 "fetode_tpu_torch.solvers.fixed"):
         assert name in report["modules"]
 
 

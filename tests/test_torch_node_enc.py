@@ -231,8 +231,8 @@ def test_refusals(setup):
         NE.node_enc_fwd(w[:2] + [w[2][:, :-1]] + w[3:], z0, x_seq)
     with pytest.raises(ValueError, match="CUDA"):
         CD.node_encoder_apply(enc, tcfg._replace(solver_mode="pallas"), past)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        CD.node_encoder_apply(enc, tcfg._replace(solver="rk4"), past)
+    with pytest.raises(ValueError, match="rk4"):      # fixed-step: ported
+        CD.node_encoder_apply(enc, tcfg._replace(solver="rk9"), past)
 
 
 @pytest.mark.cuda

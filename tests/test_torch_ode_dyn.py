@@ -234,9 +234,9 @@ def test_refusals(setup):
     with pytest.raises(ValueError, match="CUDA"):
         TF._solve_latent(layers, TF.ODEDynamicsConfig(8, 16), z0, _ts(),
                          TF.LatentODEForecasterSpec(3, solver_mode="pallas"))
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(ValueError, match="rk4"):      # fixed-step: ported
         TF._solve_latent(layers, TF.ODEDynamicsConfig(8, 16), z0, _ts(),
-                         TF.LatentODEForecasterSpec(3, solver="rk4"))
+                         TF.LatentODEForecasterSpec(3, solver="rk9"))
 
 
 @pytest.mark.cuda
