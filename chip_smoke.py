@@ -5,9 +5,11 @@ classification training and serving (the 'plain' and 'mlp' latent
 fields and the ferro model), ETT forecasting training and serving,
 Kuramoto-MNIST training and serving, conditional-diffusion training and
 serving, predprey training on wide KANFET stacks, symbolic regression,
-and the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
-``--model all``) with ETT's KAN-RNN encoder — on the card and checks
-them, in phases that run in order; any failure exits non-zero.
+the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
+``--model all``) with ETT's KAN-RNN encoder, the KAN layers' spline term
+(B.12) on every KAN path and the custom-field whole-solve example (B.14)
+— on the card and checks them, in phases that run in order; any failure
+exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -131,9 +133,9 @@ order 3 and 8 logistic bases), random weights from a seed with omega =
 23. Timing: each Kuramoto kernel and its plain version at B = 128, 256
     and 1,024 (the fused kernel also at 8 and 64), and one training step
     at B = 128 with the rollout kernels, the fused kernel and the scan.
-    A Kuramoto kernel's time is its device time in a profiler trace: back
-    to back, the host's launch overhead paces these small kernels, and
-    that per-call time is printed beside it.
+    A Kuramoto kernel's time is its device time on a full queue
+    (``queued_ms``): back to back, the host's launch overhead paces these
+    small kernels, and that per-call time is printed beside it.
 
 The conditional-diffusion slice, at the full width of
 ``CondDiffusionPreset`` (seq_len 96, pred_len 24, T = 250, batch 64; the
@@ -265,13 +267,71 @@ a seed, series from ``synthetic_ecg200``:
     ``all`` (1 epoch), ``cli ett --model kan_fet_diffusion`` (1 epoch) and
     ``cli symbolic`` (B.13 launched): finite losses, the batches B.13
     launched at logged.
-39. Times: at each shape at B = 8 and 64, B.13's device time per call
-    (profiler trace; back to back the host's launch overhead paces it,
-    and that per-call time, CUDA events, is printed beside it) and the
-    plain op's device-busy time, with B.13's bound; a training step of
+39. Times: at each shape at B = 8 and 64, the device time per call of
+    B.13 and of the plain op on a full queue (``queued_ms``; back to back
+    the host's launch overhead paces them, and that per-call time, CUDA
+    events, is printed beside it), with B.13's bound; a training step of
     ``fepa_rnn``, ``node_rnn`` (each also with the plain op) and
     ``digital_rnn`` at B = 8, learning rate 0 (CUDA events, median of 3
     windows), with its device-busy share.
+
+The KAN layers' spline term (``csrc/spline.cu``, B.12), at the full
+width of every KAN path (the cond-diffusion serving chain of
+``ServePreset``, the cond-diffusion KAN nets of ``CondDiffusionPreset``,
+MNIST's head, ETT ``kan_diffusion``'s encoder), and the custom-field
+example (``csrc/custom_field.cu``, B.14), random weights from a seed.
+From phase 3 on, every B.12 launch logs its shape, and the CLI runs of
+phases 16, 21, 25 and 26 count B.12's launches (the count set to 0 just
+before each run, read just after):
+
+40. B.12 against the plain basis-and-product at every shape of
+    ``SPLINE_SHAPES`` (the serving chain's three layers at R = 80, 640
+    and 2,560, the first on the column slice of the 312-wide layer as
+    ``_kan_partial`` passes it, the hoisted cond and t-embedding terms,
+    training at B = 64 and the eval batches 31 and 181, MNIST's head, R =
+    1 and 13) and at every other shape phases 3-39 launched: x ~ 1.2 N(0,
+    1), some of it past the knots; y within rtol = atol = 2e-5
+    (``tests/test_pallas_spline.py``'s), the same bits twice; at the listed
+    shapes rows 0, R/2 and R-1 alone the same bits as inside the batch,
+    and the gradients of x, the spline weight and the scaler through
+    autograd within 1e-6 relative of autograd of plain; inputs off the
+    grid and on its end knots, and rows with none inside the grid exactly
+    zero; NaN and infinite inputs, whose rows are NaN as plain's.
+41. B.14 against ``ops/node_common.py``'s plain solve and replay at the
+    example's size (D 4, H 8, B 3, weights 0.5 N(0, 1)) and at D = 64, H
+    = 128, B = 8, 64 and 256 (weights N(0, 1) / sqrt(fan-in)), rtol 1e-4
+    / atol 1e-6, 32 attempts: both forward kernels within 1e-3, the
+    attempts as plain's and the time reached its records' and within 1e-4
+    of plain's (also where a budget of 3 attempts runs out); the backward
+    on its own records against autograd of the plain replay, relative <
+    1e-4, the same bits twice; then the example's own check
+    (``fetode_tpu_torch.examples.custom_field_kernel``: the forward
+    against the eager while solve < 1e-4, each gradient's cosine against
+    autograd of the eager scan solve > 0.9999), in this process (its
+    launches counted) and as ``python -m`` in a subprocess, whose last
+    line must be the verified line.
+42. ``cli.main(["serve", "--source", "cond_diffusion", ...])`` (kan_node,
+    buckets 8 / 64 / 256): B.12 launched at rows 80, 640 and 2,560, the
+    requests B = 1, 30 and 300 through the bundle equal direct calls on
+    the padded batches; a training step (learning rate 0) each of
+    cond_diffusion ``kan_node`` and ``kan_fet_all_node`` at B = 64, MNIST
+    ``pallas`` at 128 and ETT ``kan_diffusion`` at 64: finite losses, B.12
+    launched; B.12 launched in phases 16 (``kan_diffusion``), 21
+    (``pallas``), 25 and 26; shapes first launched here are checked as in
+    phase 40.
+43. Times: B.12 at ``SPLINE_TIMED`` (the serving chain's nine shapes,
+    MNIST's head and ETT ``kan_diffusion``'s two encoder layers), the
+    device time per call of it (its kernel and, with more than one input
+    group, the groups' sum), of the plain version and of ``torch.matmul``
+    of the product alone on precomputed bases (context: no PyTorch call
+    computes basis and product), each on a full queue (``queued_ms``:
+    CUDA events, the stream held busy while the host enqueues the calls,
+    no profiler; rows 10, 11 and 13 are timed so too), and the time a
+    call back to back of B.12 and plain; B.14's
+    kernels and plain at D = 64, H = 128, B = 64; the serve p50 / p99 per
+    bucket and the four steps of phase 42, each with B.12 and with the
+    plain product (``plain_spline`` switches the layers' dispatch inside
+    this script only).
 
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
@@ -303,7 +363,7 @@ GRAD_TOL = 1e-4     # relative, kernel vs plain replay on one step mesh
 COS_MIN = 0.999     # kernel vs plain gradient, each on its own mesh
 KERNELS = ("kanfet_node", "kanfet_adjoint", "logistic_node", "ferro_node",
            "ode_dyn", "ddpm", "kuramoto", "node_enc", "mlp_node",
-           "kanfet_wide", "ferro_fused")
+           "kanfet_wide", "ferro_fused", "spline", "custom_field")
 ECG_BATCHES = (8, 64, 256)     # the training batch is 8; serving buckets
 ECG_CHECKS = (8, 32, 64, 256)  # and 64 / 32, the train / test eval batches
 # The forecasting path's latent-solve batches and chain rows (phase 14-15).
@@ -348,6 +408,39 @@ SYM_SHAPES = ((1, 8, 6), (8, 1, 6))
 RNN_BATCHES = (8, 32, 64)
 SYM_BATCH = 128
 RNN_T = 96
+# B.12's shapes (rows, in, out, the inputs' column slice of the layer or
+# None) on its paths (phase 40): the cond-diffusion serving chain at 10
+# samples a request, R = 80 / 640 / 2,560 in buckets 8 / 64 / 256, through
+# its first layer restricted to the 56 y dims of 312, its 256 -> 256 and
+# 256 -> 56 layers, and the hoisted cond (the 128 dims after y, at R rows)
+# and t-embedding (the last 128, at 200 rows) terms; cond-diffusion
+# training at B = 64 (424 -> 256 -> 256 -> 168) and its eval batches 31 and
+# 181; MNIST's head (1,568 -> 10) at 128; extra rows 1 and 13.  Every other
+# shape the earlier phases launch is logged as they run and checked too.
+SPLINE_SERVE_ROWS = (80, 640, 2560)
+SPLINE_SHAPES = tuple(
+    [(r, 56, 256, (0, 312)) for r in SPLINE_SERVE_ROWS]
+    + [(r, 256, 256, None) for r in SPLINE_SERVE_ROWS]
+    + [(r, 256, 56, None) for r in SPLINE_SERVE_ROWS]
+    + [(r, 128, 256, (56, 312)) for r in SPLINE_SERVE_ROWS]
+    + [(200, 128, 256, (184, 312))]
+    + [(b, i, o, None) for b in (64, 31, 181)
+       for i, o in ((424, 256), (256, 256), (256, 168))]
+    + [(128, 1568, 10, None), (1, 256, 256, None), (13, 256, 256, None)])
+# Phase 43 times the serving chain's nine shapes, MNIST's head and ETT
+# kan_diffusion's encoder (672 -> 128 -> 64 at its training batch).
+SPLINE_TIMED = SPLINE_SHAPES[:9] + ((128, 1568, 10, None),
+                                    (64, 672, 128, None),
+                                    (64, 128, 64, None))
+SPLINE_TOL = 2e-5    # rtol = atol, tests/test_pallas_spline.py's
+SPLINE_GRAD_TOL = 1e-6
+# B.14 (phase 41): the example's size, and the scaffold's scale with
+# weights ~ 1/sqrt(fan-in); the JAX example's tolerances.
+CUSTOM_SMALL = (4, 8, 3)
+CUSTOM_DH = (64, 128)
+CUSTOM_BATCHES = (8, 64, 256)
+CUSTOM_OPTS = dict(rtol=1e-4, atol=1e-6, max_steps=32)
+CUSTOM_COS = 0.9999
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -864,22 +957,43 @@ def profile_ms(fn, n=5):
     return wall, busy / 1e3 / n, [(k[:60], v / 1e3 / n) for k, v in top]
 
 
-def kernel_device_ms(fn, names, n=10, attempts=3):
-    """The device time per call of ``fn``'s kernels whose names contain one
-    of ``names``, from a profiler trace of ``n`` calls: the kernel's own
-    time, without the host's launch overhead that paces back-to-back
-    calls of a small kernel.  A trace that holds none of them (seen once
-    on the card) is taken again; after ``attempts`` such traces it fails."""
-    for _ in range(attempts):
-        _, device = device_trace(fn, n)
-        durs = [float(e["dur"]) for e in device if e["cat"] == "kernel"
-                and any(k in e["name"] for k in names)]
-        if durs:
-            return sum(durs) / 1e3 / n
-        print(f"  the profiler trace held no kernel named {names} "
-              f"({len(device)} device events); tracing again")
-    fail(f"{attempts} profiler traces held no kernel named {names} "
-         f"({len(device)} device events)")
+def queued_ms(fn, n=20, windows=3):
+    """The device time per call of everything ``fn`` launches, back to back
+    on a full queue: ``torch.cuda._sleep`` holds the stream busy while the
+    host enqueues the ``n`` calls, so the CUDA events around them time the
+    device's work, not the host's launch overhead.  The sleep starts at
+    twice the enqueue time of a calibration window; a window whose sleep
+    ended before the host had enqueued every call is taken again with a
+    sleep twice as long.  Median of ``windows``; no profiler."""
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    cycles = int(2.0 * (time.perf_counter() - t0 + 1e-3) * 2.0e9)
+    torch.cuda.synchronize()
+    per_call = []
+    while len(per_call) < windows:
+        mark, start, stop = ev(), ev(), ev()
+        mark.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        if mark.elapsed_time(start) > enqueue_ms:
+            per_call.append(start.elapsed_time(stop) / n)
+        elif cycles > 1e11:
+            fail(f"queued_ms: the host's enqueue of {n} calls outlasted a "
+                 f"{cycles:.3g}-cycle sleep")
+        else:
+            cycles *= 2
+    return float(np.median(per_call))
 
 
 def check_served(sv, fn, reqs, served, label):
@@ -1217,9 +1331,10 @@ def forecast_phases(device, smi):
         for model in ("point", "diffusion", "kan_diffusion"):
             for f in kernels:
                 f.launches = 0
-            res = cli.main(["ett", "--model", model, "--device", "cuda",
-                            "--solver_mode", "pallas", "--epochs", "2",
-                            "--out-dir", tmp])
+            res = count_spline(f"cli ett --model {model}", lambda: cli.main(
+                ["ett", "--model", model, "--device", "cuda",
+                 "--solver_mode", "pallas", "--epochs", "2",
+                 "--out-dir", tmp]))
             torch.cuda.synchronize()
             counts = [f.launches for f in kernels]
             need = counts[:2] if model == "point" else counts
@@ -1529,9 +1644,10 @@ def kuramoto_phases(device, smi):
             for f in kernels:
                 f.launches = 0
             t0 = time.perf_counter()
-            res, losses = run_mnist_cli(cli, [
-                "mnist", "--device", "cuda", "--rollout", rollout,
-                "--epochs", str(epochs), "--out-dir", tmp], epochs)
+            res, losses = count_spline(
+                f"cli mnist --rollout {rollout}", lambda: run_mnist_cli(cli, [
+                    "mnist", "--device", "cuda", "--rollout", rollout,
+                    "--epochs", str(epochs), "--out-dir", tmp], epochs))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = [f.launches for f in kernels]
@@ -1602,7 +1718,7 @@ def kuramoto_phases(device, smi):
             logits = lambda: KO.kuramoto_logits(  # noqa: E731
                 *args, packed=packed)
             t["logits_events"] = cuda_ms(logits, 20)
-            t["logits"] = kernel_device_ms(logits, ("kuramoto_logits",))
+            t["logits"] = queued_ms(logits)
             t["plain_logits"] = cuda_ms(
                 lambda: KO.kuramoto_logits_reference(*args), 3)
             if b in KURA_TIMES:
@@ -1610,9 +1726,7 @@ def kuramoto_phases(device, smi):
                 bwd = lambda: KO.kuramoto_bwd(om, K, th0, ct, lat)  # noqa
                 t["fwd_events"], t["bwd_events"] = cuda_ms(fwd, 20), \
                     cuda_ms(bwd, 20)
-                t["fwd"] = kernel_device_ms(fwd, ("kuramoto_fwd",))
-                t["bwd"] = kernel_device_ms(bwd, ("kuramoto_bwd",
-                                                  "kuramoto_reduce"))
+                t["fwd"], t["bwd"] = queued_ms(fwd), queued_ms(bwd)
                 t["plain_fwd"] = cuda_ms(
                     lambda: KO.kuramoto_rollout_reference(om, K, th0, lat), 3)
                 t["plain_bwd"] = cuda_ms(
@@ -1816,9 +1930,11 @@ def cond_diffusion_phases(device, smi):
                 for f in kernels:
                     f.launches = 0
                 t0 = time.perf_counter()
-                res = cli.main(["cond_diffusion", "--denoiser", denoiser,
-                                "--device", "cuda", "--epochs", "1",
-                                "--out-dir", tmp])
+                res = count_spline(
+                    f"cli cond_diffusion --denoiser {denoiser}",
+                    lambda: cli.main(["cond_diffusion", "--denoiser",
+                                      denoiser, "--device", "cuda",
+                                      "--epochs", "1", "--out-dir", tmp]))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = [f.launches for f in kernels]
@@ -1847,7 +1963,8 @@ def cond_diffusion_phases(device, smi):
             for f in kernels:
                 f.launches = 0
             t0 = time.perf_counter()
-            sresult = cli.main(argv)
+            sresult = count_spline("serve cond_diffusion (phase 26)",
+                                   lambda: cli.main(argv))
             serve_wall = time.perf_counter() - t0
             cfg_s = make_config("serve", cli._parse(argv)[1])
             sparams, sfn, _ = cli.SERVING["cond_diffusion"](cfg_s, device)
@@ -2869,9 +2986,8 @@ def rnn_phases(device, smi):
                 def plain():
                     return ferro_apply(params, state, x, cfg)
                 row = dict(
-                    ms=kernel_device_ms(kern, ["ferro_fused_kernel"], n=20),
-                    wall=cuda_ms(kern, 50),
-                    plain=profile_ms(plain, n=10)[1],
+                    ms=queued_ms(kern), wall=cuda_ms(kern, 50),
+                    plain=queued_ms(plain, n=10),
                     plain_wall=cuda_ms(plain, 20),
                     bound=bound(*ferro_fused_counts(B, P, O, K, 4)))
             times[(shape, B)] = row
@@ -2909,6 +3025,543 @@ def rnn_phases(device, smi):
               f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
     print(f"phase 39: {time.perf_counter() - t0:.1f} s")
     return y_worst, times, sum(launches.values())
+
+
+# ------------------------------------- B.12 and B.14 (phases 40-43)
+
+# Every B.12 launch's (rows, in, out, knots, order) over the run, and the
+# B.12 launches of each main-path run (the count set to 0 just before it
+# and read just after).
+SPLINE_LOG = set()
+SPLINE_RUNS = {}
+
+
+def log_spline_shapes():
+    """Wrap B.12's launcher so that every launch records its shape in
+    ``SPLINE_LOG``, which phase 40 checks; it counts nothing."""
+    from fetode_tpu_torch.ops import spline as SP
+
+    launch = SP._launch
+
+    def logged(x, grid, weight, order):
+        SPLINE_LOG.add((x.shape[0], x.shape[1], weight.shape[0],
+                        grid.shape[1], int(order)))
+        return launch(x, grid, weight, order)
+    SP._launch = logged
+
+
+def count_spline(label, fn):
+    """``fn()``, a main-path run, with B.12's count set to 0 just before it
+    and read just after into ``SPLINE_RUNS[label]``."""
+    from fetode_tpu_torch.ops import spline as SP
+
+    SP.spline_matmul_fused.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    SPLINE_RUNS[label] = SPLINE_RUNS.get(label, 0) + \
+        SP.spline_matmul_fused.launches
+    return out
+
+
+class plain_spline:
+    """Within it the KAN layers take the plain spline product where they
+    take B.12 (the comparison runs of phase 43)."""
+
+    def __enter__(self):
+        from fetode_tpu_torch.models import cond_diffusion as CD
+        from fetode_tpu_torch.nn import kan as TK
+        from fetode_tpu_torch.ops.spline import spline_matmul_reference
+
+        self.mods = (TK, CD)
+        self.saved = [m.spline_matmul_fused for m in self.mods]
+        for m in self.mods:
+            m.spline_matmul_fused = spline_matmul_reference
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.mods, self.saved):
+            m.spline_matmul_fused = fn
+
+
+def bspline_window_counts(n_knots=12, order=3):
+    """(FP32 per point, FP32 per feature, SFU per feature) of the nonzero
+    B-spline columns of one value, the least the function needs: the knot
+    interval m found by two range compares and a binary search over the
+    n_knots - 1 intervals; the ``order`` differences x - g_j, j = m -
+    order + 1 .. m, that the weights w_j = (x - g_j) r_jk of the window
+    read; per level k the k weights (a product each), their k complements
+    1 - w, the 2 k products and k - 1 sums of the window's k + 1 terms (5
+    k - 1); the reciprocals r_jk = 1 / (g_j+k - g_j) once a feature, as
+    ``bspline_counts`` counts them."""
+    search = 2 + math.ceil(math.log2(n_knots - 1))
+    per = search + order + sum(5 * k - 1 for k in range(1, order + 1))
+    _, per_feat, sfu_feat = bspline_counts(n_knots, order)
+    return per, per_feat, sfu_feat
+
+
+def spline_counts(R, I, O, n_knots=12, order=3):
+    """(FP32, SFU, bytes) of one B.12 call, each value counted once: the
+    product's 2 R I C O, the nonzero bases of every (row, input) as
+    ``bspline_window_counts`` counts them; x, the knots, the weight and y
+    moved once."""
+    C = n_knots - 1 - order
+    per, per_feat, sfu_feat = bspline_window_counts(n_knots, order)
+    return (2 * R * I * C * O + R * I * per + I * per_feat, I * sfu_feat,
+            4 * (R * I + I * n_knots + O * I * C + R * O))
+
+
+def custom_field_counts(B, D, H, recs, kind):
+    """(FP32, SFU, bytes) of a B.14 kernel call: an evaluation is the two
+    products and B H tanhs; a VJP recomputes the hidden layer, forms zbar
+    (the w w2 product) and the three products gw2, gw1, ubar."""
+    ev = (4 * B * H * D + B * H * TANH[0], B * H * TANH[1])
+    vjp = (B * H * (4 * D + TANH[0] + 3) + 6 * B * D * H, B * H * TANH[1])
+    return node_counts(ev, vjp, 2 * H * D, 0, B, D, recs, kind)
+
+
+def spline_layer(device, rng, R, I, O, sl=None, n_knots=12, order=3):
+    """Inputs of one B.12 call as a layer gives them: x (R, I) ~ 1.2 N(0,
+    1) (some of it past the grid's end knots), the knot rows, and a layer's
+    spline weight ~ N(0, 1) (O, W, C) and scaler ~ U(-1, 1) / sqrt(W) (O,
+    W), W = I unless the inputs are the columns sl = (start, W) of a
+    wider layer; ``term(fn, x, w, s)`` is the spline term through ``fn``
+    on the scaled weight's column slice as it lies."""
+    from fetode_tpu_torch.ops.bsplines import make_grid
+
+    start, width = sl if sl else (0, I)
+    C = n_knots - 1 - order
+    grid = make_grid(width, n_knots - 2 * order - 1, order,
+                     device=device)[start:start + I]
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+    x = t(1.2 * rng.standard_normal((R, I)))
+    w = t(rng.standard_normal((O, width, C)))
+    s = t(rng.uniform(-1.0, 1.0, (O, width)) / np.sqrt(width))
+
+    def term(fn, x, w, s):
+        return fn(x, grid, (w * s[..., None])[:, start:start + I, :], order)
+    return x, w, s, grid, term
+
+
+def check_spline(device, rng, R, I, O, sl=None, n_knots=12, order=3,
+                 full=False):
+    """Phase 40 at one shape: B.12 against plain within SPLINE_TOL, the
+    same bits twice; with ``full``, rows 0, R/2 and R-1 alone the same bits
+    as inside the batch, and the gradients of x, the spline weight and the
+    scaler through autograd within SPLINE_GRAD_TOL of autograd of plain.
+    Returns (max |y diff|, gradient rel error or None)."""
+    from fetode_tpu_torch.ops import spline as SP
+
+    label = f"B.12 R={R} {I}->{O}" + (f" (columns {sl[0]}.. of {sl[1]})"
+                                      if sl else "")
+    x, w, s, grid, term = spline_layer(device, rng, R, I, O, sl, n_knots,
+                                       order)
+    fused, plain = SP.spline_matmul_fused, SP.spline_matmul_reference
+    with torch.no_grad():
+        y, y2 = term(fused, x, w, s), term(fused, x, w, s)
+        yp = term(plain, x, w, s)
+    torch.cuda.synchronize()
+    err = max_abs(y, yp)
+    if not (torch.isfinite(y).all() and torch.allclose(
+            y, yp, rtol=SPLINE_TOL, atol=SPLINE_TOL)):
+        fail(f"{label}: max |diff| {err:.3e} against plain")
+    if not torch.equal(y, y2):
+        fail(f"{label}: two calls differ")
+    g_err = None
+    if full:
+        with torch.no_grad():
+            for r in sorted({0, R // 2, R - 1}):
+                if not torch.equal(term(fused, x[r:r + 1], w, s), y[r:r + 1]):
+                    fail(f"{label}: row {r} alone differs from the batch")
+        ct = torch.from_numpy(rng.standard_normal((R, O)).astype(
+            np.float32)).to(device)
+
+        def grads(fn):
+            leaves = [a.clone().requires_grad_(True) for a in (x, w, s)]
+            return torch.autograd.grad((term(fn, *leaves) * ct).sum(),
+                                       leaves)
+        g_err = max(rel_err(a, b) for a, b in zip(grads(fused),
+                                                  grads(plain)))
+        if not g_err <= SPLINE_GRAD_TOL:
+            fail(f"{label}: gradient rel error {g_err:.3e}")
+    return err, g_err
+
+
+def check_spline_edges(device):
+    """B.12 on inputs off the grid and on its end knots (half-open
+    intervals): against plain, and rows with no input inside the grid
+    exactly zero."""
+    from fetode_tpu_torch.ops import spline as SP
+    from fetode_tpu_torch.ops.bsplines import make_grid
+
+    rng = np.random.default_rng(41)
+    grid = make_grid(256, 5, 3, device=device)
+    first, last = float(grid[0, 0]), float(grid[0, -1])
+    vals = np.array([-5.0, first, last, 5.0, 0.3, -0.999], np.float32)
+    x = torch.from_numpy(vals[rng.integers(0, 6, (16, 256))]).to(device)
+    x[:4] = torch.from_numpy(np.array([-5.0, last, 5.0], np.float32)[
+        rng.integers(0, 3, (4, 256))]).to(device)
+    w = torch.from_numpy(rng.standard_normal((256, 256, 8)).astype(
+        np.float32)).to(device) / 16.0
+    with torch.no_grad():
+        y = SP.spline_matmul_fused(x, grid, w, 3)
+        yp = SP.spline_matmul_reference(x, grid, w, 3)
+    torch.cuda.synchronize()
+    err = max_abs(y, yp)
+    if not (torch.isfinite(y).all() and torch.allclose(
+            y, yp, rtol=SPLINE_TOL, atol=SPLINE_TOL)):
+        fail(f"B.12 off the grid / on its end knots: max |diff| {err:.3e}")
+    if not torch.equal(y[:4], torch.zeros_like(y[:4])):
+        fail("B.12: rows with every input off the grid or on its last knot "
+             "are not zero")
+    # a NaN or infinite input: plain's bases are NaN from order 1 on (its
+    # row of y NaN), zero at order 0
+    bad = x.clone()
+    bad[4, 3], bad[5, 100], bad[6, 255] = float("nan"), float("inf"), \
+        -float("inf")
+    for order, g, wo in ((3, grid, w), (0, grid[:, :9], w)):
+        with torch.no_grad():
+            y = SP.spline_matmul_fused(bad, g, wo, order)
+            yp = SP.spline_matmul_reference(bad, g, wo, order)
+        torch.cuda.synchronize()
+        nan_rows = torch.isnan(yp).any(dim=1)
+        if not (torch.equal(torch.isnan(y), torch.isnan(yp))
+                and bool(nan_rows[4:7].all()) == (order >= 1)
+                and torch.allclose(y[~nan_rows], yp[~nan_rows],
+                                   rtol=SPLINE_TOL, atol=SPLINE_TOL)):
+            fail(f"B.12 order {order} with NaN and infinite inputs: NaN rows "
+                 f"{torch.isnan(y).any(dim=1).nonzero().flatten().tolist()}, "
+                 f"plain's {nan_rows.nonzero().flatten().tolist()}")
+        err = max(err, max_abs(y[~nan_rows], yp[~nan_rows]))
+    return err
+
+
+def custom_case(device, D, H, scale, seed, opts=CUSTOM_OPTS):
+    """B.14's kernels on weights w1 ~ scale N(0, 1) (H, D) and w2 ~ scale'
+    N(0, 1) (D, H) as closures (the ``check_node_kernels`` /
+    ``time_node_kernels`` contract); ``scale`` None takes 1/sqrt(fan-in)."""
+    from fetode_tpu_torch.examples import custom_field_kernel as CF
+
+    g = torch.Generator().manual_seed(seed)
+    s1, s2 = (scale, scale) if scale else (D ** -0.5, H ** -0.5)
+    w = [(s1 * torch.randn((H, D), generator=g)).to(device).requires_grad_(),
+         (s2 * torch.randn((D, H), generator=g)).to(device).requires_grad_()]
+    solve = CF.make_my_solver(D, H, **opts)
+    return dict(
+        name=f"custom_field D={D} H={H}",
+        fwd=lambda h0, record=True: CF.custom_field_fwd(*w, h0, record=record,
+                                                        **opts),
+        bwd=lambda h0, recs, hbar: CF.custom_field_bwd(*w, h0, recs, hbar),
+        solve=lambda h0: solve(*w, h0), weights=w,
+        counts=lambda B, recs, kind: custom_field_counts(B, D, H, recs,
+                                                         kind),
+        **final_state_plain(CF.tanh_mlp_field(*w), w, opts))
+
+
+def check_custom_more(case, h0, hbar, label):
+    """Phase 41 beyond ``check_node_kernels``: the time reached (misc[1],
+    as JAX's misc[0, 1]) is the last attempt's t + dt if it was accepted,
+    else its t, and plain's within 1e-4 relative (the step sizes follow the
+    error estimate, which float32 sums in another order move at its
+    rounding: a few 1e-6 after 3 attempts on the chip); the backward the
+    same bits in two calls."""
+    with torch.no_grad():
+        _, rk = case["fwd"](h0)
+        _, rp = case["plain_fwd"](h0)
+    got = [case["bwd"](h0, rk, hbar) for _ in range(2)]
+    torch.cuda.synchronize()
+    n = int(rk.misc[0])
+    dt, acc, t = rk.tda[n - 1, :3].tolist()
+    reached = float(np.float32(t) + np.float32(dt) * np.float32(acc))
+    t_k, t_p = float(rk.misc[1]), float(rp.misc[1])
+    if n != int(rp.misc[0]) or t_k != reached or \
+            abs(t_k - t_p) > 1e-4 * abs(t_p):
+        fail(f"{label}: attempts / end time {[n, t_k]} (its records: "
+             f"{reached}) against plain's {rp.misc[:2].tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            got[0][0] + [got[0][1]], got[1][0] + [got[1][1]])):
+        fail(f"{label}: the backward kernel's gradients differ between two "
+             "calls")
+    return n, t_k
+
+
+def spline_steps(device):
+    """Phase 42's training steps (learning rate 0, as closures that return
+    (state, loss)): cond_diffusion ``kan_node`` and ``kan_fet_all_node`` at
+    B = 64, MNIST ``pallas`` at 128, ETT ``kan_diffusion`` at 64."""
+    from fetode_tpu_torch.models import cond_diffusion as CD
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.models import kuramoto as TK
+    from fetode_tpu_torch.nn.diffusion import make_schedule
+    from fetode_tpu_torch.train import cond_diffusion_driver as drv
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(42)
+
+    def step(params, loss, *batch):
+        state = init_state(params, make_optimizer(
+            0.0, params=params.parameters(), kind="adamw", weight_decay=1e-4,
+            grad_clip=1.0))
+        fn = make_train_step(loss)
+        return lambda: fn(state, *batch)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    steps = {}
+    cw = cond_windows()
+    sched = make_schedule(250, device=device)
+    for name in ("kan_node", "kan_fet_all_node"):
+        spec = CD.make_denoiser_spec(name, d_in=cw.shape[2], pred_len=24)
+        params = CD.cond_denoiser_init(torch.Generator().manual_seed(0), spec,
+                                       device=device)
+
+        def loss(q, xb, yb, spec=spec):
+            g = torch.Generator(device=device).manual_seed(0)
+            return drv.cond_diffusion_loss(q, spec, sched, xb, yb, g)
+        steps[f"cond_diffusion {name} B=64"] = step(
+            params, loss, t(cw[:64]), t(rng.standard_normal((64, 24, 7))))
+    kspec = TK.KuramotoSpec(rollout="pallas")
+    kparams = TK.kuramoto_init(torch.Generator().manual_seed(0), kspec,
+                               device=device)
+    case = kuramoto_case(device, 128, 3)
+    steps["mnist pallas B=128"] = mnist_step_fn(kparams, kspec, case["x"],
+                                                case["y"], "pallas")
+    fw = forecast_windows()
+    dspec = F.DiffusionForecasterSpec(num_features=fw.shape[2], diff_T=200,
+                                      encoder="kan", solver_mode="pallas")
+    dparams = F.diffusion_forecaster_init(torch.Generator().manual_seed(0),
+                                          dspec, device=device)
+    dsched = make_schedule(dspec.diff_T, device=device)
+
+    def dloss(q, xb, yb):
+        g = torch.Generator(device=device).manual_seed(0)
+        return F.diffusion_forecaster_loss(q, dspec, dsched, xb, yb, g)
+    steps["ett kan_diffusion B=64"] = step(
+        dparams, dloss, t(fw[:64]), t(rng.standard_normal(
+            (64, dspec.pred_len))))
+    return steps
+
+
+def spline_custom_phases(device, smi):
+    """Phases 40-43, B.12 and B.14: returns the kernels' worst errors, their
+    timings and their launches on the main paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.examples import custom_field_kernel as CF
+    from fetode_tpu_torch.ops import spline as SP
+    from fetode_tpu_torch.ops.bsplines import bspline_basis
+    from fetode_tpu_torch.serve import load_servable
+
+    # ---- 40. B.12 against plain at every shape its paths launch
+    t0 = time.perf_counter()
+    path_shapes = set(SPLINE_LOG)       # launched by phases 3-39
+    rng = np.random.default_rng(40)
+    checked, g_worst = {}, 0.0
+    for R, I, O, sl in SPLINE_SHAPES:
+        err, g_err = check_spline(device, rng, R, I, O, sl, full=True)
+        checked[(R, I, O, 12, 3)] = err
+        g_worst = max(g_worst, g_err)
+    seen = sorted(path_shapes - set(checked))
+    for R, I, O, nk, order in seen:
+        checked[(R, I, O, nk, order)] = check_spline(device, rng, R, I, O,
+                                                     None, nk, order)[0]
+    edge_err = check_spline_edges(device)
+    print(f"B.12 against plain: {len(SPLINE_SHAPES)} path shapes with the "
+          f"row and gradient checks (gradients rel <= {g_worst:.3e}), "
+          f"{len(seen)} more launched by phases 3-39 "
+          f"{[s[:3] for s in seen]}: y max |diff| "
+          f"{max(checked.values()):.3e} (limit rtol = atol = {SPLINE_TOL}), "
+          f"the same bits twice, a row alone as in its batch; off the grid "
+          f"and on its end knots {edge_err:.3e}, all-off rows zero, NaN "
+          f"and infinite inputs' rows NaN as plain's; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 41. B.14 against plain, and the example
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(41)
+    custom = {}
+    for (D, H, B), scale in [(CUSTOM_SMALL, 0.5)] + [
+            ((*CUSTOM_DH, b), None) for b in CUSTOM_BATCHES]:
+        case = custom_case(device, D, H, scale, seed=B)
+        h0 = torch.from_numpy(rng.standard_normal((B, D)).astype(
+            np.float32)).to(device)
+        hbar = torch.from_numpy(rng.standard_normal((B, D)).astype(
+            np.float32)).to(device)
+        res = check_node_kernels(case, h0, hbar)
+        att, t_end = check_custom_more(case, h0, hbar, f"{case['name']} B={B}")
+        custom[(D, H, B)] = dict(res, case=case, h0=h0, hbar=hbar)
+        print(f"  {case['name']} B={B}: attempts {att}, end time {t_end} "
+              f"(plain's within 1e-4); the backward the same bits twice")
+    # an attempt budget the solve runs out of: the end time plain reaches
+    D, H = CUSTOM_DH
+    short = dict(CUSTOM_OPTS, max_steps=3)
+    case = custom_case(device, D, H, 2.0 / np.sqrt(D), seed=5, opts=short)
+    h0 = torch.from_numpy(rng.standard_normal((64, D)).astype(
+        np.float32)).to(device)
+    res = check_node_kernels(case, h0, h0, backward=False)
+    att, t_end = check_custom_more(case, h0, h0, "custom_field max_steps=3")
+    if not t_end < 1.0:
+        fail(f"custom_field max_steps=3 reached t = {t_end}: the budget was "
+             "meant to run out")
+    print(f"  custom_field max_steps=3 B=64: stops at t = {t_end} after "
+          f"{att} attempts, as its records and plain say")
+    # the example, in this process (its launches counted) and as a user
+    # runs it
+    import contextlib
+    import io
+
+    CF.custom_field_fwd.launches = CF.custom_field_bwd.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = CF.main([])
+    torch.cuda.synchronize()
+    custom_launches = (CF.custom_field_fwd.launches,
+                       CF.custom_field_bwd.launches)
+    print(buf.getvalue(), end="")
+    verified = "custom-field whole-solve kernel: forward + adjoint verified"
+    if rc != 0 or buf.getvalue().strip().splitlines()[-1] != verified or \
+            min(custom_launches) < 1:
+        fail(f"the custom-field example: rc {rc}, launches {custom_launches}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "fetode_tpu_torch.examples.custom_field_kernel"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=300)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or last != verified:
+        fail(f"python -m fetode_tpu_torch.examples.custom_field_kernel: rc "
+             f"{proc.returncode}, last line {last!r}: {proc.stderr[-2000:]}")
+    print(f"python -m fetode_tpu_torch.examples.custom_field_kernel: "
+          f"{last!r}; in this process B.14 launches (fwd, bwd) "
+          f"{custom_launches}; phase 41 {time.perf_counter() - t0:.1f} s")
+
+    # ---- 42. the paths through B.12: serving through the CLI, and a
+    # training step of each KAN model
+    t0 = time.perf_counter()
+    mark = set(SPLINE_LOG)
+    cw = cond_windows()
+
+    def xs(b, off=0):
+        return torch.from_numpy(cw[(off + np.arange(b)) % len(cw)]).to(device)
+    reqs = {b: xs(b, 7 * b) for b in (1, 30, 300)}
+    serve_argv = ["serve", "--source", "cond_diffusion", "--device", "cuda",
+                  "--buckets", "8,64,256", "--iters", str(SERVE_ITERS)]
+    rows = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        undo = log_batches(SP, {"_launch": 0}, rows)
+        try:
+            sres = count_spline("serve cond_diffusion",
+                                lambda: cli.main(serve_argv + ["--out-dir",
+                                                               tmp]))
+        finally:
+            undo()
+        cfg_s = make_config("serve", cli._parse(serve_argv)[1])
+        sparams, sfn, _ = cli.SERVING["cond_diffusion"](cfg_s, device)
+        sv = load_servable(sres["bundle"], sfn, sparams)
+        served = count_spline("serve cond_diffusion requests", lambda: {
+            b: sv.predict(x) for b, x in reqs.items()})
+        check_served(sv, sfn, reqs, served, "serve cond_diffusion (B.12)")
+    rows = {b for _, b in rows}
+    if not set(SPLINE_SERVE_ROWS) <= rows:
+        fail(f"serve cond_diffusion launched B.12 at rows {sorted(rows)}, "
+             f"not in every bucket {SPLINE_SERVE_ROWS}")
+    print(f"serve cond_diffusion (kan_node): B.12 launches "
+          f"{SPLINE_RUNS['serve cond_diffusion']} (rows {sorted(rows)}), "
+          f"requests B=1/30/300 {SPLINE_RUNS['serve cond_diffusion requests']}"
+          f" = direct calls on the padded batches")
+    steps = spline_steps(device)
+    for name, fn in steps.items():
+        _, loss = count_spline(f"step {name}", fn)
+        if not (torch.isfinite(loss) and SPLINE_RUNS[f"step {name}"] > 0):
+            fail(f"step {name}: loss {float(loss)}, B.12 launches "
+                 f"{SPLINE_RUNS[f'step {name}']}")
+        print(f"step {name}: loss {float(loss):.5f}, B.12 launches "
+              f"{SPLINE_RUNS[f'step {name}']}")
+    for label in ("cli ett --model kan_diffusion", "cli mnist --rollout pallas",
+                  "cli cond_diffusion --denoiser kan_node",
+                  "cli cond_diffusion --denoiser kan_fet_all_node",
+                  "serve cond_diffusion (phase 26)"):
+        if SPLINE_RUNS.get(label, 0) < 1:
+            fail(f"{label} launched no B.12 kernel")
+    new = sorted(SPLINE_LOG - mark - set(checked))
+    for R, I, O, nk, order in new:
+        checked[(R, I, O, nk, order)] = check_spline(device, rng, R, I, O,
+                                                     None, nk, order)[0]
+    print(f"B.12 launches by main-path run {SPLINE_RUNS}; shapes first "
+          f"launched in phase 42, checked against plain now: "
+          f"{[s[:3] for s in new]}; phase 42 {time.perf_counter() - t0:.1f} s")
+
+    # ---- 43. times
+    t0 = time.perf_counter()
+    times = {}
+    rng = np.random.default_rng(43)
+    for R, I, O, sl in SPLINE_TIMED:
+        x, w, s, grid, term = spline_layer(device, rng, R, I, O, sl)
+        with torch.no_grad():
+            sw = (w * s[..., None])[:, sl[0]:sl[0] + I, :] if sl else \
+                w * s[..., None]
+            bases = bspline_basis(x, grid, 3).reshape(R, -1)
+            w2 = sw.reshape(O, -1)
+
+            def kern():
+                return SP.spline_matmul_fused(x, grid, sw, 3)
+
+            def plain():
+                return SP.spline_matmul_reference(x, grid, sw, 3)
+
+            def mm():
+                return torch.matmul(bases, w2.T)
+            row = dict(ms=queued_ms(kern), wall=cuda_ms(kern, 50),
+                       plain=queued_ms(plain), plain_wall=cuda_ms(plain, 20),
+                       matmul=queued_ms(mm),
+                       bound=bound(*spline_counts(R, I, O)))
+        times[(R, I, O)] = row
+        print(f"time B.12 R={R} {I}->{O}: kernel {row['ms']:.4f} device ms "
+              f"({row['wall']:.4f} ms a call back to back), plain "
+              f"{row['plain']:.4f} device ms ({row['plain_wall']:.4f} ms a "
+              f"call), torch.matmul of the product alone on precomputed "
+              f"bases {row['matmul']:.4f} device ms (queued_ms); bound "
+              f"{row['bound'][0]:.5f} ms ({row['bound'][2]}) ({smi})")
+    c = custom[(*CUSTOM_DH, 64)]
+    times["custom"] = time_node_kernels(c["case"], c["h0"], c["hbar"], smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with plain_spline():
+            pres = count_spline("serve cond_diffusion, plain product",
+                                lambda: cli.main(serve_argv + ["--out-dir",
+                                                               tmp]))
+    if SPLINE_RUNS["serve cond_diffusion, plain product"]:
+        fail("the plain-product serve launched B.12")
+    times["serve"] = {}
+    for r12, rp in zip(sres["bench"], pres["bench"]):
+        times["serve"][r12["batch"]] = (r12, rp)
+        print(f"serve cond_diffusion bucket {r12['batch']}: with B.12 p50 "
+              f"{r12['p50_ms']:.4f} ms, p99 {r12['p99_ms']:.4f} ms; with the "
+              f"plain product p50 {rp['p50_ms']:.4f} ms, p99 "
+              f"{rp['p99_ms']:.4f} ms ({smi})")
+    times["steps"] = {}
+    for name, fn in steps.items():
+        ms = cuda_ms(fn, 5)
+        wall, busy, top = profile_ms(fn, n=3)
+        with plain_spline():
+            plain_ms = cuda_ms(fn, 5)
+        times["steps"][name] = dict(ms=ms, plain=plain_ms, busy=busy,
+                                    wall=wall)
+        print(f"time step {name} (lr 0): with B.12 {ms:.4f} ms, with the "
+              f"plain product {plain_ms:.4f} ms; profiled: wall {wall:.4f} "
+              f"ms, device busy {busy:.4f} ms ({100 * busy / wall:.1f}%), "
+              f"top {[(k, round(v, 4)) for k, v in top]} ({smi})")
+    print(f"phase 43: {time.perf_counter() - t0:.1f} s")
+    errs = dict(spline=max(max(checked.values()), edge_err),
+                custom_fwd=max(c["fwd_err"] for c in custom.values()),
+                custom_bwd=max(c["g_abs"] for c in custom.values()))
+    launches = dict(spline=sum(SPLINE_RUNS.values()),
+                    custom_fwd=custom_launches[0],
+                    custom_bwd=custom_launches[1])
+    return errs, times, launches
 
 
 def main():
@@ -2963,6 +3616,7 @@ def main():
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas: {line.strip()}")
+    log_spline_shapes()
 
     # ---- 3. kernel against plain on the card
     spec = PredPreyNODE.kanfet()
@@ -3142,14 +3796,17 @@ def main():
     wide_checks, wide_times, wide_launches = wide_phases(device, smi,
                                                          ts_fit, x0_task)
     ff_err, ff_times, ff_launches = rnn_phases(device, smi)
+    sc_errs, sc_times, sc_launches = spline_custom_phases(device, smi)
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
     # rollout at the training batch 128, the fused classifier at the
     # largest serving bucket, 256, the node encoder at the training batch
     # 64, the 'mlp' field at the training batch 8, the wide stack [2, 64,
-    # 64, 2] at its training batch, 1, and the ferro layer op at the
-    # FEPA-RNN's hidden shape (64 -> 64, K = 12) and training batch, 8
+    # 64, 2] at its training batch, 1, the ferro layer op at the
+    # FEPA-RNN's hidden shape (64 -> 64, K = 12) and training batch, 8, the
+    # spline term at the serving chain's 256 -> 256 layer in bucket 256
+    # (2,560 rows), and the custom field at D = 64, H = 128, B = 64
     ot, dt = ett_times[("ode_dyn", 64)], ett_times[("ddpm", 2560)]
     with torch.no_grad():
         _, serve_recs = kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
@@ -3159,6 +3816,7 @@ def main():
     et, mt = enc_times[64], mlp_times[8]
     wt = wide_times[WIDE_STACKS[-1]]
     ff = ff_times[(RNN_SHAPES[1], 8)]
+    st, ct = sc_times[(2560, 256, 256)], sc_times["custom"]
 
     def worst(model, key):
         return max(c[key] for k, c in ecg_checks.items()
@@ -3261,6 +3919,18 @@ def main():
         kernel_entry("ferro_apply_fused", "fetode_tpu_torch/csrc/ferro_fused.cu",
                      "fetode_tpu/ops/pallas_ferro.py:107", ff_launches,
                      ff_err, ff["ms"], ff["plain"], ff["bound"]),
+        kernel_entry("spline_matmul_fused", "fetode_tpu_torch/csrc/spline.cu",
+                     "fetode_tpu/ops/pallas_spline.py:65",
+                     sc_launches["spline"], sc_errs["spline"], st["ms"],
+                     st["plain"], st["bound"]),
+        kernel_entry("custom_field_fwd", "fetode_tpu_torch/csrc/custom_field.cu",
+                     "examples/02_custom_field_kernel.py:95",
+                     sc_launches["custom_fwd"], sc_errs["custom_fwd"],
+                     ct["fwd"], ct["plain_fwd"], ct["bound_fwd"]),
+        kernel_entry("custom_field_bwd", "fetode_tpu_torch/csrc/custom_field.cu",
+                     "examples/02_custom_field_kernel.py:116",
+                     sc_launches["custom_bwd"], sc_errs["custom_bwd"],
+                     ct["bwd"], ct["plain_bwd"], ct["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,7 +58,7 @@ from fetode_tpu_torch.nn.kan import (
     kanfet_config,
 )
 from fetode_tpu_torch.nn.mlp import MLPConfig, layer_norm, mlp_apply, mlp_init
-from fetode_tpu_torch.ops.bsplines import bspline_basis
+from fetode_tpu_torch.ops.spline import spline_matmul_fused
 from fetode_tpu_torch.ops.interp import linear_interp
 from fetode_tpu_torch.ops.node_common import use_kernel
 from fetode_tpu_torch.ops.node_enc import node_enc_solve
@@ -351,13 +351,13 @@ def _kan_partial(layer: KANLinear, x: torch.Tensor, sl: slice
     """One KANLinear layer restricted to the input dims in ``sl``.  The
     layer is additive over its inputs (silu base and B-spline terms), so
     the full layer is the sum of partial applications over a partition
-    of them.  Plain layers only (no logistic or ferro branch)."""
-    cfg = layer.cfg
+    of them.  Plain layers only (no logistic or ferro branch).  The spline
+    term takes B.12 (``ops/spline.py``) as ``kan_linear_apply`` does, on
+    the column slice of the scaled weight as it lies."""
     base = F.silu(x) @ layer.base_weight[:, sl].T
-    bases = bspline_basis(x, layer.grid[sl], cfg.spline_order)
-    sw = _scaled_spline_weight(layer)[:, sl, :]
-    return base + bases.reshape(x.shape[0], -1) @ sw.reshape(
-        cfg.out_features, -1).T
+    return base + spline_matmul_fused(x, layer.grid[sl],
+                                      _scaled_spline_weight(layer)[:, sl, :],
+                                      layer.cfg.spline_order)
 
 
 def cond_denoiser_kan_sample_loop(params: nn.ModuleDict,

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fetode_tpu_torch.ops.bsplines import bspline_basis, curve2coeff, make_grid
+from fetode_tpu_torch.ops.bsplines import curve2coeff, make_grid
 from fetode_tpu_torch.ops.ferro import (
     FerroConfig,
     FerroParams,
@@ -33,6 +33,10 @@ from fetode_tpu_torch.ops.ferro import (
     ferro_state_init,
 )
 from fetode_tpu_torch.ops.logistic import LogisticParams, logistic_basis
+from fetode_tpu_torch.ops.spline import (
+    spline_matmul_fused,
+    spline_matmul_reference,
+)
 from fetode_tpu_torch.utils.init import kaiming_uniform, normal, uniform
 
 
@@ -181,8 +185,14 @@ def _scaled_spline_weight(layer: KANLinear) -> torch.Tensor:
 
 
 def kan_linear_apply(layer: KANLinear, x: torch.Tensor, state=None, *,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     plain: bool = False):
     """Forward pass of one layer.
+
+    The spline term goes through ``ops/spline.py: spline_matmul_fused``
+    (the B.12 kernel for CUDA float32 tensors, its plain version on the
+    CPU); ``plain=True`` takes the plain version on every device, for the
+    plain twins the other kernels are held against and for float64.
 
     Args:
       x: (..., in_features)
@@ -196,9 +206,9 @@ def kan_linear_apply(layer: KANLinear, x: torch.Tensor, state=None, *,
     x2 = x.reshape(-1, cfg.in_features)
 
     y = F.silu(x2) @ layer.base_weight.T
-    bases = bspline_basis(x2, layer.grid, cfg.spline_order)
-    sw = _scaled_spline_weight(layer)
-    y = y + bases.reshape(x2.shape[0], -1) @ sw.reshape(cfg.out_features, -1).T
+    spline = spline_matmul_reference if plain else spline_matmul_fused
+    y = y + spline(x2, layer.grid, _scaled_spline_weight(layer),
+                   cfg.spline_order)
 
     if cfg.logistic_num_basis > 0:
         lg = layer.logistic
@@ -283,8 +293,9 @@ def kan_state_init(batch_shape, cfg: KANConfig, *, device=None,
 
 
 def kan_apply(params: KAN, x: torch.Tensor, state=None, *,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None, plain: bool = False):
     """Apply the stack; threads per-layer hysteresis state when present.
+    ``plain`` as for ``kan_linear_apply``.
 
     Returns ``(y, new_state)`` (new_state a tuple aligned with layers).
     """
@@ -292,7 +303,8 @@ def kan_apply(params: KAN, x: torch.Tensor, state=None, *,
         state = (None,) * len(params.layers)
     new_states = []
     for layer, s in zip(params.layers, state):
-        x, s1 = kan_linear_apply(layer, x, s, generator=generator)
+        x, s1 = kan_linear_apply(layer, x, s, generator=generator,
+                                 plain=plain)
         new_states.append(s1)
     return x, tuple(new_states)
 

@@ -77,8 +77,10 @@ def record_width(D: int) -> int:
 def _field(params: KAN, cfg: KANConfig, B: int, like: torch.Tensor):
     state = kan_state_init((B,), cfg, device=like.device, dtype=like.dtype)
 
+    # The plain spline product (not B.12) on every device: the plain
+    # versions built on this field are what the kernels are held against.
     def rhs(t, z):
-        return kan_apply(params, z, state)[0]
+        return kan_apply(params, z, state, plain=True)[0]
     return rhs
 
 

@@ -75,8 +75,10 @@ def kanfet_solve_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     state = kan_state_init((x0s.shape[0],), cfg, device=x0s.device,
                            dtype=x0s.dtype)
 
+    # The plain spline product (not B.12) on every device: this is the
+    # version the kernel is held against and timed beside.
     def rhs(t, z):
-        return kan_apply(params, z, state)[0]
+        return kan_apply(params, z, state, plain=True)[0]
 
     return odeint_dopri5(rhs, x0s, ts, rtol=rtol, atol=atol,
                          max_steps=max_steps, mode="while", per_row=True)

@@ -65,7 +65,9 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.train.cond_diffusion_driver",
                  "fetode_tpu_torch.ops.ferro_fused",
                  "fetode_tpu_torch.nn.rnn",
-                 "fetode_tpu_torch.solvers.fixed"):
+                 "fetode_tpu_torch.solvers.fixed",
+                 "fetode_tpu_torch.ops.spline",
+                 "fetode_tpu_torch.examples.custom_field_kernel"):
         assert name in report["modules"]
 
 
