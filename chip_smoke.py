@@ -7,9 +7,9 @@ Kuramoto-MNIST training and serving, conditional-diffusion training and
 serving, predprey training on wide KANFET stacks, symbolic regression,
 the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
 ``--model all``) with ETT's KAN-RNN encoder, the KAN layers' spline term
-(B.12) on every KAN path and the custom-field whole-solve example (B.14)
-— on the card and checks them, in phases that run in order; any failure
-exits non-zero.
+(B.12) on every KAN path, the custom-field whole-solve example (B.14),
+and B.1 / B.2 on other pure-KANFET stacks — on the card and checks them,
+in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -333,6 +333,35 @@ before each run, read just after):
     plain product (``plain_spline`` switches the layers' dispatch inside
     this script only).
 
+B.1 and B.2 on other pure-KANFET stacks (``STACKS_44``), the predprey
+preset (dopri5 at rtol 1e-7 / atol 1e-9, ``max_steps`` 256), random
+weights from a seed, x0 from U[0.5, 2.0]:
+
+44. At [2, 4, 4, 2] grid 7, [2, 128, 2] and [3, 10, 3] (B = 64), [2, 24,
+    24, 2] (B = 8), [2, 64, 64, 2] (B = 2, its parameters read from
+    global memory) and [2, 6, 2] at spline order 6 (B = 8; the window
+    recursion in the warp's scratch, more than 16 knots): B.1 against its
+    plain version on the first 40 of the 140 serving times and B.2's
+    forward on the 35 fit times, rtol = atol = 1e-3; with the training
+    loss's cotangent (the Lotka-Volterra truth, 1 in a third component),
+    the backward on its own records twice (the same bits) against
+    autograd of the plain replay of the same records, relative error <
+    1e-4 (phase 6's gate; a miss is held to the float64 replay under
+    phase 32's ``GRAD_CAP`` rule); the full gradient against plain's,
+    each on its own mesh, cosine > 0.999; at the two wide stacks phase
+    32's attempt contract, row by row (at rtol 1e-3 plain's attempts, at
+    the preset within 5%, at least 3, and plain's time).  The flagship at
+    B = 8 with the warps' scratch and gradients forced to global memory:
+    the same forward and x0bar bits as in shared memory, gradients
+    within 1e-6.  Then ``cli.main(["predprey", "--layers", "2,4,4,2",
+    "--grid_size", "7", "--solver_mode", "pallas", "--epochs", "20",
+    ...])`` and ``train_traj_parallel`` on [2, 24, 24, 2] at 8
+    trajectories for 2 epochs: B.1 and both B.2 kernels launched (B.2's in
+    the driver), finite losses.  Times of the three kernels at each stack
+    on a full queue (``queued_ms``) and of their plain versions (one call,
+    CUDA events: their while solves wait on the device at every step, so
+    they cannot queue), with the kernels' bounds.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -392,6 +421,15 @@ WIDE_LOOSE = dict(rtol=1e-3, atol=1e-5)
 # this share of them, and at least 3 (float32 rounding of the error
 # estimate parts two right solves: 105 against 101 at [2, 64, 64, 2]).
 WIDE_ATTEMPTS = 0.05
+# Phase 44's pure-KANFET stacks (layers, grid size, spline order, batch)
+# for B.1 and B.2, and the two wide ones, held also to phase 32's attempt
+# contract.  The last takes the kernels' paths for an order above 5 and
+# more than 16 knots (the window recursion in the warp's scratch, the
+# knot search as a loop).
+STACKS_44 = (((2, 4, 4, 2), 7, 3, 64), ((2, 128, 2), 5, 3, 64),
+             ((3, 10, 3), 5, 3, 64), ((2, 24, 24, 2), 5, 3, 8),
+             ((2, 64, 64, 2), 5, 3, 2), ((2, 6, 2), 5, 6, 8))
+STACKS_44_WIDE = ((2, 24, 24, 2), (2, 64, 64, 2))
 # A backward check that misses GRAD_TOL is held instead to 4x the float32
 # plain replay's own error against float64, never above this.
 GRAD_CAP = 1e-3
@@ -543,7 +581,10 @@ def kanfet_counts(params, cfg, recs, T, kind):
     D = cfg.layers[0].in_features
     B = recs.n_att.shape[0]
     n_att = int(recs.n_att.sum())
-    n_acc = int(recs.rec[:, 2, :].sum())
+    # The kernel leaves the records past a row's own attempts unwritten.
+    own = (torch.arange(recs.rec.shape[0], device=recs.rec.device)[:, None]
+           < recs.n_att[None, :])
+    n_acc = int(torch.where(own, recs.rec[:, 2, :], 0.0).sum())
     n_par = sum(p.numel() for p in params.parameters())
     if kind == "bwd":
         n = 18 * n_acc
@@ -3564,6 +3605,328 @@ def spline_custom_phases(device, smi):
     return errs, times, launches
 
 
+# ------------------------------- B.1 / B.2 on other stacks (phase 44)
+
+
+def stack_target(x0s, ts, lv):
+    """A training target for a stack of state size D: the Lotka-Volterra
+    truth from x0s' first two components, and 1 in any further one."""
+    from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+
+    truth = odeint_dopri5(lv, x0s[:, :2].contiguous(), ts, rtol=1e-8,
+                          atol=1e-10, max_steps=2048, mode="while",
+                          per_row=True)
+    extra = torch.ones(truth.shape[:2] + (x0s.shape[1] - 2,),
+                       dtype=truth.dtype, device=truth.device)
+    return torch.cat([truth, extra], dim=-1)
+
+
+def check_attempts(r_k, r_p, same, label):
+    """Phase 32's attempt contract on B.2's forward records ``r_k``
+    against the plain recording solve's ``r_p``, row by row: at
+    ``WIDE_LOOSE`` (``same``) plain's attempts; at the preset within
+    ``WIDE_ATTEMPTS`` of them (at least 3) and the same time reached.
+    Returns the worst gap and the most attempts."""
+    n_k, n_p = r_k.n_att.cpu().numpy(), r_p.n_att.cpu().numpy()
+    t_k, t_p = r_k.t_end.cpu().numpy(), r_p.t_end.cpu().numpy()
+    gap = np.abs(n_k - n_p)
+    if same and gap.max() > 0:
+        fail(f"{label}: attempts kernel {n_k.tolist()}, plain {n_p.tolist()}")
+    n_tol = np.maximum(3, np.ceil(WIDE_ATTEMPTS * n_p))
+    if (gap > n_tol).any() or (np.abs(t_k - t_p) > 1e-6 * np.abs(t_p)).any():
+        fail(f"{label}: attempts kernel {n_k.tolist()} to t = {t_k.tolist()}, "
+             f"plain {n_p.tolist()} to t = {t_p.tolist()}")
+    return int(gap.max()), int(n_k.max())
+
+
+def timed(fn):
+    """(fn's result, its ms): one call between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def check_stack(params, spec, x0s, ts, ts_fit, target, wide, label):
+    """Phase 44 at one stack: B.1 against plain on the first N_CHECK
+    serving times; B.2's forward against plain; its backward on its own
+    records twice (the same bits) against autograd of the plain replay of
+    them, relative < GRAD_TOL as phase 6, and where that misses, against
+    the float64 plain replay under phase 32's GRAD_CAP rule; the full
+    gradient against plain's, each on its own mesh; for a wide stack,
+    phase 32's attempt contract.  The plain versions wait on the device
+    at every step (the while solve tests which rows still run), so they
+    cannot queue: their times are these calls' own (CUDA events).
+    Returns the errors, the kernel's records and the plain times."""
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+
+    cfg = spec.kan
+    kw = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    with torch.no_grad():
+        y1 = KN.kanfet_solve(params, cfg, x0s, ts, **kw)
+        y1p, plain_serve = timed(lambda: KN.kanfet_solve_reference(
+            params, cfg, x0s, ts, **kw))
+        y2, r_k = KA.kanfet_adjoint_fwd(params, cfg, x0s, ts_fit, **kw)
+        (y2p, r_p), plain_fwd = timed(lambda: KA.record_attempts_reference(
+            params, cfg, x0s, ts_fit, **kw))
+    if not all(torch.isfinite(y).all() for y in (y1, y1p, y2, y2p)):
+        fail(f"{label}: non-finite forward output")
+    serve_err = max_abs(y1[:, :N_CHECK], y1p[:, :N_CHECK])
+    fwd_err = max_abs(y2, y2p)
+    if not (torch.allclose(y1[:, :N_CHECK], y1p[:, :N_CHECK], rtol=TOL,
+                           atol=TOL)
+            and torch.allclose(y2, y2p, rtol=TOL, atol=TOL)):
+        fail(f"{label}: forward kernels disagree with plain (B.1 "
+             f"{serve_err:.3e}, B.2 {fwd_err:.3e})")
+    ct = 2.0 * (y2 - target) / y2.numel()
+    got = [KA.kanfet_adjoint_bwd(params, cfg, x0s, ts_fit, r_k, ct)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    (g_k, xb_k), (g_k2, xb_k2) = got
+    if not all(torch.isfinite(g).all() for g in g_k + [xb_k]):
+        fail(f"{label}: non-finite kernel gradients")
+    if not all(torch.equal(a, b) for a, b in zip(g_k + [xb_k],
+                                                 g_k2 + [xb_k2])):
+        fail(f"{label}: the backward kernel's gradients differ between two "
+             "calls")
+    (g_p, xb_p), plain_bwd = timed(lambda: KA.replay_vjp_reference(
+        params, cfg, x0s, ts_fit, r_k, ct))
+    g_rel, x_rel = rel_err(flat(g_k), flat(g_p)), rel_err(xb_k, xb_p)
+    g_abs = max(max_abs(flat(g_k), flat(g_p)), max_abs(xb_k, xb_p))
+    against = "plain"
+    g_tol = x_tol = GRAD_TOL
+    if not (g_rel < g_tol and x_rel < x_tol):
+        # Phase 32's rule: against the float64 plain replay, a number that
+        # misses 1e-4 held to 4x the float32 replay's own error, at most
+        # GRAD_CAP.
+        p64 = copy.deepcopy(params).double()
+        r64 = KA.AttemptRecords(r_k.rec.double(), r_k.n_att,
+                                r_k.t_end.double())
+        g_64, xb_64 = KA.replay_vjp_reference(p64, cfg, x0s.double(),
+                                              ts_fit.double(), r64,
+                                              ct.double())
+        g_rel = rel_err(flat(g_k).double(), flat(g_64))
+        x_rel = rel_err(xb_k.double(), xb_64)
+        if not g_rel < g_tol:
+            g_tol = min(GRAD_CAP, max(g_tol, 4 * rel_err(
+                flat(g_p).double(), flat(g_64))))
+        if not x_rel < x_tol:
+            x_tol = min(GRAD_CAP, max(x_tol, 4 * rel_err(
+                xb_p.double(), xb_64)))
+        g_abs = max(max_abs(flat(g_k).double(), flat(g_64)),
+                    max_abs(xb_k.double(), xb_64))
+        against = "float64 plain (GRAD_CAP rule)"
+    if not (g_rel < g_tol and x_rel < x_tol):
+        fail(f"{label}: backward kernel vs {against} replay on the kernel's "
+             f"mesh: grads rel {g_rel:.3e} (bound {g_tol:.1e}), x0bar rel "
+             f"{x_rel:.3e} (bound {x_tol:.1e})")
+
+    def full(solve):
+        weights = KA.train_weights(params)
+        loss = torch.mean((solve(params, cfg, x0s, ts_fit, **kw) - target)
+                          ** 2)
+        return flat(torch.autograd.grad(loss, weights))
+
+    gk, gp = full(KA.kanfet_solve_train), full(KA.kanfet_solve_train_reference)
+    cos = float(torch.dot(gk, gp) / (gk.norm() * gp.norm()))
+    if not cos > COS_MIN:
+        fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
+    line = (f"{label}: B.1 vs plain max |diff| {serve_err:.3e} (first "
+            f"{N_CHECK} of {ts.shape[0]} times); B.2 forward {fwd_err:.3e}, "
+            f"attempts {int(r_k.n_att.min())}..{int(r_k.n_att.max())}; "
+            f"backward vs {against} replay on the kernel's mesh: grads rel "
+            f"{g_rel:.3e} (bound {g_tol:.1e}), x0bar rel {x_rel:.3e} (bound "
+            f"{x_tol:.1e}), the same bits twice; own-mesh cosine {cos:.7f}")
+    if wide:
+        opts = dict(WIDE_LOOSE, max_steps=spec.max_steps)
+        with torch.no_grad():
+            _, l_k = KA.kanfet_adjoint_fwd(params, cfg, x0s, ts_fit, **opts)
+            _, l_p = KA.record_attempts_reference(params, cfg, x0s, ts_fit,
+                                                  **opts)
+        loose = check_attempts(l_k, l_p, True, f"{label} rtol 1e-3")
+        preset = check_attempts(r_k, r_p, False, f"{label} preset")
+        line += (f"; attempts at rtol 1e-3 as plain's (up to {loose[1]}), "
+                 f"at the preset within {preset[0]} of plain's (up to "
+                 f"{preset[1]})")
+    print(line)
+    return dict(serve_err=serve_err, fwd_err=fwd_err, g_rel=g_rel,
+                x_rel=x_rel, cos=cos, recs=r_k, ct=ct, g_abs=g_abs,
+                plain_serve=plain_serve, plain_fwd=plain_fwd,
+                plain_bwd=plain_bwd)
+
+
+def check_global_placement(device, rng, ts, ts_fit, lv):
+    """Phase 44: the flagship at B = 8 with the warps' scratch and the
+    backward's gradients in global memory (where stacks past 227 KB of
+    scratch or gradients put them), against the default placement, all in
+    shared memory: the same kernel code, so B.1, B.2's forward and x0bar
+    the same bits; the gradients summed in another order (a row a warp,
+    not a block), within 1e-6 relative."""
+    from fetode_tpu_torch.models.predprey import PredPreyNODE, predprey_init
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+
+    spec = PredPreyNODE.kanfet()
+    params = predprey_init(torch.Generator().manual_seed(0), spec,
+                           device=device)
+    x0s = torch.from_numpy(rng.uniform(0.5, 2.0, (8, 2)).astype(
+        np.float32)).to(device)
+    target = stack_target(x0s, ts_fit, lv)
+    kw = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+
+    walk0 = KN.stack_geometry
+
+    def forced_global(cfg):
+        geo = walk0(cfg)
+        geo["fwd"] = dict(geo["fwd"], scratch=False)
+        geo["bwd"] = dict(geo["bwd"], scratch=False, grads=False)
+        for kind in ("fwd", "bwd"):
+            geo[kind]["bytes"] = 4 * geo["n_params"]
+        return geo
+
+    runs = []
+    for walk in (walk0, forced_global):
+        # Both wrappers look the placement up where it is defined.
+        saved = KN.stack_geometry, KA.stack_geometry
+        KN.stack_geometry = KA.stack_geometry = walk
+        try:
+            with torch.no_grad():
+                y1 = KN.kanfet_solve(params, spec.kan, x0s, ts, **kw)
+                y2, recs = KA.kanfet_adjoint_fwd(params, spec.kan, x0s,
+                                                 ts_fit, **kw)
+            ct = 2.0 * (y2 - target) / y2.numel()
+            g, xb = KA.kanfet_adjoint_bwd(params, spec.kan, x0s, ts_fit,
+                                          recs, ct)
+            runs.append((y1, y2, flat(g), xb))
+        finally:
+            KN.stack_geometry, KA.stack_geometry = saved
+    torch.cuda.synchronize()
+    (a1, a2, ag, ax), (b1, b2, bg, bx) = runs
+    g_rel = rel_err(bg, ag)
+    if not (torch.equal(a1, b1) and torch.equal(a2, b2)
+            and torch.equal(ax, bx) and g_rel < 1e-6):
+        fail(f"global placement at [2, 10, 2] B=8 differs from shared: "
+             f"outputs equal {torch.equal(a1, b1)}, {torch.equal(a2, b2)}; "
+             f"x0bar equal {torch.equal(ax, bx)}; grads rel {g_rel:.3e}")
+    print(f"[2, 10, 2] B=8 with the warp scratch and gradients in global "
+          f"memory: forwards and x0bar the same bits as in shared memory, "
+          f"gradients rel {g_rel:.3e}")
+
+
+def stack_phases(device, smi, ts_fit):
+    """Phase 44, B.1 and B.2 on the pure-KANFET stacks of ``STACKS_44``:
+    the kernel checks, the CLI and the trajectory driver on two of them,
+    and the times; returns the launches of B.1, B.2's forward and
+    backward on those two paths."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.models.predprey import (
+        PredPreyNODE,
+        PredPreyTask,
+        lotka_volterra_field,
+        predprey_init,
+    )
+    from fetode_tpu_torch.nn.kan import kanfet_config
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+    from fetode_tpu_torch.train.traj_driver import (
+        TrajParallelRun,
+        train_traj_parallel,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(44)
+    lv = lotka_volterra_field(PredPreyTask())
+    ts = torch.linspace(0.0, HORIZON, T_SERVE, dtype=torch.float32,
+                        device=device)
+    for layers, grid, order, B in STACKS_44:
+        t1 = time.perf_counter()
+        spec = PredPreyNODE(kan=kanfet_config(list(layers), grid_size=grid,
+                                              spline_order=order))
+        params = predprey_init(torch.Generator().manual_seed(0), spec,
+                               device=device)
+        D = layers[0]
+        x0s = torch.from_numpy(rng.uniform(0.5, 2.0, (B, D)).astype(
+            np.float32)).to(device)
+        target = stack_target(x0s, ts_fit, lv)
+        geo = KN.stack_geometry(spec.kan)
+        label = (f"{list(layers)} grid {grid} order {order} B={B} "
+                 f"(parameters in "
+                 f"{'shared' if geo['fwd']['params'] else 'global'} memory, "
+                 f"gradients {'shared' if geo['bwd']['grads'] else 'global'})")
+        c = check_stack(params, spec, x0s, ts, ts_fit, target,
+                        layers in STACKS_44_WIDE, label)
+        kw = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+        with torch.no_grad():
+            _, serve_recs = KA.kanfet_adjoint_fwd(params, spec.kan, x0s, ts,
+                                                  **kw)
+            t = dict(
+                serve=queued_ms(lambda: KN.kanfet_solve(
+                    params, spec.kan, x0s, ts, **kw), n=2, windows=2),
+                fwd=queued_ms(lambda: KA.kanfet_adjoint_fwd(
+                    params, spec.kan, x0s, ts_fit, **kw), n=2, windows=2))
+        t["bwd"] = queued_ms(lambda: KA.kanfet_adjoint_bwd(
+            params, spec.kan, x0s, ts_fit, c["recs"], c["ct"]), n=2,
+            windows=2)
+        t.update({k: c[k] for k in ("plain_serve", "plain_fwd",
+                                    "plain_bwd")})
+        b_serve = bound(*kanfet_counts(params, spec.kan, serve_recs, T_SERVE,
+                                       "serve"))
+        b_fwd = bound(*kanfet_counts(params, spec.kan, c["recs"],
+                                     ts_fit.shape[0], "fwd"))
+        b_bwd = bound(*kanfet_counts(params, spec.kan, c["recs"],
+                                     ts_fit.shape[0], "bwd"))
+        print(f"time {list(layers)} grid {grid} order {order} B={B}: B.1 "
+              f"{t['serve']:.4f} "
+              f"ms (plain {t['plain_serve']:.3f}, bound {b_serve[0]:.5f}, "
+              f"{int(serve_recs.n_att.max())} attempts), B.2 forward "
+              f"{t['fwd']:.4f} ms (plain {t['plain_fwd']:.3f}, bound "
+              f"{b_fwd[0]:.5f}), backward {t['bwd']:.4f} ms (plain "
+              f"{t['plain_bwd']:.3f}, bound {b_bwd[0]:.5f}); "
+              f"{time.perf_counter() - t1:.1f} s ({smi})")
+    check_global_placement(device, rng, ts, ts_fit, lv)
+    print(f"phase 44 checks and times: {time.perf_counter() - t0:.1f} s")
+
+    kernels = (KN.kanfet_solve, KA.kanfet_adjoint_fwd, KA.kanfet_adjoint_bwd)
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in kernels:
+            f.launches = 0
+        cli.main(["predprey", "--device", "cuda", "--solver_mode", "pallas",
+                  "--layers", "2,4,4,2", "--grid_size", "7", "--epochs",
+                  "20", "--epochs_per_call", "10", "--out-dir", tmp])
+        torch.cuda.synchronize()
+        cli_launches = [f.launches for f in kernels]
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            curve = [json.loads(line) for line in fh]
+    losses = [r["train"] for r in curve] + [r["test"] for r in curve]
+    if min(cli_launches) < 1 or not np.isfinite(losses).all():
+        fail(f"cli predprey --layers 2,4,4,2 --grid_size 7: launches (B.1, "
+             f"B.2 fwd, B.2 bwd) {cli_launches}, losses {curve}")
+    print(f"cli predprey --layers 2,4,4,2 --grid_size 7 (20 epochs, pallas): "
+          f"train {[round(r['train'], 6) for r in curve]}, test "
+          f"{[round(r['test'], 6) for r in curve]}; launches (B.1, B.2 fwd, "
+          f"B.2 bwd) {cli_launches} ({smi})")
+    for f in kernels:
+        f.launches = 0
+    _, hist = train_traj_parallel(TrajParallelRun(
+        n_traj=8, epochs=2, epochs_per_call=1,
+        spec=PredPreyNODE.kanfet(layers_hidden=(2, 24, 24, 2),
+                                 solver_mode="pallas")), log=None)
+    torch.cuda.synchronize()
+    traj_launches = [f.launches for f in kernels]
+    if min(traj_launches[1:]) < 1 or not np.isfinite(hist["train"]).all():
+        fail(f"train_traj_parallel [2, 24, 24, 2]: launches (B.1, B.2 fwd, "
+             f"B.2 bwd) {traj_launches}, losses {hist['train']}")
+    print(f"train_traj_parallel [2, 24, 24, 2] (8 trajectories, 2 epochs, "
+          f"pallas): losses {hist['train']}; launches (B.1, B.2 fwd, B.2 "
+          f"bwd) {traj_launches} ({smi})")
+    print(f"phase 44: {time.perf_counter() - t0:.1f} s")
+    return [a + b for a, b in zip(cli_launches, traj_launches)]
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -3797,6 +4160,10 @@ def main():
                                                          ts_fit, x0_task)
     ff_err, ff_times, ff_launches = rnn_phases(device, smi)
     sc_errs, sc_times, sc_launches = spline_custom_phases(device, smi)
+    stack_launches = stack_phases(device, smi, ts_fit)
+    serve_launches += stack_launches[0]
+    fwd_launches += stack_launches[1]
+    bwd_launches += stack_launches[2]
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto

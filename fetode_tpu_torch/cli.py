@@ -59,8 +59,8 @@ WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
 
 # Where each workload / serve source not yet ported is queued.
 _WORKLOAD_TODO = {
-    "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs, data/multimodal.py and "
-               "the kanrnn encoder of A.7)",
+    "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs and data/multimodal.py; "
+               "the kanrnn encoder it uses is ported)",
 }
 
 

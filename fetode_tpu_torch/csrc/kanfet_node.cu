@@ -1,5 +1,5 @@
 // Whole-solve KANFET NODE kernel for Hopper (sm_90a): a full adaptive
-// dopri5 integration of a two-layer [D, H, D] KANFET vector field in one
+// dopri5 integration of any pure-KANFET [D, ..., D] vector field in one
 // launch, with per-trajectory step control.
 //
 // Replaces the TPU kernel fetode_tpu/ops/pallas_node.py:260
@@ -9,29 +9,29 @@
 // unreached tails holding the last state — and is held against the
 // eager twin fetode_tpu_torch/ops/kanfet_node.py:kanfet_solve_reference.
 //
-// Design.  One thread per trajectory.  Its state, the seven stages, and
-// t / dt / err_prev live in registers; it writes its own (T, D) rows of
-// the (B, T, D) output.  The block first copies every layer's packed
-// parameters (base weight, scaled spline weight, knot grid, five ferro
-// arrays; about 2.1k floats for the flagship [2,10,2], K=8, grid 5) and
-// the T output times into shared memory; from then on each thread reads
-// them as broadcasts.  A KAN layer is a sum of per-edge functions, so the
-// field walks the hidden units j = 0..H-1 one at a time: it forms hidden
-// activation h_j from the D inputs and adds h_j's edge functions straight
-// into the D outputs.  No hidden vector is kept, H and K are runtime
-// values, and only D, the spline order and the knot count are template
-// parameters (they size the register arrays).
-//
-// What bounds it on this card.  Work per trajectory is serial: about
+// What bounds it on this card.  Each trajectory is a serial chain: about
 // 100 attempts of 6 field evaluations, each evaluation 2*D*H*K ferro
-// terms (320 for the flagship) of three expf and one tanhf, so the kernel
-// is bound by the SFU/FP32 issue rate of the few warps it has, and by
-// their latency — not by memory (inputs ~9 KB, outputs B*T*D floats).
-// At the serving buckets (8, 64, 256) one thread per trajectory makes at
-// most 2 blocks of 128 threads, so it fills at most 2 of the H100's 132
-// SMs.  Spreading each trajectory's field over a warp (lanes over the
-// hidden units and ferro terms, a warp-shuffle reduction per output) is
-// the next step, for a later PR.
+// terms (320 for the flagship [2,10,2], K = 8) of two expf and a tanhf.
+// The least time is the SFU's (exp2, reciprocal, tanh) work over the
+// whole batch (PERF.md §6 row 1: 0.054 ms at B = 256), far below what a
+// chain of dependent special-function latencies allows; the inputs are
+// ~9 KB and the outputs B*T*D floats, so memory never bounds it.
+//
+// What the layout does about it.  One warp owns one trajectory
+// (kanfet_field.cuh): the field's edge and ferro terms are spread over
+// the 32 lanes (at the flagship 5-6 ferro terms a lane a layer instead of
+// 320 in one thread), and at B = 256 the 256 warps fill 64 blocks, where
+// one thread per trajectory filled 2 of the 132 SMs.  Within a lane the
+// chain is latency: the sigmoid's reciprocal and the Cox-de Boor weights
+// take IEEE's quotient without nvcc's branch to its slow path (which
+// their operands never need; tools/quotient_check.py holds their bits),
+// so a lane's independent terms overlap.  A block of kWarps warps copies
+// the packed parameters and reads them from shared memory when they fit
+// (opting in past 48 KB, up to 227 KB); larger stacks read them from
+// global memory (__ldg; they stay in the 50 MB L2).  Each warp's scratch
+// (layer buffers and per-input bases) lives in shared memory, or in a
+// global slice when even that does not fit.  The wrapper chooses
+// (ops/kanfet_node.py: smem_placement).
 //
 // Numerics: see kanfet_field.cuh, which holds the field and the solve
 // that this kernel shares with the discrete-adjoint kernels.
@@ -42,51 +42,63 @@ namespace {
 
 using namespace kanfet;
 
-template <int D, int ORD, int NK>
+template <bool PG>
 __global__ void __launch_bounds__(kThreads)
-kanfet_node_kernel(const float* __restrict__ x0s, const float* __restrict__ ts_g,
-                   const float* __restrict__ packed, float* __restrict__ out,
-                   int B, int T, int H, int K, int max_steps, float rtol,
-                   float atol, float gate, float alpha, float oma) {
+kanfet_node_kernel(const float* __restrict__ x0s, const float* __restrict__ ts,
+                   const float* __restrict__ packed,
+                   const int* __restrict__ dims, float* __restrict__ out,
+                   float* __restrict__ gscratch, Geo geo, int B, int T,
+                   int max_steps, float rtol, float atol, float gate,
+                   float alpha, float oma) {
   extern __shared__ float smem[];
-  const float* ts;
-  const Field p = load_field<D, ORD, NK>(smem, packed, ts_g, T, H, K, gate,
-                                         alpha, oma, &ts);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const float* P = stage_params<PG>(smem, packed, geo.n_params);
+  const int warp = threadIdx.x / 32;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= B) return;  // the whole warp
+  const Field F = make_field(geo, dims, P, smem + (PG ? 0 : geo.n_params),
+                             gscratch, warp, gate, alpha, oma);
   NoRecord rec;
-  dopri5_solve<D, ORD, NK>(x0s + b * D, ts, T, out + (size_t)b * T * D,
-                           max_steps, rtol, atol, p, rec);
+  dopri5_solve<PG>(F, x0s + (size_t)b * geo.D, ts, T,
+                   out + (size_t)b * T * geo.D, max_steps, rtol, atol, rec);
 }
 
-template <int D, int ORD, int NK>
+template <bool PG>
 cudaError_t launch(const float* x0s, const float* ts, const float* packed,
-                   float* out, int B, int T, int H, int K, int max_steps,
-                   float rtol, float atol, float gate, float alpha, float oma,
+                   const int* dims, float* out, float* gscratch,
+                   const Geo& geo, int B, int T, int max_steps, float rtol,
+                   float atol, float gate, float alpha, float oma,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)(n_params<D, ORD, NK>(H, K) + T) * sizeof(float);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  kanfet_node_kernel<D, ORD, NK><<<blocks, kThreads, smem, stream>>>(
-      x0s, ts, packed, out, B, T, H, K, max_steps, rtol, atol, gate, alpha,
-      oma);
+  cudaError_t err = cudaFuncSetAttribute(
+      kanfet_node_kernel<PG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      geo.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + kWarps - 1) / kWarps;
+  kanfet_node_kernel<PG><<<blocks, kThreads, geo.smem_bytes, stream>>>(
+      x0s, ts, packed, dims, out, gscratch, geo, B, T, max_steps, rtol, atol,
+      gate, alpha, oma);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns 0 on success, a cudaError_t code if the launch failed, and -1
-// for a shape the kernel is not compiled for (the Python wrapper checks
-// shapes first: fetode_tpu_torch/ops/kanfet_node.py KERNEL_SHAPES).
+// Returns 0 on success and a cudaError_t code if the launch failed.
+// geo: the 13 host ints of kanfet_field.cuh: Geo; dims: the (L, 6) layer
+// table on the device; gscratch: ceil(B / kWarps) * kWarps * ws_floats
+// floats when the warp scratch is not in shared memory, else unused.
 extern "C" int kanfet_node_solve(const float* x0s, const float* ts,
-                                 const float* packed, float* out, int B, int T,
-                                 int D, int H, int K, int spline_order,
-                                 int n_knots, int max_steps, float rtol,
+                                 const float* packed, const int* dims,
+                                 float* out, float* gscratch, const int* geo,
+                                 int B, int T, int max_steps, float rtol,
                                  float atol, float gate, float alpha,
                                  float one_minus_alpha, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 2 && spline_order == 3 && n_knots == 12)
-    return (int)launch<2, 3, 12>(x0s, ts, packed, out, B, T, H, K, max_steps,
-                                 rtol, atol, gate, alpha, one_minus_alpha, s);
-  return -1;
+  const kanfet::Geo g = kanfet::read_geo(geo);
+  if (g.params_smem)
+    return (int)launch<false>(x0s, ts, packed, dims, out, gscratch, g, B, T,
+                              max_steps, rtol, atol, gate, alpha,
+                              one_minus_alpha, s);
+  return (int)launch<true>(x0s, ts, packed, dims, out, gscratch, g, B, T,
+                           max_steps, rtol, atol, gate, alpha,
+                           one_minus_alpha, s);
 }

@@ -48,7 +48,7 @@ from fetode_tpu_torch.nn.kan import (
     kanfet_config,
 )
 from fetode_tpu_torch.ops.kanfet_adjoint import kanfet_solve_train
-from fetode_tpu_torch.ops.kanfet_node import _kernel_geometry, kanfet_solve
+from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
 from fetode_tpu_torch.ops.kanfet_wide import kanfet_wide_solve_train
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
 
@@ -180,17 +180,6 @@ def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
     stepped on its own: ``jax.vmap(lambda x0: predict(params, spec, x0,
     ts))`` of the JAX package, written out for PyTorch."""
     if _use_kernel(params, spec, x0s):
-        try:
-            _kernel_geometry(spec.kan, ts.shape[0])
-        except ValueError as e:
-            raise NotImplementedError(
-                "predict_batch steps each trajectory under its own "
-                "controller, which the per-trajectory kernels "
-                "(ops/kanfet_node.py, ops/kanfet_adjoint.py) do; they take "
-                "two-layer [D, H, D] stacks whose parameters fit their 48 KB "
-                f"of shared memory, and this stack does not ({e}).  Solve "
-                "one trajectory with predict, or use solver_mode='while' or "
-                "'scan'") from e
         solve = (kanfet_solve_train
                  if _under_autograd(x0s, *params.parameters())
                  else kanfet_solve)

@@ -38,11 +38,16 @@ from torch.autograd.function import once_differentiable
 
 from fetode_tpu_torch.nn.kan import KAN, KANConfig, kan_apply, kan_state_init
 from fetode_tpu_torch.ops.kanfet_node import (
+    WARPS,
     _check_cuda,
     _check_inputs,
     _check_stack,
-    _kernel_geometry,
+    _dims_tensor,
+    _geo_ints,
     _pack_for,
+    _warp_scratch,
+    check_layout,
+    stack_geometry,
 )
 from fetode_tpu_torch.solvers.dopri5 import (
     _dense_coeffs,
@@ -239,9 +244,10 @@ def _launchers():
 
     lib = load_library(_KERNEL_NAME)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    G = ctypes.POINTER(I)
     fwd, bwd = lib.kanfet_adjoint_fwd, lib.kanfet_adjoint_bwd
-    fwd.argtypes = [P] * 7 + [I] * 8 + [F] * 5 + [P]
-    bwd.argtypes = [P] * 9 + [I] * 7 + [F] * 3 + [P]
+    fwd.argtypes = [P] * 9 + [G] + [I] * 3 + [F] * 5 + [P]
+    bwd.argtypes = [P] * 11 + [G] + [I] * 2 + [F] * 3 + [P]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -249,6 +255,9 @@ def _launchers():
 def _launch_fwd(packed, geo, x0s, ts, rtol, atol, max_steps):
     B, T, D = x0s.shape[0], ts.shape[0], geo["D"]
     dev = x0s.device
+    check_layout(_KERNEL_NAME, geo)
+    dims = _dims_tensor(geo, dev)
+    scratch = _warp_scratch(geo, "fwd", B, dev)
     out = torch.empty((B, T, D), dtype=torch.float32, device=dev)
     rec = torch.empty((max_steps, record_width(D), B), dtype=torch.float32,
                       device=dev)
@@ -256,10 +265,11 @@ def _launch_fwd(packed, geo, x0s, ts, rtol, atol, max_steps):
     t_end = torch.empty(B, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launchers()[0](
-        x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), out.data_ptr(),
-        rec.data_ptr(), n_att.data_ptr(), t_end.data_ptr(), B, T, D, geo["H"],
-        geo["K"], geo["order"], geo["n_knots"], int(max_steps), float(rtol),
-        float(atol), geo["gate"], geo["alpha"], 1.0 - geo["alpha"], stream)
+        x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), dims.data_ptr(),
+        out.data_ptr(), rec.data_ptr(), n_att.data_ptr(), t_end.data_ptr(),
+        scratch.data_ptr(), _geo_ints(geo, "fwd"), B, T, int(max_steps),
+        float(rtol), float(atol), geo["gate"], geo["alpha"],
+        1.0 - geo["alpha"], stream)
     if rc != 0:
         raise RuntimeError(f"kanfet_adjoint_fwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -267,7 +277,15 @@ def _launch_fwd(packed, geo, x0s, ts, rtol, atol, max_steps):
     return out, AttemptRecords(rec, n_att, t_end)
 
 
-def _launch_bwd(packed, geo, ts, records, ybar, n_g):
+def grad_rows(geo: dict, B: int) -> int:
+    """Rows of the backward's (rows, n_grad) partial-sum array: one per
+    block when the warps' gradient vectors sit in shared memory (no
+    per-trajectory scratch), else one per warp."""
+    blocks = -(-B // WARPS)
+    return blocks if geo["bwd"]["grads"] else blocks * WARPS
+
+
+def _launch_bwd(packed, geo, ts, records, ybar):
     rec, n_att, t_end = records
     B, T, D = rec.shape[-1], ts.shape[0], geo["D"]
     if ybar.shape != (B, T, D):
@@ -286,15 +304,21 @@ def _launch_bwd(packed, geo, ts, records, ybar, n_g):
         raise ValueError("kanfet_adjoint_bwd takes contiguous records")
     dev = ts.device
     ybar = ybar.to(torch.float32).contiguous()
-    gacc = torch.empty((n_g, B), dtype=torch.float32, device=dev)
+    n_g = geo["n_grad"]
+    check_layout(_KERNEL_NAME, geo)
+    dims = _dims_tensor(geo, dev)
+    scratch = _warp_scratch(geo, "bwd", B, dev)
+    part = torch.empty((grad_rows(geo, B), n_g), dtype=torch.float32,
+                       device=dev)
     grads = torch.empty(n_g, dtype=torch.float32, device=dev)
     x0bar = torch.empty((B, D), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launchers()[1](
         ts.data_ptr(), ybar.data_ptr(), rec.data_ptr(), n_att.data_ptr(),
-        t_end.data_ptr(), packed.data_ptr(), gacc.data_ptr(), grads.data_ptr(),
-        x0bar.data_ptr(), B, T, D, geo["H"], geo["K"], geo["order"],
-        geo["n_knots"], geo["gate"], geo["alpha"], 1.0 - geo["alpha"], stream)
+        t_end.data_ptr(), packed.data_ptr(), dims.data_ptr(), part.data_ptr(),
+        scratch.data_ptr(), grads.data_ptr(), x0bar.data_ptr(),
+        _geo_ints(geo, "bwd"), B, T, geo["gate"], geo["alpha"],
+        1.0 - geo["alpha"], stream)
     if rc != 0:
         raise RuntimeError(f"kanfet_adjoint_bwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -314,7 +338,7 @@ def kanfet_adjoint_fwd(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
         return record_attempts_reference(params, cfg, x0s, ts, rtol=rtol,
                                          atol=atol, max_steps=max_steps)
     _check_cuda(x0s, ts, "kanfet_adjoint_fwd")
-    geo = _kernel_geometry(cfg, ts.shape[0])
+    geo = stack_geometry(cfg)
     return _launch_fwd(_pack_for(params, cfg, geo, x0s.device), geo, x0s, ts,
                        rtol, atol, max_steps)
 
@@ -332,9 +356,9 @@ def kanfet_adjoint_bwd(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     if x0s.device.type == "cpu":
         return replay_vjp_reference(params, cfg, x0s, ts, records, ybar)
     _check_cuda(x0s, ts, "kanfet_adjoint_bwd")
-    geo = _kernel_geometry(cfg, ts.shape[0])
+    geo = stack_geometry(cfg)
     flat, x0bar = _launch_bwd(_pack_for(params, cfg, geo, x0s.device), geo, ts,
-                              records, ybar, n_grad(cfg))
+                              records, ybar)
     return unflatten_grads(params, flat), x0bar
 
 
@@ -353,7 +377,7 @@ class _SolveTrain(torch.autograd.Function):
     def forward(ctx, params, cfg, geo, opts, x0s, ts, *weights):
         packed = _pack_for(params, cfg, geo, x0s.device)
         out, records = _launch_fwd(packed, geo, x0s, ts, *opts)
-        ctx.params, ctx.geo, ctx.n_grad = params, geo, n_grad(cfg)
+        ctx.params, ctx.geo = params, geo
         ctx.save_for_backward(packed, ts, *records, *weights)
         return out
 
@@ -362,8 +386,7 @@ class _SolveTrain(torch.autograd.Function):
     def backward(ctx, ybar):
         packed, ts, rec, n_att, t_end, *_ = ctx.saved_tensors
         flat, x0bar = _launch_bwd(packed, ctx.geo, ts,
-                                  AttemptRecords(rec, n_att, t_end), ybar,
-                                  ctx.n_grad)
+                                  AttemptRecords(rec, n_att, t_end), ybar)
         grads = unflatten_grads(ctx.params, flat)
         need = ctx.needs_input_grad
         grads = [g if need[6 + i] else None for i, g in enumerate(grads)]
@@ -389,6 +412,6 @@ def kanfet_solve_train(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
         return kanfet_solve_train_reference(params, cfg, x0s, ts, rtol=rtol,
                                             atol=atol, max_steps=max_steps)
     _check_cuda(x0s, ts, "kanfet_solve_train")
-    geo = _kernel_geometry(cfg, ts.shape[0])
+    geo = stack_geometry(cfg)
     return _SolveTrain.apply(params, cfg, geo, (rtol, atol, max_steps), x0s,
                              ts, *train_weights(params))

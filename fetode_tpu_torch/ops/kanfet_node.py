@@ -15,6 +15,12 @@ header comment gives the kernel's design and what bounds it on the card.
   hysteresis state.
 * ``pack_params`` — the parameter layout the kernel reads
   (``pallas_node.py:302-318``).
+* ``stack_geometry`` / ``smem_placement`` — the walk of any pure-KANFET
+  stack that the kernels take (the layer table they read, and their
+  refusals), and where each kernel keeps the parameters, the warps'
+  scratch and the gradients: shared memory while they fit, else global
+  memory (a pure function of the shapes).  ``check_layout`` holds the
+  sizes against the ones the built library computes.
 
 Forward only: the result carries no gradient.  The differentiable solve
 is ``ops/kanfet_adjoint.py: kanfet_solve_train``, which shares this
@@ -24,18 +30,21 @@ kernel's solve (``csrc/kanfet_field.cuh``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from fetode_tpu_torch.nn.kan import KAN, KANConfig, kan_apply, kan_state_init
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
 
-# Shapes the kernel is compiled for, as (state dim D, spline order, knots
-# per feature); csrc/kanfet_node.cu instantiates one template for each.
-# The hidden width H and ferro basis count K are runtime values, bounded
-# by the shared memory the packed parameters and output times take.
-KERNEL_SHAPES = frozenset({(2, 3, 12)})
-SMEM_LIMIT_BYTES = 48 * 1024
+# Trajectories (warps) a block solves: csrc/kanfet_field.cuh's kWarps,
+# checked against the built library by ``check_layout``.
+WARPS = 4
+# The shared memory a block can use on the H100 (227 KB, past 48 KB only
+# after the kernel opts in), and the largest D: lane d of a warp holds
+# component d of the state.
+SMEM_MAX_BYTES = 232448
+MAX_D = 32
 
 _KERNEL_NAME = "kanfet_node"
 
@@ -102,40 +111,134 @@ def pack_params(params: KAN, cfg: KANConfig) -> torch.Tensor:
         return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
 
 
-def _kernel_geometry(cfg: KANConfig, T: int) -> dict:
-    """Check that the stack fits the compiled kernel; raise ValueError if
-    not (a stack the kernel cannot take is never routed elsewhere)."""
+def stack_geometry(cfg: KANConfig) -> dict:
+    """Walk a pure-KANFET stack for the kernels of ``csrc/kanfet_field.cuh``
+    (any depth, widths, K per layer, knot count and spline order): its
+    layer table (per layer: in, out, K and its offsets into the packed
+    parameters, the gradient vector and the VJP's activation slots), the
+    sizes the kernels need, and where each kernel keeps what
+    (``smem_placement``).  Raises ValueError only where the JAX kernels'
+    contract does (not pure KANFET, output width != input width), for
+    per-layer spline order, grid, gate slope or alpha that differ from
+    layer 0's (the JAX kernels take layer 0's for every layer;
+    ``kanfet_config`` never makes such a stack), and for D > 32 (ROADMAP
+    C, F4)."""
+    D = _check_stack(cfg)
     cfgs = cfg.layers
-    if len(cfgs) != 2:
-        raise ValueError(f"the kanfet_node kernel takes two-layer [D, H, D] "
-                         f"stacks, got {len(cfgs)} layers")
-    l1, l2 = cfgs
-    D, H, K = l1.in_features, l1.out_features, l1.ferro_num_basis
-    n_knots = l1.grid_size + 2 * l1.spline_order + 1
-    if (l2.ferro_num_basis, l2.grid_size, l2.spline_order) != \
-            (K, l1.grid_size, l1.spline_order):
-        raise ValueError("the kanfet_node kernel needs the same ferro basis "
-                         "count, grid size and spline order in both layers")
-    if (l2.ferro_gate_slope, l2.ferro_alpha) != (l1.ferro_gate_slope,
-                                                 l1.ferro_alpha):
-        raise ValueError("the kanfet_node kernel needs one ferro gate slope "
-                         "and alpha across layers")
-    if (D, l1.spline_order, n_knots) not in KERNEL_SHAPES:
-        raise ValueError(
-            f"the kanfet_node kernel is compiled for (D, spline_order, "
-            f"n_knots) in {sorted(KERNEL_SHAPES)}, got "
-            f"{(D, l1.spline_order, n_knots)}")
-    C = n_knots - 1 - l1.spline_order
-    n_params = 2 * (H * D) + 2 * (H * D * C) + (D + H) * n_knots \
-        + 5 * 2 * (D * H * K)
-    smem = 4 * (n_params + T)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"parameters plus output times take {smem} bytes of "
-                         f"shared memory, beyond the kernel's bound of "
-                         f"{SMEM_LIMIT_BYTES} (H={H}, K={K}, T={T})")
-    return dict(D=D, H=H, K=K, order=l1.spline_order, n_knots=n_knots,
-                n_params=n_params, gate=float(l1.ferro_gate_slope),
-                alpha=float(l1.ferro_alpha))
+    l0 = cfgs[0]
+    for c in cfgs[1:]:
+        if (c.spline_order, c.grid_size, c.ferro_gate_slope,
+                c.ferro_alpha) != (l0.spline_order, l0.grid_size,
+                                   l0.ferro_gate_slope, l0.ferro_alpha):
+            raise ValueError("the KANFET kernels take one spline order, grid "
+                             "size, ferro gate slope and alpha across layers "
+                             "(layer 0's), as the JAX kernels do")
+    if D > MAX_D:
+        raise ValueError(f"the KANFET kernels hold the state one component "
+                         f"a lane of a warp, D <= {MAX_D}; got D = {D} "
+                         f"(ROADMAP C, F4)")
+    order = l0.spline_order
+    n_knots = l0.grid_size + 2 * order + 1
+    C = n_knots - 1 - order
+    table, p_off, g_off, a_off = [], 0, 0, 0
+    for c in cfgs:
+        i, o, K = c.in_features, c.out_features, c.ferro_num_basis
+        table.append((i, o, K, p_off, g_off, a_off))
+        p_off += o * i * (1 + C) + i * n_knots + 5 * i * o * K
+        g_off += o * i * (1 + C) + 5 * i * o * K
+        a_off += i
+    maxw = max(max(c.in_features, c.out_features) for c in cfgs)
+    maxin = max(c.in_features for c in cfgs)
+    geo = dict(D=D, L=len(cfgs), order=order, n_knots=n_knots, C=C,
+               gate=float(l0.ferro_gate_slope), alpha=float(l0.ferro_alpha),
+               table=table, n_params=p_off, n_grad=g_off, maxw=maxw,
+               sum_in=a_off, maxin=maxin,
+               ferro_n=max(i * o * K for i, o, K, *_ in table),
+               # csrc/kanfet_field.cuh: ws_fwd / ws_bwd (check_layout)
+               ws_fwd=2 * maxw + maxin * (4 + order),
+               ws_bwd=a_off + 2 * maxw + maxin * (6 + 2 * order))
+    geo.update(smem_placement(geo))
+    return geo
+
+
+def smem_placement(geo: dict) -> dict:
+    """Where each kernel keeps its data, from the shapes alone: for the
+    forward solves (B.1 and B.2's forward) and for B.2's backward, whether
+    the packed parameters, the warps' scratch and (backward) the warps'
+    gradient vectors of a block of ``WARPS`` warps sit in its shared
+    memory (True) or in global memory, and the shared bytes a block asks
+    for.  Filled in order, each while it fits ``SMEM_MAX_BYTES``: the
+    warps' scratch, then the parameters, then the gradients."""
+    out = {}
+    for kind, ws in (("fwd", geo["ws_fwd"]), ("bwd", geo["ws_bwd"])):
+        used = 0
+        place = {}
+        for what, floats in (("scratch", WARPS * ws),
+                             ("params", geo["n_params"]),
+                             ("grads", WARPS * geo["n_grad"])):
+            if what == "grads" and kind == "fwd":
+                continue
+            place[what] = used + 4 * floats <= SMEM_MAX_BYTES
+            used += 4 * floats if place[what] else 0
+        place["bytes"] = used
+        out[kind] = place
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library_layout(name: str, maxw: int, maxin: int, sum_in: int,
+                    order: int) -> tuple:
+    """(kWarps, ws_fwd, ws_bwd) as the library built from ``csrc/<name>.cu``
+    computes them (kanfet_field.cuh: kanfet_layout)."""
+    from fetode_tpu_torch.ops._build import load_library
+
+    fn = load_library(name).kanfet_layout
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(maxw, maxin, sum_in, order, out)
+    return tuple(out)
+
+
+def check_layout(name: str, geo: dict) -> None:
+    """Raise unless the kernel library ``name`` lays out a block's warps
+    and their scratch as ``stack_geometry`` sized them (``WARPS``,
+    ``ws_fwd``, ``ws_bwd``): the buffers and shared bytes the wrapper
+    allocates are only as right as that agreement."""
+    got = _library_layout(name, geo["maxw"], geo["maxin"], geo["sum_in"],
+                          geo["order"])
+    want = (WARPS, geo["ws_fwd"], geo["ws_bwd"])
+    if got != want:
+        raise RuntimeError(f"{name}: the library's (kWarps, ws_fwd, ws_bwd) "
+                           f"= {got}, the wrapper's {want}")
+
+
+def _geo_ints(geo: dict, kind: str):
+    """The host int array the C entry points read (kanfet_field.cuh: Geo)."""
+    p = geo[kind]
+    vals = [geo["L"], geo["D"], geo["order"], geo["n_knots"],
+            geo["n_params"], geo["n_grad"], geo["maxw"], geo["sum_in"],
+            geo["ws_" + kind], int(p["params"]), int(p["scratch"]),
+            int(p.get("grads", False)), p["bytes"]]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _dims_tensor(geo: dict, device: torch.device) -> torch.Tensor:
+    """The layer table on the device, (L, 6) int32, copied from pinned
+    host memory without a wait: a blocking copy would hold the host until
+    the stream drained, and the kernels' launches would no longer queue."""
+    host = torch.tensor(geo["table"], dtype=torch.int32).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _warp_scratch(geo: dict, kind: str, B: int,
+                  device: torch.device) -> torch.Tensor:
+    """Global warp scratch when it does not fit shared memory (else an
+    empty tensor the kernel never reads)."""
+    n = 0
+    if not geo[kind]["scratch"]:
+        n = -(-B // WARPS) * WARPS * geo["ws_" + kind]
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check_cuda(x0s: torch.Tensor, ts: torch.Tensor, name: str) -> None:
@@ -167,7 +270,7 @@ def _launcher():
 
     fn = load_library(_KERNEL_NAME).kanfet_node_solve
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, F, F, P]
+    fn.argtypes = [P] * 6 + [ctypes.POINTER(I)] + [I] * 3 + [F] * 5 + [P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -179,7 +282,9 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
 
     Args:
       params/cfg: a ``KAN`` whose every layer has the ferro branch and no
-        logistic branch (the KANFET contract), and its config.
+        logistic branch (the KANFET contract), and its config: any depth,
+        widths, K, grid and order, one order, grid, gate slope and alpha
+        across layers, D <= 32 (``stack_geometry``).
       x0s: (B, D) float32 initial conditions; ts: (T,) float32 output
         times, ts[0] the start (any order after it: every accepted step
         tests all T times).
@@ -200,13 +305,17 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
                                       atol=atol, max_steps=max_steps)
     _check_cuda(x0s, ts, "kanfet_solve")
     B, T = x0s.shape[0], ts.shape[0]
-    geo = _kernel_geometry(cfg, T)
-    packed = _pack_for(params, cfg, geo, x0s.device)
-    out = torch.empty((B, T, D), dtype=torch.float32, device=x0s.device)
-    stream = torch.cuda.current_stream(x0s.device).cuda_stream
+    dev = x0s.device
+    geo = stack_geometry(cfg)
+    check_layout(_KERNEL_NAME, geo)
+    packed = _pack_for(params, cfg, geo, dev)
+    dims = _dims_tensor(geo, dev)
+    scratch = _warp_scratch(geo, "fwd", B, dev)
+    out = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(
-        x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), out.data_ptr(),
-        B, T, D, geo["H"], geo["K"], geo["order"], geo["n_knots"],
+        x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), dims.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), _geo_ints(geo, "fwd"), B, T,
         int(max_steps), float(rtol), float(atol), geo["gate"], geo["alpha"],
         1.0 - geo["alpha"], stream)
     if rc != 0:

@@ -3,7 +3,7 @@
 Ported: the plain basis, which ``nn/kan.py: kan_linear_apply`` uses (it
 is off in KANFET stacks) and the ECG models' feature mixer is built on
 (``models/ecg.py``), and ``logistic_init``.  The hysteretic two-branch
-variant waits for the RNN models (ROADMAP A.1).
+variant is not ported (ROADMAP A.11).
 """
 
 from __future__ import annotations

@@ -126,17 +126,37 @@ def test_wrapper_validation(setup):
 
 
 def test_kernel_geometry_bounds():
+    """The kernels take every pure-KANFET stack with D <= 32: any depth,
+    widths, grid, order and K, parameters past the old 48 KB included
+    (they go to global memory past the block's shared memory).  They
+    refuse only the JAX kernels' refusals, per-layer order, grid, gate or
+    alpha that differ from layer 0's, and D > 32."""
     flagship = kanfet_config([2, 10, 2])
-    geo = kn._kernel_geometry(flagship, 140)
-    assert (geo["D"], geo["H"], geo["K"], geo["n_knots"]) == (2, 10, 8, 12)
-    with pytest.raises(ValueError, match="two-layer"):
-        kn._kernel_geometry(kanfet_config([2, 4, 4, 2]), 140)
-    with pytest.raises(ValueError, match="compiled for"):
-        kn._kernel_geometry(kanfet_config([3, 10, 3]), 140)
-    with pytest.raises(ValueError, match="compiled for"):
-        kn._kernel_geometry(kanfet_config([2, 10, 2], grid_size=8), 140)
-    with pytest.raises(ValueError, match="shared memory"):
-        kn._kernel_geometry(kanfet_config([2, 128, 2], ferro_num_basis=8), 140)
+    geo = kn.stack_geometry(flagship)
+    assert (geo["D"], geo["L"], geo["n_knots"], geo["C"]) == (2, 2, 12, 8)
+    assert geo["table"] == [(2, 10, 8, 0, 0, 0), (10, 2, 8, 1004, 980, 2)]
+    for cfg, L in ((kanfet_config([2, 4, 4, 2]), 3),
+                   (kanfet_config([3, 10, 3]), 2),
+                   (kanfet_config([2, 10, 2], grid_size=8), 2),
+                   (kanfet_config([2, 128, 2], ferro_num_basis=8), 2),
+                   (kanfet_config([1, 3, 5, 1], spline_order=0), 3),
+                   (kanfet_config([32, 4, 32]), 2)):
+        assert kn.stack_geometry(cfg)["L"] == L
+    plain = KANConfig(layers=tuple(
+        KANLinearConfig(in_features=i, out_features=o, ferro_num_basis=0)
+        for i, o in ((2, 10), (10, 2))))
+    with pytest.raises(ValueError, match="KANFET"):
+        kn.stack_geometry(plain)
+    with pytest.raises(ValueError, match="D -> D"):
+        kn.stack_geometry(kanfet_config([2, 10, 3]))
+    for field, value in (("grid_size", 7), ("spline_order", 2),
+                         ("ferro_gate_slope", 3.0), ("ferro_alpha", 0.5)):
+        layers = list(kanfet_config([2, 10, 2]).layers)
+        layers[1] = layers[1]._replace(**{field: value})
+        with pytest.raises(ValueError, match="across layers"):
+            kn.stack_geometry(KANConfig(layers=tuple(layers)))
+    with pytest.raises(ValueError, match="D <= 32"):
+        kn.stack_geometry(kanfet_config([33, 4, 33]))
 
 
 def test_pack_params_layout(setup):
@@ -153,7 +173,7 @@ def test_pack_params_layout(setup):
         expect += [fe[k].reshape(-1) for k in ("k", "ec", "ps", "bias", "coef")]
     expect = np.concatenate([e.reshape(-1) for e in expect])
     assert packed.dtype == np.float32
-    assert packed.size == kn._kernel_geometry(s["spec"].kan, 40)["n_params"]
+    assert packed.size == kn.stack_geometry(s["spec"].kan)["n_params"]
     np.testing.assert_allclose(packed, expect, rtol=1e-7, atol=0)
 
 

@@ -294,9 +294,10 @@ def test_predict_routing(monkeypatch):
     """``predict`` (one trajectory) on the kernel path: in·out·K 160 goes
     to the per-trajectory kernels, 512 and 32,768 to the wide stack's, as
     the JAX package's ``test_pallas_mode_dispatch`` routes them;
-    ``predict_batch`` on a stack the per-trajectory kernels cannot take
-    raises, naming why.  The kernels are stubbed and the kernel path
-    forced, so no card is needed."""
+    ``predict_batch`` steps each trajectory under its own controller and
+    takes the per-trajectory kernels at every width, [2, 64, 64, 2] too,
+    as the JAX trajectory driver does.  The kernels are stubbed and the
+    kernel path forced, so no card is needed."""
     calls = []
 
     def stub(name):
@@ -319,9 +320,10 @@ def test_predict_routing(monkeypatch):
             PP.predict(params, spec, x0, ts)
     assert PP.max_ferro_n(spec) == 32_768
     assert calls == ["B.2", "B.1", "B.3", "B.3", "B.3", "B.3"]
-    with pytest.raises(NotImplementedError, match="two-layer .D, H, D. "
-                                                  "stacks"):
+    assert PP.predict_batch(params, spec, x0[None], ts).shape == (1, 4, 2)
+    with torch.no_grad():
         PP.predict_batch(params, spec, x0[None], ts)
+    assert calls[6:] == ["B.2", "B.1"]
 
 
 def test_multilayer_stack_trains():
