@@ -89,7 +89,9 @@ samples), random weights from a seed, windows of the synthetic series
     the same y0 and noise tables at every row count the path gives it
     (10 samples times the batch): 10 (the final forecast), 80, 640 and
     2,560 (serving), 970, 2,560 and 410 (the validation and test chunks):
-    rtol = atol = 1e-3.
+    rtol = atol = 1e-3; the same bits in two calls, and rows 0 and R-1
+    solved alone the same bits as inside their batch (the contract of
+    the kernel's row tiles, which follow R).
 16. The training slice: ``cli.main(["ett", "--model", "point" |
     "diffusion" | "kan_diffusion", "--solver_mode", "pallas", "--epochs",
     "2", ...])``: the kernels of each model must have launched and the
@@ -98,10 +100,13 @@ samples), random weights from a seed, windows of the synthetic series
     "--solver_mode", "pallas", ...])`` with buckets (8, 64, 256), then
     requests of B = 1, 30 and 300 through the loaded bundle; they must
     equal direct calls on the same padded batches, and the kernels must
-    have launched.
+    have launched.  Each bucket's p50 / p99 and its device-busy share
+    (the profiler over calls of that bucket), with the card's name and
+    power limit.
 18. Timing: each forecasting kernel and its plain version at the path's
-    batches, and one training step of each forecaster at B = 64, kernels
-    against the eager solve.
+    batches (B.9 at 80, 640, 970 and 2,560 rows beside its bound), and
+    one training step of each forecaster at B = 64, kernels against the
+    eager solve.
 
 The Kuramoto-MNIST slice, at the full width of ``MNISTPreset`` (28 x 28
 lattice, 10 Euler steps of 0.15, KANLinear(1568 -> 10) head with grid 5,
@@ -164,7 +169,8 @@ that ``cli cond_diffusion`` falls back to:
     window, then requests of B = 1, 30 and 300 through the loaded bundle;
     they must equal direct calls on the same padded batches (the padding
     rows share the encoder's step control), and the forward kernel must
-    have launched.
+    have launched.  Each bucket's p50 / p99 and device-busy share, as in
+    phase 17.
 27. Timing: the node-encoder kernels and their plain versions at B = 64
     and 256, and one ``kan_fet_all_node`` training step at B = 64,
     kernels against the eager solve, with its device-busy share.
@@ -296,7 +302,11 @@ before each run, read just after):
     and the gradients of x, the spline weight and the scaler through
     autograd within 1e-6 relative of autograd of plain; inputs off the
     grid and on its end knots, and rows with none inside the grid exactly
-    zero; NaN and infinite inputs, whose rows are NaN as plain's.
+    zero; NaN and infinite inputs, whose rows are NaN as plain's.  Each
+    distinct layer of ``SPLINE_SHAPES`` again at ``SPLINE_MULTI_ROWS``
+    rows (many row tiles, so many clusters of its input groups, and a
+    ragged last tile; MNIST's 1,568 -> 10 with its narrow output tile and
+    8 input groups) with the same checks.
 41. B.14 against ``ops/node_common.py``'s plain solve and replay at the
     example's size (D 4, H 8, B 3, weights 0.5 N(0, 1)) and at D = 64, H
     = 128, B = 8, 64 and 256 (weights N(0, 1) / sqrt(fan-in)), rtol 1e-4
@@ -470,6 +480,10 @@ SPLINE_SHAPES = tuple(
 SPLINE_TIMED = SPLINE_SHAPES[:9] + ((128, 1568, 10, None),
                                     (64, 672, 128, None),
                                     (64, 128, 64, None))
+# Phase 40 also runs each distinct layer of SPLINE_SHAPES at this many
+# rows: more than one row tile (64 rows at most) and so more than one
+# cluster of B.12's input groups, with a ragged last tile.
+SPLINE_MULTI_ROWS = 1000
 SPLINE_TOL = 2e-5    # rtol = atol, tests/test_pallas_spline.py's
 SPLINE_GRAD_TOL = 1e-6
 # B.14 (phase 41): the example's size, and the scaffold's scale with
@@ -1059,6 +1073,21 @@ def check_served(sv, fn, reqs, served, label):
                      "direct kernel calls on the padded batch")
 
 
+def serve_lines(label, bench, predict, smi, n=5):
+    """Phases 17 and 26: for each bucket of a serve bench, its p50 / p99
+    and the device-busy share of ``predict(bucket)`` under the profiler,
+    one line a bucket with the card's name and power limit."""
+    for row in bench:
+        b = row["batch"]
+        wall, busy, top = profile_ms(lambda: predict(b), n)
+        print(f"  {label} bucket {b}: p50 {row['p50_ms']:.4f} ms, p99 "
+              f"{row['p99_ms']:.4f} ms, window p50s "
+              f"{['%.4f' % w for w in row['window_p50_ms']]}; profiled: wall "
+              f"{wall:.4f} ms, device busy {busy:.4f} ms "
+              f"({100 * busy / wall:.1f}%), top "
+              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1362,8 +1391,25 @@ def forecast_phases(device, smi):
         if not torch.allclose(got, want, rtol=TOL, atol=TOL):
             fail(f"ddpm rows={r}: chain kernel disagrees with plain (max "
                  f"|diff| {ddpm_errs[r]:.3e})")
+        # the same bits twice, and rows 0 and R-1 alone as in the batch
+        chain = c["chain"]
+        with torch.no_grad():
+            again = DD.ddpm_chain(*chain)
+            alone = []
+            for i in sorted({0, r - 1}):
+                one = list(chain)
+                one[0], one[1] = chain[0][i:i + 1], chain[1][i:i + 1]
+                one[3] = chain[3][:, i:i + 1]
+                alone.append(torch.equal(DD.ddpm_chain(*one), got[i:i + 1]))
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            fail(f"ddpm rows={r}: two calls of the chain kernel differ")
+        if not all(alone):
+            fail(f"ddpm rows={r}: rows 0 and {r - 1} alone differ from the "
+                 "batch")
     print(f"ddpm chain vs plain, rows {list(DDPM_ROWS)}: max |diff| "
-          f"{[float('%.3e' % e) for e in ddpm_errs.values()]}")
+          f"{[float('%.3e' % e) for e in ddpm_errs.values()]}; the same bits "
+          f"twice, rows 0 and R-1 alone as in the batch")
 
     # ---- 16. the training slice, through the CLI
     kernels = (OD.ode_dyn_fwd, OD.ode_dyn_bwd, DD.ddpm_chain)
@@ -1414,18 +1460,11 @@ def forecast_phases(device, smi):
                 fail(f"serve --source {source}: kernel launches {counts}")
             launches = [a + b for a, b in zip(launches, counts)]
             check_served(sv, sfn, reqs, served, f"serve {source}")
-            wall, busy, top = profile_ms(lambda: sv.predict(xs(8)).cpu())
+            print(f"serve {source}: B=1/30/300 through the bundle = direct "
+                  f"calls on the padded batches; launches {counts}")
+            serve_lines(f"serve {source}", sresult["bench"],
+                        lambda b: sv.predict(xs(b)).cpu(), smi)
         serve_rows[source] = sresult["bench"]
-        print(f"serve {source}: B=1/30/300 through the bundle = direct calls "
-              f"on the padded batches; launches {counts}; profile bucket 8: "
-              f"wall {wall:.4f} ms, device busy {busy:.4f} ms "
-              f"({100 * busy / wall:.1f}%), top "
-              f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
-        for row in sresult["bench"]:
-            print(f"  serve {source} bucket {row['batch']}: p50 "
-                  f"{row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms, "
-                  f"window p50s {['%.4f' % w for w in row['window_p50_ms']]}"
-                  f" ({smi})")
 
     # ---- 18. timing: kernels and plain, a training step of each model
     times = {("ode_dyn", b): time_node_kernels(ocase, z0s[b], cts[b], smi)
@@ -1438,9 +1477,11 @@ def forecast_phases(device, smi):
         with torch.no_grad():
             t["plain"] = cuda_ms(lambda: DD.ddpm_chain_reference(*chain), 1)
         times[("ddpm", r)] = t
+        tile = DD.chain_tile(r, dspec.pred_len, dspec.diff_hidden,
+                             dspec.diff_T)
         print(f"time ddpm rows={r}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain']:.3f} ms; bound {t['bound'][0]:.5f} ms "
-              f"({t['bound'][2]}) ({smi})")
+              f"({t['bound'][2]}); tile {tile} ({smi})")
 
     x64, y64 = xs(64), torch.from_numpy(rng_f.standard_normal(
         (64, pspec.pred_len)).astype(np.float32)).to(device)
@@ -2018,7 +2059,8 @@ def cond_diffusion_phases(device, smi):
                      f"{counts}")
             launches = [a + b for a, b in zip(launches, counts)]
             check_served(sv, sfn, reqs, served, "serve cond_diffusion")
-            wall, busy, top = profile_ms(lambda: sv.predict(xs(8)).cpu(), 2)
+            serve_lines("serve cond_diffusion", sresult["bench"],
+                        lambda b: sv.predict(xs(b)).cpu(), smi, n=2)
     finally:
         undo()
     seen = sorted(b for _, b in batches)
@@ -2029,14 +2071,7 @@ def cond_diffusion_phases(device, smi):
           f"{sorted(batches)}; all checked in phase 24")
     print(f"serve cond_diffusion: B=1/30/300 through the bundle = direct "
           f"calls on the padded batches; launches {counts}; the CLI call "
-          f"{serve_wall:.2f} s; profile bucket 8: wall {wall:.4f} ms, device"
-          f" busy {busy:.4f} ms ({100 * busy / wall:.1f}%), top "
-          f"{[(k, round(v, 4)) for k, v in top]} ({smi})")
-    for row in sresult["bench"]:
-        print(f"  serve cond_diffusion bucket {row['batch']}: p50 "
-              f"{row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms, window "
-              f"p50s {['%.4f' % w for w in row['window_p50_ms']]} "
-              f"({row['windows']} x {row['iters']} calls) ({smi})")
+          f"{serve_wall:.2f} s ({smi})")
 
     # ---- 27. timing: kernels and plain, a training step
     times = {b: time_node_kernels(cases[b], *inputs[b], smi)
@@ -3409,6 +3444,19 @@ def spline_custom_phases(device, smi):
     for R, I, O, nk, order in seen:
         checked[(R, I, O, nk, order)] = check_spline(device, rng, R, I, O,
                                                      None, nk, order)[0]
+    layers = sorted({(I, O, sl) for _, I, O, sl in SPLINE_SHAPES},
+                    key=str)
+    multi = {}
+    for I, O, sl in layers:
+        multi[(I, O)] = check_spline(device, rng, SPLINE_MULTI_ROWS, I, O, sl,
+                                     full=True)[0]
+    groups = {(I, O): SP._lib().spline_matmul_groups(I, 12, 3)
+              for I, O, _ in layers}
+    print(f"B.12 at R = {SPLINE_MULTI_ROWS} (several row tiles and clusters)"
+          f" on {len(layers)} layers, input groups (cluster CTAs) {groups}: "
+          f"y max |diff| {max(multi.values()):.3e}, the same bits twice, "
+          f"rows 0, R/2 and R-1 alone as in the batch, gradients within "
+          f"{SPLINE_GRAD_TOL}")
     edge_err = check_spline_edges(device)
     print(f"B.12 against plain: {len(SPLINE_SHAPES)} path shapes with the "
           f"row and gradient checks (gradients rel <= {g_worst:.3e}), "
@@ -3596,7 +3644,8 @@ def spline_custom_phases(device, smi):
               f"ms, device busy {busy:.4f} ms ({100 * busy / wall:.1f}%), "
               f"top {[(k, round(v, 4)) for k, v in top]} ({smi})")
     print(f"phase 43: {time.perf_counter() - t0:.1f} s")
-    errs = dict(spline=max(max(checked.values()), edge_err),
+    errs = dict(spline=max(max(checked.values()), max(multi.values()),
+                           edge_err),
                 custom_fwd=max(c["fwd_err"] for c in custom.values()),
                 custom_bwd=max(c["g_abs"] for c in custom.values()))
     launches = dict(spline=sum(SPLINE_RUNS.values()),

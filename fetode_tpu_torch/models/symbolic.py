@@ -88,13 +88,17 @@ def pruning_l1(params: SymbolicNet) -> torch.Tensor:
 
 def train_symbolic(spec: SymbolicNetSpec = SymbolicNetSpec(),
                    epochs: int = 300, lr: float = 5e-3, n_points: int = 128,
-                   seed: int = 0, log=None, *, device="cpu",
+                   seed: int = 0, log=None, *, device="cuda",
                    init_params: SymbolicNet | None = None):
     """Fit the net on ``n_points`` in [-3, 3]; returns ``(params, losses)``,
     ``losses[i]`` the loss before step i's update.  ``init_params`` starts
-    from given parameters (a copy) instead of an init from ``seed``."""
+    from given parameters (a copy) instead of an init from ``seed``.  Runs
+    on the card unless ``device="cpu"``; ``cuda`` without a card raises."""
     from fetode_tpu_torch.train.loop import init_state, make_epoch_scanner
     from fetode_tpu_torch.train.optim import make_optimizer
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
 
     x = torch.linspace(-3.0, 3.0, n_points, device=device)[:, None]
     y = target_fn(x)

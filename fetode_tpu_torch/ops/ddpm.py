@@ -4,7 +4,12 @@ steps in one CUDA kernel.
 Counterpart of ``fetode_tpu/ops/pallas_ddpm.py: pallas_eps_head_sample``
 (the TPU kernels ``_make_kernel`` :40 and ``_make_kernel_fm`` :59).  The
 CUDA source is ``fetode_tpu_torch/csrc/ddpm.cu``; its header gives the
-design and what bounds it.
+design and what bounds it: a thread-block cluster of four CTAs owns a
+tile of rows for all T steps, each CTA keeps its quarter of W2 (and of
+the other tables) in shared memory, and the CTAs exchange the hidden
+activations and the eps partials through distributed shared memory.
+Every sum runs in an order set by P and H alone, so a row gives the
+same bits alone and inside any batch, and every call the same bits.
 
 * ``ddpm_chain`` — the kernel wrapper, with a launch counter
   (``.launches``): the chain over prepared tables.  For CPU tensors it
@@ -45,7 +50,21 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ddpm_chain.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.ddpm_chain.restype = ctypes.c_int
+    lib.ddpm_chain_tile.argtypes = [I] * 4 + [P]
+    lib.ddpm_chain_tile.restype = ctypes.c_int
     return lib
+
+
+def chain_tile(rows: int, P: int, H: int, T: int) -> dict:
+    """The kernel's row tile for a chain on the current CUDA device: rows
+    a cluster (``rt``), threads a CTA, the four-CTA clusters the device
+    runs at once with that tile, and a CTA's shared memory in bytes."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().ddpm_chain_tile(rows, P, H, T, out)
+    if rc != 0:
+        raise RuntimeError(f"ddpm_chain_tile: CUDA error {rc}")
+    return dict(rt=out[0], threads=out[1], clusters=out[2],
+                smem_bytes=out[3])
 
 
 def ddpm_chain_reference(y0, cond_h, temb_h, noise, coefs, w1y, w2, b2, w3,
@@ -93,9 +112,9 @@ def ddpm_chain(y0: torch.Tensor, cond_h: torch.Tensor, temb_h: torch.Tensor,
     NC.check_cuda(y0, "ddpm_chain")
     rows, P = y0.shape
     H, T = w2.shape[0], temb_h.shape[0]
-    if H % 4 or P > 32:
-        raise ValueError(f"ddpm_chain kernel: H must be a multiple of 4 and "
-                         f"P at most 32, got H = {H}, P = {P}")
+    if H not in (32, 64, 128, 256) or P > 32:
+        raise ValueError(f"ddpm_chain kernel: H must be 32, 64, 128 or 256 "
+                         f"and P at most 32, got H = {H}, P = {P}")
     dev = y0.device
     ops = [NC.kernel_operand(t, dev, f"ddpm_chain operand {i}") for i, t in
            enumerate((y0, cond_h, temb_h, noise, coefs, w1y.T, w2.T, b2, w3,

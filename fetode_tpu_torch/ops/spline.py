@@ -4,8 +4,13 @@ kernel, with its plain PyTorch version.
 Counterpart of ``fetode_tpu/ops/pallas_spline.py`` (the TPU kernel
 ``spline_matmul_fused`` at :65).  The CUDA source is
 ``fetode_tpu_torch/csrc/spline.cu``; its header gives the design and what
-bounds it.  With x (B, in), the knot rows grid (in, G + 2k + 1) and the
-*scaled* spline weight (out, in, G + k):
+bounds it: each CTA forms the bases of a row tile once for every output
+it owns, a two-stage ``cp.async`` ring feeds it the weight tiles, and the
+input groups of an output tile are the CTAs of a thread-block cluster
+whose partial sums are added through distributed shared memory in a
+fixed order (no scratch tensor, one launch).  With x (B, in), the knot
+rows grid (in, G + 2k + 1) and the *scaled* spline weight (out, in, G +
+k):
 
     y[b, o] = sum_{i, c} bsplines(x)[b, i, c] * weight[o, i, c]
 
@@ -21,8 +26,11 @@ bounds it.  With x (B, in), the knot rows grid (in, G + 2k + 1) and the
 
 The operands are read as given on every call (nothing is cached).  The
 kernel takes row-strided x, grid and weight whose last dimension is
-contiguous, so a column slice of a layer's weight
-(``models/cond_diffusion.py: _kan_partial``) needs no copy.
+contiguous and whose weight has its (in, C) block contiguous, so a column
+slice of a layer's weight (``models/cond_diffusion.py: _kan_partial``)
+needs no copy; any other weight is copied first.  The kernel sums each
+output in a fixed order set by ``in`` and C alone, so a row gives the
+same bits alone and inside any batch.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ def _lib():
 
     lib = load_library(_KERNEL_NAME)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spline_matmul.argtypes = [P] * 5 + [I] * 5 + [L] * 4 + [P]
+    lib.spline_matmul.argtypes = [P] * 4 + [I] * 5 + [L] * 4 + [P]
     lib.spline_matmul.restype = ctypes.c_int
     lib.spline_matmul_groups.argtypes = [I] * 3
     lib.spline_matmul_groups.restype = ctypes.c_int
@@ -117,21 +125,19 @@ def _launch(x: torch.Tensor, grid: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"{_WHAT}: the kernel is compiled for at most "
                          f"{max_knots} knots and order {max_order}, got "
                          f"{n_knots} knots, order {order}")
-    x, grid, weight = (t.detach() if t.stride(-1) == 1
-                       else t.detach().contiguous()
-                       for t in (x, grid, weight))
+    x, grid = (t.detach() if t.stride(-1) == 1 else t.detach().contiguous()
+               for t in (x, grid))
+    C = n_knots - 1 - order
+    weight = weight.detach()
+    if weight.stride(-1) != 1 or weight.stride(1) != C:
+        weight = weight.contiguous()
     B, n_in = x.shape
     O = weight.shape[0]
     y = torch.empty((B, O), dtype=torch.float32, device=dev)
     if B == 0 or O == 0:
         return y
-    # The kernel sums the inputs in fixed groups; with more than one it
-    # adds their partial sums, (G, B, O), in order.
-    G = lib.spline_matmul_groups(n_in, n_knots, int(order))
-    part = torch.empty((G, B, O), dtype=torch.float32, device=dev) \
-        if G > 1 else None
     NC.launch(lib.spline_matmul, NC.ptr(x), NC.ptr(grid), NC.ptr(weight),
-              NC.ptr(y), NC.ptr(part), B, n_in, O, n_knots, int(order),
+              NC.ptr(y), B, n_in, O, n_knots, int(order),
               x.stride(0), grid.stride(0), weight.stride(0),
               weight.stride(1), name="spline_matmul_fused", device=dev)
     spline_matmul_fused.launches += 1

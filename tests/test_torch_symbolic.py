@@ -77,7 +77,7 @@ def test_training_tracks_jax(jparams):
     jp, jlosses = JS.train_symbolic(spec, epochs=20, lr=5e-3, n_points=128,
                                     seed=0)
     tp, tlosses = TS.train_symbolic(TS.SymbolicNetSpec(**SPEC), epochs=20,
-                                    lr=5e-3, n_points=128,
+                                    lr=5e-3, n_points=128, device="cpu",
                                     init_params=_module(jparams))
     assert tlosses.shape == (20,) and tlosses[-1] < tlosses[0]
     np.testing.assert_allclose(tlosses, np.asarray(jlosses), rtol=1e-4)
@@ -86,6 +86,15 @@ def test_training_tracks_jax(jparams):
         for k, v in jp[layer].items():
             np.testing.assert_allclose(got[layer][k], np.asarray(v),
                                        rtol=1e-3, atol=1e-3)
+
+
+def test_train_symbolic_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="'cuda' requested"):
+        TS.train_symbolic(epochs=0)
+    params, losses = TS.train_symbolic(epochs=0, device="cpu")
+    assert losses.shape == (0,)
+    assert params.l1.coef.device.type == "cpu"
 
 
 def test_cli_symbolic_on_cpu(tmp_path):
