@@ -220,7 +220,9 @@ The wide predprey slice, the preset of ``cli predprey`` (dopri5 at rtol
     preset's, where it decides some and the kernel must take plain's
     attempts within 5% (at least 3) and reach plain's time: both
     forward kernels against plain's replay of the kernel's mesh at rtol =
-    atol = 1e-3, the same output with and without records, and at the
+    atol = 1e-3, the same output with and without records, the same
+    output and records twice (each kernel one thread-block cluster, its
+    size from ``ops/kanfet_wide.py: cluster_plan``, printed), and at the
     preset against the plain solve on its own mesh on the times both
     reached (at 1e-3 the two meshes' outputs part by the solve's own
     error); with the training loss's
@@ -236,13 +238,19 @@ The wide predprey slice, the preset of ``cli predprey`` (dopri5 at rtol
 33. B.3 against B.2 (``kanfet_adjoint_fwd`` / ``bwd``) at [2, 32, 2] and
     B = 1: at rtol 1e-3 the same attempts; at the preset trajectories and
     gradients on their own meshes within 1e-4,
-    and B.3's backward on B.2's records within 1e-4 of B.2's; both timed
-    there and at the flagship [2, 10, 2] (N = 160, trajectories within
-    1e-4), and B.3 at N = 512 and 4,608.
+    and B.3's backward on B.2's records within 1e-4 of B.2's; at the
+    flagship [2, 10, 2] (N = 160) trajectories within 1e-4; then both
+    kernels timed, forward and backward, at the preset and B = 1 at ferro
+    N = 160, 512, 4,608 and 32,768 (``CROSS_STACKS``), and the crossover
+    over N printed (where B.3 is the faster).
 34. A ``predict`` training step at [2, 64, 64, 2] (forward, backward,
     clip, Adam at learning rate 0): its time (CUDA events, median of 3
     windows), its device-busy share, B.3's forward and backward against
     plain, the attempts, and the launches: B.3 only, B.1 and B.2 none.
+    Then a stack past B.3's cluster, [2, 80, 80, 2]: its ``predict``
+    step launches B.2 (forward and backward) and no B.3, with a finite
+    loss and gradients, and its ``predict`` without autograd (B.1) is
+    within rtol = atol = 1e-3 of the plain eager solve.
 35. The training slice: ``cli.main(["predprey", "--layers", "2,64,64,2",
     "--epochs", "20", ...])`` under ``solver_mode="auto"``: B.3 launched
     (and B.1 and B.2 not), finite losses; then ``cli.main(["symbolic",
@@ -260,9 +268,10 @@ a seed, series from ``synthetic_ecg200``:
     inputs, float32 and bfloat16 states, both gate forms: y within rtol =
     atol = 1e-4 against max |y|, the float32 branch within 1e-5 and a
     bfloat16 branch within one bfloat16 unit of plain's rounding, prev_x
-    equal, and the gradients of a random cotangent through the
-    ``autograd.Function`` within 1e-6 relative of autograd of the plain
-    op; ``update_branch=False`` returns the old branch.
+    equal, y and the new branch the same bits in two calls, and the
+    gradients of a random cotangent through the ``autograd.Function``
+    within 1e-6 relative of autograd of the plain op;
+    ``update_branch=False`` returns the old branch.
 37. The sequence paths, kernel against plain: ``ferro_kan_rnn_apply`` at
     B = 8 and 64, ``node_rnn_apply`` (rk4, 96 steps) at B = 8 and 32:
     logits and cross-entropy gradients within 1e-4 relative, and exactly
@@ -426,6 +435,11 @@ MLP_CHECKS = (8, 32, 64, 256)
 # decides no accept decision, where B.3 must take its plain version's
 # attempts (at the preset's rtol 1e-7 two float32 solves part by a few).
 WIDE_STACKS = ((2, 32, 2), (2, 24, 24, 2), (2, 64, 64, 2))
+# Phase 33's crossover: the flagship (ferro N = 160) and the wide stacks.
+CROSS_STACKS = ((2, 10, 2),) + WIDE_STACKS
+# A stack whose backward no cluster of 16 CTAs holds (phase 34): its
+# ``predict`` takes B.1 / B.2.
+WIDE_PAST_CLUSTER = (2, 80, 80, 2)
 WIDE_LOOSE = dict(rtol=1e-3, atol=1e-5)
 # At the preset B.3 must reach plain's time in plain's attempts within
 # this share of them, and at least 3 (float32 rounding of the error
@@ -2373,6 +2387,16 @@ def wide_params(spec, device, regime):
     return params
 
 
+def same_records(r1, r2):
+    """Two solves' records the same bits: the attempt table and the
+    states and stages of the attempts made (the rows past them are never
+    written)."""
+    n = int(r1.misc[0])
+    return (torch.equal(r1.tda, r2.tda) and torch.equal(r1.misc, r2.misc)
+            and torch.equal(r1.yrec[:n], r2.yrec[:n])
+            and torch.equal(r1.krec[:n], r2.krec[:n]))
+
+
 def check_wide(params, cfg, x0, target, ts, opts, label, same_attempts):
     """Phase 32 at one stack, batch, parameter set and tolerance: both
     forward kernels against plain's replay of the kernel's records, the
@@ -2394,6 +2418,7 @@ def check_wide(params, cfg, x0, target, ts, opts, label, same_attempts):
     field = KW.wide_field(w, cfg)
     with torch.no_grad():
         y_k, r_k = KW.kanfet_wide_fwd(w, cfg, x0, ts, **opts)
+        y_k2, r_k2 = KW.kanfet_wide_fwd(w, cfg, x0, ts, **opts)
         y_n, _ = KW.kanfet_wide_fwd(w, cfg, x0, ts, record=False, **opts)
         torch.cuda.synchronize()
         y_p, r_p = NC.record_solve_traj_reference(field, x0, ts, **opts)
@@ -2401,6 +2426,12 @@ def check_wide(params, cfg, x0, target, ts, opts, label, same_attempts):
         fail(f"{label}: non-finite forward output")
     if not torch.equal(y_k, y_n):
         fail(f"{label}: the forward kernel's output depends on recording")
+    if not (torch.equal(y_k, y_k2) and same_records(r_k, r_k2)):
+        fail(f"{label}: the forward kernel's output or records differ "
+             "between two calls")
+    dims = tuple((c.in_features, c.out_features, c.ferro_num_basis)
+                 for c in cfg.layers)
+    ctas = KW.cluster_plan(x0.shape[0], dims)
     n_k, n_p = int(r_k.misc[0]), int(r_p.misc[0])
     t_k, t_p = float(r_k.misc[1]), float(r_p.misc[1])
     if same_attempts and n_k != n_p:
@@ -2470,8 +2501,9 @@ def check_wide(params, cfg, x0, target, ts, opts, label, same_attempts):
         cos = float(torch.dot(gk, go) / (gk.norm() * go.norm()))
         if not cos > COS_MIN:
             fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
-    print(f"{label}: attempts kernel {n_k} (accepted "
-          f"{int(r_k.tda[:n_k, 1].sum())}), plain {n_p}; forward max |diff| "
+    print(f"{label}: a cluster of {ctas} CTAs; attempts kernel "
+          f"{n_k} (accepted {int(r_k.tda[:n_k, 1].sum())}), plain {n_p}; "
+          f"forward the same bits twice, max |diff| "
           f"{mesh_err:.3e} on the kernel's mesh, {fwd_err:.3e} on own meshes "
           f"to t = {t_both:.4f}; backward on the kernel's mesh "
           f"vs float64 plain: grads rel {g_rel:.3e} (bound {g_tol:.1e}), "
@@ -2514,24 +2546,29 @@ def module_grads(params, g_ops):
     return out
 
 
-def time_b3_b2(params, spec, x0, ts, opts, r3, r2, ct, smi):
+def time_b3_b2(params, spec, x0, ts, opts, target, reps):
     """Phase 33's times of B.3 and B.2 at one trajectory, forward and
-    backward (on each kernel's own records), as a line's tail."""
+    backward (each on its own records, the training loss's cotangent), ms
+    a call (``cuda_ms``), with the attempts: a dict."""
     from fetode_tpu_torch.ops import kanfet_adjoint as KA
     from fetode_tpu_torch.ops import kanfet_wide as KW
 
     w = KW.wide_weights(params)
     with torch.no_grad():
+        y3, r3 = KW.kanfet_wide_fwd(w, spec.kan, x0, ts, **opts)
+        _, r2 = KA.kanfet_adjoint_fwd(params, spec.kan, x0, ts, **opts)
         t3f = cuda_ms(lambda: KW.kanfet_wide_fwd(w, spec.kan, x0, ts,
-                                                 **opts), 5)
+                                                 **opts), reps)
         t2f = cuda_ms(lambda: KA.kanfet_adjoint_fwd(params, spec.kan, x0, ts,
-                                                    **opts), 5)
-    t3b = cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0, ts, r3, ct), 5)
+                                                    **opts), reps)
+    ct = 2.0 * (y3 - target) / y3.numel()
+    t3b = cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0, ts, r3, ct),
+                  reps)
     ct2 = ct.transpose(0, 1).contiguous()
     t2b = cuda_ms(lambda: KA.kanfet_adjoint_bwd(params, spec.kan, x0, ts, r2,
-                                                ct2), 5)
-    return (f"; forward B.3 {t3f:.4f} ms, B.2 {t2f:.4f} ms; backward B.3 "
-            f"{t3b:.4f} ms, B.2 {t2b:.4f} ms ({smi})")
+                                                ct2), reps)
+    return dict(fwd=t3f, bwd=t3b, b2_fwd=t2f, b2_bwd=t2b,
+                n=int(r3.misc[0]), n2=int(r2.n_att[0]))
 
 
 def wide_phases(device, smi, ts_fit, x0_task):
@@ -2539,10 +2576,14 @@ def wide_phases(device, smi, ts_fit, x0_task):
     the timings and the kernels' launches on the main path."""
     from fetode_tpu_torch import cli
     from fetode_tpu_torch.models.predprey import (
+        WIDE_DISPATCH_FERRO_N,
         PredPreyNODE,
         PredPreyTask,
         lotka_volterra_field,
+        max_ferro_n,
+        predict,
         trajectory_loss,
+        uses_wide_kernel,
     )
     from fetode_tpu_torch.ops import kanfet_adjoint as KA
     from fetode_tpu_torch.ops import kanfet_node as KN
@@ -2617,11 +2658,9 @@ def wide_phases(device, smi, ts_fit, x0_task):
                      f"{gs_rel:.3e}, x0bar {xs_rel:.3e}")
             if not (gs_rel < GRAD_TOL and xs_rel < GRAD_TOL):
                 fail(f"{line}: beyond 1e-4")
-            line += time_b3_b2(params, spec, x0_task, ts_fit, opts, r3, r2,
-                               ct, smi)
         print(line)
     # Below the boundary, at the flagship [2, 10, 2] (ferro N = 160, where
-    # predict takes B.2): both kernels timed at the preset, B = 1.
+    # predict takes B.2): the trajectories at the preset, B = 1.
     spec = PredPreyNODE.kanfet()
     params = wide_params(spec, device, "init")
     opts = tols["preset"]
@@ -2638,26 +2677,29 @@ def wide_phases(device, smi, ts_fit, x0_task):
     if not torch.allclose(y3.transpose(0, 1), y2, rtol=GRAD_TOL,
                           atol=GRAD_TOL):
         fail(f"{line}: beyond 1e-4")
-    ct = 2.0 * (y3 - targets[1]) / y3.numel()
-    print(line + time_b3_b2(params, spec, x0_task, ts_fit, opts, r3, r2, ct,
-                            smi))
+    print(line)
 
-    # B.3's times at the preset tolerance and B = 1 over ferro N: 512,
-    # 4,608 and 32,768 (the last is phase 34's).
-    times = {}
-    for layers in WIDE_STACKS[:2]:
+    # The B.2 / B.3 crossover over ferro N at B = 1 and the preset: both
+    # kernels timed, forward and backward, at N = 160, 512, 4,608, 32,768.
+    times, cross = {}, {}
+    for layers in CROSS_STACKS:
         spec = PredPreyNODE.kanfet(layers_hidden=layers)
-        w = KW.wide_weights(wide_params(spec, device, "init"))
-        with torch.no_grad():
-            _, recs = KW.kanfet_wide_fwd(w, spec.kan, x0_task, ts_fit,
-                                         **tols["preset"])
-            fwd = cuda_ms(lambda: KW.kanfet_wide_fwd(
-                w, spec.kan, x0_task, ts_fit, **tols["preset"]), 5)
-        bwd = cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0_task, ts_fit,
-                                                 recs, ct), 5)
-        times[layers] = dict(fwd=fwd, bwd=bwd, n=int(recs.misc[0]))
-        print(f"time kanfet_wide {list(layers)} B=1: forward {fwd:.4f} ms, "
-              f"backward {bwd:.4f} ms, {int(recs.misc[0])} attempts ({smi})")
+        t = time_b3_b2(wide_params(spec, device, "init"), spec, x0_task,
+                       ts_fit, tols["preset"], targets[1],
+                       2 if len(layers) > 3 else 5)
+        n_ferro = max_ferro_n(spec)
+        cross[n_ferro] = t
+        print(f"time B.3 / B.2 {list(layers)} (ferro N {n_ferro}) B=1: "
+              f"forward {t['fwd']:.4f} / {t['b2_fwd']:.4f} ms, backward "
+              f"{t['bwd']:.4f} / {t['b2_bwd']:.4f} ms, attempts {t['n']} / "
+              f"{t['n2']} ({smi})")
+    wins = [n for n, t in cross.items()
+            if t["fwd"] + t["bwd"] < t["b2_fwd"] + t["b2_bwd"]]
+    times["crossover"] = cross
+    print(f"B.2/B.3 crossover over ferro N at B = 1 (forward + backward): "
+          f"B.3 faster at N {sorted(wins)}, B.2 at "
+          f"{sorted(set(cross) - set(wins))}; predict's "
+          f"WIDE_DISPATCH_FERRO_N = {WIDE_DISPATCH_FERRO_N} ({smi})")
 
     # ---- 34. a predict training step at [2, 64, 64, 2]
     layers = WIDE_STACKS[-1]
@@ -2715,6 +2757,38 @@ def wide_phases(device, smi, ts_fit, x0_task):
           f"{t['plain_bwd']:.3f}), {t['n']} attempts; bounds fwd "
           f"{t['bound_fwd'][0]:.5f} ms ({t['bound_fwd'][2]}), bwd "
           f"{t['bound_bwd'][0]:.5f} ms ({t['bound_bwd'][2]}) ({smi})")
+
+    # a stack past B.3's cluster: predict takes B.1 / B.2
+    big = PredPreyNODE.kanfet(layers_hidden=WIDE_PAST_CLUSTER)
+    if KW.holds(big.kan, 1) or uses_wide_kernel(big):
+        fail(f"{list(WIDE_PAST_CLUSTER)}: B.3's cluster holds it")
+    bp = wide_params(big, device, "init")
+    for f in kernels:
+        f.launches = 0
+    loss = trajectory_loss(bp, big, x0_task[0], ts_fit, target)
+    grads = torch.autograd.grad(loss, list(bp.parameters()))
+    torch.cuda.synchronize()
+    step_counts = [f.launches for f in kernels]
+    with torch.no_grad():
+        yk = predict(bp, big, x0_task[0], ts_fit)
+        yp = predict(bp, big._replace(solver_mode="while"), x0_task[0],
+                     ts_fit)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in kernels]
+    if (step_counts[0] != 0 or min(step_counts[1:3]) < 1
+            or step_counts[3:] != [0, 0] or counts[0] != 1
+            or counts[1:] != step_counts[1:]
+            or not torch.isfinite(loss)
+            or not all(bool(torch.isfinite(g).all()) for g in grads)
+            or not torch.allclose(yk, yp, rtol=TOL, atol=TOL)):
+        fail(f"predict at {list(WIDE_PAST_CLUSTER)}: launches (B.1, B.2 "
+             f"fwd, B.2 bwd, B.3 fwd, B.3 bwd) {step_counts} after the "
+             f"step, {counts} after the eval, loss {float(loss)}, "
+             f"max |diff| {max_abs(yk, yp):.3e} against plain")
+    print(f"predict at {list(WIDE_PAST_CLUSTER)} (past B.3's cluster): the "
+          f"step's launches (B.1, B.2 fwd, B.2 bwd, B.3 fwd, B.3 bwd) "
+          f"{step_counts}, loss {float(loss):.6f}, gradients finite; the "
+          f"eval through B.1 within {max_abs(yk, yp):.3e} of plain")
 
     # ---- 35. the training slice, through the CLI: cli predprey on the
     # widest stack, then cli symbolic
@@ -2834,6 +2908,11 @@ def check_ferro_fused(params, cfg, state, x, ybar, label):
     xp = x.clone().requires_grad_(True)
     yk, sk = FF.ferro_apply_fused(params, state, xk, cfg)
     gk = torch.autograd.grad((yk * ybar).sum(), [xk] + weights)
+    with torch.no_grad():
+        yk2, sk2 = FF.ferro_apply_fused(params, state, x, cfg)
+    if not (torch.equal(yk.detach(), yk2)
+            and torch.equal(sk.branch, sk2.branch)):
+        fail(f"B.13 {label}: y or the new branch differ between two calls")
     yp, sp = ferro_apply(params, state, xp, cfg)
     gp = torch.autograd.grad((yp * ybar).sum(), [xp] + weights)
     torch.cuda.synchronize()
@@ -2929,7 +3008,8 @@ def rnn_phases(device, smi):
             (8, 64), device=device), cfg)
     if s1.branch is not state.branch:
         fail("B.13 with update_branch=False did not return the old branch")
-    print(f"B.13 against plain ferro_apply: {n_checks} cases (shapes "
+    print(f"B.13 against plain ferro_apply, the same bits twice: {n_checks} "
+          f"cases (shapes "
           f"{list(RNN_SHAPES) + list(SYM_SHAPES)}, B {RNN_BATCHES} / "
           f"{SYM_BATCH}, fresh / 1 / {RNN_T} calls of state, float32 and "
           f"bfloat16 state, both gates): y max |diff| {y_worst:.3e}, "

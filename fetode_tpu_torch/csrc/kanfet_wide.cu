@@ -24,51 +24,75 @@
 // file uses forward and in the VJP.
 //
 // The C = 8 cubic B-spline columns run on each input feature's own 12
-// knots (Cox-de Boor on half-open intervals, as ops/bsplines.py), and sw
-// = spline_weight * spline_scaler is formed outside the kernel (autograd
-// carries the scaler's chain).  The gate slope g and alpha are layer 0's,
-// as the TPU kernel takes them (:587-589).  The solve and the replay are
-// node_common.cuh's trajectory pair (the stage time is ignored); this
-// file holds the field and its hand-written VJP.  Every sum runs in the
-// kernel's own body in FP32 (no cuBLAS, no TF32, no --use_fast_math: the
-// step controller's accept decisions read the error estimate at float32
-// rounding).
+// knots (Cox-de Boor on half-open intervals, as ops/bsplines.py), on the
+// window of the 4 bases that are nonzero at x, with kanfet_field.cuh's
+// bspline_window (the full recursion's bits, div_knot's branch-free
+// quotient), and sw = spline_weight * spline_scaler is formed outside the
+// kernel (autograd carries the scaler's chain).  The gate slope g and
+// alpha are layer 0's, as the TPU kernel takes them (:587-589).  The
+// sigmoid is kanfet_field.cuh's (rcp_sigmoid: IEEE's bits wherever the
+// quotient is not denormal, without the branch that serialised a lane's
+// quotients).  Every sum runs in the kernel's own body in FP32 (no cuBLAS,
+// no TF32, no --use_fast_math: the step controller's accept decisions read
+// the error estimate at float32 rounding).
 //
-// None of the TPU layout devices come across (the 128-lane padding, the
-// 0/1 repetition matmuls, the one-hot output tiles, the per-sample loop):
-// each edge (i, o) reads its own K ferro values and C spline weights, 32
-// contiguous bytes each, and its input's 12 knots, from global memory.
-// The [2, 64, 64, 2] stack's parameters, about 0.8 MB, stay in L2.
+// Design (redesigned for Hopper; the first form was a cooperative grid
+// with a grid barrier at every layer and stage, the parameters read from
+// L2 and each edge's input prep formed by every edge):
 //
-// Field evaluation, one grid phase a layer (a barrier between layers):
-// a row (b, o) is taken by a group of W = ceil(I / 32) warps (rounded up
-// to 1, 2, 4 or 8) of one block, the lanes striding over the inputs i;
-// each lane forms its inputs' silu, 8 basis columns and 1 - mu once and sums
-// the edge's 1 + 8 + K terms; the group adds its warps' shuffle-tree sums
-// in warp order through shared memory, so one owner writes y[b, o] and
-// the sum has a fixed order.  At B = 1 the middle layer of [2, 64, 64, 2]
-// is 64 rows of 64 edges (2 warps a row, 16 blocks), each lane one edge.
-//
-// VJP with cotangent w (B, D): the layers' inputs again (L - 1 phases),
-// then the layers in reverse, one phase each, two kinds of owned items:
-//   rows (b, i), W = ceil(O / 32) warps with the lanes over the outputs
-//     o: xbar[b, i] = sum_o g[b, o] (silu'(x) bw[o, i] + sum_c B'_c(x)
-//     sw[o, i, c] + sum_k coef ps k sech^2 (1 + ec dbeta/dx)), B' from the
-//     same recursion's degree-2 columns;
-//   edges (o, i), one thread each, summing over b in order: gbw, gsw (8
-//     columns), and per k the five ferro gradients (coef, ps, bias, k,
-//     ec with dbeta/dec).
-// No atomics: the gradients are the same bits on every run.
+// * One thread-block cluster of C CTAs of kCTA threads (1 <= C <= 16; 16
+//   needs the non-portable cluster size) runs the whole solve.  CTA c
+//   owns the outputs [c O / C, (c + 1) O / C) of every layer and holds in
+//   its own shared memory, for the whole launch, every parameter of the
+//   edges (i, o) of its slice (bw, 8 sw, and K each of k, ec, ps, bias,
+//   coef), every layer's knots and, in the backward, its edges' gradient
+//   accumulators (the same layout); they are written to the gradient
+//   tensors once, at the end.  The wrapper's plan (ops/kanfet_wide.py:
+//   cluster_plan) takes, for both kernels, the fewest CTAs whose shared
+//   memory holds the backward's bytes (smem_layout below; 11 at [2, 64,
+//   64, 2] and B = 1), and the launcher checks with
+//   cudaOccupancyMaxActiveClusters that the card runs the cluster.
+// * The dopri5 state and stages (N = B D floats) are replicated in every
+//   CTA: node_common.cuh's trajectory pair under its cluster policy
+//   (ClusterSync) runs the stage updates, the error norm and the
+//   accept / reject in every CTA, in one fixed order on identical data,
+//   so no reduction crosses CTAs.  CTA 0 writes the outputs and records.
+// * A layer's input x[b, :] and its mu = sigmoid(g x) sit in every CTA.
+//   A layer is two phases and one cluster barrier.  (A): a CTA's threads
+//   form its edges' terms fb = ps tanh(k (x + ec beta)) + bias, K threads
+//   an edge, while its last threads form the rest of the inputs' prep
+//   (SiLU and the spline window; SiLU' and the slopes in the VJP) and
+//   each edge's first part, s bw + bas_c sw_c for c = 0..7.  (B): a row
+//   (b, o) is W warps with the lanes over the inputs; a lane finishes its
+//   edges (+ fb_k coef_k, k = 0..K-1) and adds them, the warps' sums meet
+//   in a shuffle tree and then warp order, and the owner warp pushes y[b,
+//   o] and its mu into every CTA (distributed shared memory).  That is
+//   the first form's order and fused multiply-adds, so the forward is its
+//   bits exactly.
+// * VJP: the layers' inputs again (L - 1 barriers), then the layers in
+//   reverse.  A row (b, i) of input i is a group of threads over the
+//   CTA's (o, k) terms; each term gives its share of xbar[b, i] and adds
+//   its gradients into the CTA's shared-memory accumulators (each entry
+//   one owner thread, over b in order and the replay in order: no
+//   atomics, the same bits on every run).  The CTAs' partial sums of
+//   xbar[b, i] meet in every CTA after one cluster barrier, added in rank
+//   order.
+// * Barriers: each buffer that another CTA writes is read only between
+//   two cluster barriers that every CTA passes, and its next write comes
+//   after a later one.  A one-layer stack would write the stage derivative
+//   while a slower CTA may still read it, so it takes one more barrier
+//   before each evaluation and VJP.  A cluster of one CTA takes
+//   __syncthreads for its barriers.
 //
 // What bounds it on this card: a [2, 64, 64, 2] evaluation at B = 1 is
 // 4,352 edges, about 35,000 ferro terms of a sigmoid and a tanhf, some
 // 0.03 us of the card's SFU rate; the solve takes 6 evaluations an
-// attempt and 50-100 attempts at rtol 1e-7.  It is bound by the latency
-// of one lane's edge (Cox-de Boor's divisions, K sigmoids and tanhfs in
-// sequence) and by its serial chain of grid barriers (one a layer
-// boundary, with the scaffold's), not by bytes or the card's FP32 or SFU
-// rate.
+// attempt and 50-100 attempts at rtol 1e-7.  It is bound by latency: per
+// layer a few dependent terms a thread, an edge's chain of K + 9 fused
+// multiply-adds, a shuffle tree and a cluster barrier, on a handful of
+// SMs.
 
+#include "kanfet_field.cuh"
 #include "node_common.cuh"
 
 namespace {
@@ -76,379 +100,695 @@ namespace {
 using namespace node_common;
 
 constexpr int kC = 8;           // basis columns: grid 5 + order 3
+constexpr int kOrd = 3;         // spline order
 constexpr int kNK = 12;         // knots a feature: grid 5 + 2 * order 3 + 1
 constexpr int kMaxLayers = 8;
 constexpr int kNW = 8;          // operands a layer
 constexpr int kNG = 7;          // gradients a layer: all operands but grid
+constexpr int kCTA = 512;       // threads a CTA (64 registers a thread
+                                // at 1,024 spilled; 256 and 384 no faster)
+static_assert(kCTA >= 256 && kCTA <= 1024 && (kCTA & (kCTA - 1)) == 0,
+              "the row groups and passes take a power-of-two CTA");
+constexpr int kMaxCluster = 16;
+constexpr int kRed = 32;        // group-sum scratch floats: a warp's sum each
+// Output times the kernels keep in static shared memory (the scaffold's
+// dense output and its cotangents read them every accepted step); more
+// stay in device memory.
+constexpr int kMaxTsShared = 128;
+// Dynamic shared memory a CTA may take: the card's 227 KB less 1 KB kept
+// for the static arrays (node_common.cuh's block_sum, the output times).
+constexpr size_t kMaxSmem = 227 * 1024 - 1024;
+// Input-prep slots (each B * I_l floats a layer): SiLU, mu = sigmoid(g
+// x), the window start (int bits) and the 4 window bases; the backward's
+// add SiLU' and the bases' slopes.
+constexpr int kPrepFwd = 3 + kOrd + 1;
+constexpr int kPrepBwd = kPrepFwd + 1 + kOrd + 1;
+constexpr int kSlotS = 0, kSlotMu = 1, kSlotJ0 = 2, kSlotB = 3;
+constexpr int kSlotDs = kPrepFwd, kSlotDb = kPrepFwd + 1;
 
-__device__ __forceinline__ float silu(float x) {
-  return x / (1.0f + expf(-x));
+struct Dims {
+  int L, B, C;
+  int I[kMaxLayers], O[kMaxLayers], K[kMaxLayers];
+};
+
+__host__ __device__ inline int out_lo(const Dims& d, int l, int c) {
+  return c * d.O[l] / d.C;
 }
 
-__device__ __forceinline__ float dsilu(float x) {
-  const float s = sigmoid(x);
-  return s * (1.0f + x * (1.0f - s));
+// Floats of a layer's parameter block (or gradient block) for n_e edges:
+// bw, sw (8 a edge), then k, ec, ps, bias, coef (K a edge).
+__host__ __device__ inline size_t edge_floats(size_t n_e, int K) {
+  return n_e * (1 + kC + 5 * (size_t)K);
 }
 
-// The 8 degree-3 basis columns of x on the knots g[0..11] and, with
-// kDeriv, their derivatives from the degree-2 columns.
-template <bool kDeriv>
-__device__ __forceinline__ void bspline(float x, const float* g,
-                                        float (&b3)[kC], float (&d3)[kC]) {
-  float gk[kNK];
-#pragma unroll
-  for (int j = 0; j < kNK; ++j) gk[j] = g[j];
-  float b[kNK - 1];
-#pragma unroll
-  for (int j = 0; j < kNK - 1; ++j)
-    b[j] = (x >= gk[j] && x < gk[j + 1]) ? 1.0f : 0.0f;
-#pragma unroll
-  for (int k = 1; k <= 3; ++k) {
-    if (kDeriv && k == 3) {
-#pragma unroll
-      for (int j = 0; j < kC; ++j)
-        d3[j] = 3.0f * (b[j] / (gk[j + 3] - gk[j]) -
-                        b[j + 1] / (gk[j + 4] - gk[j + 1]));
-    }
-#pragma unroll
-    for (int j = 0; j < kNK - 1 - k; ++j)
-      b[j] = ((x - gk[j]) / (gk[j + k] - gk[j])) * b[j] +
-             ((gk[j + k + 1] - x) / (gk[j + k + 1] - gk[j + 1])) * b[j + 1];
+// Float offsets of CTA `rank`'s dynamic shared memory.  The layout up to
+// knots is the same in every CTA; the parameter and gradient blocks
+// follow the CTA's own slices.  ops/kanfet_wide.py: smem_floats mirrors it
+// (the wrapper checks the two agree).
+struct Smem {
+  size_t state;              // 10 N: the scaffold's buffers
+  size_t xin[kMaxLayers];    // layer l >= 1's input (B, I_l)
+  size_t xbar[kMaxLayers];   // its cotangent (B, I_l), VJP only
+  size_t prep[kMaxLayers];   // layer l's input prep (slots, B, I_l)
+  size_t part;               // VJP: 2 buffers of (C, B, maxI)
+  size_t red;                // kRed
+  size_t knots[kMaxLayers];  // (I_l, 12)
+  size_t par[kMaxLayers];    // the CTA's edges' parameters
+  size_t grad[kMaxLayers];   // their gradients, VJP only
+  size_t fbuf;               // the forward's terms and spline partials
+  size_t total;
+  int maxI;
+};
+
+__host__ __device__ inline Smem smem_layout(const Dims& d, int rank,
+                                            bool bwd) {
+  Smem m{};
+  const size_t B = d.B, N = B * d.I[0];
+  int maxI = 0;
+  for (int l = 0; l < d.L; ++l) maxI = d.I[l] > maxI ? d.I[l] : maxI;
+  m.maxI = maxI;
+  size_t p = 0;
+  m.state = p;  p += 10 * N;
+  for (int l = 1; l < d.L; ++l) { m.xin[l] = p;  p += B * d.I[l]; }
+  if (bwd)
+    for (int l = 1; l < d.L; ++l) { m.xbar[l] = p;  p += B * d.I[l]; }
+  for (int l = 0; l < d.L; ++l) {
+    m.prep[l] = p;
+    p += (size_t)(bwd ? kPrepBwd : kPrepFwd) * B * d.I[l];
   }
-#pragma unroll
-  for (int j = 0; j < kC; ++j) b3[j] = b[j];
+  m.part = p;  if (bwd) p += 2 * (size_t)d.C * B * maxI;
+  m.red = p;  p += kRed;
+  for (int l = 0; l < d.L; ++l) { m.knots[l] = p;  p += (size_t)d.I[l] * kNK; }
+  size_t fb = 0;
+  for (int l = 0; l < d.L; ++l) {
+    const int n_o = out_lo(d, l, rank + 1) - out_lo(d, l, rank);
+    const size_t n_e = (size_t)n_o * d.I[l];
+    const size_t ef = edge_floats(n_e, d.K[l]);
+    m.par[l] = p;  p += ef;
+    if (bwd) { m.grad[l] = p;  p += ef; }
+    const size_t f = B * n_e * (d.K[l] + 1);
+    fb = f > fb ? f : fb;
+  }
+  m.fbuf = p;  p += fb;
+  m.total = p;
+  return m;
 }
 
-// Warps of one block that take a row of n terms: ceil(n / 32), rounded up
-// to a power of two, at most the block's kWarps.
+// The most floats any CTA of a C-CTA cluster takes.
+size_t smem_floats(Dims d, int C, bool bwd) {
+  d.C = C;
+  size_t most = 0;
+  for (int c = 0; c < C; ++c) {
+    const size_t t = smem_layout(d, c, bwd).total;
+    most = t > most ? t : most;
+  }
+  return most;
+}
+
+// A parameter (or gradient) block: base of the 7 arrays of one layer.
+struct Block {
+  float *bw, *sw, *k, *ec, *ps, *bias, *coef;
+};
+
+__device__ __forceinline__ Block block_at(float* p, size_t n_e, int K) {
+  Block b;
+  b.bw = p;
+  b.sw = p + n_e;
+  b.k = b.sw + n_e * kC;
+  b.ec = b.k + n_e * K;
+  b.ps = b.ec + n_e * K;
+  b.bias = b.ps + n_e * K;
+  b.coef = b.bias + n_e * K;
+  return b;
+}
+
+// Sum of v over the aligned group of G threads (G a power of two) that
+// holds this thread; the group's first thread gets the total.  A fixed
+// tree: shuffles within the warp, then the warps' sums in warp order.
+// Every thread of the CTA calls it.
+__device__ __forceinline__ float group_total(float v, int G, float* red) {
+  const int w = G < 32 ? G : 32;
+  for (int off = w >> 1; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (G <= 32) return v;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if ((threadIdx.x & (G - 1)) == 0)
+    for (int q = 1; q < G / 32; ++q) v += red[warp + q];
+  __syncthreads();
+  return v;
+}
+
+// n / d for 0 <= n, d < 2^22 by a float reciprocal rd = 1 / d of d: the
+// product is within one of the quotient, and one correction makes it
+// exact.  (The hardware's integer division is a long subroutine.)
+__device__ __forceinline__ int fdiv(int n, int d, float rd) {
+  int q = __float2int_rz(__int2float_rn(n) * rd);
+  const int r = n - q * d;
+  q += (r >= d) - (r < 0);
+  return q;
+}
+
+// The first form's warps a row of n inputs: ceil(n / 32), rounded up to a
+// power of two, at most 8 (its blocks' warps).
 __device__ __forceinline__ int warps_per_row(int n) {
   int w = 1;
-  while (w < kWarps && 32 * w < n) w <<= 1;
+  while (w < 8 && 32 * w < n) w <<= 1;
   return w;
 }
 
-struct Layer {
-  const float* bw;     // (O, I)
-  const float* sw;     // (O, I, C) scaled spline weight
-  const float* grid;   // (I, 12)
-  const float* fk;     // (I, O, K) ferro arrays
-  const float* fec;
-  const float* fps;
-  const float* fbias;
-  const float* fcoef;
-  float* g[kNG];       // gradients, VJP only: bw, sw, k, ec, ps, bias, coef
-  float* x;            // (B, I) scratch: this layer's input (layers >= 1)
-  float* xbar;         // (B, I) scratch: its cotangent (layers >= 1)
-  int I, O, K;
-};
+// The largest power of two G <= the row's terms (rounded up) with G rows
+// threads at most the CTA's.
+__device__ __forceinline__ int group_size(int terms, int rows) {
+  int G = 1;
+  while (G < terms && 2 * G <= kCTA && 2 * G * rows <= kCTA) G <<= 1;
+  return G;
+}
 
-// What one input value gives every edge leaving it.
-struct InputTerms {
-  float x, s, omu;     // the value, silu(x), 1 - sigmoid(g x)
-  float bas[kC];
-};
+// The CTA's dynamic shared memory.  Every pointer into it is formed from
+// this symbol inside the function that uses it, so the compiler knows the
+// address space: shared loads and stores, and no generic store that could
+// alias (and force reloads of) the field's own scalars.
+extern __shared__ float4 wide_smem[];
 
-struct WideField {
-  Layer layer[kMaxLayers];
-  int n_layers, B;
+__device__ __forceinline__ float* smem_base() {
+  return reinterpret_cast<float*>(wide_smem);
+}
+
+struct ClusterField {
+  Dims d;
+  Smem m;
+  int rank;
+  int lo[kMaxLayers], no[kMaxLayers];  // this CTA's outputs of each layer
   float gate, alpha, oma;  // oma = 1 - alpha, rounded from double
 
-  __device__ InputTerms input_terms(const Layer& L, float xv, int i) const {
-    InputTerms p;
-    p.x = xv;
-    p.s = silu(xv);
-    p.omu = 1.0f - sigmoid(gate * xv);
-    float unused[kC];
-    bspline<false>(xv, L.grid + i * kNK, p.bas, unused);
-    return p;
+  __device__ int n_out(int l) const { return no[l]; }
+  __device__ Block par(int l) const {
+    return block_at(smem_base() + m.par[l], (size_t)n_out(l) * d.I[l],
+                    d.K[l]);
+  }
+  __device__ Block grad(int l) const {
+    return block_at(smem_base() + m.grad[l], (size_t)n_out(l) * d.I[l],
+                    d.K[l]);
+  }
+  // A layer barrier: the cluster's, or the CTA's when it is alone.
+  __device__ void layer_sync() const {
+    if (d.C == 1) __syncthreads();
+    else cg::this_cluster().sync();
+  }
+  // Where CTA q keeps the float this CTA keeps at p.
+  __device__ float* in_cta(float* p, int q) const {
+    return d.C == 1 ? p : cg::this_cluster().map_shared_rank(p, q);
   }
 
-  // Edge (i, o)'s term of y[b, o] at the input terms p of x[b, i].
-  __device__ float edge(const Layer& L, const InputTerms& p, int i,
-                        int o) const {
-    float acc = p.s * L.bw[o * L.I + i];
-    const float* sw = L.sw + ((size_t)o * L.I + i) * kC;
+  // The prep of input r (of n) of layer l at its value v, but for mu: SiLU,
+  // the window start and bases (the first form's bits) and, with kBwd,
+  // SiLU' and the bases' slopes.
+  template <bool kBwd>
+  __device__ __forceinline__ void prep_rest(int l, int r, int n,
+                                            float v) const {
+    float* const pp = smem_base() + m.prep[l];
+    const int I = d.I[l];
+    const float* const g =
+        smem_base() + m.knots[l] + (r - fdiv(r, I, 1.0f / (float)I) * I) * kNK;
+    float b[kOrd + 1], db[kOrd + 1];
+    const int j0 = kanfet::bspline_window<false, kBwd>(v, g, kOrd, kNK, b, db);
+    pp[kSlotS * n + r] = kanfet::silu(v);
+    pp[kSlotJ0 * n + r] = __int_as_float(j0);
 #pragma unroll
-    for (int c = 0; c < kC; ++c) acc += p.bas[c] * sw[c];
-    const size_t e0 = ((size_t)i * L.O + o) * L.K;
-    for (int k = 0; k < L.K; ++k) {
-      const size_t e = e0 + k;
-      const float ec = L.fec[e];
-      const float cn = sigmoid(gate * (-p.x - ec));
-      const float beta = alpha + oma * (1.0f - 2.0f * p.omu * cn);
-      acc += (L.fps[e] * tanhf(L.fk[e] * (p.x + ec * beta)) + L.fbias[e]) *
-             L.fcoef[e];
+    for (int t = 0; t <= kOrd; ++t) pp[(kSlotB + t) * n + r] = b[t];
+    if constexpr (kBwd) {
+      pp[kSlotDs * n + r] = kanfet::silu_d(v);
+#pragma unroll
+      for (int t = 0; t <= kOrd; ++t) pp[(kSlotDb + t) * n + r] = db[t];
     }
-    return acc;
   }
 
-  // One layer's output y (B, O) from its input x (B, I).
-  __device__ void layer_fwd(const Layer& L, const float* x, float* y) const {
-    __shared__ float red[kWarps];
-    const int W = warps_per_row(L.I), per_block = kWarps / W;
-    const int warp = threadIdx.x >> 5, lane = lane_id();
-    const int sub = warp % W, slot = warp / W;
-    const int n_rows = B * L.O;
-    for (int r0 = blockIdx.x * per_block; r0 < n_rows;
-         r0 += gridDim.x * per_block) {
-      const int r = r0 + slot;
+  // Layer l's whole prep in this CTA from its input x (B, I): layer 0's,
+  // and the backward's last layer's; the other layers' mu comes with their
+  // inputs from the rows' owners and the rest is formed in their term
+  // phase.
+  template <bool kBwd>
+  __device__ void prep_phase(int l, const float* x, bool with_mu) const {
+    float* const pp = smem_base() + m.prep[l];
+    const int n = d.B * d.I[l];
+    for (int r = threadIdx.x; r < n; r += kCTA) {
+      const float v = x[r];
+      if (with_mu) pp[kSlotMu * n + r] = kanfet::sigmoid(gate * v);
+      prep_rest<kBwd>(l, r, n, v);
+    }
+    __syncthreads();
+  }
+
+  // Layer l's outputs of this CTA from its input x (B, I), pushed into
+  // dst (B, O) of every CTA with (unless l is the last layer) their mu as
+  // layer l + 1's; ends with the layer barrier.  Layer l's mu is in its
+  // prep; for l >= 1 the term phase also forms the rest of it (kBwd: the
+  // backward's), which the rows read.  The values are the first (cooperative-grid) form's bits: its
+  // edge (i, o) of row (b, o) was s bw, then + bas_c sw_c for c = 0..7,
+  // then + fb_k coef_k for k = 0..K-1 (each a fused multiply-add), fb = ps
+  // tanh(k (x + ec beta)) + bias; the edges of a row were added by a group
+  // of W = warps_per_row(I) warps with the lanes over the inputs, in a
+  // shuffle tree and then warp order.  Here every thread forms terms fb
+  // (A), then each row's lanes form their edges from them and add them in
+  // that order (B).
+  template <bool kBwd>
+  __device__ void layer_fwd(int l, const float* x, float* dst) const {
+    float* const sm = smem_base();
+    const int I = d.I[l], O = d.O[l], K = d.K[l], B = d.B, C = d.C;
+    const int lo = this->lo[l], n_o = no[l];
+    const float g_ = gate, alpha_ = alpha, oma_ = oma;
+    const bool last = l == d.L - 1;
+    const Block P = par(l);
+    const int nx = B * I;                      // the prep slots' stride
+    const float* const pp = sm + m.prep[l];
+    const int n_e = n_o * I, n_er = B * n_e;
+    float* const fb = sm + m.fbuf;             // (B, n_e, K) terms
+    float* const sp = fb + (size_t)n_er * K;   // (B, n_e) spline partials
+    const int t = threadIdx.x;
+    // (A) on the CTA's last np threads (one an input, or one per 8 edges,
+    // at most a quarter): the rest of the inputs' prep (l >= 1), then,
+    // after a barrier of those threads alone, the first part of each
+    // edge's sum, s bw + bas_c sw_c for c = 0..7; on the others the terms,
+    // K threads an edge.
+    const int np = min((max(nx, n_er / 8) + 31) & ~31, kCTA / 4);
+    const int nt = kCTA - np;
+    if (t >= nt) {
+      if (l > 0) {
+        for (int r = kCTA - 1 - t; r < nx; r += np)
+          prep_rest<kBwd>(l, r, nx, x[r]);
+        asm volatile("bar.sync 1, %0;" ::"r"(np) : "memory");
+      }
+      const float rI = 1.0f / (float)I;
+      for (int q = kCTA - 1 - t; q < n_er; q += np) {   // q = (b, o, i)
+        const int b = fdiv(q, n_e, 1.0f / (float)n_e), e = q - b * n_e;
+        const int i = e - fdiv(e, I, rI) * I, r = b * I + i;
+        const int j0 = __float_as_int(pp[kSlotJ0 * nx + r]);
+        float bw4[kOrd + 1];
+#pragma unroll
+        for (int u = 0; u <= kOrd; ++u) bw4[u] = pp[(kSlotB + u) * nx + r];
+        float ae = pp[kSlotS * nx + r] * P.bw[e];
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const int tt = c - j0;
+          float bas = 0.0f;
+#pragma unroll
+          for (int u = 0; u <= kOrd; ++u) bas = tt == u ? bw4[u] : bas;
+          ae += bas * P.sw[(size_t)e * kC + c];
+        }
+        sp[q] = ae;
+      }
+    }
+    if (K <= nt) {
+      const float rK = 1.0f / (float)K;
+      const int step = fdiv(nt, K, rK), tk = fdiv(t, K, rK), k = t - tk * K;
+      const float rn_e = 1.0f / (float)n_e, rI = 1.0f / (float)I;
+      if (t < step * K)
+#pragma unroll 4
+        for (int er = tk; er < n_er; er += step) {
+          const int b = fdiv(er, n_e, rn_e), e = er - b * n_e;
+          const int i = e - fdiv(e, I, rI) * I;
+          const int pr = b * I + i;
+          const size_t q = (size_t)e * K + k;
+          const float xv = x[pr], omu = 1.0f - pp[kSlotMu * nx + pr];
+          const float ec = P.ec[q];
+          // kanfet_field.cuh's sigmoid: the IEEE quotient's bits wherever
+          // it is not denormal, and a denormal cn or mu moves no bit of
+          // beta (1 - 2 omu cn rounds to 1 there), so these are the first
+          // form's bits without the quotient's slow-path branch.
+          const float cn = kanfet::sigmoid(g_ * (-xv - ec));
+          const float beta = alpha_ + oma_ * (1.0f - 2.0f * omu * cn);
+          fb[(size_t)er * K + k] =
+              P.ps[q] * tanhf(P.k[q] * (xv + ec * beta)) + P.bias[q];
+        }
+    }
+    __syncthreads();
+    // (B) the rows (b, o): W warps a row, each lane its inputs' edges.
+    const int W = warps_per_row(I), lw = __ffs(W) - 1;
+    const int per = (kCTA / 32) >> lw;
+    const int warp = t >> 5, lane = t & 31, sub = warp & (W - 1);
+    const int rs = warp >> lw;
+    const float rn_o = 1.0f / (float)max(n_o, 1);
+    float* const red = sm + m.red;
+    const int n_rows = B * n_o, In = last ? 0 : d.I[l + 1];
+    float* const mun = last ? nullptr : sm + m.prep[l + 1] + kSlotMu * B * In;
+    for (int r0 = 0; r0 < n_rows; r0 += per) {
+      const int r = r0 + rs;
       float acc = 0.0f;
       if (r < n_rows) {
-        const int b = r / L.O, o = r - b * L.O;
-        for (int i = sub * 32 + lane; i < L.I; i += 32 * W)
-          acc += edge(L, input_terms(L, ld(x + b * L.I + i), i), i, o);
+        const int b = fdiv(r, n_o, rn_o), ol = r - b * n_o;
+        for (int i = sub * 32 + lane; i < I; i += 32 * W) {
+          const int e = ol * I + i;
+          float ae = sp[b * n_e + e];
+          const float* const fr = fb + ((size_t)b * n_e + e) * K;
+          const float* const cf = P.coef + (size_t)e * K;
+#pragma unroll 8
+          for (int k = 0; k < K; ++k) ae += fr[k] * cf[k];
+          acc += ae;
+        }
       }
       acc = warp_sum(acc);
-      if (lane == 0) red[warp] = acc;
-      __syncthreads();
-      if (sub == 0 && lane == 0 && r < n_rows) {
-        float s = red[slot * W];
-        for (int q = 1; q < W; ++q) s += red[slot * W + q];
-        y[r] = s;
+      if (W > 1) {
+        if (lane == 0) red[warp] = acc;
+        __syncthreads();
+        acc = red[rs * W];
+        for (int q = 1; q < W; ++q) acc += red[rs * W + q];
       }
-      __syncthreads();
+      // The owner warp: every lane holds the row's value; lane q pushes it,
+      // and its mu as layer l + 1's input, into CTA q.
+      if (sub == 0 && r < n_rows) {
+        const int b = fdiv(r, n_o, rn_o), o = lo + r - b * n_o;
+        const int idx = b * O + o;
+        const float mu = last ? 0.0f : kanfet::sigmoid(g_ * acc);
+        if (lane < C) {
+          in_cta(dst, lane)[idx] = acc;
+          if (!last) in_cta(mun, lane)[idx] = mu;
+        }
+      }
+      if (W > 1) __syncthreads();
     }
+    layer_sync();
   }
 
-  // One layer's VJP: the cotangent g (B, O) of its output at its input x
-  // (B, I) -> xbar (B, I); the layer's gradients accumulated.
-  __device__ void layer_vjp(const Layer& L, const float* x, const float* g,
-                            float* xbar) const {
-    const float c2 = 2.0f * gate * oma;
-    // Rows (b, i): the input cotangents.
-    {
-      __shared__ float red[kWarps];
-      const int W = warps_per_row(L.O), per_block = kWarps / W;
-      const int warp = threadIdx.x >> 5, lane = lane_id();
-      const int sub = warp % W, slot = warp / W;
-      const int n_rows = B * L.I;
-      for (int r0 = blockIdx.x * per_block; r0 < n_rows;
-           r0 += gridDim.x * per_block) {
-        const int r = r0 + slot;
+  // Layer l's VJP at its input x (B, I), its prep (the backward's) and
+  // output cotangent gy (B, O): this CTA's gradients accumulated, xbar (B,
+  // I) into dst of this CTA (every CTA forms the same bits); part is one of
+  // the two partial buffers (C, B, I).
+  __device__ void layer_vjp(int l, const float* x, const float* gy,
+                            float* dst, float* part) const {
+    float* const sm = smem_base();
+    const int I = d.I[l], O = d.O[l], K = d.K[l], B = d.B, C = d.C;
+    const int lo = this->lo[l], n_o = no[l];
+    const int rk = rank;
+    const float g_ = gate, alpha_ = alpha, oma_ = oma;
+    const float c2 = 2.0f * g_ * oma_;
+    const Block P = par(l), Gr = grad(l);
+    const int nx = B * I;
+    const float* const pp = sm + m.prep[l];
+    const int NK = n_o * K;
+    const int G = group_size(NK, I), lg = __ffs(G) - 1, RP = kCTA >> lg;
+    const int g = threadIdx.x & (G - 1);
+    const float rK = 1.0f / (float)K;
+    float* const red = sm + m.red;
+    for (int r0 = 0; r0 < I; r0 += RP) {
+      const int i = r0 + ((int)threadIdx.x >> lg);
+      for (int b = 0; b < B; ++b) {
         float acc = 0.0f;
-        if (r < n_rows) {
-          const int b = r / L.I, i = r - b * L.I;
-          const float xv = ld(x + r);
-          const float ds = dsilu(xv), mu = sigmoid(gate * xv);
-          float bas[kC], d3[kC];
-          bspline<true>(xv, L.grid + i * kNK, bas, d3);
-          for (int o = sub * 32 + lane; o < L.O; o += 32 * W) {
-            const float gv = ld(g + b * L.O + o);
-            float v = ds * L.bw[o * L.I + i];
-            const float* sw = L.sw + ((size_t)o * L.I + i) * kC;
-#pragma unroll
-            for (int c = 0; c < kC; ++c) v += d3[c] * sw[c];
-            const size_t e0 = ((size_t)i * L.O + o) * L.K;
-            for (int k = 0; k < L.K; ++k) {
-              const size_t e = e0 + k;
-              const float ec = L.fec[e], kk = L.fk[e];
-              const float cn = sigmoid(gate * (-xv - ec));
-              const float beta =
-                  alpha + oma * (1.0f - 2.0f * (1.0f - mu) * cn);
-              const float th = tanhf(kk * (xv + ec * beta));
-              const float dbdx = c2 * (1.0f - mu) * cn * (mu + 1.0f - cn);
-              v += L.fcoef[e] * L.fps[e] * kk * (1.0f - th * th) *
-                   (1.0f + ec * dbdx);
+        if (i < I) {
+          const int pr = b * I + i;
+          const float xv = x[pr], mu = pp[kSlotMu * nx + pr];
+          const float omu = 1.0f - mu;
+          const int j0 = __float_as_int(pp[kSlotJ0 * nx + pr]);
+          for (int jj = g; jj < NK; jj += G) {
+            const int ol = fdiv(jj, K, rK), k = jj - ol * K;
+            const int e = ol * I + i;
+            const size_t q = (size_t)e * K + k;
+            const float gv = gy[b * O + lo + ol];
+            const float ec = P.ec[q], kk = P.k[q], ps = P.ps[q];
+            const float cf = P.coef[q];
+            const float cn = kanfet::sigmoid(g_ * (-xv - ec));
+            const float beta = alpha_ + oma_ * (1.0f - 2.0f * omu * cn);
+            const float z = xv + ec * beta;
+            const float th = tanhf(kk * z);
+            const float sech2 = 1.0f - th * th;
+            const float dbdx = c2 * omu * cn * (mu + 1.0f - cn);
+            float v = cf * ps * kk * sech2 * (1.0f + ec * dbdx);
+            const float fb = gv * cf;             // the term's cotangent
+            const float common = fb * ps * sech2;
+            Gr.coef[q] += gv * (ps * th + P.bias[q]);
+            Gr.ps[q] += fb * th;
+            Gr.bias[q] += fb;
+            Gr.k[q] += common * z;
+            Gr.ec[q] += common * kk * (beta + ec * c2 * omu * cn * (1.0f - cn));
+            if (k == 0) {
+              v += pp[kSlotDs * nx + pr] * P.bw[e];
+              Gr.bw[e] += gv * pp[kSlotS * nx + pr];
+            }
+            for (int c = k; c < kC; c += K) {
+              const int tt = c - j0;
+              if (tt >= 0 && tt <= kOrd) {
+                const size_t sc = (size_t)e * kC + c;
+                v += pp[(kSlotDb + tt) * nx + pr] * P.sw[sc];
+                Gr.sw[sc] += gv * pp[(kSlotB + tt) * nx + pr];
+              }
             }
             acc += gv * v;
           }
         }
-        acc = warp_sum(acc);
-        if (lane == 0) red[warp] = acc;
-        __syncthreads();
-        if (sub == 0 && lane == 0 && r < n_rows) {
-          float s = red[slot * W];
-          for (int q = 1; q < W; ++q) s += red[slot * W + q];
-          xbar[r] = s;
-        }
-        __syncthreads();
+        acc = group_total(acc, G, red);
+        if (g == 0 && i < I)
+          for (int q = 0; q < C; ++q)
+            in_cta(part, q)[(rk * B + b) * I + i] = acc;
       }
     }
-    // Edges (o, i): the gradients, summed over b in order (each term added
-    // to the owner's gradient entry as b advances).  Items run from the
-    // grid's last thread down, away from the blocks that took rows.
-    const int nth = grid_threads();
-    float *gbw = L.g[0], *gsw = L.g[1], *gk = L.g[2], *gec = L.g[3];
-    float *gps = L.g[4], *gbias = L.g[5], *gcoef = L.g[6];
-    for (int q = nth - 1 - grid_tid(); q < L.O * L.I; q += nth) {
-      const int o = q / L.I, i = q - o * L.I;
-      const size_t e0 = ((size_t)i * L.O + o) * L.K;
-      float* gs = gsw + (size_t)q * kC;
-      for (int b = 0; b < B; ++b) {
-        const float xv = ld(x + b * L.I + i), gv = ld(g + b * L.O + o);
-        const float omu = 1.0f - sigmoid(gate * xv);
-        float bas[kC], unused[kC];
-        bspline<false>(xv, L.grid + i * kNK, bas, unused);
-        gbw[q] = ld(gbw + q) + gv * silu(xv);
-#pragma unroll
-        for (int c = 0; c < kC; ++c) gs[c] = ld(gs + c) + gv * bas[c];
-        for (int k = 0; k < L.K; ++k) {
-          const size_t e = e0 + k;
-          const float ec = L.fec[e], kk = L.fk[e], ps = L.fps[e];
-          const float cn = sigmoid(gate * (-xv - ec));
-          const float beta = alpha + oma * (1.0f - 2.0f * omu * cn);
-          const float z = xv + ec * beta;
-          const float th = tanhf(kk * z);
-          const float fb = gv * L.fcoef[e];       // the term's cotangent
-          const float common = fb * ps * (1.0f - th * th);
-          gcoef[e] = ld(gcoef + e) + gv * (ps * th + L.fbias[e]);
-          gps[e] = ld(gps + e) + fb * th;
-          gbias[e] = ld(gbias + e) + fb;
-          gk[e] = ld(gk + e) + common * z;
-          gec[e] = ld(gec + e) +
-                   common * kk * (beta + ec * c2 * omu * cn * (1.0f - cn));
-        }
-      }
+    layer_sync();
+    for (int r = threadIdx.x; r < B * I; r += kCTA) {
+      float v = part[r];
+      for (int q = 1; q < C; ++q) v += part[(size_t)q * B * I + r];
+      dst[r] = v;
     }
+    __syncthreads();
   }
 
-  __device__ void eval(const float* u, float t, float* out) const {
-    for (int l = 0; l < n_layers; ++l) {
-      const bool last = l == n_layers - 1;
-      layer_fwd(layer[l], l == 0 ? u : layer[l].x,
-                last ? out : layer[l + 1].x);
-      if (!last) cg::this_grid().sync();
-    }
+  __device__ const float* input(int l, const float* u) const {
+    return l == 0 ? u : smem_base() + m.xin[l];
   }
 
-  __device__ void vjp(const float* u, float t, const float* w,
+  __device__ void eval(const float* u, float, float* out) const {
+    if (d.L == 1) layer_sync();
+    prep_phase<false>(0, u, true);
+    for (int l = 0; l < d.L; ++l)
+      layer_fwd<false>(l, input(l, u),
+                       l == d.L - 1 ? out : smem_base() + m.xin[l + 1]);
+  }
+
+  __device__ void vjp(const float* u, float, const float* w,
                       float* ubar) const {
-    cg::grid_group grid = cg::this_grid();
-    for (int l = 0; l + 1 < n_layers; ++l) {
-      layer_fwd(layer[l], l == 0 ? u : layer[l].x, layer[l + 1].x);
-      grid.sync();
-    }
-    for (int l = n_layers - 1; l >= 0; --l) {
-      layer_vjp(layer[l], l == 0 ? u : layer[l].x,
-                l == n_layers - 1 ? w : layer[l + 1].xbar,
-                l == 0 ? ubar : layer[l].xbar);
-      if (l > 0) grid.sync();
-    }
+    float* const sm = smem_base();
+    if (d.L == 1) layer_sync();
+    prep_phase<true>(0, u, true);
+    for (int l = 0; l + 1 < d.L; ++l)
+      layer_fwd<true>(l, input(l, u), sm + m.xin[l + 1]);
+    if (d.L > 1) prep_phase<true>(d.L - 1, input(d.L - 1, u), false);
+    const size_t half = (size_t)d.C * d.B * m.maxI;
+    for (int l = d.L - 1; l >= 0; --l)
+      layer_vjp(l, input(l, u), l == d.L - 1 ? w : sm + m.xbar[l + 1],
+                l == 0 ? ubar : sm + m.xbar[l], sm + m.part + (l & 1) * half);
   }
 };
 
+struct Operands {
+  const float* w[kMaxLayers * kNW];  // per layer bw, sw, grid, k, ec, ps,
+                                     // bias, coef, global
+  float* g[kMaxLayers * kNG];        // backward: their gradients, global
+  float gate, alpha, oma;
+};
+
+// Copy (kLoad) the CTA's slices of the operands into its shared memory,
+// or (!kLoad) its gradient blocks out to the gradient tensors.
+template <bool kLoad>
+__device__ void transfer(const ClusterField& f, const Operands& ops) {
+  const Dims& d = f.d;
+  for (int l = 0; l < d.L; ++l) {
+    const int I = d.I[l], O = d.O[l], K = d.K[l];
+    const int lo = out_lo(d, l, f.rank), n_o = out_lo(d, l, f.rank + 1) - lo;
+    const size_t n_e = (size_t)n_o * I;
+    const Block P = kLoad ? f.par(l) : f.grad(l);
+    const float* const* w = ops.w + kNW * l;
+    float* const* g = ops.g + kNG * l;
+    // bw (O, I) and sw (O, I, 8): the slice's rows are contiguous.
+    for (size_t q = threadIdx.x; q < n_e; q += kCTA) {
+      if (kLoad) P.bw[q] = w[0][(size_t)lo * I + q];
+      else g[0][(size_t)lo * I + q] = P.bw[q];
+    }
+    for (size_t q = threadIdx.x; q < n_e * kC; q += kCTA) {
+      if (kLoad) P.sw[q] = w[1][(size_t)lo * I * kC + q];
+      else g[1][(size_t)lo * I * kC + q] = P.sw[q];
+    }
+    if (kLoad)
+      for (int q = threadIdx.x; q < I * kNK; q += kCTA)
+        smem_base()[f.m.knots[l] + q] = w[2][q];
+    // The ferro arrays: global (I, O, K), shared (o - lo, I, K).
+    float* const loc[5] = {P.k, P.ec, P.ps, P.bias, P.coef};
+    for (int a = 0; a < 5; ++a)
+      for (size_t q = threadIdx.x; q < n_e * K; q += kCTA) {
+        const size_t e = q / K;
+        const int k = (int)(q - e * K);
+        const int ol = (int)(e / I), i = (int)(e - (size_t)ol * I);
+        const size_t gq = ((size_t)i * O + lo + ol) * K + k;
+        if (kLoad) loc[a][q] = w[3 + a][gq];
+        else g[2 + a][gq] = loc[a][q];
+      }
+  }
+}
+
+__device__ ClusterField make_field(const Dims& d, const Operands& ops,
+                                   bool bwd) {
+  ClusterField f;
+  f.d = d;
+  f.rank = (int)cg::this_cluster().block_rank();
+  f.m = smem_layout(d, f.rank, bwd);
+  for (int l = 0; l < d.L; ++l) {
+    f.lo[l] = out_lo(d, l, f.rank);
+    f.no[l] = out_lo(d, l, f.rank + 1) - f.lo[l];
+  }
+  f.gate = ops.gate;
+  f.alpha = ops.alpha;
+  f.oma = ops.oma;
+  return f;
+}
+
 struct FwdArgs {
-  WideField f;
+  Dims d;
+  Operands ops;
   SolveBufs s;
 };
 
 struct BwdArgs {
-  WideField f;
+  Dims d;
+  Operands ops;
   ReplayBufs r;
 };
 
 template <bool kRecord>
-__global__ void __launch_bounds__(kThreads) kanfet_wide_fwd_kernel(FwdArgs a) {
-  adaptive_solve_traj<kRecord>(a.f, a.s);
-}
-
-// Element counts of a layer's gradients, in the order of Layer::g.
-__host__ __device__ inline void grad_sizes(const Layer& L, size_t (&n)[kNG]) {
-  const size_t e = (size_t)L.I * L.O;
-  n[0] = e;
-  n[1] = e * kC;
-  for (int j = 2; j < kNG; ++j) n[j] = e * L.K;
-}
-
-__global__ void __launch_bounds__(kThreads) kanfet_wide_bwd_kernel(BwdArgs a) {
-  const int tid = grid_tid(), nth = grid_threads();
-  for (int l = 0; l < a.f.n_layers; ++l) {
-    size_t n[kNG];
-    grad_sizes(a.f.layer[l], n);
-    for (int j = 0; j < kNG; ++j)
-      for (size_t i = tid; i < n[j]; i += nth) a.f.layer[l].g[j][i] = 0.0f;
+__global__ void __launch_bounds__(kCTA, 1) kanfet_wide_fwd_kernel(FwdArgs a) {
+  float* const sm = smem_base();
+  const ClusterField f = make_field(a.d, a.ops, false);
+  transfer<true>(f, a.ops);
+  SolveBufs s = a.s;
+  __shared__ float ts_s[kMaxTsShared];
+  if (s.T <= kMaxTsShared) {
+    for (int q = threadIdx.x; q < s.T; q += kCTA) ts_s[q] = s.ts[q];
+    s.ts = ts_s;
   }
-  cg::this_grid().sync();
-  adjoint_replay_traj(a.f, a.r);
+  s.y = sm + f.m.state;
+  s.ks = s.y + s.N;
+  s.u = s.ks + 7 * s.N;
+  // every CTA has started, its slices in place, before any remote store
+  cg::this_cluster().sync();
+  adaptive_solve_traj<kRecord, ClusterSync>(f, s);
 }
 
-// dims holds (I, O, K) a layer; returns false unless the layers chain
-// D -> ... -> D and fit the field.
-bool check_dims(const int* dims, int n_layers) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return false;
+__global__ void __launch_bounds__(kCTA, 1) kanfet_wide_bwd_kernel(BwdArgs a) {
+  float* const sm = smem_base();
+  const ClusterField f = make_field(a.d, a.ops, true);
+  transfer<true>(f, a.ops);
+  for (int l = 0; l < a.d.L; ++l) {
+    const int n_o = out_lo(a.d, l, f.rank + 1) - out_lo(a.d, l, f.rank);
+    const size_t n = edge_floats((size_t)n_o * a.d.I[l], a.d.K[l]);
+    float* gp = sm + f.m.grad[l];
+    for (size_t q = threadIdx.x; q < n; q += kCTA) gp[q] = 0.0f;
+  }
+  ReplayBufs r = a.r;
+  __shared__ float ts_s[kMaxTsShared];
+  if (r.T <= kMaxTsShared) {
+    for (int q = threadIdx.x; q < r.T; q += kCTA) ts_s[q] = r.ts[q];
+    r.ts = ts_s;
+  }
+  r.lam = sm + f.m.state;
+  r.kbar = r.lam + r.N;
+  r.u = r.kbar + 7 * r.N;
+  r.ub = r.u + r.N;
+  cg::this_cluster().sync();
+  adjoint_replay_traj<ClusterSync>(f, r);
+  __syncthreads();
+  transfer<false>(f, a.ops);
+}
+
+// dims holds (I, O, K) a layer; false unless the layers chain D -> ... ->
+// D and fit the field, and 1 <= B, 1 <= C <= kMaxCluster.
+bool make_dims(const int* dims, int n_layers, int B, int C, Dims* d) {
+  if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || C < 1 ||
+      C > kMaxCluster)
+    return false;
+  d->L = n_layers;
+  d->B = B;
+  d->C = C;
   for (int l = 0; l < n_layers; ++l) {
-    const int* d = dims + 3 * l;
-    if (d[0] < 1 || d[1] < 1 || d[2] < 1) return false;
-    if (l > 0 && d[0] != dims[3 * (l - 1) + 1]) return false;
+    const int* t = dims + 3 * l;
+    if (t[0] < 1 || t[1] < 1 || t[2] < 1) return false;
+    if (l > 0 && t[0] != dims[3 * (l - 1) + 1]) return false;
+    d->I[l] = t[0];
+    d->O[l] = t[1];
+    d->K[l] = t[2];
   }
   return dims[3 * (n_layers - 1) + 1] == dims[0];
 }
 
-// Scratch layout in `work` (floats): the scaffold's 10 N (fwd y, ks, u;
-// bwd lam, kbar, u, ub), per layer l >= 1 its input and the input's
-// cotangent (2 B I_l), then part.
-size_t field_floats(int B, const int* dims, int n_layers) {
-  size_t n = 0;
-  for (int l = 1; l < n_layers; ++l) n += 2 * (size_t)B * dims[3 * l];
-  return n;
+Operands make_operands(const float* const* w, float* const* g, int n_layers,
+                       float gate, float alpha, float oma) {
+  Operands ops{};
+  for (int j = 0; j < kNW * n_layers; ++j) ops.w[j] = w[j];
+  if (g != nullptr)
+    for (int j = 0; j < kNG * n_layers; ++j) ops.g[j] = g[j];
+  ops.gate = gate;
+  ops.alpha = alpha;
+  ops.oma = oma;
+  return ops;
 }
 
-size_t work_floats(int B, const int* dims, int n_layers) {
-  return 10 * (size_t)B * dims[0] + field_floats(B, dims, n_layers) +
-         kPartFloats;
-}
-
-WideField make_field(const float* const* w, const int* dims, int n_layers,
-                     float* work, int B, float gate, float alpha, float oma) {
-  WideField f{};
-  f.n_layers = n_layers;
-  f.B = B;
-  f.gate = gate;
-  f.alpha = alpha;
-  f.oma = oma;
-  float* p = work + 10 * (size_t)B * dims[0];
-  for (int l = 0; l < n_layers; ++l) {
-    Layer& L = f.layer[l];
-    const float* const* lw = w + kNW * l;
-    L.bw = lw[0];
-    L.sw = lw[1];
-    L.grid = lw[2];
-    L.fk = lw[3];
-    L.fec = lw[4];
-    L.fps = lw[5];
-    L.fbias = lw[6];
-    L.fcoef = lw[7];
-    L.I = dims[3 * l];
-    L.O = dims[3 * l + 1];
-    L.K = dims[3 * l + 2];
-    if (l > 0) {
-      L.x = p;
-      L.xbar = p + (size_t)B * L.I;
-      p += 2 * (size_t)B * L.I;
-    }
-  }
-  return f;
-}
-
-float* part_of(float* work, int B, const int* dims, int n_layers) {
-  return work + 10 * (size_t)B * dims[0] + field_floats(B, dims, n_layers);
+// Launches kernel(args) as one cluster of C CTAs with `floats` floats of
+// dynamic shared memory each; an error if the card cannot run it.
+template <class Args>
+int launch_cluster(void (*kernel)(Args), Args& args, int C, size_t floats,
+                   cudaStream_t stream) {
+  const size_t bytes = floats * sizeof(float);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kCTA, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (n < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" long long kanfet_wide_work_floats(int B, const int* dims,
-                                             int n_layers) {
-  if (!check_dims(dims, n_layers)) return -1;
-  return (long long)work_floats(B, dims, n_layers);
+// The most bytes of dynamic shared memory a CTA of a C-CTA cluster takes
+// for the forward (bwd = 0) or the backward (bwd = 1) at batch B; -1 if
+// the stack or C is not one the kernels take.
+extern "C" long long kanfet_wide_smem_bytes(int B, const int* dims,
+                                            int n_layers, int C, int bwd) {
+  Dims d;
+  if (!make_dims(dims, n_layers, B, C, &d)) return -1;
+  return (long long)(smem_floats(d, C, bwd != 0) * sizeof(float));
 }
 
 // x0 (B, D), ts (T) and per layer the 8 operands w (bw (O, I), sw (O, I,
 // 8), grid (I, 12), k, ec, ps, bias, coef (I, O, K)), dims (I, O, K) a
 // layer -> out (T, B, D) and, when record is nonzero, tda (M, 4), yrec
-// (M, B, D), krec (M, 7, B, D), misc (4).
+// (M, B, D), krec (M, 7, B, D), misc (4).  One cluster of C CTAs.
 extern "C" int kanfet_wide_fwd(const float* x0, const float* ts,
                                const float* const* w, const int* dims,
                                int n_layers, float* out, float* tda,
-                               float* yrec, float* krec, float* misc,
-                               float* work, int B, int T, int max_steps,
-                               float rtol, float atol, float gate,
-                               float alpha, float oma, int record,
-                               void* stream) {
-  if (!check_dims(dims, n_layers)) return (int)cudaErrorInvalidValue;
+                               float* yrec, float* krec, float* misc, int B,
+                               int T, int max_steps, float rtol, float atol,
+                               float gate, float alpha, float oma, int record,
+                               int C, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   FwdArgs a{};
-  a.f = make_field(w, dims, n_layers, work, B, gate, alpha, oma);
-  const size_t N = (size_t)B * dims[0];
+  if (!make_dims(dims, n_layers, B, C, &a.d)) return (int)cudaErrorInvalidValue;
+  a.ops = make_operands(w, nullptr, n_layers, gate, alpha, oma);
   a.s.h0 = x0;
   a.s.out = out;
   a.s.ts = ts;
@@ -456,37 +796,33 @@ extern "C" int kanfet_wide_fwd(const float* x0, const float* ts,
   a.s.yrec = yrec;
   a.s.krec = krec;
   a.s.misc = misc;
-  a.s.y = work;
-  a.s.ks = work + N;
-  a.s.u = work + 8 * N;
-  a.s.part = part_of(work, B, dims, n_layers);
-  a.s.N = (int)N;
+  a.s.part = nullptr;
+  a.s.N = B * dims[0];
   a.s.T = T;
   a.s.max_steps = max_steps;
   a.s.rtol = rtol;
   a.s.atol = atol;
+  const size_t floats = smem_floats(a.d, C, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return record ? launch_cooperative(kanfet_wide_fwd_kernel<true>, a, s)
-                : launch_cooperative(kanfet_wide_fwd_kernel<false>, a, s);
+  return record ? launch_cluster(kanfet_wide_fwd_kernel<true>, a, C, floats, s)
+                : launch_cluster(kanfet_wide_fwd_kernel<false>, a, C, floats,
+                                 s);
 }
 
 // ct (T, B, D), the trajectory's cotangent, the forward's records and the
 // operands -> per layer the 7 gradients g (of all operands but the grid,
-// shaped as they are) and x0bar (B, D).
+// shaped as they are) and x0bar (B, D).  One cluster of C CTAs.
 extern "C" int kanfet_wide_bwd(const float* ct, const float* ts,
                                const float* tda, const float* yrec,
                                const float* krec, const float* misc,
                                const float* const* w, float* const* g,
                                const int* dims, int n_layers, float* x0bar,
-                               float* work, int B, int T, float gate,
-                               float alpha, float oma, void* stream) {
-  if (!check_dims(dims, n_layers)) return (int)cudaErrorInvalidValue;
+                               int B, int T, float gate, float alpha,
+                               float oma, int C, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   BwdArgs a{};
-  a.f = make_field(w, dims, n_layers, work, B, gate, alpha, oma);
-  for (int l = 0; l < n_layers; ++l)
-    for (int j = 0; j < kNG; ++j) a.f.layer[l].g[j] = g[kNG * l + j];
-  const size_t N = (size_t)B * dims[0];
+  if (!make_dims(dims, n_layers, B, C, &a.d)) return (int)cudaErrorInvalidValue;
+  a.ops = make_operands(w, g, n_layers, gate, alpha, oma);
   a.r.hbar = ct;
   a.r.ts = ts;
   a.r.tda = tda;
@@ -494,12 +830,9 @@ extern "C" int kanfet_wide_bwd(const float* ct, const float* ts,
   a.r.krec = krec;
   a.r.misc = misc;
   a.r.h0bar = x0bar;
-  a.r.lam = work;
-  a.r.kbar = work + N;
-  a.r.u = work + 8 * N;
-  a.r.ub = work + 9 * N;
-  a.r.N = (int)N;
+  a.r.N = B * dims[0];
   a.r.T = T;
-  return launch_cooperative(kanfet_wide_bwd_kernel, a,
-                            static_cast<cudaStream_t>(stream));
+  return launch_cluster(kanfet_wide_bwd_kernel, a, C,
+                        smem_floats(a.d, C, true),
+                        static_cast<cudaStream_t>(stream));
 }

@@ -27,6 +27,17 @@
 // complete).  u, w, out and ubar are (B, D) row-major, N = B*D floats;
 // u and w are written by other blocks, so a field reads them with ld().
 //
+// That is the grid policy (GridSync), every field but B.3's.  The cluster
+// policy (ClusterSync, B.3's csrc/kanfet_wide.cu) runs the same solve in
+// each CTA of one thread-block cluster: every CTA keeps its own copy of
+// the state, stages and scratch in shared memory and runs every
+// elementwise pass and error norm over all N elements itself, in one
+// fixed order on identical data, so all CTAs hold the same t, dt and
+// accept decisions with no exchange.  Its barrier is the CTA's; the field
+// spreads its layers over the cluster with its own cluster barriers and
+// leaves out, ubar complete in every CTA.  CTA 0 alone writes the outputs
+// and records.
+//
 // Why a cooperative grid: the step control is batch-shared, so every
 // attempt's accept test needs one RMS over all B*D elements, and every
 // thread must agree on dt, accept and stop.  The kernels are launched
@@ -67,6 +78,7 @@ constexpr int kMaxSums = 2;        // values reduced together
 
 // Scratch floats the scaffold takes for its grid reductions.
 constexpr int kPartFloats = 2 * kMaxSums * kMaxBlocks;
+constexpr int kMaxClusterWarps = 32;  // warps a CTA of the cluster policy
 
 // DOPRI5: stage weights a[j][l] (l < j), solution weights b, embedded
 // error weights b - b_low, each rounded once from its double value.
@@ -177,6 +189,84 @@ __device__ void grid_sum(float (&v)[N], float* part, int& slot) {
   slot ^= 1;
 }
 
+// Sums each v[n] over the threads of the block (at most
+// kMaxClusterWarps warps): each warp's values in a fixed tree, then the
+// warps' sums in the same tree by every warp, so every thread, and every
+// CTA that holds the same data, gets the same bits.
+template <int N>
+__device__ void block_sum(float (&v)[N]) {
+  static_assert(N <= kMaxSums, "block_sum: too many values");
+  __shared__ float red[kMaxClusterWarps][kMaxSums];
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  const int nw = (int)(blockDim.x >> 5);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float s = warp_sum(v[n]);
+    if (lane == 0) red[warp][n] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = warp_sum(lane < nw ? red[lane][n] : 0.0f);
+  __syncthreads();
+}
+
+// The barrier and reduction policies of the solves below (see the head of
+// this file).  tid / nth: this thread's first element and the stride of
+// the elementwise passes; writes: whether this thread's block writes the
+// outputs and records; leader: the one thread that writes the scalars.
+struct GridSync {
+  __device__ static int tid() { return grid_tid(); }
+  __device__ static int nth() { return grid_threads(); }
+  __device__ static bool writes() { return true; }
+  __device__ static bool leader() { return grid_tid() == 0; }
+  __device__ static void sync() { cg::this_grid().sync(); }
+  __device__ static float ld(const float* p) { return node_common::ld(p); }
+  template <int N>
+  __device__ static void sum(float (&v)[N], float* part, int& slot) {
+    grid_sum(v, part, slot);
+  }
+  __device__ static void check_agree(float, float) {}
+};
+
+struct ClusterSync {
+  __device__ static int tid() { return threadIdx.x; }
+  __device__ static int nth() { return blockDim.x; }
+  __device__ static bool writes() {
+    return cg::this_cluster().block_rank() == 0;
+  }
+  __device__ static bool leader() { return threadIdx.x == 0 && writes(); }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static float ld(const float* p) { return *p; }
+  template <int N>
+  __device__ static void sum(float (&v)[N], float*, int&) {
+    block_sum(v);
+  }
+  // With NODE_COMMON_CHECK_AGREE defined (a debugging build), traps unless
+  // every CTA ends the solve at the same t and dt, bit for bit.
+  __device__ static void check_agree(float t, float dt) {
+#ifdef NODE_COMMON_CHECK_AGREE
+    __shared__ float seen[2 * 16];
+    cg::cluster_group cl = cg::this_cluster();
+    const unsigned rank = cl.block_rank();
+    if (threadIdx.x == 0) {
+      float* s0 = cl.map_shared_rank(seen, 0);
+      s0[2 * rank] = t;
+      s0[2 * rank + 1] = dt;
+    }
+    cl.sync();
+    if (rank == 0 && threadIdx.x == 0)
+      for (unsigned q = 1; q < cl.num_blocks(); ++q)
+        if (__float_as_uint(seen[2 * q]) != __float_as_uint(t) ||
+            __float_as_uint(seen[2 * q + 1]) != __float_as_uint(dt))
+          __trap();
+    cl.sync();
+#else
+    (void)t;
+    (void)dt;
+#endif
+  }
+};
+
 // The forward solve's arrays.  y, ks, u, part are scratch; the record
 // arrays are written when the solve records.
 struct SolveBufs {
@@ -210,15 +300,15 @@ __device__ __forceinline__ void field_vjp(const Field& f, const float* u,
 }
 
 // Adaptive dopri5 with batch-shared step control; with kRecord, records
-// every attempt.  kTraj = false: over t in [0, 1], the final state into
-// out (adaptive_solve_final).  kTraj = true: over [ts[0], ts[T-1]], out
+// every attempt.  Sync is the barrier and reduction policy; under
+// ClusterSync y, ks, u point into the CTA's shared memory.  kTraj = false:
+// over t in [0, 1], the final state into out (adaptive_solve_final).  kTraj = true: over [ts[0], ts[T-1]], out
 // (T, N) prefilled with h0, the CONTD5 dense output of each accepted step
 // written at the requested times its window (t, t + dt] holds, and the
 // times past the one reached holding the last state (adaptive_solve_traj).
-template <bool kRecord, bool kTraj, class Field>
+template <bool kRecord, bool kTraj, class Field, class Sync = GridSync>
 __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
-  cg::grid_group grid = cg::this_grid();
-  const int tid = grid_tid(), nth = grid_threads(), N = s.N, T = s.T;
+  const int tid = Sync::tid(), nth = Sync::nth(), N = s.N, T = s.T;
   const float rtol = s.rtol, atol = s.atol, inv_n = 1.0f / (float)N;
   const float tiny = 1e-12f;
   const float t0 = kTraj ? s.ts[0] : 0.0f;
@@ -230,37 +320,39 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
     const float y = s.h0[e];
     s.y[e] = y;
     if constexpr (kTraj)
-      for (int tau = 0; tau < T; ++tau) s.out[(size_t)tau * N + e] = y;
+      if (Sync::writes())
+        for (int tau = 0; tau < T; ++tau) s.out[(size_t)tau * N + e] = y;
   }
-  grid.sync();
+  Sync::sync();
   field_eval<kTraj>(field, s.y, t0, f0);
-  grid.sync();
+  Sync::sync();
 
   // Hairer's initial step.
   float d[2] = {0.0f, 0.0f};
   for (int e = tid; e < N; e += nth) {
     const float y = s.y[e], sc = atol + rtol * fabsf(y);
-    const float a = y / sc, b = ld(f0 + e) / sc;
+    const float a = y / sc, b = Sync::ld(f0 + e) / sc;
     d[0] += a * a;
     d[1] += b * b;
   }
-  grid_sum(d, s.part, slot);
+  Sync::sum(d, s.part, slot);
   const float d0 = sqrtf(d[0] * inv_n), d1 = sqrtf(d[1] * inv_n);
   const float h0 = (d0 < 1e-5f || d1 < 1e-5f)
                        ? 1e-6f
                        : 0.01f * d0 / fmaxf(d1, 1e-30f);
-  for (int e = tid; e < N; e += nth) s.u[e] = s.y[e] + h0 * ld(f0 + e);
-  grid.sync();
+  for (int e = tid; e < N; e += nth)
+    s.u[e] = s.y[e] + h0 * Sync::ld(f0 + e);
+  Sync::sync();
   float* const f1 = s.ks + N;  // stage 1's slot, free until the loop
   field_eval<kTraj>(field, s.u, t0 + h0, f1);
-  grid.sync();
+  Sync::sync();
   float d2s[1] = {0.0f};
   for (int e = tid; e < N; e += nth) {
     const float sc = atol + rtol * fabsf(s.y[e]);
-    const float a = (ld(f1 + e) - ld(f0 + e)) / sc;
+    const float a = (Sync::ld(f1 + e) - Sync::ld(f0 + e)) / sc;
     d2s[0] += a * a;
   }
-  grid_sum(d2s, s.part, slot);
+  Sync::sum(d2s, s.part, slot);
   const float d2 = sqrtf(d2s[0] * inv_n) / h0;
   const float dmax = fmaxf(d1, d2);
   const float h1 = dmax <= 1e-15f
@@ -277,22 +369,23 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
     const float dt_safe = dt == 0.0f ? 1.0f : dt;
     for (int j = 1; j < 7; ++j) {
       for (int e = tid; e < N; e += nth) {
-        float incr = kA[j][0] * ld(s.ks + e);
+        float incr = kA[j][0] * Sync::ld(s.ks + e);
 #pragma unroll
-        for (int l = 1; l < j; ++l) incr += kA[j][l] * ld(s.ks + l * N + e);
+        for (int l = 1; l < j; ++l)
+          incr += kA[j][l] * Sync::ld(s.ks + l * N + e);
         s.u[e] = s.y[e] + dt * incr;
       }
-      grid.sync();
+      Sync::sync();
       field_eval<kTraj>(field, s.u, t + kC[j] * dt, s.ks + j * N);
-      grid.sync();
+      Sync::sync();
     }
     float err2[1] = {0.0f};
     for (int e = tid; e < N; e += nth) {
-      const float k0 = ld(s.ks + e), y = s.y[e];
+      const float k0 = Sync::ld(s.ks + e), y = s.y[e];
       float y1 = y + (dt * kB[0]) * k0, ye = kE[0] * k0;
 #pragma unroll
       for (int j = 1; j < 7; ++j) {
-        const float kj = ld(s.ks + j * N + e);
+        const float kj = Sync::ld(s.ks + j * N + e);
         y1 += (dt * kB[j]) * kj;
         ye += kE[j] * kj;
       }
@@ -300,7 +393,7 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
       err2[0] += r * r;
       s.u[e] = y1;
     }
-    grid_sum(err2, s.part, slot);
+    Sync::sum(err2, s.part, slot);
     const float err = fmaxf(sqrtf(err2[0] * inv_n), 1e-10f);
     const bool accept = err <= 1.0f;
     const float fac_acc = fminf(fmaxf(kSafety * powf(err, -kAlpha) *
@@ -311,29 +404,32 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
         fminf(fmaxf(kSafety * powf(err, kRejExp), kDFactor), 1.0f);
     const float dt_next = dt_safe * (accept ? fac_acc : fac_rej);
     if (kRecord) {
-      if (tid == 0) {
+      if (Sync::leader()) {
         float* r = s.tda + 4 * m;
         r[0] = dt;
         r[1] = accept ? 1.0f : 0.0f;
         r[2] = t;
         r[3] = 0.0f;
       }
-      for (int e = tid; e < N; e += nth) {
-        s.yrec[(size_t)m * N + e] = s.y[e];
+      if (Sync::writes())
+        for (int e = tid; e < N; e += nth) {
+          s.yrec[(size_t)m * N + e] = s.y[e];
 #pragma unroll
-        for (int j = 0; j < 7; ++j)
-          s.krec[((size_t)m * 7 + j) * N + e] = ld(s.ks + j * N + e);
-      }
+          for (int j = 0; j < 7; ++j)
+            s.krec[((size_t)m * 7 + j) * N + e] = Sync::ld(s.ks + j * N + e);
+        }
     }
     if (accept) {
       for (int e = tid; e < N; e += nth) {
-        const float y = s.y[e], y1 = s.u[e], k6 = ld(s.ks + 6 * N + e);
-        if constexpr (kTraj) {
+        const float y = s.y[e], y1 = s.u[e];
+        const float k6 = Sync::ld(s.ks + 6 * N + e);
+        if (kTraj && Sync::writes()) {
           // Dense output (CONTD5) at the requested times in (t, t + dt].
-          const float k0 = ld(s.ks + e);
+          const float k0 = Sync::ld(s.ks + e);
           float r5s = kD[0] * k0;
 #pragma unroll
-          for (int j = 1; j < 7; ++j) r5s += kD[j] * ld(s.ks + j * N + e);
+          for (int j = 1; j < 7; ++j)
+            r5s += kD[j] * Sync::ld(s.ks + j * N + e);
           const float dy = y1 - y, r3 = dt * k0 - dy;
           const float r4 = dy - dt * k6 - r3, r5 = dt * r5s;
           for (int tau = 0; tau < T; ++tau) {
@@ -354,21 +450,23 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
     dt = dt_next;
     ++m;
   }
-  for (int e = tid; e < N; e += nth) {
-    if constexpr (kTraj) {
-      // Step budget exhausted: unreached outputs hold the last state.
-      for (int tau = 0; tau < T; ++tau)
-        if (s.ts[tau] > t + tiny) s.out[(size_t)tau * N + e] = s.y[e];
-    } else {
-      s.out[e] = s.y[e];
+  if (Sync::writes())
+    for (int e = tid; e < N; e += nth) {
+      if constexpr (kTraj) {
+        // Step budget exhausted: unreached outputs hold the last state.
+        for (int tau = 0; tau < T; ++tau)
+          if (s.ts[tau] > t + tiny) s.out[(size_t)tau * N + e] = s.y[e];
+      } else {
+        s.out[e] = s.y[e];
+      }
     }
-  }
-  if (kRecord && tid == 0) {
+  if (kRecord && Sync::leader()) {
     s.misc[0] = (float)m;
     s.misc[1] = t;
     s.misc[2] = 0.0f;
     s.misc[3] = 0.0f;
   }
+  Sync::check_agree(t, dt);
 }
 
 template <bool kRecord, class Field>
@@ -376,12 +474,13 @@ __device__ void adaptive_solve_final(const Field& field, const SolveBufs& s) {
   adaptive_solve<kRecord, false>(field, s);
 }
 
-template <bool kRecord, class Field>
+template <bool kRecord, class Sync = GridSync, class Field>
 __device__ void adaptive_solve_traj(const Field& field, const SolveBufs& s) {
-  adaptive_solve<kRecord, true>(field, s);
+  adaptive_solve<kRecord, true, Field, Sync>(field, s);
 }
 
-// The reverse replay's arrays.  lam, kbar, u, ub are scratch.
+// The reverse replay's arrays.  lam, kbar, u, ub are scratch (under
+// ClusterSync in the CTA's shared memory).
 struct ReplayBufs {
   const float* hbar;  // (N) cotangent of the final state; (T, N) of the
                       // trajectory in the trajectory replay
@@ -417,10 +516,9 @@ struct ReplayBufs {
 // stage 7 included: its cotangent dt (d_6 s_5 + s_7) is nonzero whenever
 // an output falls in the window, so its VJP is skipped only when none
 // does.  The outputs at ts <= ts[0] read h0 and add to h0bar last.
-template <bool kTraj, class Field>
+template <bool kTraj, class Field, class Sync = GridSync>
 __device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
-  cg::grid_group grid = cg::this_grid();
-  const int tid = grid_tid(), nth = grid_threads(), N = r.N, T = r.T;
+  const int tid = Sync::tid(), nth = Sync::nth(), N = r.N, T = r.T;
   const float tiny = 1e-12f;
   const int n_att = (int)r.misc[0];
   for (int e = tid; e < N; e += nth) {
@@ -483,26 +581,27 @@ __device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
         for (int l = 1; l < j; ++l) incr += kA[j][l] * ks[l * N + e];
         r.u[e] = y[e] + dt * incr;
       }
-      grid.sync();
+      Sync::sync();
       field_vjp<kTraj>(field, r.u, t + kC[j] * dt, r.kbar + j * N, r.ub);
-      grid.sync();
+      Sync::sync();
       for (int e = tid; e < N; e += nth) {
-        const float ub = ld(r.ub + e);
+        const float ub = Sync::ld(r.ub + e);
 #pragma unroll
         for (int l = 0; l < j; ++l) r.kbar[l * N + e] += (dt * kA[j][l]) * ub;
         r.lam[e] += ub;
       }
     }
   }
-  for (int e = tid; e < N; e += nth) {
-    float lam = r.lam[e];
-    if constexpr (kTraj) {
-      const float t0 = r.ts[0];
-      for (int tau = 0; tau < T; ++tau)
-        if (r.ts[tau] <= t0 + tiny) lam += r.hbar[(size_t)tau * N + e];
+  if (Sync::writes())
+    for (int e = tid; e < N; e += nth) {
+      float lam = r.lam[e];
+      if constexpr (kTraj) {
+        const float t0 = r.ts[0];
+        for (int tau = 0; tau < T; ++tau)
+          if (r.ts[tau] <= t0 + tiny) lam += r.hbar[(size_t)tau * N + e];
+      }
+      r.h0bar[e] = lam;
     }
-    r.h0bar[e] = lam;
-  }
 }
 
 template <class Field>
@@ -510,9 +609,9 @@ __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
   adjoint_replay_impl<false>(field, r);
 }
 
-template <class Field>
+template <class Sync = GridSync, class Field>
 __device__ void adjoint_replay_traj(const Field& field, const ReplayBufs& r) {
-  adjoint_replay_impl<true>(field, r);
+  adjoint_replay_impl<true, Field, Sync>(field, r);
 }
 
 // Launches kernel(args) as a cooperative grid of kThreads-thread blocks,

@@ -19,11 +19,13 @@ and the tensor's device; a failure on CUDA raises, nothing falls back):
   kanfet_solve``), both the same solve; from that width up the wide
   stack's batch-shared kernels (``ops/kanfet_wide.py:
   kanfet_wide_solve_train``), recording and replaying under autograd,
-  the forward alone otherwise.  ``predict_batch`` steps each trajectory
-  under its own controller, so it takes the per-trajectory kernels at
-  every width, as the JAX trajectory driver does; they take two-layer
-  [D, H, D] stacks whose parameters fit their shared memory, and others
-  raise.
+  the forward alone otherwise, for every stack whose parameters and
+  gradients one thread-block cluster holds (``kanfet_wide.holds``); a
+  wider or deeper stack takes the per-trajectory kernels (at B = 1 the
+  same step control).  ``predict_batch`` steps each trajectory under its
+  own controller, so it takes the per-trajectory kernels at every width,
+  as the JAX trajectory driver does; they take every pure-KANFET stack
+  with D <= 32, and others raise.
 * ``"auto"`` — the kernels on a CUDA tensor; on a CPU tensor the eager
   solve, ``"scan"`` under autograd and ``"while"`` otherwise.
 * ``"while"`` — the eager early-exit solve on any device, no gradient.
@@ -49,12 +51,19 @@ from fetode_tpu_torch.nn.kan import (
 )
 from fetode_tpu_torch.ops.kanfet_adjoint import kanfet_solve_train
 from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
-from fetode_tpu_torch.ops.kanfet_wide import kanfet_wide_solve_train
+from fetode_tpu_torch.ops.kanfet_wide import (
+    holds as wide_holds,
+    kanfet_wide_solve_train,
+)
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
 
 # ``predict`` sends stacks with max(in*out*K) >= this to the wide stack's
-# kernels, as the JAX package does (its crossover, measured on a TPU;
-# chip_smoke.py phase 33 times both kernels at the boundary on the card).
+# kernels, as the JAX package does (its crossover, measured on a TPU),
+# those that the kernels' cluster holds (``uses_wide_kernel``).  On
+# the H100 the crossover at B = 1 lies below 160: chip_smoke.py phase 33
+# times both kernels at ferro N = 160, 512, 4,608 and 32,768 and B.3 is
+# the faster at each.  The value stays the JAX package's until a benchmark
+# sets it (ROADMAP A.6).
 WIDE_DISPATCH_FERRO_N = 512
 
 
@@ -143,6 +152,15 @@ def max_ferro_n(spec: PredPreyNODE) -> int:
                for c in spec.kan.layers)
 
 
+def uses_wide_kernel(spec: PredPreyNODE) -> bool:
+    """Whether ``predict``'s kernel solve takes the wide stack's kernels
+    (B.3): a stack whose largest in*out*K reaches
+    ``WIDE_DISPATCH_FERRO_N`` and whose one trajectory their cluster
+    holds; the others take the per-trajectory kernels (B.1 / B.2)."""
+    return (max_ferro_n(spec) >= WIDE_DISPATCH_FERRO_N
+            and wide_holds(spec.kan, 1))
+
+
 def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
             ts: torch.Tensor, ferro_state=None) -> torch.Tensor:
     """Solve the NODE from ``x0`` reporting states at ``ts``.
@@ -158,7 +176,7 @@ def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
             raise ValueError("the kernel solve takes one (D,) trajectory from "
                              "the fresh hysteresis state; use predict_batch "
                              "for a batch")
-        if max_ferro_n(spec) >= WIDE_DISPATCH_FERRO_N:
+        if uses_wide_kernel(spec):
             return kanfet_wide_solve_train(
                 params, spec.kan, x0[None], ts, rtol=spec.rtol,
                 atol=spec.atol, max_steps=spec.max_steps)[0]

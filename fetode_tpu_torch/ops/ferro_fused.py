@@ -14,6 +14,10 @@ ferro_fused.cu``; its header gives the design and what bounds it.
   the backward recomputes the plain op and takes its VJP, as the JAX
   package's custom VJP does (:198-211); the state gets no gradient.
 * ``ferro_fused_vjp`` — that backward, usable on either device.
+* ``slice_plan(P, O, K)`` — the kernel's launch plan, from the layer's
+  shape alone: a thread owns one (o, k) column and one contiguous slice
+  of the inputs, and y's sums run in an order that no batch size moves;
+  ``samples_per_block`` — how many samples a block takes at a batch.
 
 The kernel has no noise operand, as the TPU kernel has none: callers with
 ``cfg.noise_std > 0`` take ``ferro_apply``.  Unlike the TPU kernel, it
@@ -37,6 +41,56 @@ _KERNEL_NAME = "ferro_fused"
 _NAMES = ("k", "ec", "ps", "bias", "coef")
 MAX_BASIS = 256        # K: a block's threads hold whole (o, K) groups
 _STATE_DTYPES = (torch.float32, torch.bfloat16)
+SLICE_INPUTS = 8       # the most inputs a thread walks, where columns allow
+BLOCK_THREADS = 256    # the threads a block aims at
+MAX_THREADS = 1024     # csrc/ferro_fused.cu: kMaxThreads
+
+
+class SlicePlan(NamedTuple):
+    """B.13's launch plan: ``S`` input slices of ``L`` inputs (the last
+    may be shorter), ``chunk`` outputs a block, ``threads`` a block and
+    ``smem`` bytes of shared memory."""
+
+    S: int
+    L: int
+    chunk: int
+    threads: int
+    smem: int          # a sample's: a block takes samples_per_block times it
+
+
+@functools.lru_cache(maxsize=None)
+def slice_plan(P: int, O: int, K: int) -> SlicePlan:
+    """The plan of a (P -> O, K) layer, independent of the batch: slices
+    of at most ``SLICE_INPUTS`` inputs, and more, shorter ones (down to
+    one input) while a sample has fewer than ``BLOCK_THREADS`` (o, k, slice)
+    threads; at most ``MAX_THREADS // K`` slices, so one output's threads
+    fit a block; then as many outputs a block as ``BLOCK_THREADS`` holds,
+    spread evenly over the blocks of a sample."""
+    S = max(-(-P // SLICE_INPUTS), -(-BLOCK_THREADS // (O * K)))
+    S = max(1, min(S, P, MAX_THREADS // K))
+    L = -(-P // S)
+    S = -(-P // L)
+    per = max(1, BLOCK_THREADS // (K * S))
+    n_chunks = -(-O // per)
+    chunk = -(-O // n_chunks)
+    threads = -(-(S * chunk * K) // 32) * 32
+    return SlicePlan(S, L, chunk, threads, 4 * (2 * P + S * chunk * K))
+
+
+MAX_GROUP = 4          # csrc/ferro_fused.cu: kMaxGroup
+GROUP_BLOCKS = 512     # the blocks a group size must leave (about 4 an SM)
+
+
+def samples_per_block(B: int, n_chunks: int) -> int:
+    """The samples a block takes: the most of 4, 2, 1 that still leaves
+    ``GROUP_BLOCKS`` blocks of ``n_chunks`` a sample group, else one (at B
+    = 8 and 64 -> 64, K = 12: one, 256 blocks), so a thread loads its
+    parameters once for that many samples.  Each sample's sums keep the
+    slice plan's order, so the group moves no bit of y."""
+    for g in (MAX_GROUP, 2):
+        if -(-B // g) * n_chunks >= GROUP_BLOCKS:
+            return g
+    return 1
 
 
 class _Params(NamedTuple):
@@ -55,7 +109,7 @@ def _lib():
 
     lib = load_library(_KERNEL_NAME)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ferro_fused.argtypes = [P] * 10 + [I] * 4 + [F] * 3 + [I, I, P]
+    lib.ferro_fused.argtypes = [P] * 10 + [I] * 4 + [F] * 3 + [I] * 8 + [P]
     lib.ferro_fused.restype = ctypes.c_int
     return lib
 
@@ -108,10 +162,12 @@ def _launch(x, weights, prev_x, branch, cfg: FerroConfig):
     y = torch.empty((B, O), dtype=torch.float32, device=dev)
     nb = torch.empty_like(branch) if cfg.update_branch else None
     g, a = float(cfg.gate_slope), float(cfg.alpha)
+    plan = slice_plan(P, O, K)
     NC.launch(_lib().ferro_fused, NC.ptr(xs), NC.ptr(prev_x),
               NC.ptr(branch), *(NC.ptr(w) for w in ws), NC.ptr(y),
               NC.ptr(nb), B, P, O, K, g, a, 1.0 - a,
               int(cfg.gate_impl == "tanh"), int(sdt == torch.bfloat16),
+              *plan, samples_per_block(B, -(-O // plan.chunk)),
               name="ferro_apply_fused", device=dev)
     ferro_apply_fused.launches += 1
     return y, nb

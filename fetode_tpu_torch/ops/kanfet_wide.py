@@ -9,9 +9,12 @@ make_wide_train_solver`` (the TPU kernels ``_make_fwd_kernel`` :101 and
 package's ``predict`` takes in 'pallas' mode for stacks whose largest
 in·out·K reaches ``models/predprey.py: WIDE_DISPATCH_FERRO_N``.  The CUDA
 source is ``fetode_tpu_torch/csrc/kanfet_wide.cu`` on the trajectory pair
-of ``csrc/node_common.cuh``; its header gives the design and what bounds
-it.  The field is the KANFET stack itself with the hysteresis state fresh
-and frozen (``kan_apply`` at ``kan_state_init``), autonomous: it ignores t.
+of ``csrc/node_common.cuh`` under its cluster policy; its header gives the
+design and what bounds it.  Each kernel is one thread-block cluster whose
+CTAs hold the stack's parameters (and, backward, its gradients) in shared
+memory; ``cluster_plan`` picks its size.  The field is the KANFET stack
+itself with the hysteresis state fresh and frozen (``kan_apply`` at
+``kan_state_init``), autonomous: it ignores t.
 
 Step control is batch-shared: one t and one dt over all B rows, the RMS
 error over all B·D elements (at B = 1, the same as per-trajectory
@@ -24,6 +27,16 @@ step mesh fixed (the controller is not differentiated).
   backward, ``kanfet_wide_bwd``; without autograd the forward kernel
   alone, recording nothing.  On the CPU it takes the plain version,
   ``kanfet_wide_solve_train_reference``.
+* ``cluster_plan`` / ``max_batch`` — the cluster both kernels take at a
+  batch (the fewest CTAs, at most ``MAX_CLUSTER``, whose shared memory
+  holds the backward's bytes, the larger: ``smem_floats``, which the CUDA
+  source lays out too) and the largest batch such a cluster holds (0 for
+  a stack too wide or deep for 16 CTAs: [2, 80, 80, 2] or [2, 64, 64, 64,
+  2] at K = 8, [2, 64, 64, 2] at K = 16); past it the CUDA wrappers raise
+  ``ValueError``.  ``holds`` says whether a stack fits at a batch:
+  ``models/predprey.py: predict`` sends a wide stack that does not to the
+  per-trajectory kernels (``ops/kanfet_adjoint.py``), which take any
+  width.
 * ``kanfet_wide_fwd`` / ``kanfet_wide_bwd`` — the kernel wrappers on the
   operands of ``wide_weights``, each with a launch counter
   (``.launches``).  For CPU tensors they take the plain versions
@@ -63,6 +76,14 @@ N_KNOTS = GRID_SIZE + 2 * ORDER + 1       # 12 knots a feature
 MAX_LAYERS = 8                            # csrc/kanfet_wide.cu: kMaxLayers
 N_OPS = 8                                 # operands a layer
 _GRID = 2                                 # the grid's place among them
+# The cluster (csrc/kanfet_wide.cu): at most kMaxCluster CTAs, kMaxSmem
+# bytes of dynamic shared memory a CTA (227 KB less 1 KB for the static
+# arrays), the input-prep slots kPrepFwd / kPrepBwd and kRed floats of
+# group-sum scratch (a warp's sum each, up to 32 warps).
+MAX_CLUSTER = 16
+SMEM_LIMIT = 227 * 1024 - 1024
+_PREP_FWD, _PREP_BWD = 3 + ORDER + 1, 3 + ORDER + 1 + 1 + ORDER + 1
+_RED = 32
 
 
 def check_stack(cfg: KANConfig) -> int:
@@ -85,6 +106,83 @@ def check_stack(cfg: KANConfig) -> int:
             raise ValueError("the kanfet_wide kernels need one ferro gate "
                              "slope and alpha across layers")
     return D
+
+
+# --------------------------------------------------------------- the plan
+
+
+def owned_outputs(O: int, C: int, c: int) -> range:
+    """The outputs of an O-wide layer that CTA c of a C-CTA cluster owns:
+    its edges (i, o) for every input i, their parameters and gradients."""
+    return range(c * O // C, (c + 1) * O // C)
+
+
+def smem_floats(B: int, dims: Sequence[Tuple[int, int, int]], C: int,
+                rank: int, bwd: bool) -> int:
+    """Floats of CTA ``rank``'s shared memory (``csrc/kanfet_wide.cu:
+    smem_layout``): the scaffold's 10 N state floats, the layers' inputs
+    (and, backward, their cotangents), every layer's input prep, the
+    backward's two partial-sum buffers (C, B, max I), the group-sum
+    scratch, every layer's knots, the CTA's edges' parameters (and
+    gradients), 9 + 5 K floats an edge, and the forward's terms and spline
+    partials, K + 1 floats an edge and row of its widest layer."""
+    I = [d[0] for d in dims]
+    n = 10 * B * I[0] + (2 if bwd else 1) * B * sum(I[1:])
+    n += (_PREP_BWD if bwd else _PREP_FWD) * B * sum(I)
+    n += (2 * C * B * max(I) if bwd else 0) + _RED + N_KNOTS * sum(I)
+    fbuf = 0
+    for i, o, k in dims:
+        n_e = len(owned_outputs(o, C, rank)) * i
+        n += (2 if bwd else 1) * n_e * (1 + N_COEFF + 5 * k)
+        fbuf = max(fbuf, B * n_e * (k + 1))
+    return n + fbuf
+
+
+def cluster_floats(B, dims, C, bwd) -> int:
+    """The most floats any CTA of the cluster takes."""
+    return max(smem_floats(B, dims, C, c, bwd) for c in range(C))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(B: int, dims: Tuple[Tuple[int, int, int], ...]) -> int:
+    """The CTAs of both kernels' cluster at batch ``B`` for the stack
+    ``dims`` ((in, out, K) a layer): the fewest whose shared memory holds
+    the backward's bytes, and so the forward's, which are fewer (the
+    forward alone would fit fewer CTAs, but then runs its layers on fewer
+    SMs, and was slower on the H100).
+    ``ValueError`` if no cluster of ``MAX_CLUSTER`` does (past
+    ``max_batch``)."""
+    for C in range(1, MAX_CLUSTER + 1):
+        if 4 * cluster_floats(B, dims, C, True) <= SMEM_LIMIT:
+            return C
+    raise ValueError(
+        f"the kanfet_wide kernels hold a {[d[0] for d in dims] + [dims[-1][1]]}"
+        f" stack in one cluster of at most {MAX_CLUSTER} CTAs up to B = "
+        f"{max_batch(dims)} trajectories, got B = {B}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_batch(dims: Tuple[Tuple[int, int, int], ...]) -> int:
+    """The largest batch whose backward cluster (the larger) fits in some
+    cluster of at most ``MAX_CLUSTER`` CTAs: the CUDA wrappers take B up to
+    this and raise past it (0: none fits)."""
+    def fits(b):
+        return any(4 * cluster_floats(b, dims, C, True) <= SMEM_LIMIT
+                   for C in range(1, MAX_CLUSTER + 1))
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def holds(cfg: KANConfig, B: int) -> bool:
+    """Whether the kernels' cluster holds the stack ``cfg`` at batch ``B``
+    (``B <= max_batch``); the kernels raise for a stack it does not."""
+    return B <= max_batch(tuple((c.in_features, c.out_features,
+                                 c.ferro_num_basis) for c in cfg.layers))
 
 
 # ------------------------------------------------------------ operands
@@ -174,13 +272,13 @@ def _lib():
 
     lib = load_library(_KERNEL_NAME)
     P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kanfet_wide_fwd.argtypes = ([P] * 4 + [I] + [P] * 6 + [I] * 3
-                                    + [F32] * 5 + [I, P])
-    lib.kanfet_wide_bwd.argtypes = ([P] * 9 + [I] + [P] * 2 + [I] * 2
-                                    + [F32] * 3 + [P])
+    lib.kanfet_wide_fwd.argtypes = ([P] * 4 + [I] + [P] * 5 + [I] * 3
+                                    + [F32] * 5 + [I, I, P])
+    lib.kanfet_wide_bwd.argtypes = ([P] * 9 + [I] + [P] + [I] * 2
+                                    + [F32] * 3 + [I, P])
     lib.kanfet_wide_fwd.restype = lib.kanfet_wide_bwd.restype = ctypes.c_int
-    lib.kanfet_wide_work_floats.argtypes = [I, P, I]
-    lib.kanfet_wide_work_floats.restype = ctypes.c_longlong
+    lib.kanfet_wide_smem_bytes.argtypes = [I, P, I, I, I]
+    lib.kanfet_wide_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -212,10 +310,21 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _work(B, cdims, device) -> torch.Tensor:
-    n = _lib().kanfet_wide_work_floats(B, ctypes.addressof(cdims),
-                                       len(cdims) // 3)
-    return torch.empty(n, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=None)
+def _cluster(B: int, dims: Tuple[int, ...], bwd: bool) -> int:
+    """``cluster_plan`` for a kernel launch, its bytes checked once against
+    the CUDA source's own layout."""
+    layers = tuple(tuple(dims[i:i + 3]) for i in range(0, len(dims), 3))
+    C = cluster_plan(B, layers)
+    cdims = (ctypes.c_int * len(dims))(*dims)
+    got = _lib().kanfet_wide_smem_bytes(B, ctypes.addressof(cdims),
+                                        len(layers), C, int(bwd))
+    want = 4 * cluster_floats(B, layers, C, bwd)
+    if got != want:
+        raise RuntimeError(f"kanfet_wide: the kernel lays out {got} bytes a "
+                           f"CTA, the plan {want} (csrc/kanfet_wide.cu and "
+                           "ops/kanfet_wide.py disagree)")
+    return C
 
 
 def _launch_fwd(ops, dims, gate, x0s, rtol, atol, max_steps, record):
@@ -227,14 +336,14 @@ def _launch_fwd(ops, dims, gate, x0s, rtol, atol, max_steps, record):
     out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
     recs = NC.new_records(max_steps, B, D, dev) if record else None
     r = recs if record else (None,) * 4
+    C = _cluster(B, tuple(dims), False)
     cdims = (ctypes.c_int * len(dims))(*dims)
-    lib, work = _lib(), _work(B, cdims, dev)
     wp = _pointers(w)
-    NC.launch(lib.kanfet_wide_fwd, NC.ptr(x0s), NC.ptr(ts),
+    NC.launch(_lib().kanfet_wide_fwd, NC.ptr(x0s), NC.ptr(ts),
               ctypes.addressof(wp), ctypes.addressof(cdims), L, NC.ptr(out),
-              *(NC.ptr(t) for t in r), NC.ptr(work), B, T, int(max_steps),
-              float(rtol), float(atol), *gate, int(record),
-              name="kanfet_wide_fwd", device=dev)
+              *(NC.ptr(t) for t in r), B, T, int(max_steps), float(rtol),
+              float(atol), *gate, int(record), C, name="kanfet_wide_fwd",
+              device=dev)
     kanfet_wide_fwd.launches += 1
     return out, recs
 
@@ -251,13 +360,13 @@ def _launch_bwd(ops, dims, gate, records, ct):
     ct = ct.detach().to(torch.float32).contiguous()
     grads = [torch.empty_like(t) for t in grad_weights(w)]
     x0bar = torch.empty((B, D), dtype=torch.float32, device=dev)
+    C = _cluster(B, tuple(dims), True)
     cdims = (ctypes.c_int * len(dims))(*dims)
-    lib, work = _lib(), _work(B, cdims, dev)
     wp, gp = _pointers(w), _pointers(grads)
-    NC.launch(lib.kanfet_wide_bwd, NC.ptr(ct), NC.ptr(ts),
+    NC.launch(_lib().kanfet_wide_bwd, NC.ptr(ct), NC.ptr(ts),
               *(NC.ptr(t) for t in records), ctypes.addressof(wp),
               ctypes.addressof(gp), ctypes.addressof(cdims), L, NC.ptr(x0bar),
-              NC.ptr(work), B, T, *gate, name="kanfet_wide_bwd", device=dev)
+              B, T, *gate, C, name="kanfet_wide_bwd", device=dev)
     kanfet_wide_bwd.launches += 1
     return grads, x0bar
 

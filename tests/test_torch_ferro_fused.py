@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import fetode_tpu.ops.pallas_ferro as jpf
+from chip_smoke import RNN_SHAPES, SYM_SHAPES
 from fetode_tpu.ops import ferro as jferro
 from fetode_tpu_torch.ops import ferro as tferro
 from fetode_tpu_torch.ops import ferro_fused as FF
@@ -173,6 +174,66 @@ def test_refusals():
     with pytest.raises(ValueError, match="CUDA"):   # the kernel: CUDA only
         FF._launch(x, [getattr(p, n) for n in FF._NAMES], s.prev_x,
                    s.branch, cfg)
+
+
+PLAN_SHAPES = sorted(set(RNN_SHAPES) | set(SYM_SHAPES)
+                     | {(1, 1, 1), (1, 64, 12), (2, 10, 8), (64, 64, 256)})
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_slice_plan(shape):
+    """B.13's plan at every shape the RNN and symbolic paths give it (and
+    P = 1): each input in exactly one slice, the slices contiguous, in
+    order and none empty; at most ``SLICE_INPUTS`` inputs a slice unless
+    K caps the slices; one output's threads in a block, at most 1,024
+    threads in whole warps; the shared memory the kernel lays out."""
+    P, O, K = shape
+    plan = FF.slice_plan(P, O, K)
+    slices = [range(s * plan.L, min(P, (s + 1) * plan.L))
+              for s in range(plan.S)]
+    assert [i for sl in slices for i in sl] == list(range(P))
+    assert all(len(sl) > 0 for sl in slices)
+    assert plan.L <= FF.SLICE_INPUTS or plan.S == FF.MAX_THREADS // K
+    assert 1 <= plan.chunk <= O
+    assert plan.S * plan.chunk * K <= plan.threads <= FF.MAX_THREADS
+    assert plan.threads % 32 == 0
+    assert plan.smem == 4 * (2 * P + plan.S * plan.chunk * K)
+
+
+def test_launch_plan_is_independent_of_the_batch(monkeypatch):
+    """The wrapper hands the kernel the plan of (P, O, K) whatever the
+    batch, so y's summation order never depends on B; only the samples a
+    block takes follow B."""
+    calls = []
+    monkeypatch.setattr(FF.NC, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(FF.NC, "launch",
+                        lambda fn, *args, **kw: calls.append(args))
+    monkeypatch.setattr(FF, "_lib", lambda: type("Lib", (), {
+        "ferro_fused": None}))
+    monkeypatch.setattr(FF.ferro_apply_fused, "launches", 0)
+    cfg = tferro.FerroConfig(64, 64, 12)
+    p = tferro.ferro_init(torch.Generator().manual_seed(0), cfg)
+    for b in (1, 8, 64):
+        s = tferro.ferro_state_init((b,), cfg)
+        FF._launch(torch.zeros((b, 64)), [getattr(p, n) for n in FF._NAMES],
+                   s.prev_x, s.branch, cfg)
+    assert [c[10] for c in calls] == [1, 8, 64]
+    assert all(tuple(c[-6:-1]) == tuple(FF.slice_plan(64, 64, 12))
+               for c in calls)
+    assert [c[-1] for c in calls] == [1, 1, 4]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("B", [1, 8, 32, 64, 128, 1000])
+def test_samples_per_block(shape, B):
+    """A block takes 1, 2 or 4 samples; more than one only while the
+    groups leave ``GROUP_BLOCKS`` blocks, so small batches keep a block a
+    sample (B = 8 at 64 -> 64, K = 12: 256 blocks)."""
+    P, O, K = shape
+    n_chunks = -(-O // FF.slice_plan(P, O, K).chunk)
+    g = FF.samples_per_block(B, n_chunks)
+    assert g in (1, 2, FF.MAX_GROUP)
+    assert g == 1 or -(-B // g) * n_chunks >= FF.GROUP_BLOCKS
 
 
 @pytest.mark.cuda

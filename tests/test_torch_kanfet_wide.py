@@ -37,7 +37,10 @@ Tolerances:
   and for x0, the knot grids zero on both sides (the JAX kernel reports
   zeros, the port keeps them as buffers).
 The CUDA kernels are held against the plain version by the
-``cuda``-marked test, which skips without a card.
+``cuda``-marked test, which skips without a card.  Their launch plan
+(``cluster_plan``: one thread-block cluster holding the stack in shared
+memory) is pure Python and is held here: every edge owned by one CTA,
+the bytes a CTA within the card's 227 KB, the batch limit.
 """
 
 import copy
@@ -361,6 +364,129 @@ def test_cli_predprey_wide_stack_on_cpu(tmp_path):
     assert np.isfinite(res["final_train"])
     rows = (tmp_path / "metrics.jsonl").read_text().splitlines()
     assert len(rows) == 2
+
+
+def _dims(layers, K=8):
+    return tuple((i, o, K) for i, o in zip(layers[:-1], layers[1:]))
+
+
+PLAN_STACKS = [(2, 10, 2), (2, 32, 2), (2, 24, 24, 2), (2, 64, 64, 2),
+               (2, 8, 8, 2), (2, 128, 2), (3, 6, 3)]
+
+
+@pytest.mark.parametrize("layers", PLAN_STACKS)
+@pytest.mark.parametrize("C", [1, 5, 10, 16])
+def test_cluster_owns_every_edge_once(layers, C):
+    """Every edge (i, o) of every layer belongs to exactly one CTA of the
+    cluster: the CTAs' output slices cover each layer's outputs once, in
+    order, and each CTA takes all inputs of its outputs."""
+    for i, o, _ in _dims(layers):
+        owned = [KW.owned_outputs(o, C, c) for c in range(C)]
+        assert [q for r in owned for q in r] == list(range(o))
+        edges = [(ii, q) for r in owned for q in r for ii in range(i)]
+        assert sorted(edges) == sorted(
+            (ii, q) for ii in range(i) for q in range(o))
+
+
+@pytest.mark.parametrize("layers", PLAN_STACKS)
+@pytest.mark.parametrize("B", [1, 3])
+def test_cluster_plan_fits(layers, B):
+    """At B = 1 (``predict``) and 3 (``chip_smoke.py`` phase 32) every
+    stack takes the cluster form: at most ``MAX_CLUSTER`` CTAs, the
+    fewest whose every CTA's backward bytes (which also hold the
+    gradients) fit ``SMEM_LIMIT`` (the card's 227 KB less the static
+    arrays); the forward's bytes, fewer, fit the same cluster."""
+    dims = _dims(layers)
+    C = KW.cluster_plan(B, dims)
+    assert 1 <= C <= KW.MAX_CLUSTER
+    fwd = KW.cluster_floats(B, dims, C, False)
+    bwd = KW.cluster_floats(B, dims, C, True)
+    assert fwd < bwd and 4 * bwd <= KW.SMEM_LIMIT < 227 * 1024
+    if C > 1:
+        assert 4 * KW.cluster_floats(B, dims, C - 1, True) > KW.SMEM_LIMIT
+
+
+def test_cluster_plan_of_the_wide_stacks():
+    """The stacks phases 32-35 run: [2, 32, 2] in one CTA, [2, 24, 24, 2]
+    in 2, and [2, 64, 64, 2], 853 KB of parameters and as much again of
+    gradients, in 11 at B = 1 and 16 at B = 3."""
+    assert [KW.cluster_plan(B, _dims(s))
+            for s in ((2, 32, 2), (2, 24, 24, 2), (2, 64, 64, 2))
+            for B in (1, 3)] == [1, 1, 2, 2, 11, 16]
+
+
+@pytest.mark.parametrize("layers", [(2, 32, 2), (2, 64, 64, 2), (2, 128, 2)])
+def test_batch_limit(layers):
+    """``max_batch`` is the largest batch whose cluster of at most 16 CTAs
+    holds the backward (3 at [2, 64, 64, 2]; every caller of the port
+    passes 1 or 3); past it the plan raises ``ValueError``."""
+    dims = _dims(layers)
+    B = KW.max_batch(dims)
+    assert B >= 3
+    KW.cluster_plan(B, dims)
+    with pytest.raises(ValueError, match="at most 16 CTAs up to B"):
+        KW.cluster_plan(B + 1, dims)
+    if layers == (2, 64, 64, 2):
+        assert B == 3
+
+
+PAST_CLUSTER = [((2, 80, 80, 2), 8), ((2, 64, 64, 64, 2), 8),
+                ((2, 64, 64, 2), 16)]
+
+
+@pytest.mark.parametrize("layers,K", PAST_CLUSTER)
+def test_stacks_past_the_cluster(layers, K):
+    """Stacks whose backward (98 floats an edge at K = 8) no cluster of 16
+    CTAs holds even at B = 1: ``max_batch`` is 0, ``holds`` is False and
+    the plan raises ``ValueError``, so the kernels raise for them."""
+    dims = _dims(layers, K)
+    assert KW.max_batch(dims) == 0
+    cfg = PredPreyNODE.kanfet(layers_hidden=layers, ferro_num_basis=K).kan
+    assert not KW.holds(cfg, 1)
+    with pytest.raises(ValueError, match="at most 16 CTAs up to B = 0"):
+        KW.cluster_plan(1, dims)
+
+
+@pytest.mark.parametrize("layers,K,wide", [
+    ((2, 10, 2), 8, False), ((2, 32, 2), 8, True), ((2, 64, 64, 2), 8, True),
+    ((2, 64, 64, 2), 12, True)] + [(s, k, False) for s, k in PAST_CLUSTER])
+def test_predict_routes_by_the_cluster(monkeypatch, layers, K, wide):
+    """``predict``'s kernel solve takes the wide kernels (B.3) for a stack
+    at or past ``WIDE_DISPATCH_FERRO_N`` that their cluster holds at one
+    trajectory, and the per-trajectory kernels (B.1 / B.2, any width)
+    for the rest, the stacks past the cluster included.  The kernels are
+    stubbed: what is held is the route."""
+    spec = PredPreyNODE.kanfet(layers_hidden=layers, ferro_num_basis=K)
+    assert PP.uses_wide_kernel(spec) == wide
+    assert (PP.max_ferro_n(spec) >= PP.WIDE_DISPATCH_FERRO_N) == \
+        (layers != (2, 10, 2))
+    taken = []
+    monkeypatch.setattr(PP, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(PP, "kanfet_wide_solve_train",
+                        lambda p, c, x0s, ts, **kw:
+                        taken.append("wide") or x0s[:, None].expand(
+                            -1, ts.shape[0], -1))
+    monkeypatch.setattr(PP, "predict_batch",
+                        lambda p, s, x0s, ts: taken.append("batch") or
+                        x0s[:, None].expand(-1, ts.shape[0], -1))
+    x0 = torch.ones(2)
+    ts = torch.linspace(0.0, 1.0, 3)
+    assert PP.predict(None, spec, x0, ts).shape == (3, 2)
+    assert taken == ["wide" if wide else "batch"]
+
+
+def test_smem_layout_counts():
+    """The floats of one CTA at [2, 32, 2], B = 1, one CTA, counted by
+    hand: forward 20 (state) + 32 (layer 1's input) + 7 * (2 + 32) (each
+    layer's input prep) + 32 (scratch) + 12 * 34 (knots) + 128 edges * 49
+    + 64 edges * 9 (a layer's terms and spline partials); backward adds the
+    input cotangent, 5 * 34 more prep, 2 * 32 partials and 128 * 49
+    gradients."""
+    dims = _dims((2, 32, 2))
+    fwd = 20 + 32 + 7 * 34 + 32 + 12 * 34 + 128 * 49 + 64 * 9
+    assert KW.smem_floats(1, dims, 1, 0, False) == fwd
+    assert KW.smem_floats(1, dims, 1, 0, True) == \
+        fwd + 32 + 5 * 34 + 2 * 32 + 128 * 49
 
 
 @pytest.mark.cuda
