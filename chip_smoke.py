@@ -55,7 +55,10 @@ max_steps 16), random weights from a seed, series from
    step mesh, cosine > 0.999.
 10. The same checks for the ferro kernels (``csrc/ferro_node.cu``) at
     B = 8, 32 and 64, clean and with frozen device noise of std 0.2 (one
-    set of draws for each batch, fed to both).
+    set of draws for each batch, fed to both); each kernel called twice
+    gives the same bits (output, records, gradients); the tile plan of
+    both layers at the card's grid (``ops/ferro_node.py: slice_plan``,
+    the library's checked by the wrapper).
 11. The training slice: ``cli.main(["ecg", "--device", "cuda",
     "--solver_mode", "pallas", ...])`` for ``kanfet_node``,
     ``kanfet_mlp_node`` and ``kanfet_mlp_node --noise_std 0.2``: both
@@ -67,8 +70,9 @@ max_steps 16), random weights from a seed, series from
     equal direct kernel calls on the same padded batches, and the forward
     kernel must have launched.
 13. Timing: each ECG kernel and its plain version at B = 8 and at the
-    serving buckets, and one ECG training step of each model, kernels
-    against the eager solve.
+    serving buckets (the ferro kernels also on a full queue, their device
+    time), and one ECG training step of each model, kernels against the
+    eager solve.
 
 The ETT forecasting slice, at the full width of ``ETTPreset`` (context
 96, pred_len 8 at times 0..7, latent 64, hidden 128, dopri5 at rtol 1e-3 /
@@ -84,7 +88,9 @@ samples), random weights from a seed, windows of the synthetic series
     records, at rtol = atol = 1e-3 and the same attempt counts; at 64 and
     297 the backward on the forward kernel's own records against autograd
     of the plain replay of the same records, relative error < 1e-4, and
-    full gradients, each on its own step mesh, cosine > 0.999.
+    full gradients, each on its own step mesh, cosine > 0.999; each
+    kernel called twice gives the same bits; the row plan of every batch
+    (``ops/ode_dyn.py: row_plan``, the library's checked by the wrapper).
 15. The DDPM chain kernel (``csrc/ddpm.cu``) against its plain chain on
     the same y0 and noise tables at every row count the path gives it
     (10 samples times the batch): 10 (the final forecast), 80, 640 and
@@ -104,7 +110,8 @@ samples), random weights from a seed, windows of the synthetic series
     (the profiler over calls of that bucket), with the card's name and
     power limit.
 18. Timing: each forecasting kernel and its plain version at the path's
-    batches (B.9 at 80, 640, 970 and 2,560 rows beside its bound), and
+    batches (B.7 also on a full queue, its device time; B.9 at 80, 640,
+    970 and 2,560 rows beside its bound), and
     one training step of each forecaster at B = 64, kernels against the
     eager solve.
 
@@ -883,17 +890,37 @@ def ferro_case(params, spec, noise):
         **final_state_plain(FN.ferro_field(fc1, fc2, cfg, noise), w, opts))
 
 
-def check_node_kernels(case, h0, hbar, backward=True):
+def same_bits(a, b):
+    """Tensors (or sequences of them) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def check_node_kernels(case, h0, hbar, backward=True, twice=False):
     """Phases 9-10, 14 and 24 at one batch: both forward kernels against the
     plain recording solve (values and attempts) and, with ``backward``,
     the backward kernel against autograd of the plain replay on the
-    kernel's records, and full gradients on own meshes."""
+    kernel's records, and full gradients on own meshes.  ``twice``
+    (phases 10 and 14): each kernel called again gives the same bits, its
+    output, the records of the attempts made and every gradient."""
     label = f"{case['name']} B={h0.shape[0]}"
     with torch.no_grad():
         out_k, rec_k = case["fwd"](h0)
         out_n, _ = case["fwd"](h0, record=False)
+        if twice:
+            out_k2, rec_k2 = case["fwd"](h0)
+            out_n2, _ = case["fwd"](h0, record=False)
         torch.cuda.synchronize()
         out_p, rec_p = case["plain_fwd"](h0)
+    if twice:
+        n = int(rec_k.misc[0])
+        if not (same_bits(out_k, out_k2) and same_bits(out_n, out_n2)
+                and same_bits([rec_k.tda, rec_k.misc, rec_k.yrec[:n],
+                               rec_k.krec[:n]],
+                              [rec_k2.tda, rec_k2.misc, rec_k2.yrec[:n],
+                               rec_k2.krec[:n]])):
+            fail(f"{label}: two calls of the forward kernel differ")
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_n).all()
             and torch.isfinite(out_p).all()):
         fail(f"{label}: non-finite forward output")
@@ -912,11 +939,15 @@ def check_node_kernels(case, h0, hbar, backward=True):
             f"{int(rec_k.tda[:n_k, 1].sum())}) as plain")
     if backward:
         g_k, hb_k = case["bwd"](h0, rec_k, hbar)
+        if twice:
+            g_k2, hb_k2 = case["bwd"](h0, rec_k, hbar)
         g_p, hb_p = case["plain_bwd"](h0, rec_k, hbar)
         torch.cuda.synchronize()
         if not (all(torch.isfinite(g).all() for g in g_k)
                 and torch.isfinite(hb_k).all()):
             fail(f"{label}: non-finite kernel gradients")
+        if twice and not same_bits(list(g_k) + [hb_k], list(g_k2) + [hb_k2]):
+            fail(f"{label}: two calls of the backward kernel differ")
         g_rel, h_rel = rel_err(flat(g_k), flat(g_p)), rel_err(hb_k, hb_p)
         if not (g_rel < GRAD_TOL and h_rel < GRAD_TOL):
             fail(f"{label}: backward kernel vs plain replay on the kernel's "
@@ -935,14 +966,19 @@ def check_node_kernels(case, h0, hbar, backward=True):
                              max_abs(hb_k, hb_p)))
         line += (f"; backward on the kernel's mesh: grads rel {g_rel:.3e}, "
                  f"h0bar rel {h_rel:.3e}; own-mesh cosine {cos:.7f}")
+    if twice:
+        line += "; the same bits in two calls"
     print(line)
     return res
 
 
-def time_node_kernels(case, h0, hbar, smi, plain=True):
+def time_node_kernels(case, h0, hbar, smi, plain=True, device=False):
     """Phases 13, 18 and 27 at one batch: CUDA-event ms of the forward kernel
     with and without records, the backward kernel, and (``plain``) the
-    plain recording solve and the plain replay's autograd."""
+    plain recording solve and the plain replay's autograd; with
+    ``device`` (B.4, B.7) also each kernel's device time on a full queue
+    (``queued_ms``), which the back-to-back time reads too high where the
+    host's launch takes longer than the kernel."""
     B = h0.shape[0]
     with torch.no_grad():
         _, recs = case["fwd"](h0)
@@ -953,6 +989,12 @@ def time_node_kernels(case, h0, hbar, smi, plain=True):
     line = (f"time {case['name']} B={B}: forward {res['fwd']:.4f} ms "
             f"(without records {res['fwd_norec']:.4f}), backward "
             f"{res['bwd']:.4f} ms")
+    if device:
+        with torch.no_grad():
+            res["fwd_dev"] = queued_ms(lambda: case["fwd"](h0))
+        res["bwd_dev"] = queued_ms(lambda: case["bwd"](h0, recs, hbar))
+        line += (f"; device {res['fwd_dev']:.4f} / {res['bwd_dev']:.4f} ms "
+                 f"on a full queue")
     if plain:
         with torch.no_grad():
             res["plain_fwd"] = cuda_ms(lambda: case["plain_fwd"](h0), 1)
@@ -1152,9 +1194,15 @@ def ecg_phases(device, smi):
     ecg_checks = {("logistic", b): check_node_kernels(lcase, lh0[b], hbars[b])
                   for b in ECG_CHECKS}
     for b in (8, 32, 64):
-        ecg_checks[("ferro", b)] = check_node_kernels(fcase, fh0[b], hbars[b])
+        ecg_checks[("ferro", b)] = check_node_kernels(fcase, fh0[b], hbars[b],
+                                                      twice=True)
         ecg_checks[("ferro noisy", b)] = check_node_kernels(
-            ncases[b], fh0[b], hbars[b])
+            ncases[b], fh0[b], hbars[b], twice=True)
+    G, K = FN._lib().ferro_node_grid(), fspec.num_basis
+    print(f"ferro_node slices at the card's grid of {G} blocks: layer 1 "
+          f"{FN.slice_plan(G, fspec.ode_hidden, fspec.latent_dim, K)}, "
+          f"layer 2 {FN.slice_plan(G, fspec.latent_dim, fspec.ode_hidden, K)}"
+          " (the library's, checked by the wrapper)")
 
     # ---- 11. the ECG training slice, through the CLI
     ecg_kernels = (LN.logistic_node_fwd, LN.logistic_node_bwd,
@@ -1220,12 +1268,15 @@ def ecg_phases(device, smi):
     ecg_times = {("logistic", b): time_node_kernels(lcase, lh0[b], hbars[b],
                                                     smi)
                  for b in ECG_BATCHES}
-    ecg_times[("ferro", 8)] = time_node_kernels(fcase, fh0[8], hbars[8], smi)
+    ecg_times[("ferro", 8)] = time_node_kernels(fcase, fh0[8], hbars[8], smi,
+                                                device=True)
     ecg_times[("ferro noisy", 8)] = time_node_kernels(ncase, fh0[8],
                                                       hbars[8], smi,
-                                                      plain=False)
+                                                      plain=False,
+                                                      device=True)
     ecg_times[("ferro", 64)] = time_node_kernels(fcase, fh0[64], hbars[64],
-                                                 smi, plain=False)
+                                                 smi, plain=False,
+                                                 device=True)
     y8 = torch.from_numpy(data[1][:8]).long().to(device)
     for name, apply, params_m, spec_m in (
             ("kanfet_node", M.kanfet_node_apply, lparams, lspec),
@@ -1380,8 +1431,17 @@ def forecast_phases(device, smi):
     cts = {b: torch.from_numpy(rng_f.standard_normal(
         (len(ts), b, D)).astype(np.float32)).to(device) for b in ODE_CHECKS}
     ode_checks = {b: check_node_kernels(ocase, z0s[b], cts[b],
-                                        backward=b in ODE_BACKWARD)
+                                        backward=b in ODE_BACKWARD,
+                                        twice=True)
                   for b in ODE_CHECKS}
+    for b in ODE_CHECKS:
+        for bwd in (False, True):
+            p = OD.row_plan(b, D, pspec.dyn_hidden, bwd)
+            print(f"ode_dyn row plan B={b} {'bwd' if bwd else 'fwd'}: "
+                  f"{p['C']} CTAs of {p['R']} rows, {p['smem_bytes']} B of "
+                  f"shared memory, rows in "
+                  f"{'shared' if p['rows_smem'] else 'device'} memory (the "
+                  f"library's, checked by the wrapper)")
 
     # ---- 15. B.9 against plain, at the eps-head's width
     dspec = F.DiffusionForecasterSpec(num_features=wins.shape[2], diff_T=200)
@@ -1481,7 +1541,8 @@ def forecast_phases(device, smi):
         serve_rows[source] = sresult["bench"]
 
     # ---- 18. timing: kernels and plain, a training step of each model
-    times = {("ode_dyn", b): time_node_kernels(ocase, z0s[b], cts[b], smi)
+    times = {("ode_dyn", b): time_node_kernels(ocase, z0s[b], cts[b], smi,
+                                               device=True)
              for b in (64, 297)}
     for r in (80, 640, 970, 2560):
         chain = ddpm_cases[r]["chain"]
@@ -4350,20 +4411,20 @@ def main():
         kernel_entry("ferro_node_fwd", "fetode_tpu_torch/csrc/ferro_node.cu",
                      "fetode_tpu/ops/pallas_ferro_node.py:475",
                      ecg_launches[2], worst("ferro", "fwd_err"),
-                     ft["fwd"], ft["plain_fwd"], ft["bound_fwd"]),
+                     ft["fwd_dev"], ft["plain_fwd"], ft["bound_fwd"]),
         kernel_entry("ferro_node_bwd", "fetode_tpu_torch/csrc/ferro_node.cu",
                      "fetode_tpu/ops/pallas_ferro_node.py:505",
                      ecg_launches[3], worst("ferro", "g_abs"),
-                     ft["bwd"], ft["plain_bwd"], ft["bound_bwd"]),
+                     ft["bwd_dev"], ft["plain_bwd"], ft["bound_bwd"]),
         kernel_entry("ode_dyn_fwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
                      "fetode_tpu/ops/pallas_ode_dyn.py:173", ett_launches[0],
                      max(c["fwd_err"] for c in ode_checks.values()),
-                     ot["fwd"], ot["plain_fwd"], ot["bound_fwd"]),
+                     ot["fwd_dev"], ot["plain_fwd"], ot["bound_fwd"]),
         kernel_entry("ode_dyn_bwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
                      "fetode_tpu/ops/pallas_ode_dyn.py:192", ett_launches[1],
                      max(c["g_abs"] for c in ode_checks.values()
                          if "g_abs" in c),
-                     ot["bwd"], ot["plain_bwd"], ot["bound_bwd"]),
+                     ot["bwd_dev"], ot["plain_bwd"], ot["bound_bwd"]),
         kernel_entry("ddpm_chain", "fetode_tpu_torch/csrc/ddpm.cu",
                      "fetode_tpu/ops/pallas_ddpm.py:160", ett_launches[2],
                      max(ddpm_errs.values()), dt["ms"], dt["plain"],

@@ -21,225 +21,527 @@
 // gradient).  Unlike the eager model field there is no nan_to_num, and the
 // clip passes the gradient strictly inside (-c, c), as in the TPU kernel.
 //
-// Field evaluation, two grid phases: layer 1 then layer 2, one warp per
-// output (b, o), lanes striding over l, a fixed shuffle tree.  A warp
-// first puts its sample's input row and sigmoid(g x) (which depends on
-// the input only) into shared memory.
-// VJP, six phases: the two forward phases again (layer 2 forms the
-// masked output cotangent), then per layer the backward: each thread owns
-// parameter elements (o, l), sums their five gradients over the batch in
-// registers and adds them to the gradient arrays in a fixed order, and
-// stages the input cotangent of every (b, o, l); one warp per (b, i) then
-// sums its staged values over (o, k) and applies the tanh link (layer 2
-// to layer 1) or the bound chain (layer 1 to the state).  No atomics: the
-// gradients are the same bits on every run.
+// The parameters stay put (parameter-stationary tiles).  Each layer's
+// (o, l) elements are cut into tiles of RG output rows by CG input
+// columns, RG * CG = 32 (every k of each column: l = i*K + k), RG chosen
+// so that a row's sum and a column's sum cross about as few tiles each
+// (slice_plan; ops/ferro_node.py mirrors it; 16 and 16 at the ECG
+// widths).  Tile q goes to block q mod G, which keeps its five parameter
+// arrays (and, in the backward, their five gradients) in shared memory
+// for the whole launch.  A work unit is an element of the block's tiles
+// and a run of samples (8 samples a pass, the inputs of 64 formed at
+// once): the backward's thread owns its elements and sums their gradients
+// over the samples in order, the forward cuts the run to 4 samples so the
+// units spread evenly over the threads; either way a parameter is read
+// once for several samples.  The terms go to a shared buffer, where a
+// warp a sample gives each (row, column) of the tile a lane that sums its
+// K terms in order.  The forward adds a row's lanes in
+// a fixed shuffle tree into the tile's partial of that row, and the
+// consumer adds a row's partials in tile order; the backward adds a
+// column's lanes the same way into the tile's partial of the input
+// cotangent, added over the row groups in order.  No (B, out, L) staging
+// tensor, no atomics: every output and gradient is the same bits on every
+// run, and each gradient is written once, at the end.
 //
-// What bounds it on this card: transcendental arithmetic.  At the ECG
-// widths (D = 64, H = 128, K = 12, B = 8) one evaluation is 2 x 8 x 98,304
-// ferro terms, each a sigmoid (an expf and a division) and a tanhf, about
-// 40 instructions without --use_fast_math; a VJP evaluates the terms
-// twice.  The parameters (10 x 98,304 floats, 3.9 MB) stay in L2.  The
-// design spreads the terms over every SM of a cooperative grid and keeps
-// the per-input sigmoid out of the per-term work; at B = 8 each phase
-// leaves many SMs idle between barriers, so the serial chain of grid
-// barriers (about 3 per evaluation, 7 per VJP) is the other bound.
+// The solve takes node_common.cuh's fused-stage hook: the stage input
+// u = y + dt sum_l a_jl k_l, the tanh bound and the sigmoid of the input
+// are formed in layer 1's prologue, each block for the (b, i) its tiles
+// read, straight from y, the stages and the partials of the stage still
+// pending.  So an evaluation is two grid phases (layer 1, layer 2) and
+// two barriers, and a VJP four: the two forward layers, layer 2's
+// backward, layer 1's backward (the previous layer's partials form the
+// input cotangent in each prologue).  Every consumer's sum starts all
+// its loads at once and adds them in order.  The sigmoid's quotient is
+// rcp_sigmoid (knot_quotient.cuh): IEEE's bits without the branch that
+// serialised a lane's terms.
+//
+// What bounds it on this card: the special-function unit, by count.  At
+// the ECG widths (D = 64, H = 128, K = 12, B = 8) an evaluation is 2 x 8
+// x 98,304 ferro terms, each an expf, a reciprocal and a tanhf (about 4
+// SFU results), 0.75 us of the 132 SMs' SFUs a layer; a VJP evaluates the
+// terms twice.  In practice the terms' instruction rate (about 60 a term
+// in plain's rounding) sets the pace, then the barriers (two an
+// evaluation, four a VJP) and the prologues' loads.
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "knot_quotient.cuh"
 #include "node_common.cuh"
 
 namespace {
 
 using namespace node_common;
 
-constexpr int kMaxRow = 512;  // the latent and hidden widths, at most
+constexpr int kMaxRow = 512;       // the latent and hidden widths, at most
+constexpr int kChunk = kWarps;     // samples a term pass takes at once
+constexpr int kRun = 4;            // samples a forward work unit takes
+constexpr int kPro = 64;           // samples a prologue forms at once
+constexpr int kLanes = 32;         // (row, column) pairs a tile holds
+constexpr int kBatch = 16;         // loads a consumer's sum starts at once
+// Bytes of parameter (and gradient) tiles a block keeps in shared
+// memory; past it they stay in device memory, each element still read by
+// its one owner.
+constexpr long long kSliceSmem = 96 * 1024;
+// Dynamic shared memory a block may take: the card's 227 KB less the
+// static arrays of the scaffold's reductions.
+constexpr size_t kMaxDynamicSmem = 232448 - 2048;
 
-// One warp's two shared-memory rows of kMaxRow floats.
-__device__ __forceinline__ float* warp_rows() {
-  __shared__ float rows[kWarps][2 * kMaxRow];
-  return rows[threadIdx.x >> 5];
+__device__ __forceinline__ float ferro_sigmoid(float z) {
+  return rcp_sigmoid(1.0f + expf(-z));
+}
+
+// floor(n / d) for 0 <= n < 2^16 and 1 <= d < 2^16 as one multiply-high
+// by m = magic(d) (exact there: n (m d - 2^32) < d 2^16 <= 2^32).
+__host__ __device__ inline unsigned magic(unsigned d) {
+  return (unsigned)(0x100000000ULL / d) + 1u;
+}
+__device__ __forceinline__ int div_m(int n, unsigned m) {
+  return (int)__umulhi((unsigned)n, m);
+}
+
+// p[0] + p[1] + ... + p[n-1] in that order, the loads kBatch at a time.
+__device__ __forceinline__ float ordered_sum(const float* p, int n) {
+  float s = 0.0f;
+  for (int k0 = 0; k0 < n; k0 += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) v[k] = k0 + k < n ? ld(p + k0 + k) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (k0 + k < n) s += v[k];
+  }
+  return s;
+}
+
+// How one layer (O outputs, I inputs, K bases) is cut into tiles.
+struct SlicePlan {
+  int O, I, K, L;
+  int RG, CG;   // rows and columns of a tile, RG * CG = 32
+  int NR, NC;   // row groups and column chunks
+  int nsl;      // NR * NC tiles; tile q = rg * NC + cc
+  int ns;       // tiles a block holds, at most
+};
+
+// RG the power of two that makes max(NR, NC) least (the partials a
+// column's and a row's sum add), the smaller RG on a tie.
+__host__ __device__ inline SlicePlan slice_plan(int G, int O, int I, int K) {
+  SlicePlan p;
+  p.O = O;
+  p.I = I;
+  p.K = K;
+  p.L = I * K;
+  int best = -1;
+  for (int rg = 1; rg <= kLanes; rg *= 2) {
+    const int cg = kLanes / rg;
+    const int nr = (O + rg - 1) / rg, nc = (I + cg - 1) / cg;
+    const int cost = nr > nc ? nr : nc;
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.RG = rg;
+      p.CG = cg;
+      p.NR = nr;
+      p.NC = nc;
+    }
+  }
+  p.nsl = p.NR * p.NC;
+  p.ns = (p.nsl + G - 1) / G;
+  return p;
+}
+
+// The block's shared-memory layout (floats) for G blocks.
+struct FerroGeo {
+  SlicePlan p1, p2;  // layer 1 (H, D, K1), layer 2 (D, H, K2)
+  int G, in_smem, bwd;
+  int SL1, SL2;      // floats of one parameter array of a tile
+  int g_off, buf_off, xs_off, ms_off, wc_off, BS;
+  long long smem_floats;
+};
+
+FerroGeo make_geo(int G, int D, int H, int K1, int K2, bool bwd) {
+  FerroGeo g{};
+  g.G = G;
+  g.bwd = bwd;
+  g.p1 = slice_plan(G, H, D, K1);
+  g.p2 = slice_plan(G, D, H, K2);
+  g.SL1 = kLanes * K1;
+  g.SL2 = kLanes * K2;
+  const long long prm = 5LL * (g.p1.ns * g.SL1 + g.p2.ns * g.SL2);
+  const long long slices = bwd ? 2 * prm : prm;
+  g.in_smem = slices * (long long)sizeof(float) <= kSliceSmem;
+  const int Km = K1 > K2 ? K1 : K2;
+  g.BS = kLanes * (Km + 1);
+  const long long at = g.in_smem ? slices : 0;
+  g.g_off = (int)prm;
+  g.buf_off = (int)at;
+  g.xs_off = g.buf_off + kChunk * g.BS;
+  g.ms_off = g.xs_off + kPro * kLanes;
+  g.wc_off = g.ms_off + kPro * kLanes;
+  g.smem_floats = g.wc_off + kPro * kLanes;
+  return g;
 }
 
 struct FerroLayer {
-  const float* fk;  // (out, L) each
-  const float* fec;
-  const float* fps;
-  const float* fbias;
-  const float* fcoef;
-  const float* nz;  // (B, out, L) frozen noise, or null
-  float* gk;        // (out, L) gradients, VJP only
-  float* gec;
-  float* gps;
-  float* gbias;
-  float* gcoef;
+  const float* prm;  // (5, out, L): k, ec, ps, bias, coef
+  const float* nz;   // (B, out, L) frozen noise, or null
+  float* grd;        // (5, out, L) gradients, VJP only
   int out, K, L;
 };
 
-struct Term {
-  float cn, beta, th, fb;
+// One tile of a layer as this block holds it: rows o0 .. o0 + RG - 1 and
+// columns c0 .. c0 + CG - 1 (those inside the layer); element e = (r CG +
+// c) K + k; parameter a of element e at prm[a * astride + off(e)], its
+// gradient at grd[a * astride + off(e)], off(e) = e in shared memory and
+// r L + c K + k in device memory.
+struct Slice {
+  const float* prm;
+  float* grd;
+  int astride, rg, cc, o0, c0, rows, cols;
+  bool dev;
 };
 
 struct FerroField {
+  static constexpr bool kFused = true;
   FerroLayer l1, l2;
   int B, D, H;
   float gate, alpha, oma, c2;  // c2 = 2 gate (1 - alpha)
   float h_bound, inv_hb, dh_clip;
-  float* hb;    // (B, D) bounded state
-  float* mu1;   // (B, D) sigmoid(gate hb)
-  float* z;     // (B, H) hidden activation
-  float* mu2;   // (B, H) sigmoid(gate z)
-  float* wcol;  // (B, max(D, H)) a layer's output cotangent
-  float* xfb;   // (B, out, L) a layer's staged input cotangents
+  float* part1;  // (B, H, NC1) layer 1's row partials
+  float* part2;  // (B, D, NC2) layer 2's row partials
+  float* px2;    // (B, H, NR2) layer 2's input-cotangent partials
+  float* px1;    // (B, D, NR1) layer 1's input-cotangent partials
+  FerroGeo geo;
+  float* sm;     // the block's dynamic shared memory
 
-  __device__ __forceinline__ Term term(const FerroLayer& p, int e, float x,
-                                       float mu) const {
-    Term r;
-    const float ec = p.fec[e];
-    r.cn = sigmoid(gate * (-x - ec));
-    r.beta = alpha + oma * (1.0f - 2.0f * ((1.0f - mu) * r.cn));
-    r.th = tanhf(p.fk[e] * (x + ec * r.beta));
-    r.fb = p.fps[e] * r.th + p.fbias[e];
-    return r;
-  }
-
-  // sum_l fb[b, o, l] coef[o, l] by one warp; x, mu: the input row.
-  __device__ float row_sum(const FerroLayer& p, const float* x,
-                           const float* mu, int b, int o) const {
-    const float* nz = p.nz ? p.nz + ((size_t)b * p.out + o) * p.L : nullptr;
-    float acc = 0.0f;
-    for (int l = lane_id(); l < p.L; l += 32) {
-      const int e = o * p.L + l, i = l / p.K;
-      float fb = term(p, e, x[i], mu[i]).fb;
-      if (nz) fb += nz[l];
-      acc += fb * p.fcoef[e];
+  __device__ __forceinline__ Slice slice(int layer, int slot) const {
+    const FerroLayer& P = layer == 1 ? l1 : l2;
+    const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
+    const int q = blockIdx.x + slot * geo.G;
+    Slice sl;
+    sl.rg = q / pl.NC;
+    sl.cc = q - sl.rg * pl.NC;
+    sl.o0 = sl.rg * pl.RG;
+    sl.c0 = sl.cc * pl.CG;
+    sl.rows = min(pl.RG, pl.O - sl.o0);
+    sl.cols = min(pl.CG, pl.I - sl.c0);
+    sl.dev = !geo.in_smem;
+    if (geo.in_smem) {
+      const int SL = layer == 1 ? geo.SL1 : geo.SL2;
+      const int off = layer == 1 ? 0 : 5 * geo.p1.ns * geo.SL1;
+      sl.prm = sm + off + slot * 5 * SL;
+      sl.grd = sm + geo.g_off + off + slot * 5 * SL;
+      sl.astride = SL;
+    } else {
+      const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
+      sl.prm = P.prm + at;
+      sl.grd = P.grd + at;
+      sl.astride = P.out * P.L;
     }
-    return warp_sum(acc);
+    return sl;
   }
 
-  // Layer 1: z = tanh(ferro1(hb)); also hb and mu1 for the VJP.
-  __device__ void layer1(const float* u) const {
-    float* xs = warp_rows();
-    float* ms = xs + kMaxRow;
-    const int lane = lane_id();
-    for (int w = grid_warp(); w < B * H; w += grid_warps()) {
-      const int b = w / H, o = w - b * H;
-      for (int i = lane; i < D; i += 32) {
-        const float h = h_bound * tanhf(ld(u + b * D + i) * inv_hb);
-        xs[i] = h;
-        ms[i] = sigmoid(gate * h);
-        if (o == 0) {
-          hb[b * D + i] = h;
-          mu1[b * D + i] = ms[i];
+  __device__ __forceinline__ int slots(int layer) const {
+    const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
+    return ((int)pl.nsl - (int)blockIdx.x + geo.G - 1) / geo.G;
+  }
+
+  // Element e of a tile: its lane q, row r and column c, whether it lies
+  // inside the layer, and its offset in the device arrays from the tile's
+  // corner.  mK = magic(K); CG is a power of two, 2^lcg.
+  __device__ __forceinline__ bool element(const Slice& sl, const SlicePlan& pl,
+                                          unsigned mK, int lcg, int e, int& q,
+                                          int& r, int& c, int& dev_off) const {
+    q = div_m(e, mK);
+    const int k = e - q * pl.K;
+    r = q >> lcg;
+    c = q - (r << lcg);
+    dev_off = r * pl.L + c * pl.K + k;
+    return r < sl.rows && c < sl.cols;
+  }
+
+  // The tiles' parameters into shared memory and the gradients zeroed.
+  __device__ void load() const {
+    for (int layer = 1; layer <= 2; ++layer) {
+      const FerroLayer& P = layer == 1 ? l1 : l2;
+      const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
+      const size_t n = (size_t)P.out * P.L;
+      for (int k = 0; k < slots(layer); ++k) {
+        const Slice sl = slice(layer, k);
+        const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
+        const unsigned mK = magic(P.K);
+        const int lcg = __ffs(pl.CG) - 1;
+        for (int e = threadIdx.x; e < kLanes * P.K; e += blockDim.x) {
+          int q, r, c, off;
+          if (!element(sl, pl, mK, lcg, e, q, r, c, off)) continue;
+          const int i = sl.dev ? off : e;
+#pragma unroll
+          for (int a = 0; a < 5; ++a) {
+            if (!sl.dev)
+              const_cast<float*>(sl.prm)[a * sl.astride + e] =
+                  P.prm[a * n + at + off];
+            if (geo.bwd) sl.grd[a * sl.astride + i] = 0.0f;
+          }
         }
       }
-      __syncwarp();
-      const float s = row_sum(l1, xs, ms, b, o);
-      if (lane == 0) z[w] = tanhf(s);
-      __syncwarp();
     }
   }
 
-  // Layer 2 on z: with w null, out = clip(dh); else out = w where
-  // -c < dh < c and 0 elsewhere (the clip's strict mask); also mu2.
-  __device__ void layer2(float* out, const float* w) const {
-    float* xs = warp_rows();
-    float* ms = xs + kMaxRow;
-    const int lane = lane_id();
-    for (int t = grid_warp(); t < B * D; t += grid_warps()) {
-      const int b = t / D, o = t - b * D;
-      for (int i = lane; i < H; i += 32) {
-        const float x = ld(z + b * H + i);
-        xs[i] = x;
-        ms[i] = sigmoid(gate * x);
-        if (o == 0) mu2[b * H + i] = ms[i];
-      }
-      __syncwarp();
-      const float dh = row_sum(l2, xs, ms, b, o);
-      if (lane == 0) {
-        if (w == nullptr)
-          out[t] = fminf(fmaxf(dh, -dh_clip), dh_clip);
-        else
-          out[t] = (dh > -dh_clip && dh < dh_clip) ? ld(w + t) : 0.0f;
-      }
-      __syncwarp();
-    }
-  }
-
-  // One layer's backward for output cotangent wc (B, out) at input x
-  // (B, in) with mu = sigmoid(gate x): the five gradients of every owned
-  // (o, l), and xfb[b, o, l], the cotangent of the term's input.
-  __device__ void layer_bwd(const FerroLayer& p, int in, const float* x,
-                            const float* mu, const float* wc) const {
-    const int nth = grid_threads();
-    for (int e = grid_tid(); e < p.out * p.L; e += nth) {
-      const int o = e / p.L, l = e - o * p.L, i = l / p.K;
-      const float k = p.fk[e], ec = p.fec[e], ps = p.fps[e], coef = p.fcoef[e];
-      float gk = 0.0f, gec = 0.0f, gps = 0.0f, gbias = 0.0f, gcoef = 0.0f;
-      for (int b = 0; b < B; ++b) {
-        const float xv = ld(x + b * in + i), m = ld(mu + b * in + i);
-        const float wv = ld(wc + b * p.out + o);
-        const Term t = term(p, e, xv, m);
-        const size_t s = ((size_t)b * p.out + o) * p.L + l;
-        const float fb = p.nz ? t.fb + p.nz[s] : t.fb;
-        gcoef += fb * wv;
-        const float fbar = coef * wv;
-        const float sech2 = 1.0f - t.th * t.th;
-        gps += t.th * fbar;
-        gbias += fbar;
-        gk += ps * (xv + ec * t.beta) * sech2 * fbar;
-        const float common = ps * k * sech2 * fbar;
-        const float dbeta_dec = c2 * (1.0f - m) * t.cn * (1.0f - t.cn);
-        const float dbeta_dx = c2 * (1.0f - m) * t.cn * (m + 1.0f - t.cn);
-        gec += common * (t.beta + ec * dbeta_dec);
-        xfb[s] = common * (1.0f + ec * dbeta_dx);
-      }
-      p.gk[e] += gk;
-      p.gec[e] += gec;
-      p.gps[e] += gps;
-      p.gbias[e] += gbias;
-      p.gcoef[e] += gcoef;
-    }
-  }
-
-  // dst[b, j] = link(b, j) * sum_{o, k} xfb[b, o, j*K + k], one warp per
-  // (b, j): the tanh link 1 - z^2 into layer 1's output, or the bound
-  // chain 1 - (hb / h_bound)^2 into the state.
-  __device__ void contract(const FerroLayer& p, int in, bool to_state,
-                           float* dst) const {
-    const int lane = lane_id(), n = p.out * p.K;
-    for (int w = grid_warp(); w < B * in; w += grid_warps()) {
-      const int b = w / in, j = w - b * in;
-      const float* base = xfb + (size_t)b * p.out * p.L + j * p.K;
-      float s = 0.0f;
-      for (int q = lane; q < n; q += 32) {
-        const int o = q / p.K, k = q - o * p.K;
-        s += ld(base + (size_t)o * p.L + k);
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float v = to_state ? ld(hb + w) * inv_hb : ld(z + w);
-        dst[w] = s * (1.0f - v * v);
+  // The gradients held in shared memory to the outputs, by their owners.
+  __device__ void store() const {
+    if (!geo.in_smem) return;
+    for (int layer = 1; layer <= 2; ++layer) {
+      const FerroLayer& P = layer == 1 ? l1 : l2;
+      const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
+      const size_t n = (size_t)P.out * P.L;
+      for (int k = 0; k < slots(layer); ++k) {
+        const Slice sl = slice(layer, k);
+        const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
+        const unsigned mK = magic(P.K);
+        const int lcg = __ffs(pl.CG) - 1;
+        for (int e = threadIdx.x; e < kLanes * P.K; e += blockDim.x) {
+          int q, r, c, off;
+          if (!element(sl, pl, mK, lcg, e, q, r, c, off)) continue;
+#pragma unroll
+          for (int a = 0; a < 5; ++a)
+            P.grd[a * n + at + off] = sl.grd[a * sl.astride + e];
+        }
       }
     }
   }
 
-  __device__ void eval(const float* u, float* out) const {
-    layer1(u);
+  // Layer 2's pending output at element e, unclipped and clipped; z of
+  // layer 1's row (b, o); each the row's partials added in tile order.
+  __device__ __forceinline__ float dh_at(int e) const {
+    return ordered_sum(part2 + (size_t)e * geo.p2.NC, geo.p2.NC);
+  }
+  __device__ __forceinline__ float pend(int e) const {
+    return fminf(fmaxf(dh_at(e), -dh_clip), dh_clip);
+  }
+  __device__ __forceinline__ float z_at(int b, int o) const {
+    return tanhf(ordered_sum(part1 + ((size_t)b * H + o) * geo.p1.NC,
+                             geo.p1.NC));
+  }
+  __device__ __forceinline__ float bound(float u) const {
+    return h_bound * tanhf(u * inv_hb);
+  }
+
+  // The stage input at element e, as the unfused pass forms it, the
+  // pending stage read from its partials; every load started at once.
+  __device__ __forceinline__ float stage_u(const StageIn& in, int e) const {
+    const float y = ld(in.y + e);
+    if (in.j == 0) return y;
+    if (in.j < 0) return y + in.h * ld(in.ks + e);
+    float k[6];
+#pragma unroll
+    for (int l = 0; l < 6; ++l)
+      k[l] = (l < in.j && l != in.pending) ? ld(in.ks + (size_t)l * in.N + e)
+                                           : 0.0f;
+    if (in.pending >= 0) {
+      const float pv = pend(e);
+#pragma unroll
+      for (int l = 0; l < 6; ++l)
+        if (l == in.pending) k[l] = pv;
+    }
+    float incr = kA[in.j][0] * k[0];
+#pragma unroll
+    for (int l = 1; l < 6; ++l)
+      if (l < in.j) incr += kA[in.j][l] * k[l];
+    return y + in.h * incr;
+  }
+
+  // The same from the records, for the VJP of stage j.
+  __device__ __forceinline__ float record_u(const VjpIn& in, int e) const {
+    float k[6];
+#pragma unroll
+    for (int l = 0; l < 6; ++l)
+      k[l] = l < (in.j > 0 ? in.j : 1) ? in.ks[(size_t)l * in.N + e] : 0.0f;
+    float incr = kA[in.j][0] * k[0];
+#pragma unroll
+    for (int l = 1; l < 6; ++l)
+      if (l < in.j) incr += kA[in.j][l] * k[l];
+    return in.y[e] + in.dt * incr;
+  }
+
+  // One layer over the block's tiles.  xf(b, i): the layer's input;
+  // kBwd: wf(b, o) the output cotangent, the five gradients accumulated
+  // and each column's partial of the input cotangent written to `out`
+  // (B, in, NR); else each row's partial to `out` (B, out, NC).
+  template <bool kBwd, class XF, class WF>
+  __device__ __forceinline__ void layer(int which, const XF& xf, const WF& wf,
+                                        float* out) const {
+    const FerroLayer& P = which == 1 ? l1 : l2;
+    const SlicePlan& pl = which == 1 ? geo.p1 : geo.p2;
+    const int K = P.K, BS = geo.BS, CG = pl.CG, RG = pl.RG;
+    float* buf = sm + geo.buf_off;
+    float* xs = sm + geo.xs_off;
+    float* ms = sm + geo.ms_off;
+    float* wc = sm + geo.wc_off;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int lr = lane / CG, lc = lane - lr * CG;
+    const unsigned mK = magic(K), mSL = magic(kLanes * K);
+    const int lcg = __ffs(CG) - 1;
+    for (int k = 0; k < slots(which); ++k) {
+      const Slice sl = slice(which, k);
+      const float* nzs =
+          P.nz ? P.nz + (size_t)sl.o0 * P.L + sl.c0 * K : nullptr;
+      const bool lane_in = lr < sl.rows && lc < sl.cols;
+      for (int p0 = 0; p0 < B; p0 += kPro) {
+        // The inputs (and cotangents) of up to kPro samples at once, so a
+        // prologue's loads are one round trip for all of them.
+        const int np = min(kPro, B - p0);
+        for (int i = threadIdx.x; i < np * CG; i += blockDim.x) {
+          const int bb = i / CG, c = i - bb * CG;
+          if (c >= sl.cols) continue;
+          const float x = xf(p0 + bb, sl.c0 + c);
+          xs[bb * CG + c] = x;
+          ms[bb * CG + c] = ferro_sigmoid(gate * x);
+        }
+        if constexpr (kBwd)
+          for (int i = threadIdx.x; i < np * RG; i += blockDim.x) {
+            const int bb = i / RG, r = i - bb * RG;
+            if (r < sl.rows) wc[bb * RG + r] = wf(p0 + bb, sl.o0 + r);
+          }
+        __syncthreads();
+        for (int b0 = 0; b0 < np; b0 += kChunk) {
+          const int nb = min(kChunk, np - b0);
+          // A work unit is an element and a run of the chunk's samples: the
+          // backward's run is the whole chunk, whose gradients it sums in
+          // order; the forward, which sums nothing per element, cuts the
+          // chunk into runs of kRun so the units spread evenly.
+          const int run = kBwd ? kChunk : kRun, SLt = kLanes * K;
+          const int units = SLt * ((nb + run - 1) / run);
+          for (int u = threadIdx.x; u < units; u += blockDim.x) {
+            const int h = div_m(u, mSL), e = u - h * SLt;
+            int q, r, c, off;
+            if (!element(sl, pl, mK, lcg, e, q, r, c, off)) continue;
+            const int s0 = h * run, s1 = min(nb, s0 + run);
+            const int i = sl.dev ? off : e;
+            const int a = sl.astride;
+            const float fk = sl.prm[i], ec = sl.prm[a + i];
+            const float ps = sl.prm[2 * a + i], bias = sl.prm[3 * a + i];
+            const float coef = sl.prm[4 * a + i];
+            float nzv[kChunk];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              nzv[j] = (nzs && s0 + j < s1)
+                  ? nzs[(size_t)(p0 + b0 + s0 + j) * P.out * P.L + off] : 0.0f;
+            float gk = 0.0f, gec = 0.0f, gps = 0.0f, gbias = 0.0f;
+            float gcoef = 0.0f;
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) {
+              const int bb = s0 + j;
+              if (bb >= s1) break;
+              const int sb = b0 + bb;
+              const float x = xs[sb * CG + c], mu = ms[sb * CG + c];
+              const float cn = ferro_sigmoid(gate * (-x - ec));
+              const float beta =
+                  alpha + oma * (1.0f - 2.0f * ((1.0f - mu) * cn));
+              const float th = tanhf(fk * (x + ec * beta));
+              float fb = ps * th + bias;
+              if (nzs) fb += nzv[j];
+              float v;
+              if constexpr (kBwd) {
+                const float wv = wc[sb * RG + r];
+                gcoef += fb * wv;
+                const float fbar = coef * wv;
+                const float sech2 = 1.0f - th * th;
+                gps += th * fbar;
+                gbias += fbar;
+                gk += ps * (x + ec * beta) * sech2 * fbar;
+                const float common = ps * fk * sech2 * fbar;
+                const float dbeta_dec = c2 * (1.0f - mu) * cn * (1.0f - cn);
+                const float dbeta_dx =
+                    c2 * (1.0f - mu) * cn * (mu + 1.0f - cn);
+                gec += common * (beta + ec * dbeta_dec);
+                v = common * (1.0f + ec * dbeta_dx);
+              } else {
+                v = fb * coef;
+              }
+              buf[bb * BS + e + q] = v;  // lane q's terms at q (K + 1)
+            }
+            if constexpr (kBwd) {
+              sl.grd[i] += gk;
+              sl.grd[a + i] += gec;
+              sl.grd[2 * a + i] += gps;
+              sl.grd[3 * a + i] += gbias;
+              sl.grd[4 * a + i] += gcoef;
+            }
+          }
+          __syncthreads();
+          for (int w = warp; w < nb; w += kWarps) {
+            const int b = p0 + b0 + w;
+            float v = 0.0f;
+            if (lane_in) {
+              const float* t = buf + w * BS + lane * (K + 1);
+              v = t[0];
+              for (int kk = 1; kk < K; ++kk) v += t[kk];
+            }
+            if constexpr (kBwd) {
+              for (int d = kLanes / 2; d >= CG; d >>= 1)
+                v += __shfl_down_sync(0xffffffffu, v, d);
+              if (lr == 0 && lc < sl.cols)
+                out[((size_t)b * pl.I + sl.c0 + lc) * pl.NR + sl.rg] = v;
+            } else {
+              for (int d = CG / 2; d >= 1; d >>= 1)
+                v += __shfl_down_sync(0xffffffffu, v, d, CG);
+              if (lc == 0 && lr < sl.rows)
+                out[((size_t)b * pl.O + sl.o0 + lr) * pl.NC + sl.cc] = v;
+            }
+          }
+          __syncthreads();
+        }
+      }
+    }
+  }
+
+  // f(u) of the stage, left pending in part2.
+  __device__ void stage(const StageIn& in) const {
+    if (in.pending >= 0)
+      for (int e = grid_tid(); e < in.N; e += grid_threads())
+        in.ks[(size_t)in.pending * in.N + e] = pend(e);
+    auto none = [](int, int) { return 0.0f; };
+    layer<false>(1, [&](int b, int i) { return bound(stage_u(in, b * D + i)); },
+                 none, part1);
     cg::this_grid().sync();
-    layer2(out, nullptr);
+    layer<false>(2, [&](int b, int i) { return z_at(b, i); }, none, part2);
   }
 
-  __device__ void vjp(const float* u, const float* w, float* ubar) const {
+  __device__ __forceinline__ float take(int e, float* dst) const {
+    const float v = pend(e);
+    dst[e] = v;
+    return v;
+  }
+
+  // The VJP of stage j at its recorded input, cotangent in.w; ubar left
+  // pending in px1.  Layer 2's output passes the cotangent strictly inside
+  // (-c, c), as the plain field's clip.
+  __device__ void vjp_stage(const VjpIn& in) const {
+    auto none = [](int, int) { return 0.0f; };
+    auto hb = [&](int b, int i) { return bound(record_u(in, b * D + i)); };
+    auto zf = [&](int b, int i) { return z_at(b, i); };
     cg::grid_group grid = cg::this_grid();
-    layer1(u);
+    layer<false>(1, hb, none, part1);
     grid.sync();
-    layer2(wcol, w);
+    layer<false>(2, zf, none, part2);
     grid.sync();
-    layer_bwd(l2, H, z, mu2, wcol);
+    layer<true>(2, zf, [&](int b, int o) {
+      const float dh = dh_at(b * D + o);
+      return (dh > -dh_clip && dh < dh_clip) ? ld(in.w + b * D + o) : 0.0f;
+    }, px2);
     grid.sync();
-    contract(l2, H, false, wcol);
-    grid.sync();
-    layer_bwd(l1, D, hb, mu1, wcol);
-    grid.sync();
-    contract(l1, D, true, ubar);
+    layer<true>(1, hb, [&](int b, int o) {
+      const float s = ordered_sum(px2 + ((size_t)b * H + o) * geo.p2.NR,
+                                  geo.p2.NR);
+      const float z = z_at(b, o);
+      return s * (1.0f - z * z);
+    }, px1);
+  }
+
+  __device__ __forceinline__ float take_ub(int e, const VjpIn& in) const {
+    const float v = bound(record_u(in, e)) * inv_hb;
+    const float s = ordered_sum(px1 + (size_t)e * geo.p1.NR, geo.p1.NR);
+    return s * (1.0f - v * v);
   }
 };
 
@@ -254,53 +556,65 @@ struct BwdArgs {
 };
 
 template <bool kRecord>
-__global__ void __launch_bounds__(kThreads) ferro_node_fwd_kernel(FwdArgs a) {
-  adaptive_solve_final<kRecord>(a.f, a.s);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+    ferro_node_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  FerroField f = a.f;
+  f.sm = smem;
+  f.load();
+  __syncthreads();
+  adaptive_solve_final<kRecord>(f, a.s);
 }
 
-__device__ void zero_grads(const FerroLayer& p) {
-  for (int e = grid_tid(); e < p.out * p.L; e += grid_threads())
-    p.gk[e] = p.gec[e] = p.gps[e] = p.gbias[e] = p.gcoef[e] = 0.0f;
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+    ferro_node_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  FerroField f = a.f;
+  f.sm = smem;
+  f.load();
+  cg::this_grid().sync();  // device-memory gradients zeroed by their owners
+  adjoint_replay(f, a.r);
+  f.store();
 }
 
-__global__ void __launch_bounds__(kThreads) ferro_node_bwd_kernel(BwdArgs a) {
-  zero_grads(a.f.l1);
-  zero_grads(a.f.l2);
-  cg::this_grid().sync();
-  adjoint_replay(a.f, a.r);
+// The grid of a launch: SMs x the blocks an SM runs (at most
+// kBlocksPerSM, fewer if the slices' shared memory allows fewer).
+int grid_blocks(int* G, int per) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  *G = sms * per;
+  return 0;
 }
 
-// Scratch layout in `work` (floats), N = B*D: the scaffold's 10N; hb, mu1
-// (2N); z, mu2 (2*B*H); part; then, for the backward only, wcol
-// (B*max(D, H)) and xfb (B*max(H*L1, D*L2)).
-size_t work_floats(int B, int D, int H, int K1, int K2, bool bwd) {
-  const size_t N = (size_t)B * D, BH = (size_t)B * H;
-  size_t n = 12 * N + 2 * BH + kPartFloats;
-  if (bwd) {
-    const size_t wide = (size_t)(D > H ? D : H);
-    const size_t s1 = (size_t)H * D * K1, s2 = (size_t)D * H * K2;
-    n += B * wide + B * (s1 > s2 ? s1 : s2);
-  }
-  return n;
+// Scratch layout in `work` (floats), N = B*D: the scaffold's 10N and
+// part; part1 (B*H*NC1) and part2 (B*D*NC2); then, for the backward only,
+// px2 (B*H*NR2) and px1 (B*D*NR1).
+struct WorkLayout {
+  size_t part, part1, part2, px2, px1, total;
+};
+
+WorkLayout work_layout(int B, int D, int H, int K1, int K2, bool bwd) {
+  const FerroGeo g = make_geo(1, D, H, K1, K2, bwd);
+  const size_t N = (size_t)B * D;
+  WorkLayout w;
+  w.part = 10 * N;
+  w.part1 = w.part + kPartFloats;
+  w.part2 = w.part1 + (size_t)B * H * g.p1.NC;
+  w.px2 = w.part2 + (size_t)B * D * g.p2.NC;
+  w.px1 = w.px2 + (bwd ? (size_t)B * H * g.p2.NR : 0);
+  w.total = w.px1 + (bwd ? (size_t)B * D * g.p1.NR : 0);
+  return w;
 }
 
 FerroLayer make_layer(const float* prm, const float* nz, float* grads,
                       int out, int in, int K) {
   FerroLayer p{};
-  const size_t n = (size_t)out * in * K;
-  p.fk = prm;
-  p.fec = prm + n;
-  p.fps = prm + 2 * n;
-  p.fbias = prm + 3 * n;
-  p.fcoef = prm + 4 * n;
+  p.prm = prm;
   p.nz = nz;
-  if (grads != nullptr) {
-    p.gk = grads;
-    p.gec = grads + n;
-    p.gps = grads + 2 * n;
-    p.gbias = grads + 3 * n;
-    p.gcoef = grads + 4 * n;
-  }
+  p.grd = grads;
   p.out = out;
   p.K = K;
   p.L = in * K;
@@ -309,9 +623,9 @@ FerroLayer make_layer(const float* prm, const float* nz, float* grads,
 
 FerroField make_field(const float* prm1, const float* prm2, const float* nz1,
                       const float* nz2, float* g1, float* g2, float* work,
-                      int B, int D, int H, int K1, int K2, float gate,
-                      float alpha, float oma, float c2, float h_bound,
-                      float dh_clip) {
+                      const WorkLayout& w, int B, int D, int H, int K1,
+                      int K2, float gate, float alpha, float oma, float c2,
+                      float h_bound, float dh_clip) {
   FerroField f{};
   f.l1 = make_layer(prm1, nz1, g1, H, D, K1);
   f.l2 = make_layer(prm2, nz2, g2, D, H, K2);
@@ -325,25 +639,91 @@ FerroField make_field(const float* prm1, const float* prm2, const float* nz1,
   f.h_bound = h_bound;
   f.inv_hb = 1.0f / h_bound;
   f.dh_clip = dh_clip;
-  const size_t N = (size_t)B * D, BH = (size_t)B * H;
-  f.hb = work + 10 * N;
-  f.mu1 = f.hb + N;
-  f.z = f.mu1 + N;
-  f.mu2 = f.z + BH;
-  f.wcol = f.mu2 + BH + kPartFloats;
-  f.xfb = f.wcol + (size_t)B * (D > H ? D : H);
+  f.part1 = work + w.part1;
+  f.part2 = work + w.part2;
+  f.px2 = work + w.px2;
+  f.px1 = work + w.px1;
   return f;
 }
 
-float* part_of(float* work, int B, int D, int H) {
-  return work + 12 * (size_t)B * D + 2 * (size_t)B * H;
+// Launches kernel(args) as a cooperative grid of kThreads-thread blocks,
+// kBlocksPerSM an SM while the slices' shared memory allows it, else one;
+// the plan for that grid into args.f.geo.  Returns the CUDA error, 0 on
+// success.
+// The occupancy of each kernel, device and shared-memory size is asked
+// once.
+template <class Args>
+int launch_ferro(void (*kernel)(Args), Args& args, bool bwd,
+                 cudaStream_t stream) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> occupancy;
+  const FerroField& f = args.f;
+  const int K1 = f.l1.K, K2 = f.l2.K;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  for (int per = kBlocksPerSM; per >= 1; --per) {
+    int G = 0;
+    int rc = grid_blocks(&G, per);
+    if (rc != 0) return rc;
+    if (G > kMaxBlocks) G = kMaxBlocks;
+    const FerroGeo geo = make_geo(G, f.D, f.H, K1, K2, bwd);
+    const size_t bytes = (size_t)geo.smem_floats * sizeof(float);
+    int occ = 0;
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      const auto key = std::make_tuple((const void*)kernel, dev, bytes);
+      const auto it = occupancy.find(key);
+      if (it != occupancy.end()) {
+        occ = it->second;
+      } else {
+        if (bytes > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
+        err = cudaFuncSetAttribute(kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kMaxDynamicSmem);
+        if (err == cudaSuccess)
+          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &occ, kernel, kThreads, bytes);
+        if (err != cudaSuccess) return (int)err;
+        occupancy[key] = occ;
+      }
+    }
+    if (occ < per) continue;
+    args.f.geo = geo;
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
+                                      dim3(kThreads), params, bytes, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorLaunchOutOfResources;
 }
 
 }  // namespace
 
+// The tile plan of one layer (O outputs, I inputs, K bases) for G
+// blocks: out[0..5] = RG, CG, NR, NC, tiles, tiles a block holds at most.
+extern "C" void ferro_node_slice_plan(int G, int O, int I, int K,
+                                      long long* out) {
+  const SlicePlan p = slice_plan(G, O, I, K);
+  out[0] = p.RG;
+  out[1] = p.CG;
+  out[2] = p.NR;
+  out[3] = p.NC;
+  out[4] = p.nsl;
+  out[5] = p.ns;
+}
+
+// The grid the kernels take on this card, at most (SMs x kBlocksPerSM).
+extern "C" int ferro_node_grid() {
+  int G = 0;
+  if (grid_blocks(&G, kBlocksPerSM) != 0) return -1;
+  return G > kMaxBlocks ? kMaxBlocks : G;
+}
+
 extern "C" long long ferro_node_work_floats(int B, int D, int H, int K1,
                                             int K2, int bwd) {
-  return (long long)work_floats(B, D, H, K1, K2, bwd != 0);
+  return (long long)work_layout(B, D, H, K1, K2, bwd != 0).total;
 }
 
 // h0 (B, D); prm1 (5, H, D*K1) and prm2 (5, D, H*K2), the arrays k, ec,
@@ -361,9 +741,10 @@ extern "C" int ferro_node_fwd(const float* h0, const float* prm1,
                               void* stream) {
   if (B <= 0) return 0;
   if (D > kMaxRow || H > kMaxRow) return (int)cudaErrorInvalidValue;
+  const WorkLayout w = work_layout(B, D, H, K1, K2, false);
   FwdArgs a{};
-  a.f = make_field(prm1, prm2, nz1, nz2, nullptr, nullptr, work, B, D, H, K1,
-                   K2, gate, alpha, oma, c2, h_bound, dh_clip);
+  a.f = make_field(prm1, prm2, nz1, nz2, nullptr, nullptr, work, w, B, D, H,
+                   K1, K2, gate, alpha, oma, c2, h_bound, dh_clip);
   const size_t N = (size_t)B * D;
   a.s.h0 = h0;
   a.s.out = out;
@@ -374,14 +755,14 @@ extern "C" int ferro_node_fwd(const float* h0, const float* prm1,
   a.s.y = work;
   a.s.ks = work + N;
   a.s.u = work + 8 * N;
-  a.s.part = part_of(work, B, D, H);
+  a.s.part = work + w.part;
   a.s.N = (int)N;
   a.s.max_steps = max_steps;
   a.s.rtol = rtol;
   a.s.atol = atol;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return record ? launch_cooperative(ferro_node_fwd_kernel<true>, a, s)
-                : launch_cooperative(ferro_node_fwd_kernel<false>, a, s);
+  return record ? launch_ferro(ferro_node_fwd_kernel<true>, a, false, s)
+                : launch_ferro(ferro_node_fwd_kernel<false>, a, false, s);
 }
 
 // hbar (B, D) and the forward's records -> g1 (5, H, D*K1), g2
@@ -397,9 +778,10 @@ extern "C" int ferro_node_bwd(const float* hbar, const float* tda,
                               float dh_clip, void* stream) {
   if (B <= 0) return 0;
   if (D > kMaxRow || H > kMaxRow) return (int)cudaErrorInvalidValue;
+  const WorkLayout w = work_layout(B, D, H, K1, K2, true);
   BwdArgs a{};
-  a.f = make_field(prm1, prm2, nz1, nz2, g1, g2, work, B, D, H, K1, K2, gate,
-                   alpha, oma, c2, h_bound, dh_clip);
+  a.f = make_field(prm1, prm2, nz1, nz2, g1, g2, work, w, B, D, H, K1, K2,
+                   gate, alpha, oma, c2, h_bound, dh_clip);
   const size_t N = (size_t)B * D;
   a.r.hbar = hbar;
   a.r.tda = tda;
@@ -412,6 +794,6 @@ extern "C" int ferro_node_bwd(const float* hbar, const float* tda,
   a.r.u = work + 8 * N;
   a.r.ub = work + 9 * N;
   a.r.N = (int)N;
-  return launch_cooperative(ferro_node_bwd_kernel, a,
-                            static_cast<cudaStream_t>(stream));
+  return launch_ferro(ferro_node_bwd_kernel, a, true,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -27,7 +27,7 @@
 // complete).  u, w, out and ubar are (B, D) row-major, N = B*D floats;
 // u and w are written by other blocks, so a field reads them with ld().
 //
-// That is the grid policy (GridSync), every field but B.3's.  The cluster
+// That is the grid policy (GridSync), every field but B.3's and B.7's.  The cluster
 // policy (ClusterSync, B.3's csrc/kanfet_wide.cu) runs the same solve in
 // each CTA of one thread-block cluster: every CTA keeps its own copy of
 // the state, stages and scratch in shared memory and runs every
@@ -37,6 +37,18 @@
 // spreads its layers over the cluster with its own cluster barriers and
 // leaves out, ubar complete in every CTA.  CTA 0 alone writes the outputs
 // and records.
+//
+// The row policy (RowSync, B.7's csrc/ode_dyn.cu) is for fields that never
+// mix rows: one cluster of C <= 16 CTAs, CTA c owning the contiguous batch
+// rows [c R, min(B, (c + 1) R)).  Each CTA runs every elementwise pass
+// over its own elements only, with its state, stages and scratch in its
+// own memory (local index i, global element base + i); the field's eval /
+// vjp take the CTA's rows and synchronise only the CTA.  The one exchange
+// is the error norm's sum: each CTA sums its elements in a fixed tree,
+// puts the partial in its shared memory, and after one cluster barrier
+// every CTA adds the C partials in rank order (map_shared_rank), so t, dt,
+// accept and stop agree bit for bit with no vote.  Each CTA writes its own
+// rows of the outputs and records; rank 0 the scalars.
 //
 // Why a cooperative grid: the step control is batch-shared, so every
 // attempt's accept test needs one RMS over all B*D elements, and every
@@ -214,9 +226,18 @@ __device__ void block_sum(float (&v)[N]) {
 // this file).  tid / nth: this thread's first element and the stride of
 // the elementwise passes; writes: whether this thread's block writes the
 // outputs and records; leader: the one thread that writes the scalars.
+//
+// base / count: the first global element of this CTA's share and how many
+// it holds (every element but under RowSync); the scaffold's scratch arrays
+// hold the share only, stage j at j * count.
 struct GridSync {
   __device__ static int tid() { return grid_tid(); }
   __device__ static int nth() { return grid_threads(); }
+  template <class Bufs>
+  __device__ static int base(const Bufs&) { return 0; }
+  template <class Bufs>
+  __device__ static int count(const Bufs& b) { return b.N; }
+  __device__ static void finish() {}
   __device__ static bool writes() { return true; }
   __device__ static bool leader() { return grid_tid() == 0; }
   __device__ static void sync() { cg::this_grid().sync(); }
@@ -231,6 +252,11 @@ struct GridSync {
 struct ClusterSync {
   __device__ static int tid() { return threadIdx.x; }
   __device__ static int nth() { return blockDim.x; }
+  template <class Bufs>
+  __device__ static int base(const Bufs&) { return 0; }
+  template <class Bufs>
+  __device__ static int count(const Bufs& b) { return b.N; }
+  __device__ static void finish() {}
   __device__ static bool writes() {
     return cg::this_cluster().block_rank() == 0;
   }
@@ -267,6 +293,70 @@ struct ClusterSync {
   }
 };
 
+// The first row and the rows of CTA `rank` when each CTA owns R of B rows.
+__device__ __forceinline__ int tile_first(int rank, int R) { return rank * R; }
+__device__ __forceinline__ int tile_rows(int rank, int R, int B) {
+  const int r = B - rank * R;
+  return r < R ? (r > 0 ? r : 0) : R;
+}
+
+struct RowSync {
+  __device__ static int tid() { return threadIdx.x; }
+  __device__ static int nth() { return blockDim.x; }
+  __device__ static int rank() { return (int)cg::this_cluster().block_rank(); }
+  template <class Bufs>
+  __device__ static int base(const Bufs& b) {
+    return tile_first(rank(), b.R) * b.D;
+  }
+  template <class Bufs>
+  __device__ static int count(const Bufs& b) {
+    return tile_rows(rank(), b.R, b.N / b.D) * b.D;
+  }
+  __device__ static bool writes() { return true; }
+  __device__ static bool leader() { return threadIdx.x == 0 && rank() == 0; }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static float ld(const float* p) { return *p; }
+  // The CTA's sums in block_sum's tree, then the C partials in rank order
+  // after one cluster barrier: lane r of warp 0 reads CTA r's, lane 0 adds
+  // them and the CTA reads the total from its shared memory.  Two slots
+  // alternate: a CTA writes slot s again only after the next call's
+  // barrier, which every CTA reaches only when it has read this call's
+  // partials.
+  template <int N>
+  __device__ static void sum(float (&v)[N], float*, int& slot) {
+    __shared__ float xpart[2][kMaxSums];
+    __shared__ float total[kMaxSums];
+    block_sum(v);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) xpart[slot][n] = v[n];
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (threadIdx.x < 32) {
+      const unsigned C = cl.num_blocks(), lane = threadIdx.x;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float p =
+            lane < C ? *cl.map_shared_rank(&xpart[slot][n], lane) : 0.0f;
+        float s = 0.0f;
+        for (unsigned r = 0; r < C; ++r) s += __shfl_sync(0xffffffffu, p, r);
+        if (lane == 0) total[n] = s;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = total[n];
+    __syncthreads();
+    slot ^= 1;
+  }
+  // No CTA leaves while another may still read its shared memory.
+  __device__ static void finish() { cg::this_cluster().sync(); }
+  __device__ static void check_agree(float t, float dt) {
+    ClusterSync::check_agree(t, dt);
+  }
+};
+
 // The forward solve's arrays.  y, ks, u, part are scratch; the record
 // arrays are written when the solve records.
 struct SolveBufs {
@@ -283,6 +373,7 @@ struct SolveBufs {
   float* part;      // (kPartFloats)
   int N, T, max_steps;
   float rtol, atol;
+  int D, R;         // RowSync: the row width and the rows a CTA owns
 };
 
 // A field evaluation and VJP at stage time t: the trajectory contract
@@ -299,16 +390,59 @@ __device__ __forceinline__ void field_vjp(const Field& f, const float* u,
   if constexpr (kTraj) f.vjp(u, t, w, ubar); else f.vjp(u, w, ubar);
 }
 
+// The fused-stage hook, B.4's alone (csrc/ferro_node.cu; a field opts in
+// with `static constexpr bool kFused = true`).  The field forms the stage
+// input itself, inside its first phase, and leaves its output pending in
+// its own partial sums, so an evaluation needs no barrier before it and
+// none of its own after it:
+//
+//   void stage(const StageIn&) const;     // f(u), pending
+//   float take(int e, float* dst) const;  // the pending f at element e,
+//                                         // also written to dst[e]
+//   void vjp_stage(const VjpIn&) const;   // the VJP of stage j at the
+//                                         // recorded u, cotangent w
+//   float take_ub(int e, const VjpIn&) const;  // its ubar at element e
+//
+// StageIn: u = y (j = 0), y + h ks_0 (j = -1, Hairer's second evaluation)
+// or y + h sum_{l<j} a_jl ks_l (1 <= j <= 6) in the unfused pass's order;
+// stage `pending` (or none, -1) is still the field's pending output, which
+// stage() writes into ks as it reads it.
+template <class F, class = void>
+struct is_fused { static constexpr bool value = false; };
+template <class F>
+struct is_fused<F, decltype((void)F::kFused)> {
+  static constexpr bool value = F::kFused;
+};
+
+struct StageIn {
+  const float* y;
+  float* ks;
+  int N, j, pending;
+  float h;
+};
+
+struct VjpIn {
+  const float* y;   // the attempt's recorded state and stages
+  const float* ks;
+  const float* w;   // the stage's cotangent (N)
+  int N, j;
+  float dt;
+};
+
 // Adaptive dopri5 with batch-shared step control; with kRecord, records
 // every attempt.  Sync is the barrier and reduction policy; under
-// ClusterSync y, ks, u point into the CTA's shared memory.  kTraj = false:
-// over t in [0, 1], the final state into out (adaptive_solve_final).  kTraj = true: over [ts[0], ts[T-1]], out
+// ClusterSync y, ks, u point into the CTA's shared memory, under RowSync
+// into the CTA's own share (local index i, global element base + i).
+// kTraj = false: over t in [0, 1], the final state into out
+// (adaptive_solve_final).  kTraj = true: over [ts[0], ts[T-1]], out
 // (T, N) prefilled with h0, the CONTD5 dense output of each accepted step
 // written at the requested times its window (t, t + dt] holds, and the
 // times past the one reached holding the last state (adaptive_solve_traj).
 template <bool kRecord, bool kTraj, class Field, class Sync = GridSync>
 __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
+  constexpr bool kFused = is_fused<Field>::value;
   const int tid = Sync::tid(), nth = Sync::nth(), N = s.N, T = s.T;
+  const int base = Sync::base(s), n = Sync::count(s);
   const float rtol = s.rtol, atol = s.atol, inv_n = 1.0f / (float)N;
   const float tiny = 1e-12f;
   const float t0 = kTraj ? s.ts[0] : 0.0f;
@@ -316,22 +450,28 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
   int slot = 0;
   float* const f0 = s.ks;  // stage 0 holds the FSAL derivative
 
-  for (int e = tid; e < N; e += nth) {
+  for (int i = tid; i < n; i += nth) {
+    const int e = base + i;
     const float y = s.h0[e];
-    s.y[e] = y;
+    s.y[i] = y;
     if constexpr (kTraj)
       if (Sync::writes())
         for (int tau = 0; tau < T; ++tau) s.out[(size_t)tau * N + e] = y;
   }
   Sync::sync();
-  field_eval<kTraj>(field, s.y, t0, f0);
+  if constexpr (kFused)
+    field.stage(StageIn{s.y, s.ks, n, 0, -1, 0.0f});
+  else
+    field_eval<kTraj>(field, s.y, t0, f0);
   Sync::sync();
 
   // Hairer's initial step.
   float d[2] = {0.0f, 0.0f};
-  for (int e = tid; e < N; e += nth) {
-    const float y = s.y[e], sc = atol + rtol * fabsf(y);
-    const float a = y / sc, b = Sync::ld(f0 + e) / sc;
+  for (int i = tid; i < n; i += nth) {
+    const float y = s.y[i], sc = atol + rtol * fabsf(y);
+    float f;
+    if constexpr (kFused) f = field.take(i, f0); else f = Sync::ld(f0 + i);
+    const float a = y / sc, b = f / sc;
     d[0] += a * a;
     d[1] += b * b;
   }
@@ -340,16 +480,22 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
   const float h0 = (d0 < 1e-5f || d1 < 1e-5f)
                        ? 1e-6f
                        : 0.01f * d0 / fmaxf(d1, 1e-30f);
-  for (int e = tid; e < N; e += nth)
-    s.u[e] = s.y[e] + h0 * Sync::ld(f0 + e);
-  Sync::sync();
-  float* const f1 = s.ks + N;  // stage 1's slot, free until the loop
-  field_eval<kTraj>(field, s.u, t0 + h0, f1);
+  float* const f1 = s.ks + n;  // stage 1's slot, free until the loop
+  if constexpr (kFused) {
+    field.stage(StageIn{s.y, s.ks, n, -1, -1, h0});
+  } else {
+    for (int i = tid; i < n; i += nth)
+      s.u[i] = s.y[i] + h0 * Sync::ld(f0 + i);
+    Sync::sync();
+    field_eval<kTraj>(field, s.u, t0 + h0, f1);
+  }
   Sync::sync();
   float d2s[1] = {0.0f};
-  for (int e = tid; e < N; e += nth) {
-    const float sc = atol + rtol * fabsf(s.y[e]);
-    const float a = (Sync::ld(f1 + e) - Sync::ld(f0 + e)) / sc;
+  for (int i = tid; i < n; i += nth) {
+    const float sc = atol + rtol * fabsf(s.y[i]);
+    float f;
+    if constexpr (kFused) f = field.take(i, f1); else f = Sync::ld(f1 + i);
+    const float a = (f - Sync::ld(f0 + i)) / sc;
     d2s[0] += a * a;
   }
   Sync::sum(d2s, s.part, slot);
@@ -362,36 +508,50 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
 
   float t = t0, errp = 1.0f;
   int m = 0;
+  bool moved = false;  // the last attempt was accepted
   // Inside the loop t < t_final - tiny, so the JAX body's `finished` is
   // always false: every accepted attempt advances.
   while (m < s.max_steps && t < t_final - tiny) {
     dt = fminf(dt, t_final - t);
     const float dt_safe = dt == 0.0f ? 1.0f : dt;
     for (int j = 1; j < 7; ++j) {
-      for (int e = tid; e < N; e += nth) {
-        float incr = kA[j][0] * Sync::ld(s.ks + e);
+      if constexpr (kFused) {
+        // Stage 1 runs while the last accept pass still moves y1 into y
+        // and k7 into ks[0]: it reads them where they were before it.
+        const bool fresh = j == 1 && moved;
+        field.stage(StageIn{fresh ? s.u : s.y, fresh ? s.ks + 6 * n : s.ks,
+                            n, j, j >= 2 ? j - 1 : -1, dt});
+      } else {
+        for (int i = tid; i < n; i += nth) {
+          float incr = kA[j][0] * Sync::ld(s.ks + i);
 #pragma unroll
-        for (int l = 1; l < j; ++l)
-          incr += kA[j][l] * Sync::ld(s.ks + l * N + e);
-        s.u[e] = s.y[e] + dt * incr;
+          for (int l = 1; l < j; ++l)
+            incr += kA[j][l] * Sync::ld(s.ks + l * n + i);
+          s.u[i] = s.y[i] + dt * incr;
+        }
+        Sync::sync();
+        field_eval<kTraj>(field, s.u, t + kC[j] * dt, s.ks + j * n);
       }
-      Sync::sync();
-      field_eval<kTraj>(field, s.u, t + kC[j] * dt, s.ks + j * N);
       Sync::sync();
     }
     float err2[1] = {0.0f};
-    for (int e = tid; e < N; e += nth) {
-      const float k0 = Sync::ld(s.ks + e), y = s.y[e];
+    for (int i = tid; i < n; i += nth) {
+      const float k0 = Sync::ld(s.ks + i), y = s.y[i];
       float y1 = y + (dt * kB[0]) * k0, ye = kE[0] * k0;
 #pragma unroll
       for (int j = 1; j < 7; ++j) {
-        const float kj = Sync::ld(s.ks + j * N + e);
+        float kj;
+        if constexpr (kFused)
+          kj = j == 6 ? field.take(i, s.ks + 6 * n)
+                      : Sync::ld(s.ks + j * n + i);
+        else
+          kj = Sync::ld(s.ks + j * n + i);
         y1 += (dt * kB[j]) * kj;
         ye += kE[j] * kj;
       }
       const float r = dt * ye / (atol + rtol * fmaxf(fabsf(y), fabsf(y1)));
       err2[0] += r * r;
-      s.u[e] = y1;
+      s.u[i] = y1;
     }
     Sync::sum(err2, s.part, slot);
     const float err = fmaxf(sqrtf(err2[0] * inv_n), 1e-10f);
@@ -412,24 +572,26 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
         r[3] = 0.0f;
       }
       if (Sync::writes())
-        for (int e = tid; e < N; e += nth) {
-          s.yrec[(size_t)m * N + e] = s.y[e];
+        for (int i = tid; i < n; i += nth) {
+          const int e = base + i;
+          s.yrec[(size_t)m * N + e] = s.y[i];
 #pragma unroll
           for (int j = 0; j < 7; ++j)
-            s.krec[((size_t)m * 7 + j) * N + e] = Sync::ld(s.ks + j * N + e);
+            s.krec[((size_t)m * 7 + j) * N + e] = Sync::ld(s.ks + j * n + i);
         }
     }
     if (accept) {
-      for (int e = tid; e < N; e += nth) {
-        const float y = s.y[e], y1 = s.u[e];
-        const float k6 = Sync::ld(s.ks + 6 * N + e);
+      for (int i = tid; i < n; i += nth) {
+        const float y = s.y[i], y1 = s.u[i];
+        const float k6 = Sync::ld(s.ks + 6 * n + i);
         if (kTraj && Sync::writes()) {
           // Dense output (CONTD5) at the requested times in (t, t + dt].
-          const float k0 = Sync::ld(s.ks + e);
+          const int e = base + i;
+          const float k0 = Sync::ld(s.ks + i);
           float r5s = kD[0] * k0;
 #pragma unroll
           for (int j = 1; j < 7; ++j)
-            r5s += kD[j] * Sync::ld(s.ks + j * N + e);
+            r5s += kD[j] * Sync::ld(s.ks + j * n + i);
           const float dy = y1 - y, r3 = dt * k0 - dy;
           const float r4 = dy - dt * k6 - r3, r5 = dt * r5s;
           for (int tau = 0; tau < T; ++tau) {
@@ -441,23 +603,25 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
                 y + theta * (dy + th1 * (r3 + theta * (r4 + th1 * r5)));
           }
         }
-        s.y[e] = y1;
-        s.ks[e] = k6;  // FSAL
+        s.y[i] = y1;
+        s.ks[i] = k6;  // FSAL
       }
       t += dt;
       errp = err;
     }
+    moved = accept;
     dt = dt_next;
     ++m;
   }
   if (Sync::writes())
-    for (int e = tid; e < N; e += nth) {
+    for (int i = tid; i < n; i += nth) {
+      const int e = base + i;
       if constexpr (kTraj) {
         // Step budget exhausted: unreached outputs hold the last state.
         for (int tau = 0; tau < T; ++tau)
-          if (s.ts[tau] > t + tiny) s.out[(size_t)tau * N + e] = s.y[e];
+          if (s.ts[tau] > t + tiny) s.out[(size_t)tau * N + e] = s.y[i];
       } else {
-        s.out[e] = s.y[e];
+        s.out[e] = s.y[i];
       }
     }
   if (kRecord && Sync::leader()) {
@@ -467,6 +631,7 @@ __device__ void adaptive_solve(const Field& field, const SolveBufs& s) {
     s.misc[3] = 0.0f;
   }
   Sync::check_agree(t, dt);
+  Sync::finish();
 }
 
 template <bool kRecord, class Field>
@@ -480,7 +645,7 @@ __device__ void adaptive_solve_traj(const Field& field, const SolveBufs& s) {
 }
 
 // The reverse replay's arrays.  lam, kbar, u, ub are scratch (under
-// ClusterSync in the CTA's shared memory).
+// ClusterSync in the CTA's shared memory, under RowSync the CTA's share).
 struct ReplayBufs {
   const float* hbar;  // (N) cotangent of the final state; (T, N) of the
                       // trajectory in the trajectory replay
@@ -496,6 +661,7 @@ struct ReplayBufs {
   float* u;      // (N) stage input
   float* ub;     // (N) the field VJP's output
   int N, T;
+  int D, R;      // RowSync: the row width and the rows a CTA owns
 };
 
 // The discrete adjoint on the recorded mesh: attempts in reverse, each
@@ -516,20 +682,27 @@ struct ReplayBufs {
 // stage 7 included: its cotangent dt (d_6 s_5 + s_7) is nonzero whenever
 // an output falls in the window, so its VJP is skipped only when none
 // does.  The outputs at ts <= ts[0] read h0 and add to h0bar last.
+//
+// A fused field (B.4) forms each stage input from the records inside its
+// VJP, so the VJP needs no barrier before it; the pass after it reads the
+// field's pending ubar (take_ub).
 template <bool kTraj, class Field, class Sync = GridSync>
 __device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
+  constexpr bool kFused = is_fused<Field>::value;
   const int tid = Sync::tid(), nth = Sync::nth(), N = r.N, T = r.T;
+  const int base = Sync::base(r), n = Sync::count(r);
   const float tiny = 1e-12f;
   const int n_att = (int)r.misc[0];
-  for (int e = tid; e < N; e += nth) {
+  for (int i = tid; i < n; i += nth) {
+    const int e = base + i;
     if constexpr (kTraj) {
       const float t_end = r.misc[1];
       float lam = 0.0f;
       for (int tau = 0; tau < T; ++tau)
         if (r.ts[tau] > t_end + tiny) lam += r.hbar[(size_t)tau * N + e];
-      r.lam[e] = lam;
+      r.lam[i] = lam;
     } else {
-      r.lam[e] = r.hbar[e];
+      r.lam[i] = r.hbar[e];
     }
   }
   for (int m = n_att - 1; m >= 0; --m) {
@@ -537,15 +710,16 @@ __device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
     const float t = r.tda[4 * m + 2];
     if (adv < 0.5f) continue;
     const float dt_safe = dt == 0.0f ? 1.0f : dt;
-    const float* y = r.yrec + (size_t)m * N;
-    const float* ks = r.krec + (size_t)m * 7 * N;
+    const float* y = r.yrec + (size_t)m * N + base;
+    const float* ks = r.krec + (size_t)m * 7 * N + base;
     bool any_out = false;
     if constexpr (kTraj)
       for (int tau = 0; tau < T; ++tau)
         any_out |= r.ts[tau] > t && r.ts[tau] <= t + dt + tiny;
-    for (int e = tid; e < N; e += nth) {
-      const float lam = r.lam[e];
+    for (int i = tid; i < n; i += nth) {
+      const float lam = r.lam[i];
       if constexpr (kTraj) {
+        const int e = base + i;
         float s_w = 0.0f, s_dy = 0.0f, s_1 = 0.0f, s_7 = 0.0f, s_5 = 0.0f;
         for (int tau = 0; tau < T; ++tau) {
           const float tsv = r.ts[tau];
@@ -566,35 +740,43 @@ __device__ void adjoint_replay_impl(const Field& field, const ReplayBufs& r) {
           float kb = dt * (kB[j] * (lam + s_dy) + kD[j] * s_5);
           if (j == 0) kb += dt * s_1;
           if (j == 6) kb += dt * s_7;
-          r.kbar[j * N + e] = kb;
+          r.kbar[j * n + i] = kb;
         }
-        r.lam[e] = lam + s_w;
+        r.lam[i] = lam + s_w;
       } else {
 #pragma unroll
-        for (int j = 0; j < 6; ++j) r.kbar[j * N + e] = (dt * kB[j]) * lam;
+        for (int j = 0; j < 6; ++j) r.kbar[j * n + i] = (dt * kB[j]) * lam;
       }
     }
     for (int j = any_out ? 6 : 5; j >= 0; --j) {
-      for (int e = tid; e < N; e += nth) {
-        float incr = kA[j][0] * ks[e];
+      const VjpIn in{y - base, ks - base, r.kbar + j * n, N, j, dt};
+      if constexpr (kFused) {
+        field.vjp_stage(in);
+      } else {
+        for (int i = tid; i < n; i += nth) {
+          float incr = kA[j][0] * ks[i];
 #pragma unroll
-        for (int l = 1; l < j; ++l) incr += kA[j][l] * ks[l * N + e];
-        r.u[e] = y[e] + dt * incr;
+          for (int l = 1; l < j; ++l) incr += kA[j][l] * ks[l * N + i];
+          r.u[i] = y[i] + dt * incr;
+        }
+        Sync::sync();
+        field_vjp<kTraj>(field, r.u, t + kC[j] * dt, r.kbar + j * n, r.ub);
       }
       Sync::sync();
-      field_vjp<kTraj>(field, r.u, t + kC[j] * dt, r.kbar + j * N, r.ub);
-      Sync::sync();
-      for (int e = tid; e < N; e += nth) {
-        const float ub = Sync::ld(r.ub + e);
+      for (int i = tid; i < n; i += nth) {
+        float ub;
+        if constexpr (kFused) ub = field.take_ub(i, in);
+        else ub = Sync::ld(r.ub + i);
 #pragma unroll
-        for (int l = 0; l < j; ++l) r.kbar[l * N + e] += (dt * kA[j][l]) * ub;
-        r.lam[e] += ub;
+        for (int l = 0; l < j; ++l) r.kbar[l * n + i] += (dt * kA[j][l]) * ub;
+        r.lam[i] += ub;
       }
     }
   }
   if (Sync::writes())
-    for (int e = tid; e < N; e += nth) {
-      float lam = r.lam[e];
+    for (int i = tid; i < n; i += nth) {
+      const int e = base + i;
+      float lam = r.lam[i];
       if constexpr (kTraj) {
         const float t0 = r.ts[0];
         for (int tau = 0; tau < T; ++tau)

@@ -7,38 +7,63 @@
 // Replaces the TPU kernel fetode_tpu/ops/pallas_ode_dyn.py:143
 // (make_ode_dyn_solver; forward _make_fwd_kernel :50, backward
 // _make_bwd_kernel :78).  The field, with the first layer's weight W0
-// (H, D+1) split into its state block and its time column (:130-139):
+// (H, D+1) holding the state block and then the time column (:130-139):
 //
-//   h1  = tanh(z W0[:, :D]^T + t W0[:, D] + b0)     (B, H)
-//   h2  = tanh(h1 W1^T + b1)                        (B, H)
-//   f   = h2 W2^T + b2                              (B, D)
+//   h1  = tanh([z, t] W0^T + b0)      (B, H)
+//   h2  = tanh(h1 W1^T + b1)          (B, H)
+//   f   = h2 W2^T + b2                (B, D)
 //
-// The solve and the replay are node_common.cuh's trajectory pair; this
-// file holds the field and its hand-written VJP.  Every product runs in
-// the kernel's own body in FP32 FMAs (no cuBLAS, no torch.matmul inside
-// the solve).  Field evaluation, three grid phases (each layer needs the
-// previous one complete): one warp per output element, lanes striding
-// over the contraction with both operand rows read contiguously, a fixed
-// shuffle tree.  VJP with cotangent w (B, D): the two hidden layers again,
-// then three phases of owned items, each element of a product or a
-// gradient owned by one thread that sums in a fixed order:
-//   (3) g2 = (w W2) (1 - h2^2);  gW2 += w^T h2;  gb2 += sum_b w
-//   (4) g1 = (g2 W1) (1 - h1^2); gW1 += g2^T h1; gb1 += sum_b g2
-//   (5) ubar = g1 W0[:, :D];  gW0[:, :D] += g1^T u;
-//       gW0[:, D] += t sum_b g1;  gb0 += sum_b g1
-// In the products with a transposed weight the output index runs fastest
-// over the threads, so the weight reads are contiguous and the other
-// operand is broadcast.  No atomics: the gradients are the same bits on
-// every run.
+// The field never mixes rows: row b of f reads row b of z alone.  So the
+// solve runs under node_common.cuh's row policy (RowSync): one
+// thread-block cluster of C <= 16 CTAs, CTA c owning the batch rows
+// [c R, min(B, (c + 1) R)), R = ceil(B / 16) (ops/ode_dyn.py: row_plan).
+// Each CTA holds the weights in its shared memory for the whole launch,
+// padded (below), and its rows' state, stages and activations; an
+// evaluation or a VJP synchronises only the CTA.  The one exchange is the
+// error norm's sum, once an attempt (twice in Hairer's initial step): the
+// CTAs' partials meet through distributed shared memory in rank order.
+// The backward has no exchange until its end.
+//
+// Products.  Each layer is a product of the CTA's rows with a weight in
+// shared memory, in FP32 FMAs (no tensor cores, no TF32), 4 rows a pass,
+// each weight read once for the 4.  The forward's products read W
+// row-major (a weight row's 16-byte loads, the row stride 4 mod 32 words,
+// so 8 rows' loads hit distinct banks): a quarter-warp holds 8 outputs
+// and the 4 quarters 4 chunks of the contraction, added in a fixed
+// shuffle tree (product_rows).  The VJP's transposed products read the
+// same arrays down a column, lanes on consecutive outputs, 2 a lane; their
+// chunks are split over warps and added in order through shared memory
+// (product_cols).  Every sum thus has a fixed owner and a fixed order,
+// set by the widths alone, so a row gives the same bits alone and in any
+// batch.  The VJP with cotangent w (B, D):
+//   g2 = (w W2) (1 - h2^2),  g1 = (g2 W1) (1 - h1^2),  ubar = g1 W0[:, :D]
+// and the parameter gradients, outer products summed over rows and VJPs:
+//   [gW2 | gb2] += w^T [h2, 1],  [gW1 | gb1] += g2^T [h1, 1],
+//   [gW0 | gb0] += g1^T [z, t, 1]
+// held as 4 x 4 tiles in each thread's registers for the whole replay
+// (kTileSlots a thread; tiles past them, at widths above the preset's,
+// accumulate in the CTA's own partial array in device memory).  At the
+// end each CTA writes its partials, and after one cluster barrier every
+// output gradient is the sum of the C partials in rank order.  No
+// atomics: the gradients are the same bits on every run.
+//
+// Placement (row_plan): the padded weights, the VJP's partial-sum buffer
+// and the rows live in shared memory while they fit 227 KB; else the
+// rows, and past that the weights too, in device memory the CTA owns.
 //
 // What bounds it on this card: at the forecaster's widths (D = 64, H =
-// 128, B = 64 in training, up to 297 in evaluation) a field evaluation is
-// 2 B (D H + H H + H D) = 4.2 M FLOP at B = 64, under 0.1 us of the card's
-// FP32 rate, and about 10 attempts of 6 evaluations cover the 8-step
-// horizon.  The solve is bound by its serial chain of grid barriers (four
-// per evaluation, plus the reductions), not by arithmetic or bytes; the
-// design keeps to the barriers the data flow needs and spreads every
-// phase over every SM.
+// 128, B = 64 in training, up to 297 in evaluation) an evaluation is
+// 2 B (D H + H H + H D) = 4.2 M FLOP at B = 64, under 0.1 us of the
+// card's FP32 rate.  On 16 SMs a CTA's 4 rows are 133 K FMAs, and its
+// 134 KB of weights pass the shared-memory port once: about 0.55 us
+// each an evaluation.  The products' loops run at about a quarter of
+// the FMA rate with 4 warps a scheduler (clock counters, PERF.md), and
+// the barriers between them, the scaffold's passes and one cluster
+// exchange an attempt add about as much again.
+
+#include <mutex>
+#include <set>
+#include <tuple>
 
 #include "node_common.cuh"
 
@@ -46,200 +71,624 @@ namespace {
 
 using namespace node_common;
 
-struct OdeDynField {
+constexpr int kRowThreads = 512;   // threads a CTA
+constexpr int kMaxCluster = 16;    // CTAs, the non-portable cluster size
+constexpr int kGroup = 4;          // rows of a work item's register block
+constexpr int kOut = 2;            // outputs a lane of a VJP product holds
+constexpr int kTileSlots = 5;      // gradient tiles a thread holds
+// Dynamic shared memory a CTA may take: the card's 227 KB less the static
+// arrays of the scaffold's reductions.
+constexpr size_t kSmemBudget = 232448 - 2048;
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The smallest stride >= k that is 4 mod 32 words: 8 consecutive rows'
+// 16-byte loads at that stride cover the 32 banks once.
+__host__ __device__ inline int row_stride(int k) {
+  int s = round4(k);
+  while ((s & 31) != 4) s += 4;
+  return s;
+}
+
+// The launch's geometry, the same on the host and the device.
+struct Geo {
+  int B, D, H, R, C;
+  int K0, S0, Q1, S1, S2, H4, D4;  // padded lengths and weight strides
+  int off_h1, off_h2, off_w, off_g2, off_g1, RS;  // row record
+  int t0, t1, ntiles;              // gradient tile counts (see tile())
+  int w_floats, p_floats, scaf_floats, row_floats;
+  int w_smem, rows_smem;
+  long long smem_floats, work_floats;
+};
+
+Geo make_geo(int B, int D, int H, bool bwd) {
+  Geo g{};
+  g.B = B;
+  g.D = D;
+  g.H = H;
+  g.R = cdiv(B, kMaxCluster);
+  g.C = cdiv(B, g.R);
+  g.K0 = round4(D + 2);             // [z, t, 1]
+  g.Q1 = round4(H + 1);             // [h, 1]
+  g.S0 = row_stride(g.K0);
+  g.S1 = row_stride(g.Q1);
+  g.S2 = row_stride(g.Q1);
+  g.H4 = round4(H);
+  g.D4 = round4(D);
+  g.off_h1 = g.K0;
+  g.off_h2 = g.off_h1 + g.Q1;
+  g.off_w = g.off_h2 + g.Q1;
+  g.off_g2 = g.off_w + g.D4;
+  g.off_g1 = g.off_g2 + g.H4;
+  g.RS = bwd ? g.off_g1 + g.H4 : g.off_w;
+  const int qh = cdiv(H + 1, 4), ph = cdiv(H, 4);
+  g.t0 = cdiv(D, 4) * qh;
+  g.t1 = g.t0 + ph * qh;
+  g.ntiles = g.t1 + ph * cdiv(D + 2, 4);
+  g.w_floats = g.H4 * g.S0 + g.H4 * g.S1 + g.D4 * g.S2 + 2 * g.H4 + g.D4;
+  // The VJP's products' partials (product_cols): KS chunks x 4 rows x O
+  // outputs, KS O at most the warps x the outputs a warp covers, or O.
+  const int wide = H > D ? H : D, span = (kRowThreads / 32) * 32 * kOut;
+  g.p_floats = bwd ? kGroup * (wide > span ? wide : span) : 0;
+  g.scaf_floats = round4((bwd ? 10 : 9) * g.R * D);
+  g.row_floats = g.scaf_floats + g.R * g.RS;
+  const long long all = (long long)g.w_floats + g.p_floats + g.row_floats;
+  const long long budget = (long long)(kSmemBudget / sizeof(float));
+  g.rows_smem = all <= budget;
+  g.w_smem = g.rows_smem || (long long)g.w_floats + g.p_floats <= budget;
+  g.smem_floats = g.p_floats + (g.w_smem ? g.w_floats : 0) +
+                  (g.rows_smem ? g.row_floats : 0);
+  g.work_floats = (long long)g.C *
+                  ((g.w_smem ? 0 : g.w_floats) +
+                   (g.rows_smem ? 0 : g.row_floats) +
+                   (bwd ? 16LL * g.ntiles : 0));
+  return g;
+}
+
+// 4 x 4 gradient tile `t` as (a offset, c offset) in the row record: the
+// outer products w (x) [h2, 1], g2 (x) [h1, 1], g1 (x) [z, t, 1], tiles
+// in that order, each p-major with q fastest.
+struct Tile {
+  int m, p, q;  // block, first p, first q
+};
+
+__host__ __device__ inline Tile tile(const Geo& g, int t) {
+  const int qh = cdiv(g.H + 1, 4);
+  Tile r;
+  if (t < g.t0) {
+    r.m = 0;
+  } else if (t < g.t1) {
+    r.m = 1;
+    t -= g.t0;
+  } else {
+    r.m = 2;
+    t -= g.t1;
+  }
+  const int nq = r.m == 2 ? cdiv(g.D + 2, 4) : qh;
+  r.p = 4 * (t / nq);
+  r.q = 4 * (t % nq);
+  return r;
+}
+
+struct RowField {
   const float* w0;  // (H, D + 1): state block, then the time column
   const float* b0;  // (H)
   const float* w1;  // (H, H)
   const float* b1;  // (H)
   const float* w2;  // (D, H)
   const float* b2;  // (D)
-  float* h1;        // (B, H) scratch
-  float* h2;        // (B, H) scratch
-  float* g2;        // (B, H) scratch (VJP)
-  float* g1;        // (B, H) scratch (VJP)
-  float* gw0;       // gradients, VJP only, shaped as their parameters
+  float* gw0;       // gradients, shaped as their parameters (backward)
   float* gb0;
   float* gw1;
   float* gb1;
   float* gw2;
   float* gb2;
-  int B, D, H;
+  float* work;      // device scratch: owned weights / rows, tile partials
+  Geo g;
+  // This CTA's, set by bind().
+  float* W0;        // (H4, S0) W0 with zero pad columns and rows
+  float* W1;        // (H4, S1)
+  float* W2;        // (D4, S2)
+  float* B0;
+  float* B1;
+  float* B2;
+  float* P;         // (p_floats) the VJP products' partial sums
+  float* scaf;      // the scaffold's scratch
+  float* rows;      // (R, RS) row records: [z t 1 | h1 1 | h2 1 | w | g2 | g1]
+  float* mine;      // (ntiles, 16) this CTA's gradient partials
+  int rank, nrows;
+  mutable float acc[kTileSlots][16];
 
-  // h1 and h2 of the state u at time t: one warp per (b, j).
-  __device__ void hidden(const float* u, float t) const {
-    const int lane = lane_id(), K = D + 1;
-    for (int w = grid_warp(); w < B * H; w += grid_warps()) {
-      const int b = w / H, j = w - b * H;
-      const float* urow = u + b * D;
-      const float* wrow = w0 + j * K;
-      float acc = 0.0f;
-      for (int d = lane; d < D; d += 32) acc += ld(urow + d) * wrow[d];
-      acc = warp_sum(acc);
-      if (lane == 0) h1[w] = tanhf(acc + t * wrow[D] + b0[j]);
+  // kWS / kRS: the weights / the rows in shared memory (g.w_smem,
+  // g.rows_smem), fixed at compile time so that every pointer into shared
+  // memory is known as such and its loads are shared-memory loads.
+  template <bool kWS, bool kRS>
+  __device__ void bind(float* smem) {
+    rank = (int)cg::this_cluster().block_rank();
+    nrows = tile_rows(rank, g.R, g.B);
+    float* s = smem;
+    P = s;
+    s += g.p_floats;
+    float* dev = work;
+    float* w;
+    if constexpr (kWS) {
+      w = s;
+      s += g.w_floats;
+    } else {
+      w = dev + (size_t)rank * g.w_floats;
+      dev += (size_t)g.C * g.w_floats;
     }
-    cg::this_grid().sync();
-    for (int w = grid_warp(); w < B * H; w += grid_warps()) {
-      const int b = w / H, j = w - b * H;
-      const float* hrow = h1 + b * H;
-      const float* wrow = w1 + j * H;
-      float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc += ld(hrow + k) * wrow[k];
-      acc = warp_sum(acc);
-      if (lane == 0) h2[w] = tanhf(acc + b1[j]);
+    W0 = w;
+    W1 = W0 + g.H4 * g.S0;
+    W2 = W1 + g.H4 * g.S1;
+    B0 = W2 + g.D4 * g.S2;
+    B1 = B0 + g.H4;
+    B2 = B1 + g.H4;
+    float* r;
+    if constexpr (kRS) {
+      r = s;
+    } else {
+      r = dev + (size_t)rank * g.row_floats;
+      dev += (size_t)g.C * g.row_floats;
     }
-    cg::this_grid().sync();
+    scaf = r;
+    rows = r + g.scaf_floats;
+    mine = dev + (size_t)rank * 16 * g.ntiles;
   }
 
-  __device__ void eval(const float* u, float t, float* out) const {
-    hidden(u, t);
-    const int lane = lane_id();
-    for (int w = grid_warp(); w < B * D; w += grid_warps()) {
-      const int b = w / D, o = w - b * D;
-      const float* hrow = h2 + b * H;
-      const float* wrow = w2 + o * H;
-      float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc += ld(hrow + k) * wrow[k];
-      acc = warp_sum(acc);
-      if (lane == 0) out[w] = acc + b2[o];
+  // dst (rows, S) = src (rows, n), zero past n and past `real` rows;
+  // kLoads loads in flight a thread.
+  __device__ __forceinline__ static void pad_copy(float* dst, const float* src,
+                                                  int rows, int real, int n,
+                                                  int S) {
+    constexpr int kLoads = 8;
+    const int total = rows * S, step = blockDim.x * kLoads;
+    for (int i0 = threadIdx.x; i0 < total; i0 += step) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * blockDim.x;
+        const int j = i / S, c = i - j * S;
+        v[u] = (i < total && j < real && c < n) ? __ldg(src + j * n + c)
+                                                 : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < total) dst[i] = v[u];
+      }
     }
   }
 
-  __device__ void vjp(const float* u, float t, const float* w,
-                      float* ubar) const {
+  // The padded weights and the rows' constant entries.
+  __device__ void load() const {
+    const int t = threadIdx.x, nth = blockDim.x, D = g.D, H = g.H;
+    pad_copy(W0, w0, g.H4, H, D + 1, g.S0);
+    pad_copy(W1, w1, g.H4, H, H, g.S1);
+    pad_copy(W2, w2, g.D4, D, H, g.S2);
+    for (int i = t; i < g.H4; i += nth) {
+      B0[i] = i < H ? b0[i] : 0.0f;
+      B1[i] = i < H ? b1[i] : 0.0f;
+    }
+    for (int i = t; i < g.D4; i += nth) B2[i] = i < D ? b2[i] : 0.0f;
+    for (int i = t; i < g.R * g.RS; i += nth) {
+      const int c = i % g.RS;
+      rows[i] = (c == D + 1 || c == g.off_h1 + H || c == g.off_h2 + H)
+                    ? 1.0f : 0.0f;
+    }
+  }
+
+  // out[b, o] = epi(sum_c x[b, c] W[o * S + c]) for the CTA's rows b and
+  // o < O, the contraction c < Kc (x and W zero past their lengths): the
+  // forward's products.  A quarter-warp holds 8 outputs, one a lane, and
+  // the 4 quarters 4 chunks of the contraction, each lane running its
+  // chunk for 4 rows at once (each weight read once for the 4 rows, each
+  // input a 16-byte load its quarter shares); the chunks' sums meet in a
+  // fixed shuffle tree and quarter 0 applies the epilogue.  One barrier.
+  template <class Epi>
+  __device__ __forceinline__ void product_rows(const float* x, const float* W,
+                                               int S, int Kc, int O,
+                                               const Epi& epi) const {
+    const int nw = blockDim.x >> 5, RS = g.RS;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int ks = lane >> 3, ol = lane & 7;
+    const int KC = round4(cdiv(Kc, 4));
+    const int c0 = ks * KC, c1 = min(Kc, c0 + KC);
+    const int NG = cdiv(O, 8);
+    for (int b0 = 0; b0 < nrows; b0 += kGroup) {
+      const float* xr[kGroup];
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r)
+        xr[r] = x + min(b0 + r, nrows - 1) * RS;
+      for (int og = warp; og < NG; og += nw) {
+        const int o = og * 8 + ol;
+        const float* wr = W + min(o, O - 1) * S;
+        float a[kGroup] = {};
+#pragma unroll 2
+        for (int c = c0; c < c1; c += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(wr + c);
+#pragma unroll
+          for (int r = 0; r < kGroup; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(xr[r] + c);
+            a[r] = fmaf(v.x, w.x, a[r]);
+            a[r] = fmaf(v.y, w.y, a[r]);
+            a[r] = fmaf(v.z, w.z, a[r]);
+            a[r] = fmaf(v.w, w.w, a[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) {
+          a[r] += __shfl_xor_sync(0xffffffffu, a[r], 8);
+          a[r] += __shfl_xor_sync(0xffffffffu, a[r], 16);
+        }
+        if (ks == 0 && o < O)
+#pragma unroll
+          for (int r = 0; r < kGroup; ++r)
+            if (b0 + r < nrows) epi(b0 + r, o, a[r]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // out[b, o] = epi(sum_c x[b, c] W[c * S + o]): the VJP's products down a
+  // weight's columns.  There the 4 quarters of a warp would read rows a
+  // chunk apart, in the same banks, so a warp's work item is (64 outputs,
+  // contraction chunk): each lane runs the chunk for 2 outputs, 32 apart
+  // (consecutive lanes, consecutive words), and 4 rows; the items' partial
+  // sums go through shared memory, where one thread per (row, o) adds the
+  // chunks in order and applies the epilogue.
+  template <class Epi>
+  __device__ __forceinline__ void product_cols(const float* x, const float* W,
+                                               int S, int Kc, int O,
+                                               const Epi& epi) const {
+    const int nth = blockDim.x, nw = nth >> 5, RS = g.RS;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int NG = cdiv(O, 32 * kOut);
+    const int KS = NG < nw ? nw / NG : 1;
+    const int KC = round4(cdiv(Kc, KS));
+    for (int b0 = 0; b0 < nrows; b0 += kGroup) {
+      for (int it = warp; it < KS * NG; it += nw) {
+        const int og = it % NG, ks = it / NG;
+        const int c0 = ks * KC, c1 = min(Kc, c0 + KC);
+        const float* xr[kGroup];
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r)
+          xr[r] = x + min(b0 + r, nrows - 1) * RS;
+        int o[kOut];
+        bool live[kOut];
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) {
+          o[j] = og * 32 * kOut + 32 * j + lane;
+          live[j] = o[j] < O;
+          if (!live[j]) o[j] = O - 1;   // a valid column, its sums unused
+        }
+        float a[kOut][kGroup] = {};
+#pragma unroll 2
+        for (int c = c0; c < c1; c += 4) {
+          float4 v[kGroup];
+#pragma unroll
+          for (int r = 0; r < kGroup; ++r)
+            v[r] = *reinterpret_cast<const float4*>(xr[r] + c);
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) {
+            const float4 w =
+                make_float4(W[c * S + o[j]], W[(c + 1) * S + o[j]],
+                            W[(c + 2) * S + o[j]], W[(c + 3) * S + o[j]]);
+#pragma unroll
+            for (int r = 0; r < kGroup; ++r) {
+              a[j][r] = fmaf(v[r].x, w.x, a[j][r]);
+              a[j][r] = fmaf(v[r].y, w.y, a[j][r]);
+              a[j][r] = fmaf(v[r].z, w.z, a[j][r]);
+              a[j][r] = fmaf(v[r].w, w.w, a[j][r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kOut; ++j)
+          if (live[j])
+#pragma unroll
+            for (int r = 0; r < kGroup; ++r)
+              P[(ks * kGroup + r) * O + o[j]] = a[j][r];
+      }
+      __syncthreads();
+      for (int it = threadIdx.x; it < kGroup * O; it += nth) {
+        const int r = it / O, o = it - r * O, b = b0 + r;
+        if (b >= nrows) continue;
+        float s = P[r * O + o];
+        for (int ks = 1; ks < KS; ++ks) s += P[(ks * kGroup + r) * O + o];
+        epi(b, o, s);
+      }
+      __syncthreads();
+    }
+  }
+
+  // h1 and h2 of the rows' inputs u at time t (the row records' [z, t, 1]
+  // written first).
+  __device__ __forceinline__ void hidden(const float* u, float t) const {
+    const int D = g.D, RS = g.RS;
+    for (int i = threadIdx.x; i < nrows * (D + 1); i += blockDim.x) {
+      const int b = i / (D + 1), d = i - b * (D + 1);
+      rows[b * RS + d] = d < D ? u[b * D + d] : t;
+    }
+    __syncthreads();
+    float* h1 = rows + g.off_h1;
+    float* h2 = rows + g.off_h2;
+    const float* B0_ = B0;
+    const float* B1_ = B1;
+    product_rows(rows, W0, g.S0, g.K0, g.H, [=](int b, int o, float s) {
+      h1[b * RS + o] = tanhf(s + B0_[o]);
+    });
+    product_rows(h1, W1, g.S1, g.Q1, g.H, [=](int b, int o, float s) {
+      h2[b * RS + o] = tanhf(s + B1_[o]);
+    });
+  }
+
+  __device__ __forceinline__ void eval(const float* u, float t,
+                                       float* out) const {
     hidden(u, t);
-    const int tid = grid_tid(), nth = grid_threads(), K = D + 1;
-    const int nBH = B * H;
-    // (3) g2, gW2, gb2.
-    for (int i = tid; i < nBH + D * H + D; i += nth) {
-      if (i < nBH) {
-        const int b = i / H, j = i - b * H;
-        float s = 0.0f;
-        for (int o = 0; o < D; ++o) s += ld(w + b * D + o) * w2[o * H + j];
-        const float z = ld(h2 + i);
-        g2[i] = s * (1.0f - z * z);
-      } else if (i < nBH + D * H) {
-        const int q = i - nBH, o = q / H, j = q - o * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(w + b * D + o) * ld(h2 + b * H + j);
-        gw2[q] += s;
-      } else {
-        const int o = i - nBH - D * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(w + b * D + o);
-        gb2[o] += s;
+    const int D = g.D;
+    const float* B2_ = B2;
+    product_rows(rows + g.off_h2, W2, g.S2, g.Q1, D,
+                   [=](int b, int o, float s) { out[b * D + o] = s + B2_[o]; });
+  }
+
+  __device__ __forceinline__ void vjp(const float* u, float t,
+                                      const float* w, float* ubar) const {
+    const int D = g.D, RS = g.RS;
+    float* wr = rows + g.off_w;
+    for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
+      const int b = i / D, o = i - b * D;
+      wr[b * RS + o] = w[i];
+    }
+    hidden(u, t);  // its first barrier orders the copy above
+    const float* h1 = rows + g.off_h1;
+    const float* h2 = rows + g.off_h2;
+    float* g2 = rows + g.off_g2;
+    float* g1 = rows + g.off_g1;
+    product_cols(wr, W2, g.S2, g.D4, g.H, [=](int b, int j, float s) {
+      const float z = h2[b * RS + j];
+      g2[b * RS + j] = s * (1.0f - z * z);
+    });
+    product_cols(g2, W1, g.S1, g.H4, g.H, [=](int b, int k, float s) {
+      const float z = h1[b * RS + k];
+      g1[b * RS + k] = s * (1.0f - z * z);
+    });
+    product_cols(g1, W0, g.S0, g.H4, D,
+                  [=](int b, int d, float s) { ubar[b * D + d] = s; });
+    grad_tiles();
+  }
+
+  // The row offsets of tile t's a and c vectors.
+  __device__ __forceinline__ void tile_offsets(int t, int& ao, int& co) const {
+    const Tile tl = tile(g, t);
+    ao = (tl.m == 0 ? g.off_w : tl.m == 1 ? g.off_g2 : g.off_g1) + tl.p;
+    co = (tl.m == 0 ? g.off_h2 : tl.m == 1 ? g.off_h1 : 0) + tl.q;
+  }
+
+  // acc += a (x) c over the CTA's rows, for each owned tile.
+  __device__ __forceinline__ void grad_tiles() const {
+    const int nth = blockDim.x, RS = g.RS;
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl) {
+      const int t = threadIdx.x + sl * nth;
+      if (t >= g.ntiles) break;
+      int ao, co;
+      tile_offsets(t, ao, co);
+      for (int b = 0; b < nrows; ++b) {
+        const float4 a = *reinterpret_cast<const float4*>(rows + b * RS + ao);
+        const float4 c = *reinterpret_cast<const float4*>(rows + b * RS + co);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[sl][4 * p + q] = fmaf(av[p], cv[q], acc[sl][4 * p + q]);
       }
     }
-    cg::this_grid().sync();
-    // (4) g1, gW1, gb1.
-    for (int i = tid; i < nBH + H * H + H; i += nth) {
-      if (i < nBH) {
-        const int b = i / H, k = i - b * H;
-        float s = 0.0f;
-        for (int j = 0; j < H; ++j) s += ld(g2 + b * H + j) * w1[j * H + k];
-        const float z = ld(h1 + i);
-        g1[i] = s * (1.0f - z * z);
-      } else if (i < nBH + H * H) {
-        const int q = i - nBH, j = q / H, k = q - j * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b)
-          s += ld(g2 + b * H + j) * ld(h1 + b * H + k);
-        gw1[q] += s;
-      } else {
-        const int j = i - nBH - H * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(g2 + b * H + j);
-        gb1[j] += s;
+    for (int t = threadIdx.x + kTileSlots * nth; t < g.ntiles; t += nth) {
+      int ao, co;
+      tile_offsets(t, ao, co);
+      float* m = mine + 16 * (size_t)t;
+      for (int b = 0; b < nrows; ++b) {
+        const float* a = rows + b * RS + ao;
+        const float* c = rows + b * RS + co;
+        for (int p = 0; p < 4; ++p)
+          for (int q = 0; q < 4; ++q)
+            m[4 * p + q] = fmaf(a[p], c[q], m[4 * p + q]);
       }
     }
-    cg::this_grid().sync();
-    // (5) ubar, gW0 (state block and time column), gb0.
-    const int nBD = B * D;
-    for (int i = tid; i < nBD + H * D + H; i += nth) {
-      if (i < nBD) {
-        const int b = i / D, d = i - b * D;
-        float s = 0.0f;
-        for (int j = 0; j < H; ++j) s += ld(g1 + b * H + j) * w0[j * K + d];
-        ubar[i] = s;
-      } else if (i < nBD + H * D) {
-        const int q = i - nBD, j = q / D, d = q - j * D;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(g1 + b * H + j) * ld(u + b * D + d);
-        gw0[j * K + d] += s;
+  }
+
+  __device__ void zero_grads() const {
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[sl][k] = 0.0f;
+    for (int i = threadIdx.x + 16 * kTileSlots * blockDim.x;
+         i < 16 * g.ntiles; i += blockDim.x)
+      mine[i] = 0.0f;
+  }
+
+  // Each CTA's partials to device memory, one cluster barrier, then each
+  // gradient the sum of the C partials in rank order.
+  __device__ void reduce_grads() const {
+    const int nth = blockDim.x, D = g.D, H = g.H;
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl) {
+      const int t = threadIdx.x + sl * nth;
+      if (t >= g.ntiles) break;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) mine[16 * (size_t)t + k] = acc[sl][k];
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    const float* all = mine - (size_t)rank * 16 * g.ntiles;
+    const int n0 = D * (H + 1), n1 = n0 + H * (H + 1);
+    const int total = n1 + H * (D + 2);
+    for (int e = rank * nth + threadIdx.x; e < total; e += g.C * nth) {
+      int m, p, q, nq, t0;
+      if (e < n0) {
+        m = 0; p = e / (H + 1); q = e - p * (H + 1); nq = cdiv(H + 1, 4);
+        t0 = 0;
+      } else if (e < n1) {
+        m = 1; p = (e - n0) / (H + 1); q = (e - n0) - p * (H + 1);
+        nq = cdiv(H + 1, 4); t0 = g.t0;
       } else {
-        const int j = i - nBD - H * D;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(g1 + b * H + j);
-        gw0[j * K + D] += t * s;
-        gb0[j] += s;
+        m = 2; p = (e - n1) / (D + 2); q = (e - n1) - p * (D + 2);
+        nq = cdiv(D + 2, 4); t0 = g.t1;
+      }
+      const int t = t0 + (p >> 2) * nq + (q >> 2);
+      const size_t k = 16 * (size_t)t + 4 * (p & 3) + (q & 3);
+      float s = 0.0f;
+      for (int r = 0; r < g.C; ++r) s += __ldcg(all + (size_t)r * 16 * g.ntiles + k);
+      if (m == 0) {
+        if (q < H) gw2[p * H + q] = s; else gb2[p] = s;
+      } else if (m == 1) {
+        if (q < H) gw1[p * H + q] = s; else gb1[p] = s;
+      } else {
+        if (q <= D) gw0[p * (D + 1) + q] = s; else gb0[p] = s;
       }
     }
   }
 };
 
 struct FwdArgs {
-  OdeDynField f;
+  RowField f;
   SolveBufs s;
 };
 
 struct BwdArgs {
-  OdeDynField f;
+  RowField f;
   ReplayBufs r;
 };
 
-template <bool kRecord>
-__global__ void __launch_bounds__(kThreads) ode_dyn_fwd_kernel(FwdArgs a) {
-  adaptive_solve_traj<kRecord>(a.f, a.s);
+template <bool kRecord, bool kWS, bool kRS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ode_dyn_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  RowField f = a.f;
+  f.bind<kWS, kRS>(smem);
+  f.load();
+  __syncthreads();
+  SolveBufs s = a.s;
+  const int n = f.g.R * f.g.D;
+  s.y = f.scaf;
+  s.ks = f.scaf + n;
+  s.u = f.scaf + 8 * n;
+  adaptive_solve_traj<kRecord, RowSync>(f, s);
 }
 
-__global__ void __launch_bounds__(kThreads) ode_dyn_bwd_kernel(BwdArgs a) {
-  const int tid = grid_tid(), nth = grid_threads();
-  const OdeDynField& f = a.f;
-  const int K = f.D + 1;
-  for (int i = tid; i < f.H * K; i += nth) f.gw0[i] = 0.0f;
-  for (int i = tid; i < f.H * f.H; i += nth) f.gw1[i] = 0.0f;
-  for (int i = tid; i < f.D * f.H; i += nth) f.gw2[i] = 0.0f;
-  for (int i = tid; i < f.H; i += nth) f.gb0[i] = f.gb1[i] = 0.0f;
-  for (int i = tid; i < f.D; i += nth) f.gb2[i] = 0.0f;
-  cg::this_grid().sync();
-  adjoint_replay_traj(f, a.r);
+template <bool kWS, bool kRS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ode_dyn_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  RowField f = a.f;
+  f.bind<kWS, kRS>(smem);
+  f.load();
+  f.zero_grads();
+  __syncthreads();
+  ReplayBufs r = a.r;
+  const int n = f.g.R * f.g.D;
+  r.lam = f.scaf;
+  r.kbar = f.scaf + n;
+  r.u = f.scaf + 8 * n;
+  r.ub = f.scaf + 9 * n;
+  adjoint_replay_traj<RowSync>(f, r);
+  __syncthreads();
+  f.reduce_grads();
 }
 
-// Scratch layout in `work` (floats): fwd y, ks, u (9N); bwd lam, kbar,
-// u, ub (10N); then h1, h2, g2, g1 (4 B*H) and part.
-size_t work_floats(int B, int D, int H) {
-  const size_t N = (size_t)B * D, BH = (size_t)B * H;
-  return 10 * N + 4 * BH + kPartFloats;
-}
-
-OdeDynField make_field(const float* w0, const float* b0, const float* w1,
-                       const float* b1, const float* w2, const float* b2,
-                       float* work, int B, int D, int H) {
-  OdeDynField f{};
+RowField make_field(const float* w0, const float* b0, const float* w1,
+                    const float* b1, const float* w2, const float* b2,
+                    float* work, const Geo& g) {
+  RowField f{};
   f.w0 = w0;
   f.b0 = b0;
   f.w1 = w1;
   f.b1 = b1;
   f.w2 = w2;
   f.b2 = b2;
-  f.B = B;
-  f.D = D;
-  f.H = H;
-  const size_t BH = (size_t)B * H;
-  f.h1 = work + 10 * (size_t)B * D;
-  f.h2 = f.h1 + BH;
-  f.g2 = f.h2 + BH;
-  f.g1 = f.g2 + BH;
+  f.work = work;
+  f.g = g;
   return f;
 }
 
-float* part_of(float* work, int B, int D, int H) {
-  return work + 10 * (size_t)B * D + 4 * (size_t)B * H;
+// Launches kernel(args) as one cluster of g.C CTAs of kRowThreads threads
+// with g.smem_floats floats of dynamic shared memory each; an error if the
+// card cannot run it.
+// The attributes and the occupancy check run once for each kernel,
+// device, C and shared-memory size; later launches skip them.
+template <class Args>
+int launch_rows(void (*kernel)(Args), Args& args, const Geo& g,
+                cudaStream_t stream) {
+  static std::mutex mu;
+  static std::set<std::tuple<const void*, int, int, size_t>> checked;
+  const size_t bytes = (size_t)g.smem_floats * sizeof(float);
+  if (bytes > kSmemBudget || g.C > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const auto key = std::make_tuple((const void*)kernel, dev, g.C, bytes);
+  std::lock_guard<std::mutex> lock(mu);
+  const bool known = checked.count(key) > 0;
+  if (!known) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBudget);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.C, 1, 1);
+  cfg.blockDim = dim3(kRowThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!known) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n < 1) return (int)cudaErrorLaunchOutOfResources;
+    checked.insert(key);
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The plan of a launch at batch B, widths D, H (bwd: the backward's):
+// out[0..8] = C, R, dynamic shared-memory bytes, rows in shared memory
+// (0/1), weights in shared memory (0/1), device scratch floats, gradient
+// tiles, threads a CTA, tiles a thread holds in registers.
+extern "C" void ode_dyn_plan(int B, int D, int H, int bwd, long long* out) {
+  const Geo g = make_geo(B, D, H, bwd != 0);
+  out[0] = g.C;
+  out[1] = g.R;
+  out[2] = g.smem_floats * (long long)sizeof(float);
+  out[3] = g.rows_smem;
+  out[4] = g.w_smem;
+  out[5] = g.work_floats;
+  out[6] = g.ntiles;
+  out[7] = kRowThreads;
+  out[8] = kTileSlots;
+}
+
 extern "C" long long ode_dyn_work_floats(int B, int D, int H) {
-  return (long long)work_floats(B, D, H);
+  const long long f = make_geo(B, D, H, false).work_floats;
+  const long long b = make_geo(B, D, H, true).work_floats;
+  return f > b ? f : b;
 }
 
 // z0 (B, D), ts (T); W0 (H, D+1), b0 (H), W1 (H, H), b1 (H), W2 (D, H),
@@ -253,9 +702,9 @@ extern "C" int ode_dyn_fwd(const float* z0, const float* ts, const float* w0,
                            int max_steps, float rtol, float atol, int record,
                            void* stream) {
   if (B <= 0 || T <= 0) return 0;
+  const Geo g = make_geo(B, D, H, false);
   FwdArgs a{};
-  a.f = make_field(w0, b0, w1, b1, w2, b2, work, B, D, H);
-  const size_t N = (size_t)B * D;
+  a.f = make_field(w0, b0, w1, b1, w2, b2, work, g);
   a.s.h0 = z0;
   a.s.out = out;
   a.s.ts = ts;
@@ -263,18 +712,26 @@ extern "C" int ode_dyn_fwd(const float* z0, const float* ts, const float* w0,
   a.s.yrec = yrec;
   a.s.krec = krec;
   a.s.misc = misc;
-  a.s.y = work;
-  a.s.ks = work + N;
-  a.s.u = work + 8 * N;
-  a.s.part = part_of(work, B, D, H);
-  a.s.N = (int)N;
+  a.s.part = nullptr;
+  a.s.N = B * D;
   a.s.T = T;
   a.s.max_steps = max_steps;
   a.s.rtol = rtol;
   a.s.atol = atol;
+  a.s.D = D;
+  a.s.R = g.R;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return record ? launch_cooperative(ode_dyn_fwd_kernel<true>, a, s)
-                : launch_cooperative(ode_dyn_fwd_kernel<false>, a, s);
+  if (g.rows_smem)
+    return record ? launch_rows(ode_dyn_fwd_kernel<true, true, true>, a, g, s)
+                  : launch_rows(ode_dyn_fwd_kernel<false, true, true>, a, g,
+                                s);
+  if (g.w_smem)
+    return record ? launch_rows(ode_dyn_fwd_kernel<true, true, false>, a, g, s)
+                  : launch_rows(ode_dyn_fwd_kernel<false, true, false>, a, g,
+                                s);
+  return record ? launch_rows(ode_dyn_fwd_kernel<true, false, false>, a, g, s)
+                : launch_rows(ode_dyn_fwd_kernel<false, false, false>, a, g,
+                              s);
 }
 
 // ct (T, B, D), the trajectory's cotangent, and the forward's records ->
@@ -289,15 +746,15 @@ extern "C" int ode_dyn_bwd(const float* ct, const float* ts, const float* tda,
                            float* gb2, float* z0bar, float* work, int B,
                            int D, int H, int T, void* stream) {
   if (B <= 0 || T <= 0) return 0;
+  const Geo g = make_geo(B, D, H, true);
   BwdArgs a{};
-  a.f = make_field(w0, b0, w1, b1, w2, b2, work, B, D, H);
+  a.f = make_field(w0, b0, w1, b1, w2, b2, work, g);
   a.f.gw0 = gw0;
   a.f.gb0 = gb0;
   a.f.gw1 = gw1;
   a.f.gb1 = gb1;
   a.f.gw2 = gw2;
   a.f.gb2 = gb2;
-  const size_t N = (size_t)B * D;
   a.r.hbar = ct;
   a.r.ts = ts;
   a.r.tda = tda;
@@ -305,12 +762,12 @@ extern "C" int ode_dyn_bwd(const float* ct, const float* ts, const float* tda,
   a.r.krec = krec;
   a.r.misc = misc;
   a.r.h0bar = z0bar;
-  a.r.lam = work;
-  a.r.kbar = work + N;
-  a.r.u = work + 8 * N;
-  a.r.ub = work + 9 * N;
-  a.r.N = (int)N;
+  a.r.N = B * D;
   a.r.T = T;
-  return launch_cooperative(ode_dyn_bwd_kernel, a,
-                            static_cast<cudaStream_t>(stream));
+  a.r.D = D;
+  a.r.R = g.R;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g.rows_smem) return launch_rows(ode_dyn_bwd_kernel<true, true>, a, g, s);
+  if (g.w_smem) return launch_rows(ode_dyn_bwd_kernel<true, false>, a, g, s);
+  return launch_rows(ode_dyn_bwd_kernel<false, false>, a, g, s);
 }

@@ -7,8 +7,10 @@ make_ferro_node_solver`` (the TPU kernels ``_make_fwd_kernel`` :87 and
 ``_make_bwd_kernel`` :150, and their batch-vectorized layout :259 /
 :309, another TPU layout of the same function).  The CUDA source is
 ``fetode_tpu_torch/csrc/ferro_node.cu`` on the shared scaffold
-``csrc/node_common.cuh``; its header gives the design and what bounds
-it.  The field maps D -> hidden -> D through two ferro layers with the
+``csrc/node_common.cuh`` (its grid policy and fused-stage hook); its
+header gives the design and what bounds it.  ``slice_plan`` is how the
+kernels cut each layer's parameters into tiles over the grid's blocks
+(the CUDA ``slice_plan``, checked against it once a shape).  The field maps D -> hidden -> D through two ferro layers with the
 fresh frozen hysteresis state, a tanh bound before and a tanh link
 between them, and a clip at the end.  The kernel's field differs from
 the eager model field (``models/ecg.py: kanfet_mlp_node_field``) in two
@@ -46,6 +48,50 @@ from fetode_tpu_torch.utils.init import normal
 _KERNEL_NAME = "ferro_node"
 _NAMES = ("k", "ec", "ps", "bias", "coef")
 MAX_WIDTH = 512      # the kernel's bound on the latent and hidden widths
+TILE_LANES = 32      # (row, column) pairs of a parameter tile
+
+
+class SlicePlan(NamedTuple):
+    """One layer (O outputs, I inputs, K bases) cut into tiles of RG rows
+    by CG columns (RG * CG = 32, every k of each column): NR row groups
+    by NC column chunks, tile q = rg * NC + cc on block q mod G, which
+    holds at most ``per_block`` tiles."""
+
+    RG: int
+    CG: int
+    NR: int
+    NC: int
+    tiles: int
+    per_block: int
+
+    def tile(self, q: int, O: int, I: int) -> Tuple[range, range]:
+        """(output rows, input columns) of tile q."""
+        rg, cc = divmod(q, self.NC)
+        return (range(rg * self.RG, min(O, (rg + 1) * self.RG)),
+                range(cc * self.CG, min(I, (cc + 1) * self.CG)))
+
+
+def slice_plan(G: int, O: int, I: int, K: int) -> SlicePlan:
+    """The kernels' cut of one layer (``csrc/ferro_node.cu: slice_plan``):
+    RG the power of two that makes max(NR, NC) least, the smaller on a
+    tie.  A forward row's sum is its NC tiles' partials added in tile
+    order, each tile's a fixed shuffle tree over its columns of sums over
+    k in order; an input column's cotangent is its NR tiles' partials in
+    order, each a shuffle tree over the tile's rows."""
+    if min(G, O, I, K) < 1:
+        raise ValueError(f"slice_plan: G, O, I, K must be >= 1, got "
+                         f"{(G, O, I, K)}")
+    best = None
+    rg = 1
+    while rg <= TILE_LANES:
+        cg = TILE_LANES // rg
+        nr, nc = -(-O // rg), -(-I // cg)
+        if best is None or max(nr, nc) < max(best[2], best[3]):
+            best = (rg, cg, nr, nc)
+        rg *= 2
+    rg, cg, nr, nc = best
+    return SlicePlan(rg, cg, nr, nc, nr * nc, -(-nr * nc // G))
+
 
 Noise = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -148,7 +194,27 @@ def _lib():
     lib.ferro_node_fwd.restype = lib.ferro_node_bwd.restype = ctypes.c_int
     lib.ferro_node_work_floats.argtypes = [I] * 6
     lib.ferro_node_work_floats.restype = ctypes.c_longlong
+    lib.ferro_node_slice_plan.argtypes = [I] * 4 + [P]
+    lib.ferro_node_slice_plan.restype = None
+    lib.ferro_node_grid.argtypes = []
+    lib.ferro_node_grid.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(device_index: int, D: int, H: int, K1: int, K2: int) -> None:
+    """Raise unless the library cuts both layers as ``slice_plan`` does,
+    at the grid the kernels take on this card (once a shape)."""
+    G = _lib().ferro_node_grid()
+    for G_ in sorted({G, max(1, G // 2)}):   # the grid, and one block an SM
+        for O, I, K in ((H, D, K1), (D, H, K2)):
+            got = (ctypes.c_longlong * 6)()
+            _lib().ferro_node_slice_plan(G_, O, I, K, ctypes.addressof(got))
+            want = list(slice_plan(G_, O, I, K))
+            if list(got) != want:
+                raise RuntimeError(f"ferro_node: the library's tile plan "
+                                   f"{list(got)} for G={G_}, (O, I, K) = "
+                                   f"{(O, I, K)} is not slice_plan's {want}")
 
 
 def _dims(fc1, fc2, h0, name):
@@ -191,6 +257,8 @@ def _consts(cfg: FerroNodeConfig):
 
 
 def _work(B, D, H, K1, K2, bwd, device):
+    with torch.cuda.device(device):
+        _check_plan(torch.cuda.current_device(), D, H, K1, K2)
     n = _lib().ferro_node_work_floats(B, D, H, K1, K2, int(bwd))
     return torch.empty(n, dtype=torch.float32, device=device)
 

@@ -5,8 +5,9 @@ at every requested time, and its discrete adjoint, as two CUDA kernels.
 Counterpart of ``fetode_tpu/ops/pallas_ode_dyn.py: make_ode_dyn_solver``
 (the TPU kernels ``_make_fwd_kernel`` :50 and ``_make_bwd_kernel`` :78).
 The CUDA source is ``fetode_tpu_torch/csrc/ode_dyn.cu`` on the scaffold
-``csrc/node_common.cuh`` (its trajectory pair); its header gives the
-design and what bounds it.  The field is ``ODEDynamicsConfig``'s MLP
+``csrc/node_common.cuh`` (its trajectory pair under the row policy: one
+thread-block cluster, each CTA owning a tile of batch rows); its header
+gives the design and what bounds it.  The field is ``ODEDynamicsConfig``'s MLP
 ``[D+1, H, H, D]`` with tanh hidden layers, on ``[z, t]``:
 
     dz/dt = W2 tanh(W1 tanh(W0 [z, t] + b0) + b1) + b2
@@ -17,6 +18,9 @@ design and what bounds it.  The field is ``ODEDynamicsConfig``'s MLP
   every attempt) and, in its backward, ``ode_dyn_bwd``; without
   autograd the forward kernel alone, recording nothing.  On the CPU it
   takes the plain version.
+* ``row_plan`` — how a launch cuts the batch into the cluster's row
+  tiles and where each CTA keeps its data (the CUDA ``make_geo``,
+  checked against it once a shape).
 * ``ode_dyn_fwd`` / ``ode_dyn_bwd`` — the kernel wrappers, each with a
   launch counter (``.launches``).  For CPU tensors they take the plain
   versions ``record_solve_traj_reference`` and
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -37,6 +41,56 @@ from fetode_tpu_torch.ops import node_common as NC
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd
 
 _KERNEL_NAME = "ode_dyn"
+
+MAX_CLUSTER = 16            # CTAs, the non-portable cluster size
+ROW_THREADS = 512           # threads a CTA
+TILE_SLOTS = 5              # gradient tiles a thread holds in registers
+OUTS_A_LANE = 2             # outputs a lane of a VJP product holds
+SMEM_BUDGET = 232448 - 2048  # dynamic shared-memory bytes a CTA may take
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _row_stride(k: int) -> int:
+    s = _round4(k)
+    while s % 32 != 4:
+        s += 4
+    return s
+
+
+def row_plan(B: int, D: int, H: int, bwd: bool = False) -> Dict[str, object]:
+    """The kernels' launch at batch B and widths D, H (``csrc/ode_dyn.cu:
+    make_geo``): ``C`` CTAs of one cluster, CTA c owning the rows
+    ``rows[c]`` (R = ceil(B / 16) each, the last the rest); the bytes of
+    shared memory a CTA takes; whether the rows and the padded weights
+    sit there (else in device memory the CTA owns); the device scratch
+    floats; and the gradient tiles (4 x 4, ``TILE_SLOTS`` a thread in
+    registers)."""
+    if B < 1:
+        raise ValueError(f"row_plan: B must be >= 1, got {B}")
+    R = -(-B // MAX_CLUSTER)
+    C = -(-B // R)
+    K0, Q1, H4, D4 = _round4(D + 2), _round4(H + 1), _round4(H), _round4(D)
+    rec = K0 + 2 * Q1 + ((D4 + 2 * H4) if bwd else 0)
+    w = H4 * _row_stride(K0) + H4 * _row_stride(Q1) + D4 * _row_stride(Q1) \
+        + 2 * H4 + D4
+    p = 4 * max(H, D, ROW_THREADS // 32 * 32 * OUTS_A_LANE) if bwd else 0
+    rows = _round4((10 if bwd else 9) * R * D) + R * rec
+    budget = SMEM_BUDGET // 4
+    rows_smem = w + p + rows <= budget
+    w_smem = rows_smem or w + p <= budget
+    qh, ph = -(-(H + 1) // 4), -(-H // 4)
+    tiles = -(-D // 4) * qh + ph * qh + ph * (-(-(D + 2) // 4))
+    smem = p + (w if w_smem else 0) + (rows if rows_smem else 0)
+    work = C * ((0 if w_smem else w) + (0 if rows_smem else rows)
+                + (16 * tiles if bwd else 0))
+    return dict(C=C, R=R, rows=[range(c * R, min(B, (c + 1) * R))
+                                for c in range(C)],
+                smem_bytes=4 * smem, rows_smem=rows_smem, weights_smem=w_smem,
+                work_floats=work, tiles=tiles, threads=ROW_THREADS,
+                tile_slots=TILE_SLOTS)
 
 
 def layer_weights(layers) -> List[torch.Tensor]:
@@ -70,7 +124,26 @@ def _lib():
     lib.ode_dyn_fwd.restype = lib.ode_dyn_bwd.restype = ctypes.c_int
     lib.ode_dyn_work_floats.argtypes = [I] * 3
     lib.ode_dyn_work_floats.restype = ctypes.c_longlong
+    lib.ode_dyn_plan.argtypes = [I] * 4 + [P]
+    lib.ode_dyn_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(B: int, D: int, H: int) -> None:
+    """Raise unless the library's plan is ``row_plan``'s, forward and
+    backward (once a shape)."""
+    for bwd in (False, True):
+        got = (ctypes.c_longlong * 9)()
+        _lib().ode_dyn_plan(B, D, H, int(bwd), ctypes.addressof(got))
+        p = row_plan(B, D, H, bwd)
+        want = [p["C"], p["R"], p["smem_bytes"], int(p["rows_smem"]),
+                int(p["weights_smem"]), p["work_floats"], p["tiles"],
+                p["threads"], p["tile_slots"]]
+        if list(got) != want:
+            raise RuntimeError(f"ode_dyn: the library's plan {list(got)} at "
+                               f"B={B}, D={D}, H={H}, bwd={bwd} is not "
+                               f"row_plan's {want}")
 
 
 def _check_shapes(weights: Sequence[torch.Tensor], z0: torch.Tensor,
@@ -97,6 +170,7 @@ def _operands(weights, z0, ts, name) -> List[torch.Tensor]:
 
 
 def _work(B, D, H, device):
+    _check_plan(B, D, H)
     n = _lib().ode_dyn_work_floats(B, D, H)
     return torch.empty(n, dtype=torch.float32, device=device)
 

@@ -1,0 +1,342 @@
+"""Check and time B.7 (``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``)
+of the package this file is imported from, on one card, with the other
+kernels on ``csrc/node_common.cuh`` beside them.
+
+    python -m fetode_tpu_torch.tools.node_field_times [--tag NAME]
+
+Run from the root of a checkout (it imports that checkout's
+``chip_smoke`` for its inputs, bounds and timers).  To compare two
+builds, copy this file into a ``git archive`` of the other commit and
+run both from their roots in one call, in the order A, B, B, A.  It
+builds the kernels of ``node_common.cuh``, then:
+
+* B.7 at ``ETTPreset``'s width (latent 64, hidden 128, rtol 1e-3, the 8
+  output times) at every batch phase 14 of ``chip_smoke.py`` gives it,
+  initial states from the encoder on the synthetic windows: the forward
+  with records and the backward on its records (a seeded cotangent), the
+  time a call back to back (CUDA events, ``cuda_ms``: the host's launch
+  cost included where it exceeds the kernel's) and the device time a call
+  on a full queue (``queued_ms``), the attempts, the
+  bounds, the forward's output and records and the backward's gradients
+  the same bits in two calls, the forward against its plain version
+  (rtol = atol = ``TOL``) in the same attempts.
+* B.4 at ``ECGPreset``'s width (latent 64, hidden 128, 12 bases, rtol
+  1e-2) at B = 8, 32 and 64, clean and with frozen device noise of std
+  0.2: the same.
+* The kernels that share the scaffold, at a batch their paths give them:
+  B.5 (logistic_node) and B.6 (mlp_node) at B = 8, B.8 (node_enc) at
+  B = 64, B.14 (custom_field) at D = 64, H = 128, B = 64 (both timers),
+  and B.3 (kanfet_wide) at [2, 64, 64, 2], B = 1 (``cuda_ms``): forward
+  and backward times.
+* The ECG ``kanfet_mlp_node`` training step at B = 8, the ETT ``point``
+  step at B = 64 (forward, backward, clip, AdamW at learning rate 0;
+  ``cuda_ms``), and ``serve --source ett`` p50 in buckets 8, 64 and 256.
+
+No profiler (it drops device events on that machine).  Prints the card's
+name and power limit, one line a measurement, and a last JSON line
+``{"tag": ..., "b7": {...}, "b4": {...}, "others": {...}, "steps":
+{...}}``.  Exits non-zero if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import tempfile
+import time
+
+KERNELS = ("ode_dyn", "ferro_node", "logistic_node", "mlp_node", "node_enc",
+           "custom_field", "kanfet_wide")
+
+
+def _same(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def timed_case(cs, case, h0, hbar, smi, label, plain=True):
+    """One batch of a ``check_node_kernels`` case: times, attempts, bounds,
+    bits twice and (``plain``) the forward against plain."""
+    import torch
+
+    B = h0.shape[0]
+    with torch.no_grad():
+        o1, r1 = case["fwd"](h0)
+        o2, r2 = case["fwd"](h0)
+    g1 = case["bwd"](h0, r1, hbar)
+    g2 = case["bwd"](h0, r1, hbar)
+    torch.cuda.synchronize()
+    n = int(r1.misc[0])
+    twice = (torch.equal(o1, o2) and torch.equal(r1.tda, r2.tda)
+             and torch.equal(r1.misc, r2.misc)
+             and torch.equal(r1.yrec[:n], r2.yrec[:n])
+             and torch.equal(r1.krec[:n], r2.krec[:n])
+             and _same(g1[0], g2[0]) and torch.equal(g1[1], g2[1]))
+    row = dict(attempts=n, twice=twice)
+    if plain:
+        with torch.no_grad():
+            op, rp = case["plain_fwd"](h0)
+        row["err"] = cs.max_abs(o1, op)
+        row["plain_attempts"] = int(rp.misc[0])
+        if not (torch.allclose(o1, op, rtol=cs.TOL, atol=cs.TOL)
+                and row["plain_attempts"] == n):
+            cs.fail(f"{label} B={B}: against plain {row}")
+    if not twice:
+        cs.fail(f"{label} B={B}: two calls differ")
+    with torch.no_grad():
+        row["fwd"] = cs.cuda_ms(lambda: case["fwd"](h0), 20)
+        row["fwd_dev"] = cs.queued_ms(lambda: case["fwd"](h0))
+    row["bwd"] = cs.cuda_ms(lambda: case["bwd"](h0, r1, hbar), 20)
+    row["bwd_dev"] = cs.queued_ms(lambda: case["bwd"](h0, r1, hbar))
+    row["bound_fwd"] = cs.bound(*case["counts"](B, r1, "fwd"))[0]
+    row["bound_bwd"] = cs.bound(*case["counts"](B, r1, "bwd"))[0]
+    print(f"{label} B={B}: forward {row['fwd']:.4f} ms, backward "
+          f"{row['bwd']:.4f} ms back to back (cuda_ms); device "
+          f"{row['fwd_dev']:.4f} / {row['bwd_dev']:.4f} ms on a full queue "
+          f"(queued_ms); {n} attempts; bounds "
+          f"{row['bound_fwd']:.5f} / {row['bound_bwd']:.5f} ms; the same "
+          f"bits twice; {'max |diff| %.3e vs plain' % row['err'] if plain else ''} "
+          f"({smi})", flush=True)
+    return row
+
+
+def b7_part(cs, device, smi):
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn.mlp import mlp_apply
+
+    wins = cs.forecast_windows()
+    rng = np.random.default_rng(4)
+    spec = F.LatentODEForecasterSpec(num_features=wins.shape[2])
+    params = F.latent_ode_forecaster_init(torch.Generator().manual_seed(0),
+                                          spec, device=device)
+    ts = torch.arange(spec.pred_len, dtype=torch.float32, device=device)
+    case = cs.ode_dyn_case(params["dynamics"], ts)
+    out = {}
+    for b in cs.ODE_CHECKS:
+        x = torch.from_numpy(wins[(37 * b + np.arange(b)) % len(wins)]).to(
+            device)
+        with torch.no_grad():
+            z0 = mlp_apply(params["encoder"], spec.enc, x.reshape(b, -1))
+        ct = torch.from_numpy(rng.standard_normal(
+            (len(ts), b, spec.latent_dim)).astype(np.float32)).to(device)
+        out[b] = timed_case(cs, case, z0, ct, smi, "B.7 ode_dyn")
+    return out
+
+
+def ecg_inputs(device, b, seed):
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((series[np.arange(b) % len(series)] + 0.05
+                          * rng.standard_normal((b, series.shape[1]))
+                          ).astype(np.float32)).to(device)
+    hbar = torch.from_numpy(rng.standard_normal((b, 64)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(data[1][:b]).long().to(device)
+    return x, hbar, y
+
+
+def b4_part(cs, device, smi):
+    import torch
+
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import ferro_node as FN
+
+    spec = M.KanFetMLPNODESpec(num_basis=12)
+    params = M.kanfet_mlp_node_init(torch.Generator().manual_seed(0), spec,
+                                    device=device)
+    out = {}
+    for b in (8, 32, 64):
+        x, hbar, _ = ecg_inputs(device, b, 2)
+        with torch.no_grad():
+            h0 = x @ params.encoder_w.T + params.encoder_b
+        noise = FN.frozen_solve_noise(torch.Generator().manual_seed(3), b,
+                                      spec.fc1_cfg, spec.fc2_cfg,
+                                      noise_std=0.2, device=device)
+        for label, nz in (("clean", None), ("noisy", noise)):
+            case = cs.ferro_case(params, spec, nz)
+            out[f"{label} {b}"] = timed_case(cs, case, h0, hbar, smi,
+                                             f"B.4 ferro_node {label}")
+    return out
+
+
+def others_part(cs, device, smi):
+    """The scaffold's other kernels: forward / backward ms."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.models import cond_diffusion as CD
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.models.predprey import PredPreyNODE, PredPreyTask
+    from fetode_tpu_torch.ops import kanfet_wide as KW
+
+    out = {}
+
+    def both(label, case, h0, hbar):
+        with torch.no_grad():
+            _, recs = case["fwd"](h0)
+            fwd = cs.cuda_ms(lambda: case["fwd"](h0), 20)
+            fwd_dev = cs.queued_ms(lambda: case["fwd"](h0))
+        bwd = cs.cuda_ms(lambda: case["bwd"](h0, recs, hbar), 20)
+        bwd_dev = cs.queued_ms(lambda: case["bwd"](h0, recs, hbar))
+        out[label] = dict(fwd=fwd, bwd=bwd, fwd_dev=fwd_dev, bwd_dev=bwd_dev,
+                          attempts=int(recs.misc[0]))
+        print(f"{label}: forward {fwd:.4f} ms, backward {bwd:.4f} ms "
+              f"(cuda_ms); device {fwd_dev:.4f} / {bwd_dev:.4f} ms "
+              f"(queued_ms); {int(recs.misc[0])} attempts ({smi})",
+              flush=True)
+
+    x8, hbar8, _ = ecg_inputs(device, 8, 2)
+    lspec = M.KanFetNODESpec(num_basis=12)
+    lparams = M.kanfet_node_init(torch.Generator().manual_seed(0), lspec,
+                                 device=device)
+    with torch.no_grad():
+        h0 = x8 @ lparams.encoder_w.T + lparams.encoder_b
+    both("B.5 logistic_node B=8", cs.logistic_case(lparams, lspec), h0, hbar8)
+    mspec = M.KanFetNODESpec(num_basis=12, field="mlp")
+    mparams = M.kanfet_node_init(torch.Generator().manual_seed(0), mspec,
+                                 device=device)
+    with torch.no_grad():
+        h0 = x8 @ mparams.encoder_w.T + mparams.encoder_b
+    both("B.6 mlp_node B=8", cs.mlp_case(mparams, mspec), h0, hbar8)
+
+    wins = cs.cond_windows()
+    rng = np.random.default_rng(6)
+    cfg = CD.NodeEncoderCfg(d_in=wins.shape[2])
+    enc = CD.node_encoder_init(torch.Generator().manual_seed(0), cfg,
+                               device=device)
+    with torch.no_grad():
+        x_seq = torch.from_numpy(wins[np.arange(64) % len(wins)]).to(
+            device) @ enc.x_proj_w.T + enc.x_proj_b
+        z0 = x_seq[:, 0] @ enc.z0_w.T + enc.z0_b
+    ct = torch.from_numpy(rng.standard_normal((64, cfg.cond_dim)).astype(
+        np.float32)).to(device)
+    both("B.8 node_enc B=64", cs.node_enc_case(enc, cfg, x_seq), z0, ct)
+
+    ccase = cs.custom_case(device, 64, 128, None, 1)
+    h0 = torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(device)
+    hb = torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(device)
+    both("B.14 custom_field D=64 H=128 B=64", ccase, h0, hb)
+
+    task = PredPreyTask()
+    ts = torch.linspace(0.0, task.tf_learn, task.n_train,
+                        dtype=torch.float32, device=device)
+    x0 = torch.tensor([[task.x0, task.y0]], dtype=torch.float32,
+                      device=device)
+    spec = PredPreyNODE.kanfet(layers_hidden=(2, 64, 64, 2))
+    w = KW.wide_weights(cs.wide_params(spec, device, "init"))
+    opts = dict(rtol=spec.rtol, atol=spec.atol, max_steps=spec.max_steps)
+    with torch.no_grad():
+        y, recs = KW.kanfet_wide_fwd(w, spec.kan, x0, ts, **opts)
+        fwd = cs.cuda_ms(lambda: KW.kanfet_wide_fwd(w, spec.kan, x0, ts,
+                                                    **opts), 5)
+    ct = torch.ones_like(y) / y.numel()
+    bwd = cs.cuda_ms(lambda: KW.kanfet_wide_bwd(w, spec.kan, x0, ts, recs,
+                                                ct), 5)
+    out["B.3 kanfet_wide [2, 64, 64, 2] B=1"] = dict(
+        fwd=fwd, bwd=bwd, attempts=int(recs.misc[0]))
+    print(f"B.3 kanfet_wide [2, 64, 64, 2] B=1: forward {fwd:.4f} ms, "
+          f"backward {bwd:.4f} ms (cuda_ms), {int(recs.misc[0])} attempts "
+          f"({smi})", flush=True)
+    return out
+
+
+def steps_part(cs, device, smi):
+    """The ECG ferro step at B = 8, the ETT point step at B = 64 and the
+    ETT serving p50s."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.train.loop import init_state, make_train_step
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    out = {}
+    x8, _, y8 = ecg_inputs(device, 8, 2)
+    fspec = M.KanFetMLPNODESpec(num_basis=12)
+    fparams = M.kanfet_mlp_node_init(torch.Generator().manual_seed(0), fspec,
+                                     device=device)
+    step = cs.ecg_step_fn(M.kanfet_mlp_node_apply, fparams, fspec, x8, y8,
+                          "pallas")
+    out["ecg kanfet_mlp_node B=8"] = cs.cuda_ms(step, 10, windows=5)
+
+    wins = cs.forecast_windows()
+    rng = np.random.default_rng(4)
+    pspec = F.LatentODEForecasterSpec(num_features=wins.shape[2])
+    pparams = F.latent_ode_forecaster_init(torch.Generator().manual_seed(0),
+                                           pspec, device=device)
+    x64 = torch.from_numpy(wins[np.arange(64)]).to(device)
+    y64 = torch.from_numpy(rng.standard_normal((64, pspec.pred_len)).astype(
+        np.float32)).to(device)
+    p = copy.deepcopy(pparams)
+    state = init_state(p, make_optimizer(0.0, params=p.parameters(),
+                                         kind="adamw", weight_decay=1e-4,
+                                         grad_clip=1.0))
+    s = pspec._replace(solver_mode="pallas")
+    pstep = make_train_step(lambda q, xb, yb: torch.mean(
+        (F.latent_ode_forecast(q, s, xb) - yb) ** 2))
+    out["ett point B=64"] = cs.cuda_ms(lambda: pstep(state, x64, y64), 10,
+                                       windows=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = cli.main(["serve", "--source", "ett", "--solver_mode",
+                        "pallas", "--device", "cuda", "--buckets",
+                        "8,64,256", "--out-dir", tmp])
+    for row in res["bench"]:
+        out[f"serve ett p50 bucket {row['batch']}"] = row["p50_ms"]
+    for k, v in out.items():
+        print(f"{k}: {v:.4f} ms ({smi})", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tag", default="checkout")
+    args = ap.parse_args(argv)
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs
+    from fetode_tpu_torch.ops import _build
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}; {args.tag}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(_build.build, KERNELS))
+    for name, so in zip(KERNELS, built):
+        _build.load_library(name)
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if name in ("ode_dyn", "ferro_node") and (
+                    "registers" in line or "spill" in line):
+                print(f"  ptxas {name}: {line.strip()}")
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    res = dict(tag=args.tag, card=smi, b7=b7_part(cs, device, smi),
+               b4=b4_part(cs, device, smi),
+               others=others_part(cs, device, smi),
+               steps=steps_part(cs, device, smi))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

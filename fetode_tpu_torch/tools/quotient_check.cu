@@ -1,4 +1,5 @@
-// Bit checks of the field's quotients (csrc/kanfet_field.cuh) against
+// Bit checks of the fields' quotients (csrc/knot_quotient.cuh, through
+// csrc/kanfet_field.cuh) against
 // the IEEE operations they replace, one value a thread: rcp_sigmoid(d)
 // against 1.0f / d below 2^126 and div_knot(a, b) against a / b.  Also
 // sigmoid(z) against plain float32's rounding, each operation rounded

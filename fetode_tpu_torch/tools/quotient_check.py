@@ -1,5 +1,6 @@
-"""Check on the card that the field's branch-free quotients give IEEE's
-bits (``csrc/kanfet_field.cuh``: ``rcp_sigmoid``, ``div_knot``), and
+"""Check on the card that the fields' branch-free quotients give IEEE's
+bits (``csrc/knot_quotient.cuh``: ``rcp_sigmoid``, the sigmoid's of the
+KANFET fields and of B.4's ferro terms, and ``div_knot``), and
 count where its ``sigmoid`` differs from plain float32's rounding of
 1 / (1 + exp(-z)) (nvcc may contract the add into expf's last step).
 

@@ -401,3 +401,106 @@ def test_kernels_match_plain_on_card(setup, run):
             for gs in (grads, want)]
     assert _rel(*flat) < 1e-4
     assert _rel(h0bar.cpu().numpy(), want_h.cpu().numpy()) < 1e-4
+
+
+# --------------------------------------------- the tile plan (B.4)
+# The grids the kernels take (the H100's 132 SMs at two blocks and at one,
+# and small grids), for the ECG layers (D = 64, H = 128, K = 12), this
+# file's narrow ones and an uneven one.
+PLAN_GRIDS = (264, 132, 7, 1)
+PLAN_LAYERS = ((128, 64, 12), (64, 128, 12), (12, 8, 3), (8, 12, 3),
+               (5, 37, 4))
+
+
+@pytest.mark.parametrize("layer", PLAN_LAYERS)
+@pytest.mark.parametrize("G", PLAN_GRIDS)
+def test_slice_plan_covers_every_element_once(G, layer):
+    O, I, K = layer
+    p = FN.slice_plan(G, O, I, K)
+    assert p.RG * p.CG == FN.TILE_LANES
+    assert p.tiles == p.NR * p.NC
+    seen = np.zeros((O, I * K), int)
+    per_block = np.zeros(G, int)
+    for q in range(p.tiles):
+        rows, cols = p.tile(q, O, I)
+        assert len(rows) >= 1 and len(cols) >= 1
+        for o in rows:
+            for i in cols:
+                seen[o, i * K:(i + 1) * K] += 1
+        per_block[q % G] += 1
+    assert (seen == 1).all()
+    assert per_block.max() == p.per_block
+    # A row's sum: its NC tiles in tile order, their columns in order; an
+    # input column's cotangent: its NR tiles in order, their rows in order.
+    for o in range(O):
+        tiles = [q for q in range(p.tiles) if o in p.tile(q, O, I)[0]]
+        assert len(tiles) == p.NC
+        assert [i for q in tiles for i in p.tile(q, O, I)[1]] == list(range(I))
+    for i in range(I):
+        tiles = [q for q in range(p.tiles) if i in p.tile(q, O, I)[1]]
+        assert len(tiles) == p.NR
+        assert [o for q in tiles for o in p.tile(q, O, I)[0]] == list(range(O))
+    if (O, I) == (128, 64) or (O, I) == (64, 128):
+        assert (p.NR, p.NC) == (16, 16) and p.tiles == 256
+        assert p.per_block == (1 if G >= 256 else -(-256 // G))
+
+
+def _shfl_tree(v, offsets, width=32):
+    """``v += __shfl_down_sync(v, d, width)`` for each d in ``offsets``,
+    float32, over one warp's 32 lanes."""
+    v = v.astype(np.float32).copy()
+    for d in offsets:
+        shifted = np.zeros_like(v)
+        for lane in range(32):
+            src = lane + d
+            if src // width == lane // width and src < 32:
+                shifted[lane] = v[src]
+        v = v + shifted
+    return v
+
+
+def test_slice_order_sums_the_plain_layer(setup):
+    """The kernel's order of a forward row sum (each (row, column) lane's K
+    terms in order, a tile's columns in the shuffle tree, a row's tiles in
+    order), in float32, is the plain layer's sum to float32 rounding; the
+    input cotangent's column sums likewise over rows."""
+    m = _module(setup)
+    D, H, K = SPEC["latent_dim"], SPEC["ode_hidden"], SPEC["num_basis"]
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1.0, 1.0, (3, D))
+    fc = m.fc1
+    w = [FN.kernel_layout(getattr(fc, n)).detach().double().numpy()
+         for n in NAMES]
+    fk, fec, fps, fbias, fcoef = w
+    g, a = CFG.gate_slope, 0.8
+    xf = np.repeat(x, K, axis=1)[:, None, :]
+    mu = 1 / (1 + np.exp(-g * xf))
+    cn = 1 / (1 + np.exp(-g * (-xf - fec)))
+    beta = a + (1 - a) * (1 - 2 * ((1 - mu) * cn))
+    terms = ((fps * np.tanh(fk * (xf + fec * beta)) + fbias) * fcoef)
+    t32 = terms.astype(np.float32)                         # (3, H, D*K)
+    p = FN.slice_plan(264, H, D, K)
+    rows_got = np.zeros((3, H), np.float32)
+    cols_got = np.zeros((3, D), np.float32)
+    for b in range(3):
+        for q in range(p.tiles):
+            rows, cols = p.tile(q, H, D)
+            lanes = np.zeros(32, np.float32)
+            for r, o in enumerate(rows):
+                for c, i in enumerate(cols):
+                    s = np.float32(0.0)
+                    for k in range(K):
+                        s = np.float32(s + t32[b, o, i * K + k])
+                    lanes[r * p.CG + c] = s
+            by_row = _shfl_tree(lanes, [d for d in (16, 8, 4, 2, 1)
+                                        if d < p.CG], p.CG)
+            by_col = _shfl_tree(lanes, [d for d in (16, 8, 4, 2, 1)
+                                        if d >= p.CG])
+            for r, o in enumerate(rows):
+                rows_got[b, o] = np.float32(rows_got[b, o]
+                                            + by_row[r * p.CG])
+            for c, i in enumerate(cols):
+                cols_got[b, i] = np.float32(cols_got[b, i] + by_col[c])
+    np.testing.assert_allclose(rows_got, terms.sum(-1), rtol=1e-5, atol=1e-6)
+    want_cols = terms.reshape(3, H, D, K).sum((1, 3))
+    np.testing.assert_allclose(cols_got, want_cols, rtol=1e-5, atol=1e-6)

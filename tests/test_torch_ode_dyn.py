@@ -265,3 +265,63 @@ def test_kernels_match_plain_on_card(setup):
             for gs in (grads, want)]
     assert _rel(*flat) < 1e-4
     assert _rel(z0bar.cpu().numpy(), want_z.cpu().numpy()) < 1e-4
+
+
+# ------------------------------------------------ the row-tile plan (B.7)
+# Every batch the forecasting path gives the kernels (chip_smoke.py's
+# ODE_CHECKS) at ETTPreset's widths, and a narrow field.
+PATH_BATCHES = (1, 8, 41, 64, 97, 256, 297)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("B", PATH_BATCHES)
+def test_row_plan_covers_every_row_once(B, bwd):
+    p = OD.row_plan(B, 64, 128, bwd)
+    assert 1 <= p["C"] <= OD.MAX_CLUSTER
+    assert p["R"] == -(-B // OD.MAX_CLUSTER)
+    rows = [b for r in p["rows"] for b in r]
+    assert rows == list(range(B))                 # each row once, in order
+    assert all(len(r) >= 1 for r in p["rows"])    # no CTA without rows
+    assert all(len(r) == p["R"] for r in p["rows"][:-1])
+    assert p["smem_bytes"] <= OD.SMEM_BUDGET
+    # The rows sit in shared memory while they fit: every forward and the
+    # training batch's backward; past that (the backward at B = 256 and
+    # 297) the plan states the device placement and the scratch it needs,
+    # and the batch still runs on the kernel.
+    assert p["rows_smem"] == (not bwd or B <= 97)
+    assert p["weights_smem"]
+    if not p["rows_smem"]:
+        assert p["work_floats"] > 16 * p["tiles"] * p["C"]
+    # The gradient tiles fit the registers of one CTA at these widths.
+    assert p["tiles"] <= p["threads"] * p["tile_slots"]
+
+
+def test_row_plan_places_wide_fields_in_device_memory():
+    p = OD.row_plan(8, 256, 512, bwd=True)        # weights > 227 KB
+    assert not p["weights_smem"] and not p["rows_smem"]
+    assert p["smem_bytes"] <= OD.SMEM_BUDGET
+    assert p["tiles"] > p["threads"] * p["tile_slots"]   # some in memory
+    small = OD.row_plan(5, 8, 16, bwd=True)
+    assert small["C"] == 5 and small["R"] == 1 and small["rows_smem"]
+    with pytest.raises(ValueError, match="B must be"):
+        OD.row_plan(0, 8, 16)
+
+
+@pytest.mark.cuda
+def test_kernels_same_bits_twice_on_card(setup):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    s = setup
+    w = OD.layer_weights(_layers(s).to(dev))
+    z0 = torch.from_numpy(s["z0"]).to(dev)
+    ct = torch.from_numpy(s["ct"]).to(dev)
+    ts = _ts().to(dev)
+    with torch.no_grad():
+        runs = [OD.ode_dyn_fwd(w, z0, ts) for _ in range(2)]
+    grads = [OD.ode_dyn_bwd(w, z0, ts, runs[0][1], ct) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert all(torch.equal(a, b) for a, b in zip(grads[0][0], grads[1][0]))
+    assert torch.equal(grads[0][1], grads[1][1])
