@@ -898,12 +898,14 @@ def same_bits(a, b):
 
 
 def check_node_kernels(case, h0, hbar, backward=True, twice=False):
-    """Phases 9-10, 14 and 24 at one batch: both forward kernels against the
-    plain recording solve (values and attempts) and, with ``backward``,
-    the backward kernel against autograd of the plain replay on the
-    kernel's records, and full gradients on own meshes.  ``twice``
-    (phases 10 and 14): each kernel called again gives the same bits, its
-    output, the records of the attempts made and every gradient."""
+    """Phases 9-10, 14, 24 and 28 at one batch: both forward kernels
+    against the plain recording solve (values and attempts) and, with
+    ``backward``, the backward kernel against autograd of the plain replay
+    on the kernel's records (both kept in the result's ``grads``: kernel
+    gradients, h0bar, plain gradients, plain h0bar), and full gradients on
+    own meshes.  ``twice`` (phases 10, 14, 24, 28): each kernel called
+    again gives the same bits, its output, the records of the attempts
+    made and every gradient."""
     label = f"{case['name']} B={h0.shape[0]}"
     with torch.no_grad():
         out_k, rec_k = case["fwd"](h0)
@@ -963,7 +965,8 @@ def check_node_kernels(case, h0, hbar, backward=True, twice=False):
             fail(f"{label}: own-mesh gradient cosine {cos:.6f}")
         res.update(g_rel=g_rel, h_rel=h_rel, cos=cos,
                    g_abs=max(max_abs(flat(g_k), flat(g_p)),
-                             max_abs(hb_k, hb_p)))
+                             max_abs(hb_k, hb_p)),
+                   grads=(list(g_k), hb_k, list(g_p), hb_p))
         line += (f"; backward on the kernel's mesh: grads rel {g_rel:.3e}, "
                  f"h0bar rel {h_rel:.3e}; own-mesh cosine {cos:.7f}")
     if twice:
@@ -2059,22 +2062,14 @@ def cond_diffusion_phases(device, smi):
         ct = torch.from_numpy(rng_c.standard_normal(
             (b, cfg.cond_dim)).astype(np.float32)).to(device)
         inputs[b], cases[b] = (z0, ct), node_enc_case(enc, cfg, x_seq)
-        checks[b] = check_node_kernels(cases[b], z0, ct)
-        # the x_seq cotangent on its own, and the same bits in two calls
-        with torch.no_grad():
-            _, recs = cases[b]["fwd"](z0)
-        got = [cases[b]["bwd"](z0, recs, ct) for _ in range(2)]
-        want, _ = cases[b]["plain_bwd"](z0, recs, ct)
-        torch.cuda.synchronize()
-        x_rel = rel_err(got[0][0][-1], want[-1])
+        checks[b] = check_node_kernels(cases[b], z0, ct, twice=True)
+        # the x_seq cotangent on its own (the check held the same bits in
+        # two calls)
+        got, _, want, _ = checks[b].pop("grads")
+        x_rel = rel_err(got[-1], want[-1])
         if not x_rel < GRAD_TOL:
             fail(f"node_enc B={b}: x_seq cotangent rel {x_rel:.3e}")
-        if not all(torch.equal(p, q) for p, q in zip(
-                got[0][0] + [got[0][1]], got[1][0] + [got[1][1]])):
-            fail(f"node_enc B={b}: the backward kernel's gradients differ "
-                 "between two calls")
-        print(f"node_enc B={b}: x_seq cotangent rel {x_rel:.3e}; the same "
-              "bits in two calls")
+        print(f"node_enc B={b}: x_seq cotangent rel {x_rel:.3e}")
 
     # ---- 25. the training slice, through the CLI
     kernels = (NE.node_enc_fwd, NE.node_enc_bwd)
@@ -2149,7 +2144,7 @@ def cond_diffusion_phases(device, smi):
           f"{serve_wall:.2f} s ({smi})")
 
     # ---- 27. timing: kernels and plain, a training step
-    times = {b: time_node_kernels(cases[b], *inputs[b], smi)
+    times = {b: time_node_kernels(cases[b], *inputs[b], smi, device=True)
              for b in (64, 256)}
 
     spec = CD.make_denoiser_spec("kan_fet_all_node", d_in=wins.shape[2],
@@ -2269,23 +2264,17 @@ def mlp_phases(device, smi):
     checks = {}
     for regime, case in cases.items():
         for b in MLP_CHECKS:
-            checks[(regime, b)] = check_node_kernels(case, h0s[b], hbars[b])
-            # every gradient on its own, and the same bits in two calls
-            with torch.no_grad():
-                _, recs = case["fwd"](h0s[b])
-            got = [case["bwd"](h0s[b], recs, hbars[b]) for _ in range(2)]
-            want, want_h = case["plain_bwd"](h0s[b], recs, hbars[b])
-            torch.cuda.synchronize()
-            rels = [rel_err(g, r) for g, r in zip(got[0][0], want)
-                    if r.norm() > 0] + [rel_err(got[0][1], want_h)]
+            checks[(regime, b)] = check_node_kernels(case, h0s[b], hbars[b],
+                                                     twice=True)
+            # every gradient on its own (the check held the same bits in
+            # two calls)
+            got, got_h, want, want_h = checks[(regime, b)].pop("grads")
+            rels = [rel_err(g, r) for g, r in zip(got, want)
+                    if r.norm() > 0] + [rel_err(got_h, want_h)]
             if not max(rels) < GRAD_TOL:
                 fail(f"mlp_node {regime} B={b}: gradient rel errors {rels}")
-            if not all(torch.equal(p, q) for p, q in zip(
-                    got[0][0] + [got[0][1]], got[1][0] + [got[1][1]])):
-                fail(f"mlp_node {regime} B={b}: the backward kernel's "
-                     "gradients differ between two calls")
             print(f"mlp_node {regime} B={b}: worst of the 11 gradients and "
-                  f"h0bar rel {max(rels):.3e}; the same bits in two calls")
+                  f"h0bar rel {max(rels):.3e}")
 
     # ---- 29. the training slice, through the CLI
     kernels = (MN.mlp_node_fwd, MN.mlp_node_bwd)
@@ -2354,12 +2343,13 @@ def mlp_phases(device, smi):
               f"{['%.4f' % w for w in row['window_p50_ms']]} ({smi})")
 
     # ---- 31. timing: kernels and plain, a training step
-    times = {b: time_node_kernels(cases["init"], h0s[b], hbars[b], smi)
+    times = {b: time_node_kernels(cases["init"], h0s[b], hbars[b], smi,
+                                  device=True)
              for b in (8, 64)}
     times[256] = time_node_kernels(cases["init"], h0s[256], hbars[256], smi,
-                                   plain=False)
+                                   plain=False, device=True)
     times["scaled"] = time_node_kernels(cases["scaled"], h0s[8], hbars[8],
-                                        smi)
+                                        smi, device=True)
     y8 = torch.from_numpy(data[1][:8]).long().to(device)
     step_k = ecg_step_fn(M.kanfet_node_apply, params, spec, xs[8], y8,
                          "pallas")
@@ -4447,22 +4437,22 @@ def main():
                      "fetode_tpu/ops/pallas_node_enc.py:196",
                      enc_launches[0],
                      max(c["fwd_err"] for c in enc_checks.values()),
-                     et["fwd"], et["plain_fwd"], et["bound_fwd"]),
+                     et["fwd_dev"], et["plain_fwd"], et["bound_fwd"]),
         kernel_entry("node_enc_bwd", "fetode_tpu_torch/csrc/node_enc.cu",
                      "fetode_tpu/ops/pallas_node_enc.py:217",
                      enc_launches[1],
                      max(c["g_abs"] for c in enc_checks.values()),
-                     et["bwd"], et["plain_bwd"], et["bound_bwd"]),
+                     et["bwd_dev"], et["plain_bwd"], et["bound_bwd"]),
         kernel_entry("mlp_node_fwd", "fetode_tpu_torch/csrc/mlp_node.cu",
                      "fetode_tpu/ops/pallas_mlp_node.py:280",
                      mlp_launches[0],
                      max(c["fwd_err"] for c in mlp_checks.values()),
-                     mt["fwd"], mt["plain_fwd"], mt["bound_fwd"]),
+                     mt["fwd_dev"], mt["plain_fwd"], mt["bound_fwd"]),
         kernel_entry("mlp_node_bwd", "fetode_tpu_torch/csrc/mlp_node.cu",
                      "fetode_tpu/ops/pallas_mlp_node.py:308",
                      mlp_launches[1],
                      max(c["g_abs"] for c in mlp_checks.values()),
-                     mt["bwd"], mt["plain_bwd"], mt["bound_bwd"]),
+                     mt["bwd_dev"], mt["plain_bwd"], mt["bound_bwd"]),
         kernel_entry("kanfet_wide_fwd", "fetode_tpu_torch/csrc/kanfet_wide.cu",
                      "fetode_tpu/ops/pallas_kanfet_wide.py:632",
                      wide_launches[0],

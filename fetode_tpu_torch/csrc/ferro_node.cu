@@ -63,10 +63,6 @@
 // in plain's rounding) sets the pace, then the barriers (two an
 // evaluation, four a VJP) and the prologues' loads.
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "knot_quotient.cuh"
 #include "node_common.cuh"
 
@@ -79,7 +75,6 @@ constexpr int kChunk = kWarps;     // samples a term pass takes at once
 constexpr int kRun = 4;            // samples a forward work unit takes
 constexpr int kPro = 64;           // samples a prologue forms at once
 constexpr int kLanes = 32;         // (row, column) pairs a tile holds
-constexpr int kBatch = 16;         // loads a consumer's sum starts at once
 // Bytes of parameter (and gradient) tiles a block keeps in shared
 // memory; past it they stay in device memory, each element still read by
 // its one owner.
@@ -99,20 +94,6 @@ __host__ __device__ inline unsigned magic(unsigned d) {
 }
 __device__ __forceinline__ int div_m(int n, unsigned m) {
   return (int)__umulhi((unsigned)n, m);
-}
-
-// p[0] + p[1] + ... + p[n-1] in that order, the loads kBatch at a time.
-__device__ __forceinline__ float ordered_sum(const float* p, int n) {
-  float s = 0.0f;
-  for (int k0 = 0; k0 < n; k0 += kBatch) {
-    float v[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) v[k] = k0 + k < n ? ld(p + k0 + k) : 0.0f;
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k)
-      if (k0 + k < n) s += v[k];
-  }
-  return s;
 }
 
 // How one layer (O outputs, I inputs, K bases) is cut into tiles.
@@ -326,41 +307,10 @@ struct FerroField {
     return h_bound * tanhf(u * inv_hb);
   }
 
-  // The stage input at element e, as the unfused pass forms it, the
-  // pending stage read from its partials; every load started at once.
+  // The stage input at element e (node_common.cuh: stage_input), the
+  // pending stage read from its partials.
   __device__ __forceinline__ float stage_u(const StageIn& in, int e) const {
-    const float y = ld(in.y + e);
-    if (in.j == 0) return y;
-    if (in.j < 0) return y + in.h * ld(in.ks + e);
-    float k[6];
-#pragma unroll
-    for (int l = 0; l < 6; ++l)
-      k[l] = (l < in.j && l != in.pending) ? ld(in.ks + (size_t)l * in.N + e)
-                                           : 0.0f;
-    if (in.pending >= 0) {
-      const float pv = pend(e);
-#pragma unroll
-      for (int l = 0; l < 6; ++l)
-        if (l == in.pending) k[l] = pv;
-    }
-    float incr = kA[in.j][0] * k[0];
-#pragma unroll
-    for (int l = 1; l < 6; ++l)
-      if (l < in.j) incr += kA[in.j][l] * k[l];
-    return y + in.h * incr;
-  }
-
-  // The same from the records, for the VJP of stage j.
-  __device__ __forceinline__ float record_u(const VjpIn& in, int e) const {
-    float k[6];
-#pragma unroll
-    for (int l = 0; l < 6; ++l)
-      k[l] = l < (in.j > 0 ? in.j : 1) ? in.ks[(size_t)l * in.N + e] : 0.0f;
-    float incr = kA[in.j][0] * k[0];
-#pragma unroll
-    for (int l = 1; l < 6; ++l)
-      if (l < in.j) incr += kA[in.j][l] * k[l];
-    return in.y[e] + in.dt * incr;
+    return stage_input(in, e, [&](int i) { return pend(i); });
   }
 
   // One layer over the block's tiles.  xf(b, i): the layer's input;
@@ -518,7 +468,7 @@ struct FerroField {
   // (-c, c), as the plain field's clip.
   __device__ void vjp_stage(const VjpIn& in) const {
     auto none = [](int, int) { return 0.0f; };
-    auto hb = [&](int b, int i) { return bound(record_u(in, b * D + i)); };
+    auto hb = [&](int b, int i) { return bound(record_input(in, b * D + i)); };
     auto zf = [&](int b, int i) { return z_at(b, i); };
     cg::grid_group grid = cg::this_grid();
     layer<false>(1, hb, none, part1);
@@ -539,7 +489,7 @@ struct FerroField {
   }
 
   __device__ __forceinline__ float take_ub(int e, const VjpIn& in) const {
-    const float v = bound(record_u(in, e)) * inv_hb;
+    const float v = bound(record_input(in, e)) * inv_hb;
     const float s = ordered_sum(px1 + (size_t)e * geo.p1.NR, geo.p1.NR);
     return s * (1.0f - v * v);
   }
@@ -575,18 +525,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   cg::this_grid().sync();  // device-memory gradients zeroed by their owners
   adjoint_replay(f, a.r);
   f.store();
-}
-
-// The grid of a launch: SMs x the blocks an SM runs (at most
-// kBlocksPerSM, fewer if the slices' shared memory allows fewer).
-int grid_blocks(int* G, int per) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  *G = sms * per;
-  return 0;
 }
 
 // Scratch layout in `work` (floats), N = B*D: the scaffold's 10N and
@@ -646,57 +584,16 @@ FerroField make_field(const float* prm1, const float* prm2, const float* nz1,
   return f;
 }
 
-// Launches kernel(args) as a cooperative grid of kThreads-thread blocks,
-// kBlocksPerSM an SM while the slices' shared memory allows it, else one;
-// the plan for that grid into args.f.geo.  Returns the CUDA error, 0 on
-// success.
-// The occupancy of each kernel, device and shared-memory size is asked
-// once.
+// Launches kernel(args) on the cooperative grid (node_common.cuh:
+// launch_grid), the plan for that grid into args.f.geo.
 template <class Args>
 int launch_ferro(void (*kernel)(Args), Args& args, bool bwd,
                  cudaStream_t stream) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> occupancy;
   const FerroField& f = args.f;
-  const int K1 = f.l1.K, K2 = f.l2.K;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  for (int per = kBlocksPerSM; per >= 1; --per) {
-    int G = 0;
-    int rc = grid_blocks(&G, per);
-    if (rc != 0) return rc;
-    if (G > kMaxBlocks) G = kMaxBlocks;
-    const FerroGeo geo = make_geo(G, f.D, f.H, K1, K2, bwd);
-    const size_t bytes = (size_t)geo.smem_floats * sizeof(float);
-    int occ = 0;
-    {
-      std::lock_guard<std::mutex> lock(mu);
-      const auto key = std::make_tuple((const void*)kernel, dev, bytes);
-      const auto it = occupancy.find(key);
-      if (it != occupancy.end()) {
-        occ = it->second;
-      } else {
-        if (bytes > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
-        err = cudaFuncSetAttribute(kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)kMaxDynamicSmem);
-        if (err == cudaSuccess)
-          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &occ, kernel, kThreads, bytes);
-        if (err != cudaSuccess) return (int)err;
-        occupancy[key] = occ;
-      }
-    }
-    if (occ < per) continue;
-    args.f.geo = geo;
-    void* params[] = {&args};
-    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
-                                      dim3(kThreads), params, bytes, stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorLaunchOutOfResources;
+  return launch_grid(kernel, args, [&](int G) {
+    args.f.geo = make_geo(G, f.D, f.H, f.l1.K, f.l2.K, bwd);
+    return (size_t)args.f.geo.smem_floats * sizeof(float);
+  }, kMaxDynamicSmem, stream);
 }
 
 }  // namespace

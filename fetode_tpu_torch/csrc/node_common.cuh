@@ -27,9 +27,10 @@
 // complete).  u, w, out and ubar are (B, D) row-major, N = B*D floats;
 // u and w are written by other blocks, so a field reads them with ld().
 //
-// That is the grid policy (GridSync), every field but B.3's and B.7's.  The cluster
-// policy (ClusterSync, B.3's csrc/kanfet_wide.cu) runs the same solve in
-// each CTA of one thread-block cluster: every CTA keeps its own copy of
+// That is the grid policy (GridSync), every field but B.3's, B.7's and
+// B.8's.  The cluster policy (ClusterSync, B.3's csrc/kanfet_wide.cu)
+// runs the same solve in each CTA of one thread-block cluster: every CTA
+// keeps its own copy of
 // the state, stages and scratch in shared memory and runs every
 // elementwise pass and error norm over all N elements itself, in one
 // fixed order on identical data, so all CTAs hold the same t, dt and
@@ -38,8 +39,9 @@
 // leaves out, ubar complete in every CTA.  CTA 0 alone writes the outputs
 // and records.
 //
-// The row policy (RowSync, B.7's csrc/ode_dyn.cu) is for fields that never
-// mix rows: one cluster of C <= 16 CTAs, CTA c owning the contiguous batch
+// The row policy (RowSync, B.7's csrc/ode_dyn.cu and B.8's
+// csrc/node_enc.cu) is for fields that never mix rows: one cluster of
+// C <= 16 CTAs, CTA c owning the contiguous batch
 // rows [c R, min(B, (c + 1) R)).  Each CTA runs every elementwise pass
 // over its own elements only, with its state, stages and scratch in its
 // own memory (local index i, global element base + i); the field's eval /
@@ -77,6 +79,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace node_common {
 
@@ -159,6 +165,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// p[0] + p[stride] + ... + p[(n-1) stride] in that order, the loads kBatch
+// at a time (a consumer of the parameter-stationary fields' partials:
+// B.4, B.6).
+constexpr int kSumBatch = 16;
+template <int kBatch = kSumBatch>
+__device__ __forceinline__ float ordered_sum(const float* p, int n,
+                                             size_t stride = 1) {
+  float s = 0.0f;
+  for (int k0 = 0; k0 < n; k0 += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      v[k] = k0 + k < n ? ld(p + (k0 + k) * stride) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (k0 + k < n) s += v[k];
+  }
+  return s;
 }
 
 // Sums each v[n] over every thread of the grid.  Deterministic: blocks
@@ -303,7 +329,14 @@ __device__ __forceinline__ int tile_rows(int rank, int R, int B) {
 struct RowSync {
   __device__ static int tid() { return threadIdx.x; }
   __device__ static int nth() { return blockDim.x; }
-  __device__ static int rank() { return (int)cg::this_cluster().block_rank(); }
+  // The CTA's place in the launch: its rank in the one cluster, or its
+  // block of the cooperative grid (grid()).
+  __device__ static int rank() { return (int)blockIdx.x; }
+  // Launched as a cooperative grid of CTAs, each its own cluster (B.8
+  // past one cluster's rows), rather than as one cluster.
+  __device__ static bool grid() {
+    return cg::this_cluster().num_blocks() != gridDim.x;
+  }
   template <class Bufs>
   __device__ static int base(const Bufs& b) {
     return tile_first(rank(), b.R) * b.D;
@@ -321,12 +354,36 @@ struct RowSync {
   // them and the CTA reads the total from its shared memory.  Two slots
   // alternate: a CTA writes slot s again only after the next call's
   // barrier, which every CTA reaches only when it has read this call's
-  // partials.
+  // partials.  On a grid, the partials meet in `part` as grid_sum's do,
+  // behind one grid barrier, every CTA adding them in the same order.
   template <int N>
-  __device__ static void sum(float (&v)[N], float*, int& slot) {
+  __device__ static void sum(float (&v)[N], float* part, int& slot) {
     __shared__ float xpart[2][kMaxSums];
     __shared__ float total[kMaxSums];
     block_sum(v);
+    if (grid()) {
+      float* p = part + slot * kMaxSums * kMaxBlocks;
+      if (threadIdx.x < N) p[threadIdx.x * kMaxBlocks + blockIdx.x] =
+          v[threadIdx.x];
+      cg::this_grid().sync();
+      if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          float s = 0.0f;
+          for (int i = lane; i < (int)gridDim.x; i += 32)
+            s += ld(p + n * kMaxBlocks + i);
+          s = warp_sum(s);
+          if (lane == 0) total[n] = s;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int n = 0; n < N; ++n) v[n] = total[n];
+      __syncthreads();
+      slot ^= 1;
+      return;
+    }
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int n = 0; n < N; ++n) xpart[slot][n] = v[n];
@@ -390,8 +447,9 @@ __device__ __forceinline__ void field_vjp(const Field& f, const float* u,
   if constexpr (kTraj) f.vjp(u, t, w, ubar); else f.vjp(u, w, ubar);
 }
 
-// The fused-stage hook, B.4's alone (csrc/ferro_node.cu; a field opts in
-// with `static constexpr bool kFused = true`).  The field forms the stage
+// The fused-stage hook, B.4's and B.6's (csrc/ferro_node.cu,
+// csrc/mlp_node.cu; a field opts in with `static constexpr bool kFused =
+// true`).  The field forms the stage
 // input itself, inside its first phase, and leaves its output pending in
 // its own partial sums, so an evaluation needs no barrier before it and
 // none of its own after it:
@@ -428,6 +486,46 @@ struct VjpIn {
   int N, j;
   float dt;
 };
+
+// The stage input at element e of a fused field's StageIn, as the unfused
+// pass forms it, the pending stage's value from pend(e); every load
+// started at once.
+template <class Pend>
+__device__ __forceinline__ float stage_input(const StageIn& in, int e,
+                                             const Pend& pend) {
+  const float y = ld(in.y + e);
+  if (in.j == 0) return y;
+  if (in.j < 0) return y + in.h * ld(in.ks + e);
+  float k[6];
+#pragma unroll
+  for (int l = 0; l < 6; ++l)
+    k[l] = (l < in.j && l != in.pending) ? ld(in.ks + (size_t)l * in.N + e)
+                                         : 0.0f;
+  if (in.pending >= 0) {
+    const float pv = pend(e);
+#pragma unroll
+    for (int l = 0; l < 6; ++l)
+      if (l == in.pending) k[l] = pv;
+  }
+  float incr = kA[in.j][0] * k[0];
+#pragma unroll
+  for (int l = 1; l < 6; ++l)
+    if (l < in.j) incr += kA[in.j][l] * k[l];
+  return y + in.h * incr;
+}
+
+// The same from the records, for the VJP of stage j.
+__device__ __forceinline__ float record_input(const VjpIn& in, int e) {
+  float k[6];
+#pragma unroll
+  for (int l = 0; l < 6; ++l)
+    k[l] = l < (in.j > 0 ? in.j : 1) ? in.ks[(size_t)l * in.N + e] : 0.0f;
+  float incr = kA[in.j][0] * k[0];
+#pragma unroll
+  for (int l = 1; l < 6; ++l)
+    if (l < in.j) incr += kA[in.j][l] * k[l];
+  return in.y[e] + in.dt * incr;
+}
 
 // Adaptive dopri5 with batch-shared step control; with kRecord, records
 // every attempt.  Sync is the barrier and reduction policy; under
@@ -818,6 +916,66 @@ inline int launch_cooperative(void (*kernel)(Args), Args& args,
                                     dim3(kThreads), params, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The grid of a cooperative launch at `per` blocks an SM: SMs x per.
+inline int grid_blocks(int* G, int per) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  *G = sms * per;
+  return 0;
+}
+
+// Launches kernel(args) as a cooperative grid of kThreads-thread blocks
+// with dynamic shared memory, kBlocksPerSM an SM while the card fits the
+// bytes, else fewer: plan(G) sets the launch's geometry for a grid of G
+// blocks into args and returns its bytes (at most max_bytes).  The
+// occupancy of each kernel, device and size is asked once.  Returns the
+// CUDA error, 0 on success.
+template <class Args, class Plan>
+int launch_grid(void (*kernel)(Args), Args& args, const Plan& plan,
+                size_t max_bytes, cudaStream_t stream) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> occupancy;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  for (int per = kBlocksPerSM; per >= 1; --per) {
+    int G = 0;
+    const int rc = grid_blocks(&G, per);
+    if (rc != 0) return rc;
+    if (G > kMaxBlocks) G = kMaxBlocks;
+    const size_t bytes = plan(G);
+    int occ = 0;
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      const auto key = std::make_tuple((const void*)kernel, dev, bytes);
+      const auto it = occupancy.find(key);
+      if (it != occupancy.end()) {
+        occ = it->second;
+      } else {
+        if (bytes > max_bytes) return (int)cudaErrorInvalidValue;
+        err = cudaFuncSetAttribute(kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)max_bytes);
+        if (err == cudaSuccess)
+          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &occ, kernel, kThreads, bytes);
+        if (err != cudaSuccess) return (int)err;
+        occupancy[key] = occ;
+      }
+    }
+    if (occ < per) continue;
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G),
+                                      dim3(kThreads), params, bytes, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorLaunchOutOfResources;
 }
 
 }  // namespace node_common

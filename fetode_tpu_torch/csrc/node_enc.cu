@@ -19,43 +19,85 @@
 // with tf = clip(t, 0, 1) (L - 1), i0 = clip(floor(tf), 0, L - 2), w =
 // tf - i0 (:56-64).  The solve and the replay are node_common.cuh's
 // trajectory pair at the output times [0, 1] (only z(1) is used; CONTD5
-// at theta = 1 is y1); this file holds the field and its hand-written VJP.
-// Every product runs in the kernel's own body in FP32 FMAs (no cuBLAS, no
-// torch.matmul, no TF32).  Field evaluation, four grid phases:
-//   (A) one warp per row b: the row's mean and variance over C (two
-//       passes, a fixed shuffle tree), zn and yhat = (z - mean) rstd, and
-//       the row's x(t) from the two table rows;
-//   (B) h1, (C) h2, (D) f: one warp per output element, lanes striding
-//       over the contraction, a fixed shuffle tree.
-// VJP with cotangent w (B, C): (A)-(C) again, keeping the pre-activations,
-// then four phases of owned items, each element of a product or of a
-// gradient owned by one thread that sums in a fixed order:
-//   (3) g2 = (w W3) silu'(h2p);  gW3 += w^T h2;  gb3 += sum_b w
-//   (4) g1 = (g2 W2) silu'(h1p); gW2 += g2^T h1; gb2 += sum_b g2
-//   (5) gzn = g1 w1z;  gxt = g1 w1x, added as (1 - w) gxt to table row
-//       i0*B+b and w gxt to row (i0+1)*B+b (the thread that owns (b, p)
-//       owns both, and adds in replay order);  gw1z += g1^T zn;
-//       gw1x += g1^T x(t);  gb1 += sum_b g1
-//   (6) g_scale += sum_b gzn yhat;  g_bias += sum_b gzn (a thread per
-//       column); then a warp per row b: gh = gzn scale, m1 = mean_c gh,
-//       m2 = mean_c gh yhat, ubar = rstd (gh - m1 - yhat m2).
-// No atomics: the gradients are the same bits on every run.
+// at theta = 1 is y1).
+//
+// The field never mixes rows: row b of f reads row b of z and the table
+// rows i0 B + b and (i0 + 1) B + b alone.  So the solve runs under
+// node_common.cuh's row policy (RowSync), as B.7's csrc/ode_dyn.cu: up to
+// 64 rows one thread-block cluster of G <= 16 CTAs of 512 threads, CTA g
+// owning the batch rows [g R, min(B, (g + 1) R)), R = ceil(B / 16); past
+// them a cooperative grid of G = ceil(B / R) such CTAs, R = max(4,
+// ceil(B / 128)), their error-norm partials meeting in device memory
+// behind one grid barrier (ops/node_enc.py: row_plan).  16 CTAs owning 12
+// or 16 rows each would keep those rows in device memory and most SMs
+// idle; more SMs, each with 4 rows beside its weights, take those batches
+// in about the time of 64.  An evaluation or a VJP synchronises only the
+// CTA; the one exchange is the error norm's sum, once an attempt.
+//
+// The weights do not fit one CTA: w1z, w1x, W2 and W3 are 4 x 128 x 128
+// floats, 256 KB, against 227 KB.  w1z and W2 stay in each CTA's shared
+// memory for the whole launch, and W3 too in the forward and where the
+// backward's rows fit beside it (no pad columns: each row's float4 groups
+// are permuted by the row mod 8, the Swizzled layout of row_products.cuh,
+// so the products' loads still cover the 32 banks once); the backward
+// otherwise reads W3, once a VJP, down its columns from device memory.
+// w1x is read through L2 from the CTA's own copies in device memory: the
+// forward's x(t) product down the columns of its transpose (a warp's
+// lanes on consecutive outputs, 128-byte loads; a row-major w1x read by
+// rows cost twice a shared-memory product), the VJP's x(t) cotangent
+// down the columns of w1x, 64 KB each a CTA.  The rows (state, stages,
+// the row records below) sit beside the weights at every batch the
+// conditional-diffusion path gives (row_plan says where they go past 4 a
+// CTA: with the weights, to device memory the CTA owns).
+//
+// Products: row_products.cuh's product_rows / product_cols, B.7's, 4 rows
+// a pass, each weight read once for the 4, every sum in a fixed order set
+// by the widths, so a row gives the same bits alone and in any batch.
+// Field evaluation: a warp a row forms LN(z) (two passes, a fixed shuffle
+// tree) and x(t); then h1 (the two blocks' sums added, then b1), h2, f.
+// VJP with cotangent w (B, C): the hidden layers again, keeping the
+// pre-activations, then
+//   g2 = (w W3) silu'(h2p),  g1 = (g2 W2) silu'(h1p),
+//   gxt = g1 w1x, added as (1 - w) gxt to table row i0 B + b and w gxt to
+//   row (i0 + 1) B + b by the CTA that owns b, in replay order,
+//   gzn = g1 w1z, then the layer norm's backward a warp a row:
+//   gh = gzn scale, ubar = rstd (gh - mean(gh) - yhat mean(gh yhat)),
+// and the parameter gradients, outer products summed over rows and VJPs:
+//   [gW3 | gb3] += w^T [h2, 1],  [gW2 | gb2] += g2^T [h1, 1],
+//   [gw1z | gw1x | gb1] += g1^T [zn, x(t), 1],
+// held as 4 x 4 tiles, 5 a thread in registers and the rest in the CTA's
+// own partial array in device memory, and g_scale += sum_b gzn yhat,
+// g_bias += sum_b gzn, a thread a column.  At the end each CTA writes its
+// partials, and after one cluster (or grid) barrier every gradient is the
+// sum of the G partials in rank order.  No atomics: every output, record and
+// gradient is the same bits on every run.
 //
 // What bounds it on this card: at the encoder's widths (C = P = H = 128,
-// B = 64 in training, up to 256 in serving) a field evaluation is about
-// 2 B (C H + P H + H H + H C) = 8.4 M FLOP at B = 64, about 0.13 us of the
-// card's FP32 rate, and the solve takes 6 evaluations for each of its 5-10
-// attempts.  It is bound by its serial chain of grid barriers (six per
-// evaluation with the scaffold's, more in the VJP, plus the reductions),
-// not by arithmetic or bytes; the design keeps to the barriers the data
-// flow needs and spreads every phase over every SM.
+// B = 64 in training, up to 256 in serving) an evaluation is 2 B (C H +
+// P H + H H + H C) = 8.4 M FLOP at B = 64, about 0.13 us of the card's
+// FP32 rate; the solve takes 6 evaluations for each of its attempts.  A
+// CTA's products pass its weights through the shared-memory port once an
+// evaluation for each 4 of its rows (each float4 of a weight a 128-byte
+// wavefront for 16 FMAs a lane: about 5 times the FMA time), and w1x
+// through L2; that, the CTA barriers between the products and the
+// scaffold's passes set the pace, about the same at every batch.
 
 #include "node_common.cuh"
+#include "row_products.cuh"
 
 namespace {
 
 using namespace node_common;
+using namespace row_products;
 
+constexpr int kRowThreads = 512;  // threads a CTA
+constexpr int kTileSlots = 5;     // gradient tiles a thread holds
+constexpr int kClusterRows = 4;   // rows a CTA owns, at most, in the cluster
+constexpr int kMaxGrid = 128;     // CTAs of the grid form, at most
+constexpr int kFwdChunks = 2;     // chunks of the forward's x(t) product
+// Dynamic shared memory a CTA may take: the card's 227 KB less the static
+// arrays of the scaffold's reductions.
+constexpr size_t kSmemBudget = 232448 - 2048;
 constexpr float kLnEps = 1e-5f;
 
 __device__ __forceinline__ float silu(float x) { return x * sigmoid(x); }
@@ -65,7 +107,94 @@ __device__ __forceinline__ float dsilu(float x) {
   return s * (1.0f + x * (1.0f - s));
 }
 
-struct NodeEncField {
+// The launch's geometry, the same on the host and the device.  Up to
+// kMaxCluster x kClusterRows rows, one cluster of G <= 16 CTAs owning R =
+// ceil(B / 16) rows each; past them (`grid`), a cooperative grid of G =
+// ceil(B / R) CTAs, R = max(kClusterRows, ceil(B / kMaxGrid)).  The
+// placement (w_smem: w1z, W2 and the biases; w3_smem: W3; rows_smem: the
+// rows) is the first of: everything in shared memory; W3 in device memory;
+// everything in device memory (past 512 rows at the encoder's widths).
+struct Geo {
+  int B, C, P, H, R, G, bwd, grid;
+  int C4, P4, H4, SC, SH, Q;     // padded lengths, swizzled row lengths
+  // Row record: [zn | x(t) 1 | a1 1 | a2 1] and, backward, [h1p | h2p | w |
+  // g2 | g1 | gzn | yhat]; then [rstd].
+  int off_xt, off_a1, off_a2, off_h1p, off_h2p, off_w, off_g2, off_g1,
+      off_gzn, off_yh, off_sc, RS;
+  int nq0, nq2, t0, t1, ntiles;  // gradient tiles (see tile())
+  int w_floats, w3_floats, wx_floats, p_floats, scaf_floats, row_floats,
+      mine_floats;
+  int w_smem, w3_smem, rows_smem;
+  long long smem_floats, work_floats;
+};
+
+Geo make_geo(int B, int C, int P, int H, bool bwd) {
+  Geo g{};
+  g.B = B;
+  g.C = C;
+  g.P = P;
+  g.H = H;
+  g.bwd = bwd;
+  g.grid = B > kMaxCluster * kClusterRows;
+  g.R = g.grid ? max(kClusterRows, cdiv(B, kMaxGrid)) : cdiv(B, kMaxCluster);
+  g.G = cdiv(B, g.R);
+  g.C4 = round4(C);
+  g.P4 = round4(P);
+  g.H4 = round4(H);
+  g.SC = round32(C);
+  g.SH = round32(H);
+  g.Q = round4(H + 1);
+  g.off_xt = g.C4;
+  g.off_a1 = g.off_xt + round4(P + 1);
+  g.off_a2 = g.off_a1 + g.Q;
+  g.off_h1p = g.off_a2 + g.Q;
+  if (bwd) {
+    g.off_h2p = g.off_h1p + g.H4;
+    g.off_w = g.off_h2p + g.H4;
+    g.off_g2 = g.off_w + g.C4;
+    g.off_g1 = g.off_g2 + g.H4;
+    g.off_gzn = g.off_g1 + g.H4;
+    g.off_yh = g.off_gzn + g.C4;
+    g.off_sc = g.off_yh + g.C4;
+  } else {
+    g.off_sc = g.off_h1p;
+  }
+  g.RS = g.off_sc + 4;
+  g.nq0 = cdiv(H + 1, 4);
+  g.nq2 = cdiv(g.C4 + P + 1, 4);
+  g.t0 = cdiv(C, 4) * g.nq0;
+  g.t1 = g.t0 + cdiv(H, 4) * g.nq0;
+  g.ntiles = g.t1 + cdiv(H, 4) * g.nq2;
+  g.w_floats = g.H4 * g.SC + g.H4 * g.SH + 2 * g.H4 + 3 * g.C4;
+  g.w3_floats = g.C4 * g.SH;
+  g.wx_floats = g.H4 * g.P4;  // w1x and its transpose, each
+  const int wide = C > P ? (C > H ? C : H) : (P > H ? P : H);
+  g.p_floats = bwd ? cols_partials(wide, kRowThreads)
+                   : kGroup * kFwdChunks * g.H4;
+  g.scaf_floats = round4((bwd ? 10 : 9) * g.R * C);
+  g.row_floats = g.scaf_floats + g.R * g.RS;
+  g.mine_floats = bwd ? 16 * g.ntiles + 2 * g.C4 : 0;
+  const long long budget = (long long)(kSmemBudget / sizeof(float));
+  const long long w = g.w_floats, w3 = g.w3_floats;
+  const long long pr = (long long)g.p_floats + g.row_floats;
+  g.w_smem = g.w3_smem = g.rows_smem = 1;
+  if (w + w3 + pr > budget) {
+    g.w3_smem = 0;
+    if (w + pr > budget) g.w_smem = g.rows_smem = 0;
+  }
+  g.smem_floats = g.p_floats + (g.w_smem ? g.w_floats : 0) +
+                  (g.w3_smem ? g.w3_floats : 0) +
+                  (g.rows_smem ? g.row_floats : 0);
+  g.work_floats = (long long)g.G *
+                      ((long long)2 * g.wx_floats +
+                       (g.w_smem ? 0 : g.w_floats) +
+                       (g.w3_smem ? 0 : g.w3_floats) +
+                       (g.rows_smem ? 0 : g.row_floats) + g.mine_floats) +
+                  (g.grid ? kPartFloats : 0);
+  return g;
+}
+
+struct EncField {
   const float* xtab;  // (L*B, P) projected past signal, row l*B+b
   const float* lns;   // (C) LN scale
   const float* lnb;   // (C) LN bias
@@ -76,19 +205,7 @@ struct NodeEncField {
   const float* b2;    // (H)
   const float* w3;    // (C, H)
   const float* b3;    // (C)
-  // scratch
-  float* zn;    // (B, C) LN(z)
-  float* yhat;  // (B, C) normalised z before scale and bias
-  float* rstd;  // (B)
-  float* xt;    // (B, P) x(t)
-  float* h1p;   // (B, H) pre-activations and activations
-  float* a1;
-  float* h2p;
-  float* a2;
-  float* g2;   // (B, H) VJP
-  float* g1;   // (B, H) VJP
-  float* gzn;  // (B, C) VJP
-  // gradients, VJP only, shaped as their tensors
+  // gradients, backward only, shaped as their tensors
   float* glns;
   float* glnb;
   float* gw1z;
@@ -99,10 +216,109 @@ struct NodeEncField {
   float* gw3;
   float* gb3;
   float* gxtab;  // (L*B, P)
-  int B, C, P, H, L;
+  float* work;   // device scratch: w1x's copies, owned weights / rows, partials
+  Geo g;
+  int L;
+  // This CTA's, set by bind().
+  float* WZ;    // (H4, SC) w1z, Swizzled
+  float* W2s;   // (H4, SH) W2, Swizzled
+  float* W3s;   // (C4, SH) W3, Swizzled
+  float* WX;    // (H4, P4) w1x, Padded, in device memory
+  float* WXT;   // (P4, H4) its transpose, Padded, in device memory
+  float* part;  // the grid form's error-norm partials
+  float* B1s;
+  float* B2s;
+  float* B3s;
+  float* LNS;
+  float* LNB;
+  float* P;     // (p_floats) the column products' partial sums
+  float* scaf;  // the scaffold's scratch
+  float* rows;  // (R, RS) row records
+  float* mine;  // (16 ntiles + 2 C4) this CTA's gradient partials
+  int rank, nrows, row0;
+  mutable float acc[kTileSlots][16];
+
+  // kWS / kW3S / kRS: w1z and W2 / W3 / the rows in shared memory
+  // (g.w_smem, g.w3_smem, g.rows_smem), fixed at compile time so that
+  // every pointer into shared memory is known as such and its loads are
+  // shared-memory loads.
+  template <bool kWS, bool kW3S, bool kRS>
+  __device__ void bind(float* smem) {
+    rank = RowSync::rank();
+    nrows = tile_rows(rank, g.R, g.B);
+    row0 = tile_first(rank, g.R);
+    float* s = smem;
+    P = s;
+    s += g.p_floats;
+    float* dev = work;
+    part = dev;
+    dev += g.grid ? kPartFloats : 0;
+    WX = dev + (size_t)rank * 2 * g.wx_floats;
+    WXT = WX + g.wx_floats;
+    dev += (size_t)g.G * 2 * g.wx_floats;
+    float* w;
+    if constexpr (kWS) {
+      w = s;
+      s += g.w_floats;
+    } else {
+      w = dev + (size_t)rank * g.w_floats;
+      dev += (size_t)g.G * g.w_floats;
+    }
+    if constexpr (kW3S) {
+      W3s = s;
+      s += g.w3_floats;
+    } else {
+      W3s = dev + (size_t)rank * g.w3_floats;
+      dev += (size_t)g.G * g.w3_floats;
+    }
+    WZ = w;
+    W2s = WZ + g.H4 * g.SC;
+    B1s = W2s + g.H4 * g.SH;
+    B2s = B1s + g.H4;
+    B3s = B2s + g.H4;
+    LNS = B3s + g.C4;
+    LNB = LNS + g.C4;
+    float* r;
+    if constexpr (kRS) {
+      r = s;
+    } else {
+      r = dev + (size_t)rank * g.row_floats;
+      dev += (size_t)g.G * g.row_floats;
+    }
+    scaf = r;
+    rows = r + g.scaf_floats;
+    mine = dev + (size_t)rank * g.mine_floats;
+  }
+
+  // The weights into their places and the rows' constant entries.
+  __device__ void load() const {
+    const int t = threadIdx.x, nth = blockDim.x, C = g.C, P_ = g.P, H = g.H;
+    pad_copy(WZ, Swizzled{g.SC}, w1z, g.H4, H, C, g.SC);
+    pad_copy(W2s, Swizzled{g.SH}, w2, g.H4, H, H, g.SH);
+    pad_copy(W3s, Swizzled{g.SH}, w3, g.C4, C, H, g.SH);
+    pad_copy(WX, Padded{g.P4}, w1x, g.H4, H, P_, g.P4);
+    for (int i = t; i < g.P4 * g.H4; i += nth) {
+      const int p = i / g.H4, h = i - p * g.H4;
+      WXT[i] = p < P_ && h < H ? __ldg(w1x + (size_t)h * P_ + p) : 0.0f;
+    }
+    for (int i = t; i < g.H4; i += nth) {
+      B1s[i] = i < H ? b1[i] : 0.0f;
+      B2s[i] = i < H ? b2[i] : 0.0f;
+    }
+    for (int i = t; i < g.C4; i += nth) {
+      B3s[i] = i < C ? b3[i] : 0.0f;
+      LNS[i] = i < C ? lns[i] : 0.0f;
+      LNB[i] = i < C ? lnb[i] : 0.0f;
+    }
+    for (int i = t; i < g.R * g.RS; i += nth) {
+      const int c = i % g.RS;
+      rows[i] = (c == g.off_xt + P_ || c == g.off_a1 + H ||
+                 c == g.off_a2 + H) ? 1.0f : 0.0f;
+    }
+  }
 
   // The first bracketing table row and the lerp weight of time t.
-  __device__ void rows(float t, int& i0, float& w) const {
+  __device__ void signal_rows(float t, int& i0, float& w) const {
     const float tf = fminf(fmaxf(t, 0.0f), 1.0f) * (float)(L - 1);
     int i = (int)floorf(tf);
     i = i < 0 ? 0 : (i > L - 2 ? L - 2 : i);
@@ -110,248 +326,341 @@ struct NodeEncField {
     w = tf - (float)i;
   }
 
-  // zn, yhat, rstd, x(t), then h1 and h2 of the state u at time t.
-  __device__ void hidden(const float* u, float t) const {
-    const int lane = lane_id();
+  // zn (and, backward, yhat and rstd) and x(t) of the rows' states u at
+  // time t, then h1 and h2 (backward: with their pre-activations).
+  __device__ __forceinline__ void hidden(const float* u, float t) const {
+    const int C = g.C, P_ = g.P, RS = g.RS;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = blockDim.x >> 5;
+    const bool bwd = g.bwd;
     int i0;
-    float w;
-    rows(t, i0, w);
+    float wl;
+    signal_rows(t, i0, wl);
     const float inv_c = 1.0f / (float)C;
-    // (A) layer norm and x(t): one warp per row.
-    for (int b = grid_warp(); b < B; b += grid_warps()) {
+    for (int b = warp; b < nrows; b += nw) {
       const float* urow = u + b * C;
+      float* rec = rows + b * RS;
       float s = 0.0f;
-      for (int c = lane; c < C; c += 32) s += ld(urow + c);
+      for (int c = lane; c < C; c += 32) s += urow[c];
       const float mu = warp_sum(s) * inv_c;
       float v = 0.0f;
       for (int c = lane; c < C; c += 32) {
-        const float d = ld(urow + c) - mu;
+        const float d = urow[c] - mu;
         v += d * d;
       }
       const float r = 1.0f / sqrtf(warp_sum(v) * inv_c + kLnEps);
       for (int c = lane; c < C; c += 32) {
-        const float yh = (ld(urow + c) - mu) * r;
-        yhat[b * C + c] = yh;
-        zn[b * C + c] = yh * lns[c] + lnb[c];
+        const float yh = (urow[c] - mu) * r;
+        rec[c] = yh * LNS[c] + LNB[c];
+        if (bwd) rec[g.off_yh + c] = yh;
       }
-      if (lane == 0) rstd[b] = r;
-      const float* x0 = xtab + ((size_t)i0 * B + b) * P;
-      const float* x1 = x0 + (size_t)B * P;
-      for (int p = lane; p < P; p += 32)
-        xt[b * P + p] = x0[p] + w * (x1[p] - x0[p]);
+      if (bwd && lane == 0) rec[g.off_sc] = r;
+      const float* x0 = xtab + ((size_t)i0 * g.B + row0 + b) * P_;
+      const float* x1 = x0 + (size_t)g.B * P_;
+      for (int p = lane; p < P_; p += 32)
+        rec[g.off_xt + p] = x0[p] + wl * (x1[p] - x0[p]);
     }
-    cg::this_grid().sync();
-    // (B) h1: one warp per (b, j) over the C + P inputs.
-    for (int q = grid_warp(); q < B * H; q += grid_warps()) {
-      const int b = q / H, j = q - b * H;
-      const float* zrow = zn + b * C;
-      const float* xrow = xt + b * P;
-      const float* wz = w1z + j * C;
-      const float* wx = w1x + j * P;
-      float acc = 0.0f;
-      for (int c = lane; c < C; c += 32) acc += ld(zrow + c) * wz[c];
-      for (int p = lane; p < P; p += 32) acc += ld(xrow + p) * wx[p];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float h = acc + b1[j];
-        h1p[q] = h;
-        a1[q] = silu(h);
-      }
-    }
-    cg::this_grid().sync();
-    // (C) h2.
-    for (int q = grid_warp(); q < B * H; q += grid_warps()) {
-      const int b = q / H, j = q - b * H;
-      const float* hrow = a1 + b * H;
-      const float* wrow = w2 + j * H;
-      float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc += ld(hrow + k) * wrow[k];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float h = acc + b2[j];
-        h2p[q] = h;
-        a2[q] = silu(h);
-      }
-    }
-    cg::this_grid().sync();
+    __syncthreads();
+    float* recs = rows;
+    const int oa1 = g.off_a1, oa2 = g.off_a2, oh1 = g.off_h1p;
+    const int oh2 = g.off_h2p;
+    const float* B1_ = B1s;
+    const float* B2_ = B2s;
+    // h1: the LN(z) block's sums parked in a2's slot, then the x(t)
+    // block's added to them, then b1.  The x(t) block reads w1x's
+    // transpose in device memory down its columns, a warp's lanes on
+    // consecutive outputs (128-byte loads), kFwdChunks chunks in the
+    // forward (its partials' room) and every warp's in the backward.
+    product_rows(recs, RS, nrows, WZ, Swizzled{g.SC}, g.C4, g.H,
+                 [=](int b, int o, float s) { recs[b * RS + oa2 + o] = s; });
+    product_cols<4>(recs + g.off_xt, RS, nrows, WXT, Padded{g.H4}, g.P4, g.H,
+                    P, [=](int b, int o, float s) {
+      const float h = (recs[b * RS + oa2 + o] + s) + B1_[o];
+      if (bwd) recs[b * RS + oh1 + o] = h;
+      recs[b * RS + oa1 + o] = silu(h);
+    }, bwd ? 1 << 30 : kFwdChunks);
+    product_rows(recs + oa1, RS, nrows, W2s, Swizzled{g.SH}, g.H4, g.H,
+                 [=](int b, int o, float s) {
+      const float h = s + B2_[o];
+      if (bwd) recs[b * RS + oh2 + o] = h;
+      recs[b * RS + oa2 + o] = silu(h);
+    });
   }
 
-  __device__ void eval(const float* u, float t, float* out) const {
+  __device__ __forceinline__ void eval(const float* u, float t,
+                                       float* out) const {
     hidden(u, t);
-    // (D) f.
-    const int lane = lane_id();
-    for (int q = grid_warp(); q < B * C; q += grid_warps()) {
-      const int b = q / C, o = q - b * C;
-      const float* hrow = a2 + b * H;
-      const float* wrow = w3 + o * H;
-      float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc += ld(hrow + k) * wrow[k];
-      acc = warp_sum(acc);
-      if (lane == 0) out[q] = acc + b3[o];
-    }
+    const int C = g.C;
+    const float* B3_ = B3s;
+    product_rows(rows + g.off_a2, g.RS, nrows, W3s, Swizzled{g.SH}, g.H4, C,
+                 [=](int b, int o, float s) { out[b * C + o] = s + B3_[o]; });
   }
 
-  __device__ void vjp(const float* u, float t, const float* w,
-                      float* ubar) const {
-    hidden(u, t);
-    const int tid = grid_tid(), nth = grid_threads();
-    const int nBH = B * H;
-    // (3) g2, gW3, gb3.
-    for (int i = tid; i < nBH + C * H + C; i += nth) {
-      if (i < nBH) {
-        const int b = i / H, j = i - b * H;
-        float s = 0.0f;
-        for (int o = 0; o < C; ++o) s += ld(w + b * C + o) * w3[o * H + j];
-        g2[i] = s * dsilu(ld(h2p + i));
-      } else if (i < nBH + C * H) {
-        const int q = i - nBH, o = q / H, j = q - o * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(w + b * C + o) * ld(a2 + b * H + j);
-        gw3[q] += s;
-      } else {
-        const int o = i - nBH - C * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(w + b * C + o);
-        gb3[o] += s;
-      }
+  __device__ __forceinline__ void vjp(const float* u, float t, const float* w,
+                                      float* ubar) const {
+    const int C = g.C, P_ = g.P, RS = g.RS, B = g.B;
+    float* recs = rows;
+    for (int i = threadIdx.x; i < nrows * C; i += blockDim.x) {
+      const int b = i / C, o = i - b * C;
+      recs[b * RS + g.off_w + o] = w[i];
     }
-    cg::this_grid().sync();
-    // (4) g1, gW2, gb2.
-    for (int i = tid; i < nBH + H * H + H; i += nth) {
-      if (i < nBH) {
-        const int b = i / H, k = i - b * H;
-        float s = 0.0f;
-        for (int j = 0; j < H; ++j) s += ld(g2 + b * H + j) * w2[j * H + k];
-        g1[i] = s * dsilu(ld(h1p + i));
-      } else if (i < nBH + H * H) {
-        const int q = i - nBH, j = q / H, k = q - j * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b)
-          s += ld(g2 + b * H + j) * ld(a1 + b * H + k);
-        gw2[q] += s;
-      } else {
-        const int j = i - nBH - H * H;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(g2 + b * H + j);
-        gb2[j] += s;
-      }
-    }
-    cg::this_grid().sync();
-    // (5) gzn, the x(t) cotangent into the table, gw1z, gw1x, gb1.
+    hidden(u, t);  // its first barrier orders the copy above
+    const int oh1 = g.off_h1p, oh2 = g.off_h2p, og2 = g.off_g2, og1 = g.off_g1;
+    const int ogz = g.off_gzn;
+    product_cols(recs + g.off_w, RS, nrows, W3s, Swizzled{g.SH}, g.C4, g.H, P,
+                 [=](int b, int j, float s) {
+      recs[b * RS + og2 + j] = s * dsilu(recs[b * RS + oh2 + j]);
+    });
+    product_cols(recs + og2, RS, nrows, W2s, Swizzled{g.SH}, g.H4, g.H, P,
+                 [=](int b, int k, float s) {
+      recs[b * RS + og1 + k] = s * dsilu(recs[b * RS + oh1 + k]);
+    });
     int i0;
     float wl;
-    rows(t, i0, wl);
-    const int nBC = B * C, nBP = B * P;
-    const int n5 = nBC + nBP + H * C + H * P + H;
-    for (int i = tid; i < n5; i += nth) {
-      if (i < nBC) {
-        const int b = i / C, c = i - b * C;
-        float s = 0.0f;
-        for (int j = 0; j < H; ++j) s += ld(g1 + b * H + j) * w1z[j * C + c];
-        gzn[i] = s;
-      } else if (i < nBC + nBP) {
-        const int q = i - nBC, b = q / P, p = q - b * P;
-        float s = 0.0f;
-        for (int j = 0; j < H; ++j) s += ld(g1 + b * H + j) * w1x[j * P + p];
-        float* r0 = gxtab + ((size_t)i0 * B + b) * P + p;
-        r0[0] += (1.0f - wl) * s;
-        r0[(size_t)B * P] += wl * s;
-      } else if (i < nBC + nBP + H * C) {
-        const int q = i - nBC - nBP, j = q / C, c = q - j * C;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b)
-          s += ld(g1 + b * H + j) * ld(zn + b * C + c);
-        gw1z[q] += s;
-      } else if (i < nBC + nBP + H * C + H * P) {
-        const int q = i - nBC - nBP - H * C, j = q / P, p = q - j * P;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b)
-          s += ld(g1 + b * H + j) * ld(xt + b * P + p);
-        gw1x[q] += s;
-      } else {
-        const int j = i - nBC - nBP - H * C - H * P;
-        float s = 0.0f;
-        for (int b = 0; b < B; ++b) s += ld(g1 + b * H + j);
-        gb1[j] += s;
-      }
-    }
-    cg::this_grid().sync();
-    // (6) the layer norm: its scale and bias gradients, a thread per
-    // column; then ubar, a warp per row.
-    for (int c = tid; c < C; c += nth) {
+    signal_rows(t, i0, wl);
+    float* gx = gxtab + ((size_t)i0 * B + row0) * P_;
+    const size_t next = (size_t)B * P_;
+    product_cols<4>(recs + og1, RS, nrows, WX, Padded{g.P4}, g.H4, P_, P,
+                    [=](int b, int p, float s) {
+      float* r0 = gx + (size_t)b * P_ + p;
+      r0[0] += (1.0f - wl) * s;
+      r0[next] += wl * s;
+    });
+    product_cols(recs + og1, RS, nrows, WZ, Swizzled{g.SC}, g.H4, C, P,
+                 [=](int b, int c, float s) { recs[b * RS + ogz + c] = s; });
+    // The layer norm: its scale and bias gradients, a thread a column;
+    // then ubar, a warp a row.
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
       float ss = 0.0f, sb = 0.0f;
-      for (int b = 0; b < B; ++b) {
-        const float g = ld(gzn + b * C + c);
-        ss += g * ld(yhat + b * C + c);
-        sb += g;
+      for (int b = 0; b < nrows; ++b) {
+        const float gz = recs[b * RS + ogz + c];
+        ss += gz * recs[b * RS + g.off_yh + c];
+        sb += gz;
       }
-      glns[c] += ss;
-      glnb[c] += sb;
+      float* m = mine + 16 * (size_t)g.ntiles;
+      m[c] += ss;
+      m[g.C4 + c] += sb;
     }
-    const int lane = lane_id();
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
     const float inv_c = 1.0f / (float)C;
-    for (int b = grid_warp(); b < B; b += grid_warps()) {
+    for (int b = threadIdx.x >> 5; b < nrows; b += nw) {
+      const float* rec = recs + b * RS;
       float m1 = 0.0f, m2 = 0.0f;
       for (int c = lane; c < C; c += 32) {
-        const float gh = ld(gzn + b * C + c) * lns[c];
+        const float gh = rec[ogz + c] * LNS[c];
         m1 += gh;
-        m2 += gh * ld(yhat + b * C + c);
+        m2 += gh * rec[g.off_yh + c];
       }
       m1 = warp_sum(m1) * inv_c;
       m2 = warp_sum(m2) * inv_c;
-      const float r = ld(rstd + b);
+      const float r = rec[g.off_sc];
       for (int c = lane; c < C; c += 32) {
-        const float gh = ld(gzn + b * C + c) * lns[c];
-        ubar[b * C + c] = r * (gh - m1 - ld(yhat + b * C + c) * m2);
+        const float gh = rec[ogz + c] * LNS[c];
+        ubar[b * C + c] = r * (gh - m1 - rec[g.off_yh + c] * m2);
+      }
+    }
+    grad_tiles();
+  }
+
+  // The row offsets of tile t's a and c vectors: w (x) [a2, 1], g2 (x)
+  // [a1, 1], g1 (x) [zn, x(t), 1], each p-major with q fastest.
+  __device__ __forceinline__ void tile_offsets(int t, int& ao, int& co) const {
+    int m = 0, nq = g.nq0;
+    if (t >= g.t1) {
+      m = 2;
+      t -= g.t1;
+      nq = g.nq2;
+    } else if (t >= g.t0) {
+      m = 1;
+      t -= g.t0;
+    }
+    const int p = 4 * (t / nq), q = 4 * (t % nq);
+    ao = (m == 0 ? g.off_w : m == 1 ? g.off_g2 : g.off_g1) + p;
+    co = (m == 0 ? g.off_a2 : m == 1 ? g.off_a1 : 0) + q;
+  }
+
+  // acc += a (x) c over the CTA's rows, for each owned tile.
+  __device__ __forceinline__ void grad_tiles() const {
+    const int nth = blockDim.x, RS = g.RS;
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl) {
+      const int t = threadIdx.x + sl * nth;
+      if (t >= g.ntiles) break;
+      int ao, co;
+      tile_offsets(t, ao, co);
+      for (int b = 0; b < nrows; ++b) {
+        const float4 a = *reinterpret_cast<const float4*>(rows + b * RS + ao);
+        const float4 c = *reinterpret_cast<const float4*>(rows + b * RS + co);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[sl][4 * p + q] = fmaf(av[p], cv[q], acc[sl][4 * p + q]);
+      }
+    }
+    for (int t = threadIdx.x + kTileSlots * nth; t < g.ntiles; t += nth) {
+      int ao, co;
+      tile_offsets(t, ao, co);
+      float4* m = reinterpret_cast<float4*>(mine + 16 * (size_t)t);
+      float mv[16];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 v = m[k];
+        mv[4 * k] = v.x;
+        mv[4 * k + 1] = v.y;
+        mv[4 * k + 2] = v.z;
+        mv[4 * k + 3] = v.w;
+      }
+      for (int b = 0; b < nrows; ++b) {
+        const float4 a = *reinterpret_cast<const float4*>(rows + b * RS + ao);
+        const float4 c = *reinterpret_cast<const float4*>(rows + b * RS + co);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            mv[4 * p + q] = fmaf(av[p], cv[q], mv[4 * p + q]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m[k] = make_float4(mv[4 * k], mv[4 * k + 1], mv[4 * k + 2],
+                           mv[4 * k + 3]);
+    }
+  }
+
+  // The gradients zeroed: the register tiles, this CTA's partial array and
+  // its rows of the table's gradient.
+  __device__ void zero_grads() const {
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[sl][k] = 0.0f;
+    for (int i = threadIdx.x; i < g.mine_floats; i += blockDim.x)
+      mine[i] = 0.0f;
+    const int P_ = g.P;
+    for (int i = threadIdx.x; i < L * nrows * P_; i += blockDim.x) {
+      const int l = i / (nrows * P_), r = i - l * nrows * P_;
+      gxtab[((size_t)l * g.B + row0) * P_ + r] = 0.0f;
+    }
+  }
+
+  // Each CTA's partials to device memory, one cluster barrier, then each
+  // gradient the sum of the G partials in rank order.
+  __device__ void reduce_grads() const {
+    const int nth = blockDim.x, C = g.C, P_ = g.P, H = g.H;
+#pragma unroll
+    for (int sl = 0; sl < kTileSlots; ++sl) {
+      const int t = threadIdx.x + sl * nth;
+      if (t >= g.ntiles) break;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) mine[16 * (size_t)t + k] = acc[sl][k];
+    }
+    if (g.grid) cg::this_grid().sync(); else cg::this_cluster().sync();
+    const float* all = mine - (size_t)rank * g.mine_floats;
+    const int n0 = C * (H + 1), n1 = n0 + H * (H + 1);
+    const int n2 = n1 + H * (C + P_ + 1), total = n2 + 2 * C;
+    for (int e = rank * nth + threadIdx.x; e < total; e += g.G * nth) {
+      size_t k;
+      if (e < n2) {
+        int p, q, nq, t0;
+        if (e < n0) {
+          p = e / (H + 1);
+          q = e - p * (H + 1);
+          nq = g.nq0;
+          t0 = 0;
+        } else if (e < n1) {
+          p = (e - n0) / (H + 1);
+          q = (e - n0) - p * (H + 1);
+          nq = g.nq0;
+          t0 = g.t0;
+        } else {
+          p = (e - n1) / (C + P_ + 1);
+          q = (e - n1) - p * (C + P_ + 1);
+          if (q >= C) q += g.C4 - C;  // x(t) and the 1 follow zn's pad
+          nq = g.nq2;
+          t0 = g.t1;
+        }
+        const int t = t0 + (p >> 2) * nq + (q >> 2);
+        k = 16 * (size_t)t + 4 * (p & 3) + (q & 3);
+      } else {
+        const int c = e - n2;
+        k = 16 * (size_t)g.ntiles + (c < C ? c : g.C4 + c - C);
+      }
+      float s = 0.0f;
+      for (int r = 0; r < g.G; ++r)
+        s += __ldcg(all + (size_t)r * g.mine_floats + k);
+      if (e < n0) {
+        const int p = e / (H + 1), q = e - p * (H + 1);
+        if (q < H) gw3[p * H + q] = s; else gb3[p] = s;
+      } else if (e < n1) {
+        const int p = (e - n0) / (H + 1), q = (e - n0) - p * (H + 1);
+        if (q < H) gw2[p * H + q] = s; else gb2[p] = s;
+      } else if (e < n2) {
+        const int p = (e - n1) / (C + P_ + 1), q = (e - n1) - p * (C + P_ + 1);
+        if (q < C) gw1z[p * C + q] = s;
+        else if (q < C + P_) gw1x[p * P_ + q - C] = s;
+        else gb1[p] = s;
+      } else {
+        const int c = e - n2;
+        if (c < C) glns[c] = s; else glnb[c - C] = s;
       }
     }
   }
 };
 
 struct FwdArgs {
-  NodeEncField f;
+  EncField f;
   SolveBufs s;
 };
 
 struct BwdArgs {
-  NodeEncField f;
+  EncField f;
   ReplayBufs r;
 };
 
-template <bool kRecord>
-__global__ void __launch_bounds__(kThreads) node_enc_fwd_kernel(FwdArgs a) {
-  adaptive_solve_traj<kRecord>(a.f, a.s);
+template <bool kRecord, bool kWS, bool kW3S, bool kRS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    node_enc_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  EncField f = a.f;
+  f.bind<kWS, kW3S, kRS>(smem);
+  f.load();
+  __syncthreads();
+  SolveBufs s = a.s;
+  s.part = f.part;
+  const int n = f.g.R * f.g.C;
+  s.y = f.scaf;
+  s.ks = f.scaf + n;
+  s.u = f.scaf + 8 * n;
+  adaptive_solve_traj<kRecord, RowSync>(f, s);
 }
 
-__global__ void __launch_bounds__(kThreads) node_enc_bwd_kernel(BwdArgs a) {
-  const int tid = grid_tid(), nth = grid_threads();
-  const NodeEncField& f = a.f;
-  const int C = f.C, P = f.P, H = f.H;
-  for (int i = tid; i < H * C; i += nth) f.gw1z[i] = 0.0f;
-  for (int i = tid; i < H * P; i += nth) f.gw1x[i] = 0.0f;
-  for (int i = tid; i < H * H; i += nth) f.gw2[i] = 0.0f;
-  for (int i = tid; i < C * H; i += nth) f.gw3[i] = 0.0f;
-  for (int i = tid; i < H; i += nth) f.gb1[i] = f.gb2[i] = 0.0f;
-  for (int i = tid; i < C; i += nth) f.glns[i] = f.glnb[i] = f.gb3[i] = 0.0f;
-  for (size_t i = tid; i < (size_t)f.L * f.B * P; i += nth) f.gxtab[i] = 0.0f;
-  cg::this_grid().sync();
-  adjoint_replay_traj(f, a.r);
+template <bool kWS, bool kW3S, bool kRS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    node_enc_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  EncField f = a.f;
+  f.bind<kWS, kW3S, kRS>(smem);
+  f.load();
+  f.zero_grads();
+  __syncthreads();
+  ReplayBufs r = a.r;
+  const int n = f.g.R * f.g.C;
+  r.lam = f.scaf;
+  r.kbar = f.scaf + n;
+  r.u = f.scaf + 8 * n;
+  r.ub = f.scaf + 9 * n;
+  adjoint_replay_traj<RowSync>(f, r);
+  __syncthreads();
+  f.reduce_grads();
 }
 
-// Scratch layout in `work` (floats): the scaffold's 10 N (fwd y, ks, u;
-// bwd lam, kbar, u, ub), then zn, yhat, gzn (3 B*C), rstd (B), xt (B*P),
-// h1p, a1, h2p, a2, g2, g1 (6 B*H) and part.
-size_t field_floats(int B, int C, int P, int H) {
-  return 3 * (size_t)B * C + B + (size_t)B * P + 6 * (size_t)B * H;
-}
-
-size_t work_floats(int B, int C, int P, int H) {
-  return 10 * (size_t)B * C + field_floats(B, C, P, H) + kPartFloats;
-}
-
-NodeEncField make_field(const float* xtab, const float* const* w,
-                        float* work, int B, int C, int P, int H, int L) {
-  NodeEncField f{};
+EncField make_field(const float* xtab, const float* const* w, float* work,
+                    const Geo& g, int L) {
+  EncField f{};
   f.xtab = xtab;
   f.lns = w[0];
   f.lnb = w[1];
@@ -362,35 +671,81 @@ NodeEncField make_field(const float* xtab, const float* const* w,
   f.b2 = w[6];
   f.w3 = w[7];
   f.b3 = w[8];
-  f.B = B;
-  f.C = C;
-  f.P = P;
-  f.H = H;
+  f.work = work;
+  f.g = g;
   f.L = L;
-  const size_t BC = (size_t)B * C, BH = (size_t)B * H;
-  float* p = work + 10 * BC;
-  f.zn = p;
-  f.yhat = f.zn + BC;
-  f.gzn = f.yhat + BC;
-  f.rstd = f.gzn + BC;
-  f.xt = f.rstd + B;
-  f.h1p = f.xt + (size_t)B * P;
-  f.a1 = f.h1p + BH;
-  f.h2p = f.a1 + BH;
-  f.a2 = f.h2p + BH;
-  f.g2 = f.a2 + BH;
-  f.g1 = f.g2 + BH;
   return f;
 }
 
-float* part_of(float* work, int B, int C, int P, int H) {
-  return work + 10 * (size_t)B * C + field_floats(B, C, P, H);
+// Launches kernel(args) as one cluster of g.G CTAs of kRowThreads threads
+// with g.smem_floats floats of dynamic shared memory each, or as the grid
+// form's cooperative grid.
+template <class Args>
+int launch_rows(void (*kernel)(Args), Args& args, const Geo& g,
+                cudaStream_t stream) {
+  const size_t bytes = (size_t)g.smem_floats * sizeof(float);
+  if (g.grid)
+    return launch_row_grid(kernel, args, g.G, kRowThreads, bytes,
+                           kSmemBudget, stream);
+  return launch_cluster(kernel, args, g.G, kRowThreads, bytes, kSmemBudget,
+                        stream);
 }
+
+// The kernel of the plan's placement: (w_smem, w3_smem, rows_smem) =
+// (1, 1, 1), (1, 0, 1) or (0, 0, 0).
+template <template <bool, bool, bool> class K, class Args>
+int launch_placed(Args& args, const Geo& g, cudaStream_t stream) {
+  if (g.w3_smem) return launch_rows(K<true, true, true>::get(), args, g, stream);
+  if (g.rows_smem)
+    return launch_rows(K<true, false, true>::get(), args, g, stream);
+  return launch_rows(K<false, false, false>::get(), args, g, stream);
+}
+
+template <bool kRecord>
+struct Fwd {
+  template <bool kWS, bool kW3S, bool kRS>
+  struct K {
+    static void (*get())(FwdArgs) {
+      return node_enc_fwd_kernel<kRecord, kWS, kW3S, kRS>;
+    }
+  };
+};
+
+template <bool kWS, bool kW3S, bool kRS>
+struct Bwd {
+  static void (*get())(BwdArgs) { return node_enc_bwd_kernel<kWS, kW3S, kRS>; }
+};
 
 }  // namespace
 
+// The plan of a launch at batch B, widths C, P, H (bwd: the backward's):
+// out[0..12] = G, R, dynamic shared-memory bytes, rows in shared memory
+// (0/1), w1z and W2 in shared memory (0/1), device scratch floats,
+// gradient tiles, threads a CTA, tiles a thread holds in registers, the
+// row record's floats, w1x's floats a CTA in device memory (and its
+// transpose's), W3 in shared memory (0/1), the grid form (0/1).
+extern "C" void node_enc_plan(int B, int C, int P, int H, int bwd,
+                              long long* out) {
+  const Geo g = make_geo(B, C, P, H, bwd != 0);
+  out[0] = g.G;
+  out[1] = g.R;
+  out[2] = g.smem_floats * (long long)sizeof(float);
+  out[3] = g.rows_smem;
+  out[4] = g.w_smem;
+  out[5] = g.work_floats;
+  out[6] = g.ntiles;
+  out[7] = kRowThreads;
+  out[8] = kTileSlots;
+  out[9] = g.RS;
+  out[10] = g.wx_floats;
+  out[11] = g.w3_smem;
+  out[12] = g.grid;
+}
+
 extern "C" long long node_enc_work_floats(int B, int C, int P, int H) {
-  return (long long)work_floats(B, C, P, H);
+  const long long f = make_geo(B, C, P, H, false).work_floats;
+  const long long b = make_geo(B, C, P, H, true).work_floats;
+  return f > b ? f : b;
 }
 
 // z0 (B, C), xtab (L*B, P), ts (2) = [0, 1]; ln_scale, ln_bias (C), w1z
@@ -409,9 +764,9 @@ extern "C" int node_enc_fwd(const float* z0, const float* xtab,
                             float atol, int record, void* stream) {
   if (B <= 0) return 0;
   const float* w[9] = {lns, lnb, w1z, w1x, b1, w2, b2, w3, b3};
+  const Geo g = make_geo(B, C, P, H, false);
   FwdArgs a{};
-  a.f = make_field(xtab, w, work, B, C, P, H, L);
-  const size_t N = (size_t)B * C;
+  a.f = make_field(xtab, w, work, g, L);
   a.s.h0 = z0;
   a.s.out = out;
   a.s.ts = ts;
@@ -419,18 +774,17 @@ extern "C" int node_enc_fwd(const float* z0, const float* xtab,
   a.s.yrec = yrec;
   a.s.krec = krec;
   a.s.misc = misc;
-  a.s.y = work;
-  a.s.ks = work + N;
-  a.s.u = work + 8 * N;
-  a.s.part = part_of(work, B, C, P, H);
-  a.s.N = (int)N;
+  a.s.part = nullptr;
+  a.s.N = B * C;
   a.s.T = 2;
   a.s.max_steps = max_steps;
   a.s.rtol = rtol;
   a.s.atol = atol;
+  a.s.D = C;
+  a.s.R = g.R;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return record ? launch_cooperative(node_enc_fwd_kernel<true>, a, s)
-                : launch_cooperative(node_enc_fwd_kernel<false>, a, s);
+  return record ? launch_placed<Fwd<true>::K>(a, g, s)
+                : launch_placed<Fwd<false>::K>(a, g, s);
 }
 
 // ybar (2, B, C), the cotangent of the trajectory at [0, 1], and the
@@ -452,8 +806,9 @@ extern "C" int node_enc_bwd(const float* ybar, const float* ts,
                             void* stream) {
   if (B <= 0) return 0;
   const float* w[9] = {lns, lnb, w1z, w1x, b1, w2, b2, w3, b3};
+  const Geo g = make_geo(B, C, P, H, true);
   BwdArgs a{};
-  a.f = make_field(xtab, w, work, B, C, P, H, L);
+  a.f = make_field(xtab, w, work, g, L);
   a.f.glns = glns;
   a.f.glnb = glnb;
   a.f.gw1z = gw1z;
@@ -464,7 +819,6 @@ extern "C" int node_enc_bwd(const float* ybar, const float* ts,
   a.f.gw3 = gw3;
   a.f.gb3 = gb3;
   a.f.gxtab = gxtab;
-  const size_t N = (size_t)B * C;
   a.r.hbar = ybar;
   a.r.ts = ts;
   a.r.tda = tda;
@@ -472,12 +826,9 @@ extern "C" int node_enc_bwd(const float* ybar, const float* ts,
   a.r.krec = krec;
   a.r.misc = misc;
   a.r.h0bar = z0bar;
-  a.r.lam = work;
-  a.r.kbar = work + N;
-  a.r.u = work + 8 * N;
-  a.r.ub = work + 9 * N;
-  a.r.N = (int)N;
+  a.r.N = B * C;
   a.r.T = 2;
-  return launch_cooperative(node_enc_bwd_kernel, a,
-                            static_cast<cudaStream_t>(stream));
+  a.r.D = C;
+  a.r.R = g.R;
+  return launch_placed<Bwd>(a, g, static_cast<cudaStream_t>(stream));
 }

@@ -30,12 +30,12 @@
 // row-major (a weight row's 16-byte loads, the row stride 4 mod 32 words,
 // so 8 rows' loads hit distinct banks): a quarter-warp holds 8 outputs
 // and the 4 quarters 4 chunks of the contraction, added in a fixed
-// shuffle tree (product_rows).  The VJP's transposed products read the
-// same arrays down a column, lanes on consecutive outputs, 2 a lane; their
-// chunks are split over warps and added in order through shared memory
-// (product_cols).  Every sum thus has a fixed owner and a fixed order,
-// set by the widths alone, so a row gives the same bits alone and in any
-// batch.  The VJP with cotangent w (B, D):
+// shuffle tree (row_products.cuh: product_rows, shared with B.8).  The
+// VJP's transposed products read the same arrays down a column, lanes on
+// consecutive outputs, 2 a lane; their chunks are split over warps and
+// added in order through shared memory (product_cols).  Every sum thus
+// has a fixed owner and a fixed order, set by the widths alone, so a row
+// gives the same bits alone and in any batch.  The VJP with cotangent w (B, D):
 //   g2 = (w W2) (1 - h2^2),  g1 = (g2 W1) (1 - h1^2),  ubar = g1 W0[:, :D]
 // and the parameter gradients, outer products summed over rows and VJPs:
 //   [gW2 | gb2] += w^T [h2, 1],  [gW1 | gb1] += g2^T [h1, 1],
@@ -61,35 +61,19 @@
 // the barriers between them, the scaffold's passes and one cluster
 // exchange an attempt add about as much again.
 
-#include <mutex>
-#include <set>
-#include <tuple>
-
 #include "node_common.cuh"
+#include "row_products.cuh"
 
 namespace {
 
 using namespace node_common;
+using namespace row_products;
 
 constexpr int kRowThreads = 512;   // threads a CTA
-constexpr int kMaxCluster = 16;    // CTAs, the non-portable cluster size
-constexpr int kGroup = 4;          // rows of a work item's register block
-constexpr int kOut = 2;            // outputs a lane of a VJP product holds
 constexpr int kTileSlots = 5;      // gradient tiles a thread holds
 // Dynamic shared memory a CTA may take: the card's 227 KB less the static
 // arrays of the scaffold's reductions.
 constexpr size_t kSmemBudget = 232448 - 2048;
-
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// The smallest stride >= k that is 4 mod 32 words: 8 consecutive rows'
-// 16-byte loads at that stride cover the 32 banks once.
-__host__ __device__ inline int row_stride(int k) {
-  int s = round4(k);
-  while ((s & 31) != 4) s += 4;
-  return s;
-}
 
 // The launch's geometry, the same on the host and the device.
 struct Geo {
@@ -129,8 +113,7 @@ Geo make_geo(int B, int D, int H, bool bwd) {
   g.w_floats = g.H4 * g.S0 + g.H4 * g.S1 + g.D4 * g.S2 + 2 * g.H4 + g.D4;
   // The VJP's products' partials (product_cols): KS chunks x 4 rows x O
   // outputs, KS O at most the warps x the outputs a warp covers, or O.
-  const int wide = H > D ? H : D, span = (kRowThreads / 32) * 32 * kOut;
-  g.p_floats = bwd ? kGroup * (wide > span ? wide : span) : 0;
+  g.p_floats = bwd ? cols_partials(H > D ? H : D, kRowThreads) : 0;
   g.scaf_floats = round4((bwd ? 10 : 9) * g.R * D);
   g.row_floats = g.scaf_floats + g.R * g.RS;
   const long long all = (long long)g.w_floats + g.p_floats + g.row_floats;
@@ -237,36 +220,12 @@ struct RowField {
     mine = dev + (size_t)rank * 16 * g.ntiles;
   }
 
-  // dst (rows, S) = src (rows, n), zero past n and past `real` rows;
-  // kLoads loads in flight a thread.
-  __device__ __forceinline__ static void pad_copy(float* dst, const float* src,
-                                                  int rows, int real, int n,
-                                                  int S) {
-    constexpr int kLoads = 8;
-    const int total = rows * S, step = blockDim.x * kLoads;
-    for (int i0 = threadIdx.x; i0 < total; i0 += step) {
-      float v[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = i0 + u * blockDim.x;
-        const int j = i / S, c = i - j * S;
-        v[u] = (i < total && j < real && c < n) ? __ldg(src + j * n + c)
-                                                 : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = i0 + u * blockDim.x;
-        if (i < total) dst[i] = v[u];
-      }
-    }
-  }
-
   // The padded weights and the rows' constant entries.
   __device__ void load() const {
     const int t = threadIdx.x, nth = blockDim.x, D = g.D, H = g.H;
-    pad_copy(W0, w0, g.H4, H, D + 1, g.S0);
-    pad_copy(W1, w1, g.H4, H, H, g.S1);
-    pad_copy(W2, w2, g.D4, D, H, g.S2);
+    pad_copy(W0, Padded{g.S0}, w0, g.H4, H, D + 1, g.S0);
+    pad_copy(W1, Padded{g.S1}, w1, g.H4, H, H, g.S1);
+    pad_copy(W2, Padded{g.S2}, w2, g.D4, D, H, g.S2);
     for (int i = t; i < g.H4; i += nth) {
       B0[i] = i < H ? b0[i] : 0.0f;
       B1[i] = i < H ? b1[i] : 0.0f;
@@ -276,130 +235,6 @@ struct RowField {
       const int c = i % g.RS;
       rows[i] = (c == D + 1 || c == g.off_h1 + H || c == g.off_h2 + H)
                     ? 1.0f : 0.0f;
-    }
-  }
-
-  // out[b, o] = epi(sum_c x[b, c] W[o * S + c]) for the CTA's rows b and
-  // o < O, the contraction c < Kc (x and W zero past their lengths): the
-  // forward's products.  A quarter-warp holds 8 outputs, one a lane, and
-  // the 4 quarters 4 chunks of the contraction, each lane running its
-  // chunk for 4 rows at once (each weight read once for the 4 rows, each
-  // input a 16-byte load its quarter shares); the chunks' sums meet in a
-  // fixed shuffle tree and quarter 0 applies the epilogue.  One barrier.
-  template <class Epi>
-  __device__ __forceinline__ void product_rows(const float* x, const float* W,
-                                               int S, int Kc, int O,
-                                               const Epi& epi) const {
-    const int nw = blockDim.x >> 5, RS = g.RS;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int ks = lane >> 3, ol = lane & 7;
-    const int KC = round4(cdiv(Kc, 4));
-    const int c0 = ks * KC, c1 = min(Kc, c0 + KC);
-    const int NG = cdiv(O, 8);
-    for (int b0 = 0; b0 < nrows; b0 += kGroup) {
-      const float* xr[kGroup];
-#pragma unroll
-      for (int r = 0; r < kGroup; ++r)
-        xr[r] = x + min(b0 + r, nrows - 1) * RS;
-      for (int og = warp; og < NG; og += nw) {
-        const int o = og * 8 + ol;
-        const float* wr = W + min(o, O - 1) * S;
-        float a[kGroup] = {};
-#pragma unroll 2
-        for (int c = c0; c < c1; c += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(wr + c);
-#pragma unroll
-          for (int r = 0; r < kGroup; ++r) {
-            const float4 v = *reinterpret_cast<const float4*>(xr[r] + c);
-            a[r] = fmaf(v.x, w.x, a[r]);
-            a[r] = fmaf(v.y, w.y, a[r]);
-            a[r] = fmaf(v.z, w.z, a[r]);
-            a[r] = fmaf(v.w, w.w, a[r]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kGroup; ++r) {
-          a[r] += __shfl_xor_sync(0xffffffffu, a[r], 8);
-          a[r] += __shfl_xor_sync(0xffffffffu, a[r], 16);
-        }
-        if (ks == 0 && o < O)
-#pragma unroll
-          for (int r = 0; r < kGroup; ++r)
-            if (b0 + r < nrows) epi(b0 + r, o, a[r]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // out[b, o] = epi(sum_c x[b, c] W[c * S + o]): the VJP's products down a
-  // weight's columns.  There the 4 quarters of a warp would read rows a
-  // chunk apart, in the same banks, so a warp's work item is (64 outputs,
-  // contraction chunk): each lane runs the chunk for 2 outputs, 32 apart
-  // (consecutive lanes, consecutive words), and 4 rows; the items' partial
-  // sums go through shared memory, where one thread per (row, o) adds the
-  // chunks in order and applies the epilogue.
-  template <class Epi>
-  __device__ __forceinline__ void product_cols(const float* x, const float* W,
-                                               int S, int Kc, int O,
-                                               const Epi& epi) const {
-    const int nth = blockDim.x, nw = nth >> 5, RS = g.RS;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int NG = cdiv(O, 32 * kOut);
-    const int KS = NG < nw ? nw / NG : 1;
-    const int KC = round4(cdiv(Kc, KS));
-    for (int b0 = 0; b0 < nrows; b0 += kGroup) {
-      for (int it = warp; it < KS * NG; it += nw) {
-        const int og = it % NG, ks = it / NG;
-        const int c0 = ks * KC, c1 = min(Kc, c0 + KC);
-        const float* xr[kGroup];
-#pragma unroll
-        for (int r = 0; r < kGroup; ++r)
-          xr[r] = x + min(b0 + r, nrows - 1) * RS;
-        int o[kOut];
-        bool live[kOut];
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) {
-          o[j] = og * 32 * kOut + 32 * j + lane;
-          live[j] = o[j] < O;
-          if (!live[j]) o[j] = O - 1;   // a valid column, its sums unused
-        }
-        float a[kOut][kGroup] = {};
-#pragma unroll 2
-        for (int c = c0; c < c1; c += 4) {
-          float4 v[kGroup];
-#pragma unroll
-          for (int r = 0; r < kGroup; ++r)
-            v[r] = *reinterpret_cast<const float4*>(xr[r] + c);
-#pragma unroll
-          for (int j = 0; j < kOut; ++j) {
-            const float4 w =
-                make_float4(W[c * S + o[j]], W[(c + 1) * S + o[j]],
-                            W[(c + 2) * S + o[j]], W[(c + 3) * S + o[j]]);
-#pragma unroll
-            for (int r = 0; r < kGroup; ++r) {
-              a[j][r] = fmaf(v[r].x, w.x, a[j][r]);
-              a[j][r] = fmaf(v[r].y, w.y, a[j][r]);
-              a[j][r] = fmaf(v[r].z, w.z, a[j][r]);
-              a[j][r] = fmaf(v[r].w, w.w, a[j][r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          if (live[j])
-#pragma unroll
-            for (int r = 0; r < kGroup; ++r)
-              P[(ks * kGroup + r) * O + o[j]] = a[j][r];
-      }
-      __syncthreads();
-      for (int it = threadIdx.x; it < kGroup * O; it += nth) {
-        const int r = it / O, o = it - r * O, b = b0 + r;
-        if (b >= nrows) continue;
-        float s = P[r * O + o];
-        for (int ks = 1; ks < KS; ++ks) s += P[(ks * kGroup + r) * O + o];
-        epi(b, o, s);
-      }
-      __syncthreads();
     }
   }
 
@@ -416,10 +251,12 @@ struct RowField {
     float* h2 = rows + g.off_h2;
     const float* B0_ = B0;
     const float* B1_ = B1;
-    product_rows(rows, W0, g.S0, g.K0, g.H, [=](int b, int o, float s) {
+    product_rows(rows, RS, nrows, W0, Padded{g.S0}, g.K0, g.H,
+                 [=](int b, int o, float s) {
       h1[b * RS + o] = tanhf(s + B0_[o]);
     });
-    product_rows(h1, W1, g.S1, g.Q1, g.H, [=](int b, int o, float s) {
+    product_rows(h1, RS, nrows, W1, Padded{g.S1}, g.Q1, g.H,
+                 [=](int b, int o, float s) {
       h2[b * RS + o] = tanhf(s + B1_[o]);
     });
   }
@@ -429,8 +266,8 @@ struct RowField {
     hidden(u, t);
     const int D = g.D;
     const float* B2_ = B2;
-    product_rows(rows + g.off_h2, W2, g.S2, g.Q1, D,
-                   [=](int b, int o, float s) { out[b * D + o] = s + B2_[o]; });
+    product_rows(rows + g.off_h2, g.RS, nrows, W2, Padded{g.S2}, g.Q1, D,
+                 [=](int b, int o, float s) { out[b * D + o] = s + B2_[o]; });
   }
 
   __device__ __forceinline__ void vjp(const float* u, float t,
@@ -446,16 +283,18 @@ struct RowField {
     const float* h2 = rows + g.off_h2;
     float* g2 = rows + g.off_g2;
     float* g1 = rows + g.off_g1;
-    product_cols(wr, W2, g.S2, g.D4, g.H, [=](int b, int j, float s) {
+    product_cols(wr, RS, nrows, W2, Padded{g.S2}, g.D4, g.H, P,
+                 [=](int b, int j, float s) {
       const float z = h2[b * RS + j];
       g2[b * RS + j] = s * (1.0f - z * z);
     });
-    product_cols(g2, W1, g.S1, g.H4, g.H, [=](int b, int k, float s) {
+    product_cols(g2, RS, nrows, W1, Padded{g.S1}, g.H4, g.H, P,
+                 [=](int b, int k, float s) {
       const float z = h1[b * RS + k];
       g1[b * RS + k] = s * (1.0f - z * z);
     });
-    product_cols(g1, W0, g.S0, g.H4, D,
-                  [=](int b, int d, float s) { ubar[b * D + d] = s; });
+    product_cols(g1, RS, nrows, W0, Padded{g.S0}, g.H4, D, P,
+                 [=](int b, int d, float s) { ubar[b * D + d] = s; });
     grad_tiles();
   }
 
@@ -616,54 +455,14 @@ RowField make_field(const float* w0, const float* b0, const float* w1,
 }
 
 // Launches kernel(args) as one cluster of g.C CTAs of kRowThreads threads
-// with g.smem_floats floats of dynamic shared memory each; an error if the
-// card cannot run it.
-// The attributes and the occupancy check run once for each kernel,
-// device, C and shared-memory size; later launches skip them.
+// with g.smem_floats floats of dynamic shared memory each
+// (row_products.cuh: launch_cluster).
 template <class Args>
 int launch_rows(void (*kernel)(Args), Args& args, const Geo& g,
                 cudaStream_t stream) {
-  static std::mutex mu;
-  static std::set<std::tuple<const void*, int, int, size_t>> checked;
-  const size_t bytes = (size_t)g.smem_floats * sizeof(float);
-  if (bytes > kSmemBudget || g.C > kMaxCluster)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const auto key = std::make_tuple((const void*)kernel, dev, g.C, bytes);
-  std::lock_guard<std::mutex> lock(mu);
-  const bool known = checked.count(key) > 0;
-  if (!known) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBudget);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.C, 1, 1);
-  cfg.blockDim = dim3(kRowThreads, 1, 1);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = g.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!known) {
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (n < 1) return (int)cudaErrorLaunchOutOfResources;
-    checked.insert(key);
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(kernel, args, g.C, kRowThreads,
+                        (size_t)g.smem_floats * sizeof(float), kSmemBudget,
+                        stream);
 }
 
 }  // namespace

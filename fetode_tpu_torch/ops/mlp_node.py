@@ -6,9 +6,12 @@ Counterpart of ``fetode_tpu/ops/pallas_mlp_node.py:
 make_mlp_node_solver`` (the TPU kernels ``_make_fwd_kernel`` :150 and
 ``_make_bwd_kernel`` :173, called at :280 and :308).  The CUDA source is
 ``fetode_tpu_torch/csrc/mlp_node.cu`` on the shared scaffold
-``csrc/node_common.cuh``; its header gives the design and what bounds
-it.  With L = D*K and C = 8 cubic B-spline columns on 12 knots a
-feature:
+``csrc/node_common.cuh`` (its cooperative grid and fused-stage hook);
+its header gives the design and what bounds it.  ``slice_plan`` is how
+the kernels cut each layer's parameters into tiles over the grid's
+blocks (the CUDA ``layer_plan``, checked against it once a shape), and
+``smem_floats`` a block's shared memory.  With L = D*K and C = 8 cubic
+B-spline columns on 12 knots a feature:
 
     h   = LayerNorm(y; ln_scale, ln_bias)            (B, D)
     hb  = h_bound tanh(h / h_bound)
@@ -43,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +65,123 @@ N_KNOTS = GRID_SIZE + 2 * ORDER + 1       # 12 knots a feature
 N_WEIGHTS = 13
 # Positions of the knot grids in ``mlp_weights``: they get no gradient.
 _GRIDS = (4, 7)
+TILE_ROWS = 16              # output rows of a tile
+COLS2, COLS3 = 16, 32       # input columns of a layer-2 / output-layer tile
+CHUNK = 16                  # batch rows a tile pass takes
+WARPS = 8                   # a block of the cooperative grid
+BLOCKS_PER_SM = 2
+SMEM_BUDGET = 232448 - 2048  # dynamic shared-memory bytes a block may take
+# The forward's form follows the batch (``forward_form``); the same bits
+# in either form.
+FUSE_ROWS = 16
+
+
+def forward_form(B: int) -> int:
+    """0 up to ``FUSE_ROWS`` rows: a tile's block forms one chunk's inputs
+    with all its threads, the layer norm and the crossing sums inside the
+    consumers' prologues (three grid barriers an evaluation); 1 past it:
+    the layer norm's tanh and the crossing sums, y1 and y2, formed once in
+    phases of their own, then each warp takes its own groups of 4 rows
+    through a tile, the replicas of a layer's tiles sharing them (six)."""
+    return int(B > FUSE_ROWS)
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _row_stride(k: int) -> int:
+    s = _round(k, 4)
+    while s % 32 != 4:
+        s += 4
+    return s
+
+
+class SlicePlan(NamedTuple):
+    """One layer (O outputs, I inputs, F coefficients an element) cut into
+    tiles of RG rows by CG columns: NR row groups by NC column chunks,
+    tile q = rg * NC + cc; ``rep`` = G // tiles replicas of each where the
+    layer has fewer tiles than blocks, copy v = k tiles + q (replica k of
+    tile q) on block v mod G, which holds at most ``per_block`` copies; KP
+    the tile's contraction (CG F to a multiple of 4), SW its rows' stride
+    in shared memory.  Replica 0 runs the backward and the forward up to
+    ``FUSE_ROWS`` rows; past them the replicas share the forward's groups
+    of 4 rows, group g to replica g mod rep (``forward_form``)."""
+
+    RG: int
+    CG: int
+    NR: int
+    NC: int
+    tiles: int
+    per_block: int
+    KP: int
+    SW: int
+    rep: int
+
+    def tile(self, q: int, O: int, I: int) -> Tuple[range, range]:
+        """(output rows, input columns) of tile q."""
+        rg, cc = divmod(q, self.NC)
+        return (range(rg * self.RG, min(O, (rg + 1) * self.RG)),
+                range(cc * self.CG, min(I, (cc + 1) * self.CG)))
+
+
+def slice_plan(G: int, O: int, I: int, F: int, RG: int,
+               CG: int) -> SlicePlan:
+    """The kernels' cut of one layer (``csrc/mlp_node.cu: layer_plan``).
+    A forward row's sum is its NC tiles' partials added in tile order
+    (each tile's sum over its columns' F coefficients in the products'
+    fixed order); an input's cotangent is its NR tiles' partials in
+    order."""
+    if min(G, O, I, F, RG, CG) < 1:
+        raise ValueError(f"slice_plan: G, O, I, F, RG, CG must be >= 1, got "
+                         f"{(G, O, I, F, RG, CG)}")
+    CG = min(CG, I)
+    NR, NC = -(-O // RG), -(-I // CG)
+    KP = _round(CG * F, 4)
+    rep = max(1, G // (NR * NC))
+    return SlicePlan(RG, CG, NR, NC, NR * NC, -(-NR * NC * rep // G),
+                     KP, _row_stride(KP), rep)
+
+
+def layer_plans(G: int, D: int, K: int, H: int) -> List[SlicePlan]:
+    """The three layers' plans, tiles of 16 rows: layer 1 (H, D*K, 9
+    coefficients; two features' 2 K columns a tile), layer 2 (H, H, 9; 16
+    columns), the output layer (D, H, 1; 32 columns).  The kernels place
+    the output layer's copy v on block (v + layer 2's tiles) mod G, so
+    that its replica 0 and layer 2's sit on other blocks."""
+    return [slice_plan(G, H, D * K, N_COEFF + 1, TILE_ROWS, 2 * K),
+            slice_plan(G, H, H, N_COEFF + 1, TILE_ROWS, COLS2),
+            slice_plan(G, D, H, 1, TILE_ROWS, COLS3)]
+
+
+def smem_floats(G: int, D: int, K: int, H: int, bwd: bool) -> int:
+    """A block's dynamic shared memory in floats (``csrc/mlp_node.cu:
+    make_geo``): its tiles' parameters (and, backward, their gradients,
+    the running sums and the output layer's columns), the chunk's inputs,
+    products' partials and row buffers."""
+    plans = layer_plans(G, D, K, H)
+    tiles = sum(p.per_block * p.RG * p.SW for p in plans)
+    KPm = max(p.KP for p in plans)
+    CG4 = _round(plans[0].CG, 4)
+    MS = max(CG4, _round(plans[1].CG, 4))
+    at = tiles
+    # layer 1's and 2's copies' knots, layer 1's with its mixer's slope and
+    # centre
+    at += plans[0].per_block * (_round(plans[0].CG * N_KNOTS, 4) + 2 * CG4) \
+        + plans[1].per_block * _round(plans[1].CG * N_KNOTS, 4)
+    if bwd:
+        at += tiles + plans[0].per_block * 2 * CG4 \
+            + plans[2].per_block * plans[2].RG + plans[1].per_block * 4
+        at = _round(at, 4) + plans[1].per_block * plans[1].RG * (D | 1)
+        at = _round(at, 4)
+    # the chunk's inputs (backward: and their cotangents) or each warp's
+    # 4 rows of inputs; backward: the column products' partials, the rows'
+    # cotangents
+    at += max(CHUNK * KPm * (2 if bwd else 1), WARPS * 4 * KPm)
+    if bwd:
+        at += 4 * max(KPm, WARPS * 64) + CHUNK * TILE_ROWS
+    at += max(CHUNK, WARPS) * _round(max(D, 2 * N_COEFF), 4)
+    return at + 3 * CHUNK * MS
 
 
 def _scaled_spline(layer) -> torch.Tensor:
@@ -131,12 +251,43 @@ def _lib():
 
     lib = load_library(_KERNEL_NAME)
     P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mlp_node_fwd.argtypes = [P] * 8 + [I] * 5 + [F32] * 3 + [I, P]
-    lib.mlp_node_bwd.argtypes = [P] * 9 + [I] * 4 + [F32, P]
+    lib.mlp_node_fwd.argtypes = [P] * 8 + [I] * 5 + [F32] * 3 + [I, I, P]
+    lib.mlp_node_bwd.argtypes = [P] * 9 + [I] * 4 + [F32, I, P]
     lib.mlp_node_fwd.restype = lib.mlp_node_bwd.restype = ctypes.c_int
-    lib.mlp_node_work_floats.argtypes = [I] * 4
+    lib.mlp_node_work_floats.argtypes = [I] * 5
     lib.mlp_node_work_floats.restype = ctypes.c_longlong
+    lib.mlp_node_slice_plan.argtypes = [I] * 6 + [P]
+    lib.mlp_node_slice_plan.restype = None
+    lib.mlp_node_smem_floats.argtypes = [I] * 6
+    lib.mlp_node_smem_floats.restype = ctypes.c_longlong
+    lib.mlp_node_grid.argtypes = []
+    lib.mlp_node_grid.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(D: int, K: int, H: int) -> None:
+    """Raise unless the library's tile plans and shared memory are
+    ``layer_plans``' and ``smem_floats``' at the card's grid and at one
+    block an SM (once a shape)."""
+    G2 = _lib().mlp_node_grid()
+    for G in (G2, G2 // BLOCKS_PER_SM):
+        for p, (O, I, F) in zip(layer_plans(G, D, K, H), (
+                (H, D * K, N_COEFF + 1), (H, H, N_COEFF + 1), (D, H, 1))):
+            got = (ctypes.c_longlong * 9)()
+            _lib().mlp_node_slice_plan(G, O, I, F, p.RG, p.CG,
+                                       ctypes.addressof(got))
+            if list(got) != list(p):
+                raise RuntimeError(f"mlp_node: the library's plan {list(got)}"
+                                   f" of ({O}, {I}, {F}) at G={G} is not "
+                                   f"slice_plan's {list(p)}")
+        for bwd in (0, 1):
+            got = _lib().mlp_node_smem_floats(G, D, K, H, bwd, 0)
+            if got != smem_floats(G, D, K, H, bool(bwd)):
+                raise RuntimeError(f"mlp_node: the library's shared memory "
+                                   f"{got} floats at G={G}, bwd={bwd} is not "
+                                   f"smem_floats' "
+                                   f"{smem_floats(G, D, K, H, bool(bwd))}")
 
 
 def _dims(weights, h0, name) -> Tuple[int, int, int]:
@@ -169,7 +320,8 @@ def _pointers(tensors) -> ctypes.Array:
 
 
 def _work(B, D, K, H, device):
-    n = _lib().mlp_node_work_floats(B, D, K, H)
+    _check_plan(D, K, H)
+    n = _lib().mlp_node_work_floats(B, D, K, H, forward_form(B))
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
@@ -185,7 +337,8 @@ def _launch_fwd(ops, h0, h_bound, rtol, atol, max_steps, record):
     NC.launch(_lib().mlp_node_fwd, NC.ptr(h0), ctypes.addressof(w),
               NC.ptr(out), *(NC.ptr(t) for t in r), NC.ptr(work), B, D, K,
               H, int(max_steps), float(rtol), float(atol), float(h_bound),
-              int(record), name="mlp_node_fwd", device=dev)
+              int(record), forward_form(B), name="mlp_node_fwd",
+              device=dev)
     mlp_node_fwd.launches += 1
     return out, recs
 
@@ -203,7 +356,8 @@ def _launch_bwd(ops, records, hbar, h_bound):
     NC.launch(_lib().mlp_node_bwd, NC.ptr(hbar),
               *(NC.ptr(t) for t in records), ctypes.addressof(w),
               ctypes.addressof(g), NC.ptr(h0bar), NC.ptr(work), B, D, K, H,
-              float(h_bound), name="mlp_node_bwd", device=dev)
+              float(h_bound), forward_form(B), name="mlp_node_bwd",
+              device=dev)
     mlp_node_bwd.launches += 1
     return grads, h0bar
 

@@ -6,8 +6,12 @@ kernels.
 Counterpart of ``fetode_tpu/ops/pallas_node_enc.py: make_node_enc_solver``
 (the TPU kernels ``_make_fwd_kernel`` :75 and ``_make_bwd_kernel`` :95).
 The CUDA source is ``fetode_tpu_torch/csrc/node_enc.cu`` on the scaffold
-``csrc/node_common.cuh`` (its trajectory pair at the output times [0, 1];
-only z(1) is returned); its header gives the design and what bounds it.
+``csrc/node_common.cuh`` (its trajectory pair at the output times [0, 1]
+under the row policy: each CTA of one thread-block cluster, or of a
+cooperative grid past 64 rows, owning a tile of batch rows; only z(1) is
+returned) and B.7's products
+(``csrc/row_products.cuh``); its header gives the design and what bounds
+it.
 The field, with the first layer's weight (H, C+P) split into its LN(z)
 block ``w1z`` (H, C) and its x(t) block ``w1x`` (H, P):
 
@@ -25,6 +29,10 @@ linear_interp`` on ``linspace(0, 1, L)``).
   which returns the gradients of the nine field / LN tensors, of ``z0``
   and of ``x_seq``; without autograd the forward kernel alone, recording
   nothing.  On the CPU it takes the plain version.
+* ``row_plan`` — how a launch cuts the batch into row tiles (one
+  cluster, or past 64 rows a cooperative grid of CTAs) and where each
+  CTA keeps the weights and its rows (the CUDA ``make_geo``, checked
+  against it once a shape).
 * ``node_enc_fwd`` / ``node_enc_bwd`` — the kernel wrappers, each with a
   launch counter (``.launches``).  For CPU tensors they take the plain
   versions ``record_solve_traj_reference`` and
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +56,70 @@ from fetode_tpu_torch.solvers.dopri5 import _under_autograd
 
 _KERNEL_NAME = "node_enc"
 N_WEIGHTS = 9
+MAX_CLUSTER = 16            # CTAs, the non-portable cluster size
+CLUSTER_ROWS = 4            # rows a CTA owns, at most, in the cluster form
+MAX_GRID = 128              # CTAs of the grid form, at most
+FWD_CHUNKS = 2              # chunks of the forward's x(t) product
+ROW_THREADS = 512           # threads a CTA
+TILE_SLOTS = 5              # gradient tiles a thread holds in registers
+SMEM_BUDGET = 232448 - 2048  # dynamic shared-memory bytes a CTA may take
+PART_FLOATS = 2 * 2 * 1024  # the grid form's error-norm partials
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def row_plan(B: int, C: int, P: int, H: int,
+             bwd: bool = False) -> Dict[str, object]:
+    """The kernels' launch at batch B and widths C (the state), P (the
+    signal) and H (the hidden layers) (``csrc/node_enc.cu: make_geo``).
+    Up to 16 x 4 rows, one cluster of ``G`` <= 16 CTAs, R = ceil(B / 16)
+    rows each; past them (``grid``), a cooperative grid of G = ceil(B / R)
+    CTAs, R = max(4, ceil(B / 128)).  CTA g owns the rows ``rows[g]``.
+    The placement: w1z, W2 and the biases (``weights_smem``), W3
+    (``w3_smem``) and the rows (the scaffold's state and stages and the
+    row records of ``record_floats`` each; ``rows_smem``) in each CTA's
+    shared memory, the first of: all three; W3 in device memory;
+    everything in device memory.  w1x and its
+    transpose are always the CTA's padded copies in device memory
+    (``wx_floats`` each).  ``work_floats`` is the device scratch,
+    ``tiles`` the 4 x 4 gradient tiles (``TILE_SLOTS`` a thread in
+    registers, the rest in the CTA's partial array)."""
+    if B < 1:
+        raise ValueError(f"row_plan: B must be >= 1, got {B}")
+    grid = B > MAX_CLUSTER * CLUSTER_ROWS
+    R = max(CLUSTER_ROWS, -(-B // MAX_GRID)) if grid else -(-B // MAX_CLUSTER)
+    G = -(-B // R)
+    C4, P4, H4, Q = _round(C, 4), _round(P, 4), _round(H, 4), _round(H + 1, 4)
+    SC, SH = _round(C, 32), _round(H, 32)
+    rec = C4 + _round(P + 1, 4) + 2 * Q + (4 * H4 + 3 * C4 if bwd else 0) + 4
+    w = H4 * SC + H4 * SH + 2 * H4 + 3 * C4
+    w3 = C4 * SH
+    wx = H4 * P4
+    p = 4 * max(C, P, H, ROW_THREADS // 32 * 32 * 2) if bwd \
+        else 4 * FWD_CHUNKS * H4
+    rows = _round((10 if bwd else 9) * R * C, 4) + R * rec
+    tiles = (-(-C // 4) + -(-H // 4)) * -(-(H + 1) // 4) \
+        + -(-H // 4) * -(-(C4 + P + 1) // 4)
+    mine = 16 * tiles + 2 * C4 if bwd else 0
+    budget = SMEM_BUDGET // 4
+    w_smem = w3_smem = rows_smem = True
+    if w + w3 + p + rows > budget:
+        w3_smem = False
+        if w + p + rows > budget:
+            w_smem = rows_smem = False
+    smem = p + (w if w_smem else 0) + (w3 if w3_smem else 0) \
+        + (rows if rows_smem else 0)
+    work = G * (2 * wx + (0 if w_smem else w) + (0 if w3_smem else w3)
+                + (0 if rows_smem else rows) + mine) \
+        + (PART_FLOATS if grid else 0)
+    return dict(G=G, R=R, grid=grid,
+                rows=[range(g * R, min(B, (g + 1) * R)) for g in range(G)],
+                smem_bytes=4 * smem, rows_smem=rows_smem, weights_smem=w_smem,
+                w3_smem=w3_smem, work_floats=work, tiles=tiles,
+                threads=ROW_THREADS, tile_slots=TILE_SLOTS,
+                record_floats=rec, wx_floats=wx)
 
 
 def field_weights(params) -> List[torch.Tensor]:
@@ -97,7 +169,27 @@ def _lib():
     lib.node_enc_fwd.restype = lib.node_enc_bwd.restype = ctypes.c_int
     lib.node_enc_work_floats.argtypes = [I] * 4
     lib.node_enc_work_floats.restype = ctypes.c_longlong
+    lib.node_enc_plan.argtypes = [I] * 5 + [P]
+    lib.node_enc_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(B: int, C: int, P: int, H: int) -> None:
+    """Raise unless the library's plan is ``row_plan``'s, forward and
+    backward (once a shape)."""
+    for bwd in (False, True):
+        got = (ctypes.c_longlong * 13)()
+        _lib().node_enc_plan(B, C, P, H, int(bwd), ctypes.addressof(got))
+        p = row_plan(B, C, P, H, bwd)
+        want = [p["G"], p["R"], p["smem_bytes"], int(p["rows_smem"]),
+                int(p["weights_smem"]), p["work_floats"], p["tiles"],
+                p["threads"], p["tile_slots"], p["record_floats"],
+                p["wx_floats"], int(p["w3_smem"]), int(p["grid"])]
+        if list(got) != want:
+            raise RuntimeError(f"node_enc: the library's plan {list(got)} at "
+                               f"B={B}, C={C}, P={P}, H={H}, bwd={bwd} is not "
+                               f"row_plan's {want}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,6 +228,7 @@ def _operands(weights, z0, x_seq, name) -> List[torch.Tensor]:
 
 
 def _work(B, C, P, H, device):
+    _check_plan(B, C, P, H)
     n = _lib().node_enc_work_floats(B, C, P, H)
     return torch.empty(n, dtype=torch.float32, device=device)
 

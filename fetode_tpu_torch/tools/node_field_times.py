@@ -1,6 +1,7 @@
-"""Check and time B.7 (``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``)
-of the package this file is imported from, on one card, with the other
-kernels on ``csrc/node_common.cuh`` beside them.
+"""Check and time B.6 (``csrc/mlp_node.cu``), B.8 (``csrc/node_enc.cu``),
+B.7 (``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``) of the package
+this file is imported from, on one card, with the other kernels on
+``csrc/node_common.cuh`` beside them.
 
     python -m fetode_tpu_torch.tools.node_field_times [--tag NAME]
 
@@ -23,19 +24,31 @@ builds the kernels of ``node_common.cuh``, then:
 * B.4 at ``ECGPreset``'s width (latent 64, hidden 128, 12 bases, rtol
   1e-2) at B = 8, 32 and 64, clean and with frozen device noise of std
   0.2: the same.
-* The kernels that share the scaffold, at a batch their paths give them:
-  B.5 (logistic_node) and B.6 (mlp_node) at B = 8, B.8 (node_enc) at
-  B = 64, B.14 (custom_field) at D = 64, H = 128, B = 64 (both timers),
-  and B.3 (kanfet_wide) at [2, 64, 64, 2], B = 1 (``cuda_ms``): forward
-  and backward times.
-* The ECG ``kanfet_mlp_node`` training step at B = 8, the ETT ``point``
-  step at B = 64 (forward, backward, clip, AdamW at learning rate 0;
-  ``cuda_ms``), and ``serve --source ett`` p50 in buckets 8, 64 and 256.
+* B.6 at ``ECGPreset``'s width ('mlp' field: latent 64, 12 bases,
+  hidden 128, rtol 1e-2) at every batch phase 28 of ``chip_smoke.py``
+  gives it (8, 32, 64, 256) with the init parameters and at B = 8 with
+  phase 28's scaled set: the same readings as B.7's; and at B = 256 its
+  chunk form (``ops/mlp_node.py: FUSE_ROWS`` raised to the batch: the
+  layer norm and the crossing sums inside the consumers, no phases of
+  their own) beside the form the batch takes, where the checkout has
+  both.
+* B.8 at the encoder's width (128) at every batch phase 24 gives it (8,
+  31, 64, 181, 256): the same readings, the x_seq cotangent among the
+  gradients compared bit for bit.
+* The other kernels that share the scaffold, at a batch their paths give
+  them: B.5 (logistic_node) at B = 8, B.14 (custom_field) at D = 64,
+  H = 128, B = 64 (both timers), and B.3 (kanfet_wide) at [2, 64, 64, 2],
+  B = 1 (``cuda_ms``): forward and backward times.
+* The ECG ``kanfet_mlp_node`` and ``kanfet_node --field mlp`` training
+  steps at B = 8, the ETT ``point`` step and the ``cond_diffusion``
+  ``kan_fet_all_node`` step at B = 64 (forward, backward, clip, AdamW at
+  learning rate 0; ``cuda_ms``), and ``serve --source ett`` and ``serve
+  --source ecg --field mlp`` p50 in buckets 8, 64 and 256.
 
 No profiler (it drops device events on that machine).  Prints the card's
 name and power limit, one line a measurement, and a last JSON line
-``{"tag": ..., "b7": {...}, "b4": {...}, "others": {...}, "steps":
-{...}}``.  Exits non-zero if a check fails.
+``{"tag": ..., "b6": {...}, "b8": {...}, "b7": {...}, "b4": {...},
+"others": {...}, "steps": {...}}``.  Exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -171,12 +184,88 @@ def b4_part(cs, device, smi):
     return out
 
 
+def b6_part(cs, device, smi):
+    """B.6 at phase 28's batches and inputs, init and (B = 8) scaled; at
+    B = 256 also the inline form, where the checkout has both."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import mlp_node as MN
+
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])
+    rng = np.random.default_rng(8)
+    spec = M.KanFetNODESpec(num_basis=12, field="mlp")
+    params = M.kanfet_node_init(torch.Generator().manual_seed(0), spec,
+                                device=device)
+    scaled = copy.deepcopy(params)
+    with torch.no_grad():
+        scaled.out_w.copy_(4.0 * torch.from_numpy(rng.standard_normal(
+            tuple(scaled.out_w.shape)).astype(np.float32)).to(device))
+        scaled.log_alpha.fill_(0.5)
+        for layer in scaled.kan.layers:
+            layer.base_weight.mul_(3.0)
+            layer.spline_weight.mul_(3.0)
+    out = {}
+    for b in cs.MLP_CHECKS:
+        x = torch.from_numpy((series[np.arange(b) % len(series)] + 0.05
+                              * rng.standard_normal((b, series.shape[1]))
+                              ).astype(np.float32)).to(device)
+        with torch.no_grad():
+            h0 = x @ params.encoder_w.T + params.encoder_b
+        hbar = torch.from_numpy(rng.standard_normal(
+            (b, spec.latent_dim)).astype(np.float32)).to(device)
+        out[f"init {b}"] = timed_case(cs, cs.mlp_case(params, spec), h0,
+                                      hbar, smi, "B.6 mlp_node init")
+        if b == 8:
+            out[f"scaled {b}"] = timed_case(
+                cs, cs.mlp_case(scaled, spec, "mlp_node scaled"), h0, hbar,
+                smi, "B.6 mlp_node scaled")
+        if b == 256 and hasattr(MN, "FUSE_ROWS"):
+            keep = MN.FUSE_ROWS
+            MN.FUSE_ROWS = b
+            try:
+                out[f"inline {b}"] = timed_case(
+                    cs, cs.mlp_case(params, spec), h0, hbar, smi,
+                    "B.6 mlp_node init, chunk form", plain=False)
+            finally:
+                MN.FUSE_ROWS = keep
+    return out
+
+
+def b8_part(cs, device, smi):
+    """B.8 at phase 24's batches and inputs."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.models import cond_diffusion as CD
+
+    wins = cs.cond_windows()
+    rng = np.random.default_rng(6)
+    cfg = CD.NodeEncoderCfg(d_in=wins.shape[2])
+    enc = CD.node_encoder_init(torch.Generator().manual_seed(0), cfg,
+                               device=device)
+    out = {}
+    for b in cs.NODE_ENC_CHECKS:
+        with torch.no_grad():
+            x_seq = torch.from_numpy(wins[(13 * b + np.arange(b))
+                                          % len(wins)]).to(device) \
+                @ enc.x_proj_w.T + enc.x_proj_b
+            z0 = x_seq[:, 0] @ enc.z0_w.T + enc.z0_b
+        ct = torch.from_numpy(rng.standard_normal(
+            (b, cfg.cond_dim)).astype(np.float32)).to(device)
+        out[b] = timed_case(cs, cs.node_enc_case(enc, cfg, x_seq), z0, ct,
+                            smi, "B.8 node_enc")
+    return out
+
+
 def others_part(cs, device, smi):
     """The scaffold's other kernels: forward / backward ms."""
     import numpy as np
     import torch
 
-    from fetode_tpu_torch.models import cond_diffusion as CD
     from fetode_tpu_torch.models import ecg as M
     from fetode_tpu_torch.models.predprey import PredPreyNODE, PredPreyTask
     from fetode_tpu_torch.ops import kanfet_wide as KW
@@ -204,26 +293,8 @@ def others_part(cs, device, smi):
     with torch.no_grad():
         h0 = x8 @ lparams.encoder_w.T + lparams.encoder_b
     both("B.5 logistic_node B=8", cs.logistic_case(lparams, lspec), h0, hbar8)
-    mspec = M.KanFetNODESpec(num_basis=12, field="mlp")
-    mparams = M.kanfet_node_init(torch.Generator().manual_seed(0), mspec,
-                                 device=device)
-    with torch.no_grad():
-        h0 = x8 @ mparams.encoder_w.T + mparams.encoder_b
-    both("B.6 mlp_node B=8", cs.mlp_case(mparams, mspec), h0, hbar8)
 
-    wins = cs.cond_windows()
     rng = np.random.default_rng(6)
-    cfg = CD.NodeEncoderCfg(d_in=wins.shape[2])
-    enc = CD.node_encoder_init(torch.Generator().manual_seed(0), cfg,
-                               device=device)
-    with torch.no_grad():
-        x_seq = torch.from_numpy(wins[np.arange(64) % len(wins)]).to(
-            device) @ enc.x_proj_w.T + enc.x_proj_b
-        z0 = x_seq[:, 0] @ enc.z0_w.T + enc.z0_b
-    ct = torch.from_numpy(rng.standard_normal((64, cfg.cond_dim)).astype(
-        np.float32)).to(device)
-    both("B.8 node_enc B=64", cs.node_enc_case(enc, cfg, x_seq), z0, ct)
-
     ccase = cs.custom_case(device, 64, 128, None, 1)
     h0 = torch.from_numpy(rng.standard_normal((64, 64)).astype(
         np.float32)).to(device)
@@ -255,14 +326,18 @@ def others_part(cs, device, smi):
 
 
 def steps_part(cs, device, smi):
-    """The ECG ferro step at B = 8, the ETT point step at B = 64 and the
-    ETT serving p50s."""
+    """The ECG ferro and 'mlp' steps at B = 8, the ETT point and the
+    cond_diffusion kan_fet_all_node steps at B = 64, and the ETT and ECG
+    'mlp' serving p50s."""
     import numpy as np
     import torch
 
     from fetode_tpu_torch import cli
+    from fetode_tpu_torch.models import cond_diffusion as CD
     from fetode_tpu_torch.models import ecg as M
     from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn.diffusion import make_schedule
+    from fetode_tpu_torch.train import cond_diffusion_driver as drv
     from fetode_tpu_torch.train.loop import init_state, make_train_step
     from fetode_tpu_torch.train.optim import make_optimizer
 
@@ -274,6 +349,12 @@ def steps_part(cs, device, smi):
     step = cs.ecg_step_fn(M.kanfet_mlp_node_apply, fparams, fspec, x8, y8,
                           "pallas")
     out["ecg kanfet_mlp_node B=8"] = cs.cuda_ms(step, 10, windows=5)
+    mspec = M.KanFetNODESpec(num_basis=12, field="mlp")
+    mparams = M.kanfet_node_init(torch.Generator().manual_seed(0), mspec,
+                                 device=device)
+    mstep = cs.ecg_step_fn(M.kanfet_node_apply, mparams, mspec, x8, y8,
+                           "pallas")
+    out["ecg kanfet_node --field mlp B=8"] = cs.cuda_ms(mstep, 10, windows=5)
 
     wins = cs.forecast_windows()
     rng = np.random.default_rng(4)
@@ -292,12 +373,36 @@ def steps_part(cs, device, smi):
         (F.latent_ode_forecast(q, s, xb) - yb) ** 2))
     out["ett point B=64"] = cs.cuda_ms(lambda: pstep(state, x64, y64), 10,
                                        windows=5)
-    with tempfile.TemporaryDirectory() as tmp:
-        res = cli.main(["serve", "--source", "ett", "--solver_mode",
-                        "pallas", "--device", "cuda", "--buckets",
-                        "8,64,256", "--out-dir", tmp])
-    for row in res["bench"]:
-        out[f"serve ett p50 bucket {row['batch']}"] = row["p50_ms"]
+    cwins = cs.cond_windows()
+    cspec = CD.make_denoiser_spec("kan_fet_all_node", d_in=cwins.shape[2],
+                                  pred_len=24)
+    cparams = CD.cond_denoiser_init(torch.Generator().manual_seed(0), cspec,
+                                    device=device)
+    sched = make_schedule(250, device=device)
+    past = torch.from_numpy(cwins[np.arange(64)]).to(device)
+    fut = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (64, 24, 7)).astype(np.float32)).to(device)
+    q = copy.deepcopy(cparams)
+    cstate = init_state(q, make_optimizer(0.0, params=q.parameters(),
+                                          kind="adamw", weight_decay=1e-4,
+                                          grad_clip=1.0))
+    cs_auto = cspec._replace(solver_mode="auto")
+
+    def closs(p_, xb, yb):
+        g = torch.Generator(device=device).manual_seed(0)
+        return drv.cond_diffusion_loss(p_, cs_auto, sched, xb, yb, g)
+    cstep = make_train_step(closs)
+    out["cond_diffusion kan_fet_all_node B=64"] = cs.cuda_ms(
+        lambda: cstep(cstate, past, fut), 5, windows=5)
+    for argv, label in ((["--source", "ett"], "serve ett"),
+                        (["--source", "ecg", "--field", "mlp"],
+                         "serve ecg mlp")):
+        with tempfile.TemporaryDirectory() as tmp:
+            res = cli.main(["serve", *argv, "--solver_mode", "pallas",
+                            "--device", "cuda", "--buckets", "8,64,256",
+                            "--out-dir", tmp])
+        for row in res["bench"]:
+            out[f"{label} p50 bucket {row['batch']}"] = row["p50_ms"]
     for k, v in out.items():
         print(f"{k}: {v:.4f} ms ({smi})", flush=True)
     return out
@@ -326,11 +431,12 @@ def main(argv=None) -> int:
     for name, so in zip(KERNELS, built):
         _build.load_library(name)
         for line in so.with_suffix(".log").read_text().splitlines():
-            if name in ("ode_dyn", "ferro_node") and (
+            if name in ("mlp_node", "node_enc") and (
                     "registers" in line or "spill" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    res = dict(tag=args.tag, card=smi, b7=b7_part(cs, device, smi),
+    res = dict(tag=args.tag, card=smi, b6=b6_part(cs, device, smi),
+               b8=b8_part(cs, device, smi), b7=b7_part(cs, device, smi),
                b4=b4_part(cs, device, smi),
                others=others_part(cs, device, smi),
                steps=steps_part(cs, device, smi))

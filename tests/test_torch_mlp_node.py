@@ -319,3 +319,143 @@ def test_kernels_match_plain_on_card(setup):
             for gs in (grads, want)]
     assert _rel(*flat) < 1e-4
     assert _rel(h0bar.cpu().numpy(), want_h.cpu().numpy()) < 1e-4
+
+
+# --------------------------------------------- the tile plan (B.6)
+# The grids the kernels take (the H100's 132 SMs at two blocks and at
+# one, and small grids), at the ECG widths (D = 64, K = 12, H = 128) and
+# this file's narrow field.
+PLAN_GRIDS = (264, 132, 7, 1)
+PLAN_FIELDS = ((64, 12, 128), (SPEC["latent_dim"], SPEC["num_basis"],
+                               SPEC["ode_hidden"]))
+CARD_GRIDS = (264, 132)
+
+
+def _layers(D, K, H):
+    """(O, I, F) of layer 1, layer 2 and the output layer."""
+    return ((H, D * K, MN.N_COEFF + 1), (H, H, MN.N_COEFF + 1), (D, H, 1))
+
+
+@pytest.mark.parametrize("field", PLAN_FIELDS)
+@pytest.mark.parametrize("G", PLAN_GRIDS)
+def test_slice_plan_covers_every_element_once(G, field):
+    D, K, H = field
+    for p, (O, I, F) in zip(MN.layer_plans(G, D, K, H), _layers(D, K, H)):
+        assert p.RG == MN.TILE_ROWS and p.tiles == p.NR * p.NC
+        assert p.KP >= p.CG * F and p.KP % 4 == 0
+        assert p.SW >= p.KP and p.SW % 32 == 4     # conflict-free rows
+        seen = np.zeros((O, I, F), int)
+        per_block = np.zeros(G, int)
+        assert p.rep == max(1, G // p.tiles)
+        for v in range(p.tiles * p.rep):       # replica v // tiles
+            per_block[v % G] += 1
+        for q in range(p.tiles):
+            rows, cols = p.tile(q, O, I)
+            assert 1 <= len(rows) <= p.RG and 1 <= len(cols) <= p.CG
+            for r, o in enumerate(rows):
+                for c, i in enumerate(cols):
+                    for k in range(F):
+                        # element (r, c, k) of the tile's (16, SW) rows
+                        assert c * F + k < p.KP
+                        seen[o, i, k] += 1
+        assert (seen == 1).all()          # every (o, i, coefficient) once
+        assert per_block.max() == p.per_block
+    # Layer 1's tiles hold whole features: two of K columns each.
+    p1 = MN.layer_plans(G, D, K, H)[0]
+    assert p1.CG == min(2 * K, D * K)
+    for q in range(p1.tiles):
+        cols = p1.tile(q, H, D * K)[1]
+        assert cols.start % K == 0 and len(cols) % K == 0
+
+
+@pytest.mark.parametrize("layer", range(3))
+@pytest.mark.parametrize("field", PLAN_FIELDS)
+def test_slice_order_is_fixed(field, layer):
+    """A forward row's sum adds its NC tiles' partials in tile order,
+    which cover the inputs in order; an input's cotangent adds its NR
+    row groups' partials in order, which cover the outputs in order."""
+    D, K, H = field
+    O, I, _ = _layers(D, K, H)[layer]
+    p = MN.layer_plans(264, D, K, H)[layer]
+    for o in range(O):
+        tiles = [q for q in range(p.tiles) if o in p.tile(q, O, I)[0]]
+        assert [q % p.NC for q in tiles] == list(range(p.NC))
+        assert [i for q in tiles for i in p.tile(q, O, I)[1]] == list(range(I))
+    for i in range(I):
+        tiles = [q for q in range(p.tiles) if i in p.tile(q, O, I)[1]]
+        assert [q // p.NC for q in tiles] == list(range(p.NR))
+        assert [o for q in tiles for o in p.tile(q, O, I)[0]] == list(range(O))
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("field", PLAN_FIELDS)
+@pytest.mark.parametrize("G", CARD_GRIDS)
+def test_tiles_fit_shared_memory(G, field, bwd):
+    """At the card's grids a block's tiles (and, backward, their
+    gradients) and buffers stay within its dynamic shared memory; at two
+    blocks an SM (G = 264) both fit the SM's 228 KB with the 1 KB the
+    card reserves a block."""
+    D, K, H = field
+    nbytes = 4 * MN.smem_floats(G, D, K, H, bwd)
+    assert nbytes <= MN.SMEM_BUDGET
+    if G == 264:
+        assert 2 * (nbytes + 2048 + 1024) <= 233472
+    # the parameters are held once over the grid's blocks, layer 1 in
+    # one copy (the replicas of the smaller layers use blocks it leaves)
+    p1 = MN.layer_plans(G, D, K, H)[0]
+    n_par = H * D * K * (MN.N_COEFF + 1)
+    assert n_par <= p1.tiles * p1.RG * p1.SW <= 2 * n_par
+    if D * K * H >= 4096:
+        assert p1.rep == 1
+
+
+def test_slice_sums_the_plain_layer(setup):
+    """Layer 1 of the scaled field as the tiles cut it: each tile's
+    partial over its columns' nine coefficients, a row's NC partials
+    added in tile order, in float32, is the plain layer (``mlp_field``'s
+    first KAN layer) to float32 rounding."""
+    from fetode_tpu_torch.ops.bsplines import bspline_basis
+
+    m = _module(setup, torch.float64)
+    w = MN.mlp_weights(m)
+    g1, bw1, sw1 = (t.detach() for t in (w[4], w[5], w[6]))
+    H, L = bw1.shape
+    rng = np.random.default_rng(9)
+    phi = torch.from_numpy(rng.uniform(0.05, 0.95, (3, L)))
+    X = torch.cat([torch.nn.functional.silu(phi)[..., None],
+                   bspline_basis(phi, g1, MN.ORDER)], -1)      # (3, L, 9)
+    W = torch.cat([bw1[..., None], sw1], -1)                   # (H, L, 9)
+    want = torch.einsum("blk,hlk->bh", X, W).numpy()
+    p = MN.layer_plans(264, SPEC["latent_dim"], SPEC["num_basis"], H)[0]
+    x32, w32 = X.float().numpy(), W.float().numpy()
+    got = np.zeros((3, H), np.float32)
+    for q in range(p.tiles):
+        rows, cols = p.tile(q, H, L)
+        part = np.einsum("blk,hlk->bh", x32[:, cols], w32[rows][:, cols])
+        got[:, rows] = (got[:, rows] + part.astype(np.float32)).astype(
+            np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [B, 8 * B, 16 * B])
+def test_kernels_same_bits_twice_on_card(setup, batch):
+    """Every form (the chunk at B = 5, the rows at 40, the phases at 80):
+    the output, records and every gradient the same bits in two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    s = setup
+    w = MN.mlp_weights(_module(s).to(dev))
+    h0 = torch.from_numpy(np.resize(s["h0"], (batch, s["h0"].shape[1]))).to(
+        dev)
+    hbar = torch.from_numpy(np.resize(s["hbar"], (batch,
+                                                  s["hbar"].shape[1]))).to(dev)
+    with torch.no_grad():
+        runs = [MN.mlp_node_fwd(w, h0) for _ in range(2)]
+    grads = [MN.mlp_node_bwd(w, h0, runs[0][1], hbar) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert all(torch.equal(a, b) for a, b in zip(grads[0][0], grads[1][0]))
+    assert torch.equal(grads[0][1], grads[1][1])

@@ -263,3 +263,91 @@ def test_kernels_match_plain_on_card(setup):
     for g, r in zip(list(got[0]) + list(got[1:]), list(want[0])
                     + list(want[1:])):
         assert float((g.cpu() - r).norm() / r.norm()) < 1e-4
+
+
+# ------------------------------------------------ the row-tile plan (B.8)
+# Every batch the conditional-diffusion path gives the kernels
+# (chip_smoke.py's NODE_ENC_CHECKS), one row and the widest bucket, at the
+# encoder's widths (C = P = H = 128) and at this file's narrow ones.
+PATH_BATCHES = (1, 8, 31, 64, 181, 256)
+WIDE = (128, 128, 128)
+NARROW = (CFG["cond_dim"], CFG["x_proj_dim"], CFG["ode_hidden"])
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("batch", PATH_BATCHES)
+def test_row_plan_covers_every_row_once(batch, bwd):
+    p = NE.row_plan(batch, *WIDE, bwd)
+    # Up to 64 rows one cluster of <= 16 CTAs; past them a cooperative
+    # grid of CTAs owning 4 rows each.
+    assert p["grid"] == (batch > NE.MAX_CLUSTER * NE.CLUSTER_ROWS)
+    if p["grid"]:
+        assert p["R"] == NE.CLUSTER_ROWS and p["G"] <= NE.MAX_GRID
+    else:
+        assert p["R"] == -(-batch // NE.MAX_CLUSTER)
+        assert 1 <= p["G"] <= NE.MAX_CLUSTER
+    rows = [b for r in p["rows"] for b in r]
+    assert rows == list(range(batch))             # each row once, in order
+    assert all(len(r) >= 1 for r in p["rows"])    # no CTA without rows
+    assert all(len(r) == p["R"] for r in p["rows"][:-1])
+    assert p["smem_bytes"] <= NE.SMEM_BUDGET
+    # w1z and W2 (128 KB) sit in every CTA's shared memory, with W3 and
+    # the rows in every forward; the backward moves W3 to device memory
+    # where that keeps its rows (past one a CTA) beside them.  w1x and its
+    # transpose are each CTA's padded copies in device memory.
+    assert p["weights_smem"] and p["rows_smem"]
+    assert p["w3_smem"] == (not bwd or p["R"] == 1)
+    assert p["wx_floats"] == 128 * 128
+    assert p["work_floats"] >= p["G"] * 2 * p["wx_floats"]
+    if bwd:
+        assert p["tiles"] == 2 * 32 * 33 + 32 * 65   # [w|g2] x [a2|a1, 1],
+        assert p["tiles"] > p["threads"] * p["tile_slots"]  # g1 x [zn, x, 1]
+
+
+def test_row_plan_places_what_does_not_fit_in_device_memory():
+    """Past 512 rows a CTA owns more than 4, and the backward's rows and
+    weights go to device memory the CTA owns; the batch still runs on the
+    kernels."""
+    p = NE.row_plan(1000, *WIDE, bwd=True)
+    assert p["grid"] and p["G"] <= NE.MAX_GRID and p["R"] == 8
+    assert not p["rows_smem"] and not p["weights_smem"] and not p["w3_smem"]
+    assert p["smem_bytes"] <= NE.SMEM_BUDGET
+    assert p["work_floats"] >= p["G"] * p["R"] * p["record_floats"]
+    wide = NE.row_plan(8, 256, 256, 256, bwd=True)   # weights > 227 KB
+    assert not wide["weights_smem"] and not wide["rows_smem"]
+    assert wide["smem_bytes"] <= NE.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("batch", (1, B, 64, 256))
+def test_row_plan_holds_a_narrow_field_in_shared_memory(batch):
+    """At this file's widths the weights and every batch's rows fit."""
+    for bwd in (False, True):
+        p = NE.row_plan(batch, *NARROW, bwd)
+        assert p["weights_smem"] and p["rows_smem"]
+        assert p["smem_bytes"] <= NE.SMEM_BUDGET
+        assert [b for r in p["rows"] for b in r] == list(range(batch))
+    with pytest.raises(ValueError, match="B must be"):
+        NE.row_plan(0, *NARROW)
+
+
+@pytest.mark.cuda
+def test_kernels_same_bits_twice_on_card(setup):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    s = setup
+    tcfg, enc = _encoder(s)
+    enc = enc.to(dev)
+    with torch.no_grad():
+        z0, x_seq = _chain(enc, torch.from_numpy(s["past"]).to(dev))
+    w = NE.field_weights(enc)
+    ct = torch.from_numpy(s["tgt"]).to(dev)
+    with torch.no_grad():
+        runs = [NE.node_enc_fwd(w, z0, x_seq) for _ in range(2)]
+    grads = [NE.node_enc_bwd(w, z0, x_seq, runs[0][1], ct) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert all(torch.equal(a, b) for a, b in zip(grads[0][0], grads[1][0]))
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert torch.equal(grads[0][2], grads[1][2])
