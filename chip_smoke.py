@@ -52,7 +52,8 @@ max_steps 16), random weights from a seed, series from
    the backward on the forward kernel's own records against autograd of
    the plain replay of the same records, relative error < 1e-4 over all
    parameter gradients and over h0bar; full gradients, each on its own
-   step mesh, cosine > 0.999.
+   step mesh, cosine > 0.999; each kernel called twice gives the same
+   bits (output, records, gradients).
 10. The same checks for the ferro kernels (``csrc/ferro_node.cu``) at
     B = 8, 32 and 64, clean and with frozen device noise of std 0.2 (one
     set of draws for each batch, fed to both); each kernel called twice
@@ -130,8 +131,9 @@ order 3 and 8 logistic bases), random weights from a seed with omega =
     1e-4; omegabar and Kbar the same bits in two calls.
 20. The fused classifier kernel (B.11) against
     ``kuramoto_logits_reference`` at 8, 64 and 256 (serving), 128 and
-    1,024: rtol = atol = 1e-3; the ``pallas_fused`` gradient against the
-    ``pallas`` path's, relative < 1e-4.
+    1,024: rtol = atol = 1e-3; images 0 and B - 1 alone give the same
+    logits, bit for bit, as inside their batch; the ``pallas_fused``
+    gradient against the ``pallas`` path's, relative < 1e-4.
 21. The training slice: ``cli.main(["mnist", "--rollout", "pallas" |
     "pallas_fused", ...])``, 3 epochs each (the preset), and ``--rollout
     auto`` for one epoch: the kernels of each path must have launched and
@@ -1194,7 +1196,8 @@ def ecg_phases(device, smi):
         torch.Generator().manual_seed(3), b, fspec.fc1_cfg, fspec.fc2_cfg,
         noise_std=0.2, device=device)) for b in (8, 32, 64)}
     fcase, ncase = ferro_case(fparams, fspec, None), ncases[8]
-    ecg_checks = {("logistic", b): check_node_kernels(lcase, lh0[b], hbars[b])
+    ecg_checks = {("logistic", b): check_node_kernels(lcase, lh0[b], hbars[b],
+                                                      twice=True)
                   for b in ECG_CHECKS}
     for b in (8, 32, 64):
         ecg_checks[("ferro", b)] = check_node_kernels(fcase, fh0[b], hbars[b],
@@ -1269,7 +1272,7 @@ def ecg_phases(device, smi):
 
     # ---- 13. ECG timing: kernels and plain, a training step
     ecg_times = {("logistic", b): time_node_kernels(lcase, lh0[b], hbars[b],
-                                                    smi)
+                                                    smi, device=True)
                  for b in ECG_BATCHES}
     ecg_times[("ferro", 8)] = time_node_kernels(fcase, fh0[8], hbars[8], smi,
                                                 device=True)
@@ -1777,11 +1780,20 @@ def kuramoto_phases(device, smi):
         if not torch.equal(prepacked, got):
             fail(f"kuramoto_logits B={b}: the head packed once gives other "
                  "logits than one packed in the call")
+        with torch.no_grad():
+            for r in sorted({0, b - 1}):
+                alone = KO.kuramoto_logits(params.omega, params.K,
+                                           cases[b]["theta0"][r:r + 1],
+                                           *head, lat, packed=packed)
+                if not torch.equal(alone, got[r:r + 1]):
+                    fail(f"kuramoto_logits B={b}: image {r} alone gives "
+                         "other logits than inside its batch")
         logit_errs[b] = max_abs(got, want)
         if not torch.allclose(got, want, rtol=TOL, atol=TOL):
             fail(f"kuramoto_logits B={b}: max |diff| {logit_errs[b]:.3e} "
                  "from plain")
-    print(f"kuramoto_logits vs plain, B {list(KURA_LOGITS)}: max |diff| "
+    print(f"kuramoto_logits vs plain, B {list(KURA_LOGITS)}: images 0 and "
+          f"B-1 alone the same bits as in the batch; max |diff| "
           f"{[float('%.3e' % e) for e in logit_errs.values()]}")
     grads = []
     for rollout in ("pallas_fused", "pallas"):
@@ -4392,12 +4404,12 @@ def main():
                      "fetode_tpu_torch/csrc/logistic_node.cu",
                      "fetode_tpu/ops/pallas_logistic_node.py:121",
                      ecg_launches[0], worst("logistic", "fwd_err"),
-                     lt["fwd"], lt["plain_fwd"], lt["bound_fwd"]),
+                     lt["fwd_dev"], lt["plain_fwd"], lt["bound_fwd"]),
         kernel_entry("logistic_node_bwd",
                      "fetode_tpu_torch/csrc/logistic_node.cu",
                      "fetode_tpu/ops/pallas_logistic_node.py:141",
                      ecg_launches[1], worst("logistic", "g_abs"),
-                     lt["bwd"], lt["plain_bwd"], lt["bound_bwd"]),
+                     lt["bwd_dev"], lt["plain_bwd"], lt["bound_bwd"]),
         kernel_entry("ferro_node_fwd", "fetode_tpu_torch/csrc/ferro_node.cu",
                      "fetode_tpu/ops/pallas_ferro_node.py:475",
                      ecg_launches[2], worst("ferro", "fwd_err"),

@@ -27,8 +27,8 @@
 // complete).  u, w, out and ubar are (B, D) row-major, N = B*D floats;
 // u and w are written by other blocks, so a field reads them with ld().
 //
-// That is the grid policy (GridSync), every field but B.3's, B.7's and
-// B.8's.  The cluster policy (ClusterSync, B.3's csrc/kanfet_wide.cu)
+// That is the grid policy (GridSync), every field but B.3's, B.5's, B.7's
+// and B.8's.  The cluster policy (ClusterSync, B.3's csrc/kanfet_wide.cu)
 // runs the same solve in each CTA of one thread-block cluster: every CTA
 // keeps its own copy of
 // the state, stages and scratch in shared memory and runs every
@@ -39,9 +39,9 @@
 // leaves out, ubar complete in every CTA.  CTA 0 alone writes the outputs
 // and records.
 //
-// The row policy (RowSync, B.7's csrc/ode_dyn.cu and B.8's
-// csrc/node_enc.cu) is for fields that never mix rows: one cluster of
-// C <= 16 CTAs, CTA c owning the contiguous batch
+// The row policy (RowSync, B.5's csrc/logistic_node.cu, B.7's
+// csrc/ode_dyn.cu and B.8's csrc/node_enc.cu) is for fields that never mix
+// rows: one cluster of C <= 16 CTAs, CTA c owning the contiguous batch
 // rows [c R, min(B, (c + 1) R)).  Each CTA runs every elementwise pass
 // over its own elements only, with its state, stages and scratch in its
 // own memory (local index i, global element base + i); the field's eval /
@@ -332,8 +332,8 @@ struct RowSync {
   // The CTA's place in the launch: its rank in the one cluster, or its
   // block of the cooperative grid (grid()).
   __device__ static int rank() { return (int)blockIdx.x; }
-  // Launched as a cooperative grid of CTAs, each its own cluster (B.8
-  // past one cluster's rows), rather than as one cluster.
+  // Launched as a cooperative grid of CTAs, each its own cluster (B.5 and
+  // B.8 past one cluster's rows), rather than as one cluster.
   __device__ static bool grid() {
     return cg::this_cluster().num_blocks() != gridDim.x;
   }

@@ -1,7 +1,8 @@
 // The row-tile products of the fields that run under node_common.cuh's
 // row policy (RowSync), B.7's csrc/ode_dyn.cu and B.8's csrc/node_enc.cu,
-// also B.6's parameter tiles (csrc/mlp_node.cu), and the cluster launch
-// of the row policy.
+// also B.6's parameter tiles (csrc/mlp_node.cu), and the cluster and
+// cooperative-grid launches of the row policy (B.5's csrc/logistic_node.cu
+// too).
 // A CTA multiplies its own batch rows, held as row records (row b at
 // x + b * RS), with a weight it holds by rows, in FP32 FMAs (no tensor
 // cores, no TF32), 4 rows a pass, each weight element read once for the 4.

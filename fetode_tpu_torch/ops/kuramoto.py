@@ -26,7 +26,10 @@ scalar tensor.
   through the rollout kernels and differentiates the plain head, as the
   JAX VJP does (:516-530); ``pack_head`` lays the head out for it once,
   so that serving does not repack weights that do not change, and
-  ``unpack_head`` reads a packing back.
+  ``unpack_head`` reads a packing back; ``slice_plan`` says how the
+  kernel's thread-block clusters split the head's features and where a
+  CTA holds its slice's weights (the CUDA ``head_plan``, checked against
+  it once a head shape).
 * The plain versions: ``kuramoto_rollout_reference`` (the scan,
   differentiated by autograd), ``kuramoto_rollout_bwd_reference`` (the
   replay and the reverse walk written out as the kernel runs them) and
@@ -42,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +58,10 @@ _KERNEL_NAME = "kuramoto"
 # spline order 3: 12 knots) and at most 16 classes; the lattice for H*W
 # <= 1024 (4 sites on each of at most 256 threads).
 HEAD_KNOTS, HEAD_ORDER, MAX_CLASSES, MAX_SITES = 12, 3, 16, 1024
+# The fused kernel's clusters: 8 CTAs, each holding a fixed slice of the
+# features; two images rolled out at once a CTA; at most 16 clusters.
+CLUSTER, HALVES, MAX_CLUSTERS, SITES_A_THREAD = 8, 2, 16, 4
+LOGITS_SMEM = 232448        # dynamic shared-memory bytes a CTA may take
 
 
 class Lattice(NamedTuple):
@@ -77,7 +84,64 @@ def _lib():
     lib.kuramoto_logits.argtypes = [P] * 8 + [I] * 4 + [Fl] + [I] * 2 + [P]
     for fn in (lib.kuramoto_fwd, lib.kuramoto_bwd, lib.kuramoto_logits):
         fn.restype = ctypes.c_int
+    lib.kuramoto_logits_plan.argtypes = [I] * 3 + [P]
+    lib.kuramoto_logits_plan.restype = None
     return lib
+
+
+def slice_plan(HW: int, C: int, n_logistic: int, B: int = 1,
+               clusters_held: int = MAX_CLUSTERS) -> Dict[str, object]:
+    """The fused classifier's launch for H*W = ``HW`` sites, ``C`` classes
+    and ``n_logistic`` logistic terms (``csrc/kuramoto.cu: head_plan``).
+    Whatever the batch, CTA r of every cluster of ``CLUSTER`` owns the
+    features ``slices[r]`` (S = ceil(F / 8) each, F = 2 HW) and adds
+    their head terms for every image of its cluster; ``weights`` says
+    where it holds their logistic a, b and packed weights: ``"shared"``
+    while they fit one CTA's shared memory beside its rollouts, else
+    ``"device"`` (read through L2); their knots and the spans'
+    reciprocals always in shared memory.  At batch ``B`` the launch
+    takes ``clusters`` (at most 16, ceil(B / 8), and ``clusters_held``,
+    the clusters the card holds at once), each ``images[q]`` in rounds of
+    ``CLUSTER * HALVES``."""
+    F = 2 * HW
+    S = -(-F // CLUSTER)
+    tpi = -(-(-(-HW // SITES_A_THREAD)) // 32) * 32
+    T = 1 + (HEAD_KNOTS - 1 - HEAD_ORDER) + n_logistic
+    n_rcp = sum(HEAD_KNOTS - k for k in range(1, HEAD_ORDER + 1))
+    NI = CLUSTER * HALVES
+
+    def floats(head_smem):
+        return ((HEAD_KNOTS + n_rcp) * S
+                + ((2 * n_logistic + C * T) * S if head_smem else 0)
+                + HALVES * 2 * HW
+                + NI * (tpi // 32) * MAX_CLASSES + NI * MAX_CLASSES)
+    head_smem = 4 * floats(True) <= LOGITS_SMEM
+    clusters = min(-(-B // CLUSTER), MAX_CLUSTERS, clusters_held)
+    per = -(-B // clusters)
+    clusters = -(-B // per)
+    return dict(S=S, slices=[range(r * S, min(F, (r + 1) * S))
+                             for r in range(CLUSTER)],
+                threads=HALVES * tpi, smem_bytes=4 * floats(head_smem),
+                weights="shared" if head_smem else "device",
+                cluster=CLUSTER, clusters=clusters,
+                images=[range(q * per, min(B, (q + 1) * per))
+                        for q in range(clusters)],
+                round=NI)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_slice_plan(HW: int, C: int, n_logistic: int) -> None:
+    """Raise unless the library's head plan is ``slice_plan``'s (once a
+    head shape)."""
+    got = (ctypes.c_longlong * 5)()
+    _lib().kuramoto_logits_plan(HW, C, n_logistic, ctypes.addressof(got))
+    p = slice_plan(HW, C, n_logistic)
+    want = [p["S"], p["threads"], p["smem_bytes"],
+            int(p["weights"] == "shared"), p["cluster"]]
+    if list(got) != want:
+        raise RuntimeError(f"kuramoto_logits: the library's plan {list(got)}"
+                           f" differs from slice_plan's {want} at HW={HW}, "
+                           f"C={C}, n_logistic={n_logistic}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -354,6 +418,7 @@ def _fused_launch(omega, K, theta0, packed: PackedHead,
         raise ValueError(f"kuramoto_logits: the packed head on "
                          f"{packed.wp.device}, the phases on {dev}")
     B, C = theta0.shape[0], packed.n_classes
+    _check_slice_plan(lat.H * lat.W, C, packed.n_logistic)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     NC.launch(_lib().kuramoto_logits, *(NC.ptr(t) for t in ops + [*packed]),
               NC.ptr(out), B, lat.H, lat.W, lat.steps, lat.dt,

@@ -6,8 +6,11 @@ Counterpart of ``fetode_tpu/ops/pallas_logistic_node.py:
 make_logistic_node_solver`` (the TPU kernels ``_make_fwd_kernel`` :39 and
 ``_make_bwd_kernel`` :58).  The CUDA source is
 ``fetode_tpu_torch/csrc/logistic_node.cu`` on the shared scaffold
-``csrc/node_common.cuh``; its header gives the design and what bounds it.
-The field, with the mixer parameters a, b of shape (D, K), L = D*K:
+``csrc/node_common.cuh`` (its final-state pair under the row policy: one
+thread-block cluster, or past ``GRID_PAST`` rows a cooperative grid, each
+CTA owning a tile of batch rows and holding the parameters); its header
+gives the design and what bounds it.  The field, with the mixer
+parameters a, b of shape (D, K), L = D*K:
 
     phi = sigmoid(2 * sigmoid(a * (h - b)))    flattened to (B, L)
     dh  = phi @ proj_w^T + proj_b              proj_w (D, L)
@@ -17,6 +20,9 @@ The field, with the mixer parameters a, b of shape (D, K), L = D*K:
   ``logistic_node_fwd`` (which records every attempt) and, in its
   backward, ``logistic_node_bwd``; without autograd the forward kernel
   alone, recording nothing.  On the CPU it takes the plain version.
+* ``row_plan`` — how a launch cuts the batch into row tiles, where each
+  CTA keeps the parameters, its rows and the backward's deferred gW
+  records (the CUDA ``make_geo``, checked against it once a shape).
 * ``logistic_node_fwd`` / ``logistic_node_bwd`` — the kernel wrappers,
   each with a launch counter (``.launches``).  For CPU tensors they take
   the plain versions ``record_solve_reference`` and
@@ -28,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,6 +44,102 @@ from fetode_tpu_torch.ops.logistic import LogisticParams, logistic_basis
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd
 
 _KERNEL_NAME = "logistic_node"
+
+MAX_CLUSTER = 16             # CTAs, the non-portable cluster size
+CLUSTER_ROWS = 4             # rows a CTA owns, at most, in the cluster form
+MAX_GRID = 128               # CTAs of the grid form, at most
+ROW_THREADS = 512            # threads a CTA
+ROW_WARPS = ROW_THREADS // 32
+GROUP_ROWS = 4               # rows of a pass, at most
+CHUNK = 128                  # (VJP, row) records a stage of the gW pass
+PART_FLOATS = 2 * 2 * 1024   # node_common.cuh's kPartFloats
+SMEM_BUDGET = 232448 - 2048  # dynamic shared-memory bytes a CTA may take
+# The largest batch one cluster takes; past it a cooperative grid of
+# CLUSTER_ROWS-row CTAs (a tool may move it to time the other form).
+GRID_PAST = MAX_CLUSTER * CLUSTER_ROWS
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round(x: int, m: int) -> int:
+    return _cdiv(x, m) * m
+
+
+def row_plan(B: int, D: int, K: int, M: int = 16, bwd: bool = False,
+             grid_past: int | None = None) -> Dict[str, object]:
+    """The kernels' launch at batch B, widths D, K and a record of M
+    attempts (``csrc/logistic_node.cu: make_geo``).  Up to ``grid_past``
+    (``GRID_PAST``) rows one cluster of ``C`` <= 16 CTAs, R = ceil(B / 16)
+    rows each; past them a cooperative grid (``grid``) of C = ceil(B / R)
+    CTAs, R = max(4, ceil(B / 128)).  CTA c owns the rows ``rows[c]``.
+    ``weights``: where a CTA holds W (its rows 4 mod 32 floats apart), a,
+    b and bp, ``rows_at``: its rows' state, stages and scratch, each
+    ``"shared"`` or ``"device"`` (a copy the CTA owns), the first of all in
+    shared memory, the rows in device memory, both there; ``group_rows``
+    rows a pass of the field, the most that fits.  The backward's gW is deferred: each VJP
+    records its rows' (w, phi), ``rec_row`` = D + L floats a row, in
+    device memory (``gw_records``), and after the replay CTA c owns the
+    columns ``gw_cols[c]`` of [gW | gbp] (L + 1 columns), its 4 x 4 tiles
+    summed over ``gw_splits`` interleaved splits of the records,
+    ``gw_chunk`` records a stage; ga / gb are each CTA's partials, in
+    ``gw_partials`` (device memory), added in rank order."""
+    if B < 1:
+        raise ValueError(f"row_plan: B must be >= 1, got {B}")
+    grid_past = GRID_PAST if grid_past is None else grid_past
+    L = D * K
+    grid = B > grid_past
+    R = max(CLUSTER_ROWS, _cdiv(B, MAX_GRID)) if grid else _cdiv(B, MAX_CLUSTER)
+    C = _cdiv(B, R)
+    DP = _round(D, 32)
+    NO = DP // 32
+    LC = _round(_cdiv(L, ROW_WARPS), 4)
+    LP = ROW_WARPS * LC
+    PB = max(LC, DP) if NO <= 2 else LC + DP
+    WSL = _round(LP, 4)                # W's rows: the smallest stride >= LP
+    while WSL % 32 != 4:               # that is 4 mod 32 floats
+        WSL += 4
+    w = DP * WSL + 2 * LP + DP         # W's rows, then a, b and bp
+    scaf = _round(9 * R * D, 4)
+    budget = SMEM_BUDGET // 4
+
+    def buf(gr):
+        return gr * (DP + L) if bwd else ROW_WARPS * gr * PB
+    GR, rows_smem, w_smem = 0, False, False
+    for form in range(3):
+        for gr in (GROUP_ROWS, 2, 1):
+            if GR == 0 and buf(gr) + (w if form < 2 else 0) \
+                    + (scaf if form == 0 else 0) <= budget:
+                GR, rows_smem, w_smem = gr, form == 0, form < 2
+    GR = GR or 1
+    buf_f = _round(buf(GR), 4)
+    smem = buf_f + (w if w_smem else 0) + (scaf if rows_smem else 0)
+    work = PART_FLOATS + C * ((0 if w_smem else w) + (0 if rows_smem else scaf))
+    plan = dict(grid=grid, C=C, R=R,
+                rows=[range(c * R, min(B, (c + 1) * R)) for c in range(C)],
+                group_rows=GR, weights="shared" if w_smem else "device",
+                rows_at="shared" if rows_smem else "device",
+                threads=ROW_THREADS)
+    if bwd:
+        LS = _round(_cdiv(L + 1, C), 4)
+        NOG = _cdiv(D, 4)
+        T = NOG * (LS // 4)
+        TT = min(T, ROW_THREADS)
+        KS = 1 if T >= ROW_THREADS else ROW_THREADS // T
+        parts = 16 * KS * TT if KS > 1 else 0
+        room = max(smem, budget) - parts
+        MC = max(1, min(CHUNK, room // (2 * (4 * NOG + LS))))
+        smem = max(smem, 2 * MC * (4 * NOG + LS) + parts)
+        rec_row = D + L
+        work += C * 2 * L + 6 * M * B * rec_row
+        plan.update(gw_slice=LS,
+                    gw_cols=[range(c * LS, min(L + 1, (c + 1) * LS))
+                             for c in range(C)],
+                    gw_tiles=T, gw_splits=KS, gw_chunk=MC, rec_row=rec_row,
+                    gw_records="device", gw_partials="device")
+    plan.update(smem_bytes=4 * smem, work_floats=work)
+    return plan
 
 
 def logistic_field(a: torch.Tensor, b: torch.Tensor, proj_w: torch.Tensor,
@@ -58,13 +160,35 @@ def _lib():
 
     lib = load_library(_KERNEL_NAME)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.logistic_node_fwd.argtypes = [P] * 11 + [I] * 4 + [F] * 2 + [I, P]
-    lib.logistic_node_bwd.argtypes = [P] * 15 + [I] * 3 + [P]
+    lib.logistic_node_fwd.argtypes = [P] * 11 + [I] * 4 + [F] * 2 \
+        + [I, I, P]
+    lib.logistic_node_bwd.argtypes = [P] * 15 + [I] * 5 + [P]
     lib.logistic_node_fwd.restype = lib.logistic_node_bwd.restype = \
         ctypes.c_int
-    lib.logistic_node_work_floats.argtypes = [I] * 3
-    lib.logistic_node_work_floats.restype = ctypes.c_longlong
+    lib.logistic_node_plan.argtypes = [I] * 6 + [P]
+    lib.logistic_node_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(B: int, D: int, K: int, M: int, grid_past: int) -> None:
+    """Raise unless the library's plan is ``row_plan``'s, forward and
+    backward (once a shape)."""
+    for bwd in (False, True):
+        got = (ctypes.c_longlong * 14)()
+        _lib().logistic_node_plan(B, D, K, M, int(bwd), grid_past,
+                                  ctypes.addressof(got))
+        p = row_plan(B, D, K, M, bwd, grid_past)
+        want = [int(p["grid"]), p["C"], p["R"], p["group_rows"],
+                p["smem_bytes"], int(p["rows_at"] == "shared"),
+                int(p["weights"] == "shared"), p["work_floats"],
+                p["threads"]] + [p.get(k, 0) for k in (
+                    "gw_slice", "gw_tiles", "gw_splits", "gw_chunk",
+                    "rec_row")]
+        if list(got) != want:
+            raise RuntimeError(f"logistic_node: the library's plan {list(got)}"
+                               f" differs from row_plan's {want} at B={B}, "
+                               f"D={D}, K={K}, M={M}, bwd={bwd}")
 
 
 def _check_shapes(a, b, proj_w, proj_b, h0, name) -> None:
@@ -84,9 +208,19 @@ def _operands(a, b, proj_w, proj_b, h0, name) -> List[torch.Tensor]:
                          (proj_b, "proj_b"))]
 
 
-def _work(B, D, K, device):
-    n = _lib().logistic_node_work_floats(B, D, K)
-    return torch.empty(n, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=None)
+def _work_floats(B: int, D: int, K: int, M: int, bwd: bool,
+                 grid_past: int) -> int:
+    """The launch's device scratch (``row_plan``), the library's plan
+    checked against it, once a shape."""
+    _check_plan(B, D, K, M, grid_past)
+    return row_plan(B, D, K, M, bwd, grid_past)["work_floats"]
+
+
+def _work(B, D, K, M, bwd, device):
+    grid_past = GRID_PAST
+    n = _work_floats(B, D, K, M, bwd, grid_past)
+    return torch.empty(n, dtype=torch.float32, device=device), grid_past
 
 
 def _launch_fwd(ops, h0, rtol, atol, max_steps, record):
@@ -97,11 +231,11 @@ def _launch_fwd(ops, h0, rtol, atol, max_steps, record):
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     recs = NC.new_records(max_steps, B, D, dev) if record else None
     r = recs if record else (None,) * 4
-    work = _work(B, D, K, dev)
+    work, grid_past = _work(B, D, K, int(max_steps), False, dev)
     NC.launch(_lib().logistic_node_fwd, NC.ptr(h0),
               *(NC.ptr(t) for t in ops), NC.ptr(out), *(NC.ptr(t) for t in r),
               NC.ptr(work), B, D, K, int(max_steps),
-              float(rtol), float(atol), int(record),
+              float(rtol), float(atol), int(record), grid_past,
               name="logistic_node_fwd", device=dev)
     logistic_node_fwd.launches += 1
     return out, recs
@@ -112,14 +246,15 @@ def _launch_bwd(ops, records, hbar):
     K = ops[0].shape[1]
     dev = hbar.device
     NC.check_records(records, B, D, dev, "logistic_node_bwd")
+    M = records.tda.shape[0]
     hbar = hbar.detach().to(torch.float32).contiguous()
     grads = [torch.empty_like(t) for t in ops]
     h0bar = torch.empty((B, D), dtype=torch.float32, device=dev)
-    work = _work(B, D, K, dev)
+    work, grid_past = _work(B, D, K, M, True, dev)
     NC.launch(_lib().logistic_node_bwd, NC.ptr(hbar),
               *(NC.ptr(t) for t in records), *(NC.ptr(t) for t in ops),
               *(NC.ptr(g) for g in grads), NC.ptr(h0bar),
-              NC.ptr(work), B, D, K,
+              NC.ptr(work), B, D, K, M, grid_past,
               name="logistic_node_bwd", device=dev)
     logistic_node_bwd.launches += 1
     return grads, h0bar

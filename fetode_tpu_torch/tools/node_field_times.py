@@ -1,9 +1,10 @@
-"""Check and time B.6 (``csrc/mlp_node.cu``), B.8 (``csrc/node_enc.cu``),
-B.7 (``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``) of the package
+"""Check and time B.5 (``csrc/logistic_node.cu``), B.6
+(``csrc/mlp_node.cu``), B.8 (``csrc/node_enc.cu``), B.7
+(``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``) of the package
 this file is imported from, on one card, with the other kernels on
 ``csrc/node_common.cuh`` beside them.
 
-    python -m fetode_tpu_torch.tools.node_field_times [--tag NAME]
+    python -m fetode_tpu_torch.tools.node_field_times [--tag NAME] [--breakdown]
 
 Run from the root of a checkout (it imports that checkout's
 ``chip_smoke`` for its inputs, bounds and timers).  To compare two
@@ -35,20 +36,35 @@ builds the kernels of ``node_common.cuh``, then:
 * B.8 at the encoder's width (128) at every batch phase 24 gives it (8,
   31, 64, 181, 256): the same readings, the x_seq cotangent among the
   gradients compared bit for bit.
+* B.5 at ``ECGPreset``'s width ('plain' field: latent 64, 12 bases, rtol
+  1e-2) at every batch phase 9 of ``chip_smoke.py`` gives it
+  (``ECG_CHECKS``: 8, 32, 64, 256), phase 9's inputs: the same readings
+  as B.7's; at B = 64 its grid form and at B = 256 its cluster form
+  (``ops/logistic_node.py: GRID_PAST`` moved) beside the form the batch
+  takes, where the checkout has both.
 * The other kernels that share the scaffold, at a batch their paths give
-  them: B.5 (logistic_node) at B = 8, B.14 (custom_field) at D = 64,
-  H = 128, B = 64 (both timers), and B.3 (kanfet_wide) at [2, 64, 64, 2],
-  B = 1 (``cuda_ms``): forward and backward times.
-* The ECG ``kanfet_mlp_node`` and ``kanfet_node --field mlp`` training
-  steps at B = 8, the ETT ``point`` step and the ``cond_diffusion``
-  ``kan_fet_all_node`` step at B = 64 (forward, backward, clip, AdamW at
-  learning rate 0; ``cuda_ms``), and ``serve --source ett`` and ``serve
-  --source ecg --field mlp`` p50 in buckets 8, 64 and 256.
+  them: B.14 (custom_field) at D = 64, H = 128, B = 64 (both timers), and
+  B.3 (kanfet_wide) at [2, 64, 64, 2], B = 1 (``cuda_ms``): forward and
+  backward times.
+* The ECG ``kanfet_node``, ``kanfet_mlp_node`` and ``kanfet_node --field
+  mlp`` training steps at B = 8, the ETT ``point`` step and the
+  ``cond_diffusion`` ``kan_fet_all_node`` step at B = 64 (forward,
+  backward, clip, AdamW at learning rate 0; ``cuda_ms``), and ``serve
+  --source ett``, ``serve --source ecg`` and ``serve --source ecg --field
+  mlp`` p50 in buckets 8, 64 and 256.
+* With ``--breakdown``, where the checkout's ``logistic_node.cu`` has the
+  clock marks: its clock build (``tools/clock_build.py``) run once each
+  forward (with records) and backward at phase 9's B = 8 and 64: the mean
+  over CTAs of thread 0's cycles in the parameters' load, the evaluations
+  (of them phi, the product and the partials' sums), the VJPs (of them
+  the transposed product, the columns' other work and ubar), the
+  deferred gradients (of them the barrier with ga / gb, the waits for the
+  records and the products) and the whole kernel.
 
 No profiler (it drops device events on that machine).  Prints the card's
 name and power limit, one line a measurement, and a last JSON line
-``{"tag": ..., "b6": {...}, "b8": {...}, "b7": {...}, "b4": {...},
-"others": {...}, "steps": {...}}``.  Exits non-zero if a check fails.
+``{"tag": ..., "b5": {...}, "b6": {...}, "b8": {...}, "b7": {...}, "b4":
+{...}, "others": {...}, "steps": {...}}``.  Exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -184,6 +200,101 @@ def b4_part(cs, device, smi):
     return out
 
 
+def b5_part(cs, device, smi):
+    """B.5 at phase 9's batches and inputs; at B = 64 also its grid form
+    and at B = 256 its cluster form, where the checkout has both."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import logistic_node as LN
+
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])
+    rng = np.random.default_rng(2)
+    xs = {b: torch.from_numpy((series[np.arange(b) % len(series)] + 0.05
+                               * rng.standard_normal((b, series.shape[1]))
+                               ).astype(np.float32)).to(device)
+          for b in cs.ECG_CHECKS}
+    spec = M.KanFetNODESpec(num_basis=12)
+    params = M.kanfet_node_init(torch.Generator().manual_seed(0), spec,
+                                device=device)
+    hbars = {b: torch.from_numpy(rng.standard_normal(
+        (b, spec.latent_dim)).astype(np.float32)).to(device)
+        for b in cs.ECG_CHECKS}
+    case = cs.logistic_case(params, spec)
+    out = {}
+    for b in cs.ECG_CHECKS:
+        with torch.no_grad():
+            h0 = xs[b] @ params.encoder_w.T + params.encoder_b
+        out[b] = timed_case(cs, case, h0, hbars[b], smi, "B.5 logistic_node")
+        if hasattr(LN, "GRID_PAST") and b in (64, 256):
+            keep = LN.GRID_PAST
+            LN.GRID_PAST = 32 if b == 64 else b
+            form = "grid" if b == 64 else "cluster"
+            try:
+                out[f"{form} {b}"] = timed_case(
+                    cs, case, h0, hbars[b], smi,
+                    f"B.5 logistic_node, {form} form")
+            finally:
+                LN.GRID_PAST = keep
+    return out
+
+
+B5_SLOTS = ("load", "evals", "eval phi", "eval product", "eval sums",
+            "vjps", "vjp product", "vjp columns", "vjp ubar", "gradients",
+            "grad barrier", "grad waits", "grad products", "total")
+
+
+def b5_breakdown(cs, device, smi):
+    """B.5's clock build at B = 8 and 64, forward and backward."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import logistic_node as LN
+    from fetode_tpu_torch.tools import clock_build as CB
+
+    n = len(B5_SLOTS)
+    lib = CB.clock_library("logistic_node", n)
+    CB.copy_signatures(lib, LN._lib(), (
+        "logistic_node_fwd", "logistic_node_bwd", "logistic_node_plan"))
+    spec = M.KanFetNODESpec(num_basis=12)
+    params = M.kanfet_node_init(torch.Generator().manual_seed(0), spec,
+                                device=device)
+    case = cs.logistic_case(params, spec)
+    keep = LN._lib
+    LN._lib = lambda: lib
+    out = {}
+    try:
+        for b in (8, 64):
+            x, hbar, _ = ecg_inputs(device, b, 2)
+            with torch.no_grad():
+                h0 = x @ params.encoder_w.T + params.encoder_b
+                _, recs = case["fwd"](h0)
+            for kind in ("fwd", "bwd"):
+                torch.cuda.synchronize()
+                CB.clear_clocks(lib, "logistic_node")
+                with torch.no_grad():
+                    if kind == "fwd":
+                        case["fwd"](h0)
+                    else:
+                        case["bwd"](h0, recs, hbar)
+                torch.cuda.synchronize()
+                rows = CB.read_clocks(lib, "logistic_node", n)
+                mean = {k: float(np.mean([r[i] for r in rows]))
+                        for i, k in enumerate(B5_SLOTS)}
+                out[f"{kind} {b}"] = dict(ctas=len(rows), **mean)
+                print(f"B.5 clock build {kind} B={b}: thread 0's cycles a CTA, "
+                      f"mean over {len(rows)} CTAs: " + ", ".join(
+                          f"{k} {mean[k]:.0f}" for k in B5_SLOTS)
+                      + f"; attempts {int(recs.misc[0])} ({smi})", flush=True)
+    finally:
+        LN._lib = keep
+    return out
+
+
 def b6_part(cs, device, smi):
     """B.6 at phase 28's batches and inputs, init and (B = 8) scaled; at
     B = 256 also the inline form, where the checkout has both."""
@@ -266,7 +377,6 @@ def others_part(cs, device, smi):
     import numpy as np
     import torch
 
-    from fetode_tpu_torch.models import ecg as M
     from fetode_tpu_torch.models.predprey import PredPreyNODE, PredPreyTask
     from fetode_tpu_torch.ops import kanfet_wide as KW
 
@@ -285,14 +395,6 @@ def others_part(cs, device, smi):
               f"(cuda_ms); device {fwd_dev:.4f} / {bwd_dev:.4f} ms "
               f"(queued_ms); {int(recs.misc[0])} attempts ({smi})",
               flush=True)
-
-    x8, hbar8, _ = ecg_inputs(device, 8, 2)
-    lspec = M.KanFetNODESpec(num_basis=12)
-    lparams = M.kanfet_node_init(torch.Generator().manual_seed(0), lspec,
-                                 device=device)
-    with torch.no_grad():
-        h0 = x8 @ lparams.encoder_w.T + lparams.encoder_b
-    both("B.5 logistic_node B=8", cs.logistic_case(lparams, lspec), h0, hbar8)
 
     rng = np.random.default_rng(6)
     ccase = cs.custom_case(device, 64, 128, None, 1)
@@ -326,9 +428,9 @@ def others_part(cs, device, smi):
 
 
 def steps_part(cs, device, smi):
-    """The ECG ferro and 'mlp' steps at B = 8, the ETT point and the
-    cond_diffusion kan_fet_all_node steps at B = 64, and the ETT and ECG
-    'mlp' serving p50s."""
+    """The ECG 'plain', ferro and 'mlp' steps at B = 8, the ETT point and
+    the cond_diffusion kan_fet_all_node steps at B = 64, and the ETT, ECG
+    and ECG 'mlp' serving p50s."""
     import numpy as np
     import torch
 
@@ -343,6 +445,12 @@ def steps_part(cs, device, smi):
 
     out = {}
     x8, _, y8 = ecg_inputs(device, 8, 2)
+    lspec = M.KanFetNODESpec(num_basis=12)
+    lparams = M.kanfet_node_init(torch.Generator().manual_seed(0), lspec,
+                                 device=device)
+    lstep = cs.ecg_step_fn(M.kanfet_node_apply, lparams, lspec, x8, y8,
+                           "pallas")
+    out["ecg kanfet_node B=8"] = cs.cuda_ms(lstep, 10, windows=5)
     fspec = M.KanFetMLPNODESpec(num_basis=12)
     fparams = M.kanfet_mlp_node_init(torch.Generator().manual_seed(0), fspec,
                                      device=device)
@@ -395,6 +503,7 @@ def steps_part(cs, device, smi):
     out["cond_diffusion kan_fet_all_node B=64"] = cs.cuda_ms(
         lambda: cstep(cstate, past, fut), 5, windows=5)
     for argv, label in ((["--source", "ett"], "serve ett"),
+                        (["--source", "ecg"], "serve ecg"),
                         (["--source", "ecg", "--field", "mlp"],
                          "serve ecg mlp")):
         with tempfile.TemporaryDirectory() as tmp:
@@ -411,6 +520,7 @@ def steps_part(cs, device, smi):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="checkout")
+    ap.add_argument("--breakdown", action="store_true")
     args = ap.parse_args(argv)
     from concurrent.futures import ThreadPoolExecutor
 
@@ -431,15 +541,21 @@ def main(argv=None) -> int:
     for name, so in zip(KERNELS, built):
         _build.load_library(name)
         for line in so.with_suffix(".log").read_text().splitlines():
-            if name in ("mlp_node", "node_enc") and (
+            if name in ("logistic_node", "mlp_node", "node_enc") and (
                     "registers" in line or "spill" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    res = dict(tag=args.tag, card=smi, b6=b6_part(cs, device, smi),
+    res = dict(tag=args.tag, card=smi, b5=b5_part(cs, device, smi),
+               b6=b6_part(cs, device, smi),
                b8=b8_part(cs, device, smi), b7=b7_part(cs, device, smi),
                b4=b4_part(cs, device, smi),
                others=others_part(cs, device, smi),
                steps=steps_part(cs, device, smi))
+    if args.breakdown:
+        from fetode_tpu_torch.tools import clock_build as CB
+
+        if CB.has_marks("logistic_node"):
+            res["b5_breakdown"] = b5_breakdown(cs, device, smi)
     print(json.dumps(res))
     return 0
 

@@ -515,3 +515,62 @@ def test_fused_kernel_matches_plain_on_card(heads):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
     assert torch.equal(packed, got)
+
+
+# ------------------------------------------------ B.11's slice plan (CPU)
+
+
+@pytest.mark.parametrize("B", [1, 8, 64, 300, 1024])
+@pytest.mark.parametrize("HW,C", [(28 * 28, 10), (H * W, 3)],
+                         ids=["mnist", "narrow"])
+def test_slice_plan_covers_every_feature_once(HW, C, B):
+    """``slice_plan``: the 8 CTAs of a cluster own disjoint feature slices
+    that cover the 2 HW features in order, the same at every batch, so
+    every image gets every feature's terms exactly once; the clusters own
+    disjoint image ranges that cover the batch; a CTA fits 227 KB."""
+    F = 2 * HW
+    p = KO.slice_plan(HW, C, 8, B)
+    feats = [f for sl in p["slices"] for f in sl]
+    assert feats == list(range(F)) and len(p["slices"]) == KO.CLUSTER
+    assert p["slices"] == KO.slice_plan(HW, C, 8, 1)["slices"]
+    assert [i for rg in p["images"] for i in rg] == list(range(B))
+    assert 1 <= p["clusters"] <= KO.MAX_CLUSTERS == 16
+    assert p["smem_bytes"] <= KO.LOGITS_SMEM
+
+
+@pytest.mark.parametrize("n_logistic,where", [(0, "shared"), (8, "shared"),
+                                              (32, "device")])
+def test_slice_plan_places_the_weights(n_logistic, where):
+    """Where a CTA holds its slice's weights: in shared memory while they
+    fit beside its rollouts (MNIST, 0 or 8 logistic terms), else read
+    from device memory; every head the kernel took before still runs."""
+    p = KO.slice_plan(28 * 28, 10, n_logistic, 256)
+    assert p["weights"] == where
+    assert KO.slice_plan(H * W, 3, n_logistic)["weights"] == "shared"
+    assert KO.slice_plan(1024, 16, 64)["weights"] == "device"
+
+
+@pytest.mark.cuda
+def test_fused_kernel_image_alone_equals_batch_on_card(heads):
+    """An image's logits are the same bits alone, inside its batch and in
+    a second call: the slices and every sum's order do not depend on B."""
+    dev = _card()
+    s = heads
+    mod = _module(s["tree"], s["tspec"]).to(dev)
+    theta0 = KO.theta0_of(torch.from_numpy(s["x"]).to(dev), H, W)
+    head = TK.head_operands(mod.head)
+    packed = KO.pack_head(*head)
+    lat = s["tspec"].lattice
+    with torch.no_grad():
+        big = theta0.repeat(40, 1)               # 240 images, 15 rounds
+        got = KO.kuramoto_logits(mod.omega, mod.K, big, *head, lat,
+                                 packed=packed)
+        again = KO.kuramoto_logits(mod.omega, mod.K, big, *head, lat,
+                                   packed=packed)
+        alone = [KO.kuramoto_logits(mod.omega, mod.K, theta0[r:r + 1], *head,
+                                    lat, packed=packed) for r in range(B)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for r in range(B):
+        assert torch.equal(alone[r], got[r:r + 1])
+        assert torch.equal(got[r::B], got[r:r + 1].expand(40, -1))

@@ -290,3 +290,89 @@ def test_kernels_match_plain_on_card(setup):
             for gs in (grads, want)]
     assert _rel(*flat) < 1e-4
     assert _rel(h0bar.cpu().numpy(), want_h.cpu().numpy()) < 1e-4
+
+
+# ------------------------------------------------ B.5's launch plan (CPU)
+
+PLAN_BATCHES = (1, 8, 30, 32, 64, 256, 300)
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("B", PLAN_BATCHES)
+def test_row_plan_covers_every_row_once(B, bwd):
+    """``row_plan`` at the ECG widths (D = 64, K = 12): every row owned by
+    exactly one CTA, in order; one cluster of at most 16 CTAs up to
+    ``GRID_PAST`` rows, else the grid form; a CTA's shared memory within
+    227 KB; where the weights, the rows and the backward's gW records and
+    partials live is stated, and the parameters sit in shared memory at
+    these widths; the backward's [gW | gbp] columns each owned once."""
+    D, K, M = 64, 12, 16
+    p = LN.row_plan(B, D, K, M, bwd)
+    rows = [r for rg in p["rows"] for r in rg]
+    assert rows == list(range(B))
+    assert all(len(rg) >= 1 for rg in p["rows"]) and len(p["rows"]) == p["C"]
+    assert p["grid"] == (B > LN.GRID_PAST)
+    if not p["grid"]:
+        assert p["C"] <= LN.MAX_CLUSTER
+    else:
+        assert p["C"] <= LN.MAX_GRID and p["R"] >= LN.CLUSTER_ROWS
+    assert p["smem_bytes"] <= 232448
+    assert p["weights"] == "shared"
+    assert p["rows_at"] in ("shared", "device")
+    assert 1 <= p["group_rows"] <= LN.GROUP_ROWS
+    if bwd:
+        cols = [c for cg in p["gw_cols"] for c in cg]
+        assert cols == list(range(D * K + 1))
+        assert p["gw_records"] == "device" and p["gw_partials"] == "device"
+        assert p["rec_row"] == D + D * K and p["gw_splits"] >= 1
+        assert p["work_floats"] >= 6 * M * B * p["rec_row"]
+    else:
+        assert "gw_cols" not in p
+
+
+@pytest.mark.parametrize("D,K", [(8, 4), (64, 12), (64, 40), (300, 64)])
+def test_row_plan_places_wide_fields(D, K):
+    """No width the grid-stride form took is refused: wide fields move the
+    rows, then the parameters, to device memory and take fewer rows a
+    pass, and still fit a CTA's shared memory."""
+    for B in (8, 64, 256):
+        for bwd in (False, True):
+            p = LN.row_plan(B, D, K, 16, bwd)
+            assert p["smem_bytes"] <= 232448
+            assert [r for rg in p["rows"] for r in rg] == list(range(B))
+    assert LN.row_plan(64, 300, 64)["weights"] == "device"
+
+
+@pytest.mark.cuda
+def test_kernels_same_bits_twice_on_card(setup):
+    """Two calls of each kernel give the same bits: output, records and
+    gradients (fixed owners and orders, no atomics), at the test's widths
+    and at the ECG widths in both launch forms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    s = setup
+    m = _module(s).to(dev)
+    rng = np.random.default_rng(3)
+    cases = [(_weights(m), torch.from_numpy(s["h0"]).to(dev),
+              torch.from_numpy(s["hbar"]).to(dev))]
+    big = TM.kanfet_node_init(torch.Generator().manual_seed(0),
+                              TM.KanFetNODESpec(num_basis=12), device=dev)
+    for b in (8, 96):
+        cases.append((_weights(big), torch.from_numpy(rng.standard_normal(
+            (b, 64)).astype(np.float32)).to(dev), torch.from_numpy(
+            rng.standard_normal((b, 64)).astype(np.float32)).to(dev)))
+    for w, h0, hbar in cases:
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                out, recs = LN.logistic_node_fwd(*w, h0)
+            grads, h0bar = LN.logistic_node_bwd(*w, h0, recs, hbar)
+            n = int(recs.misc[0])      # the attempts made; the rest unwritten
+            runs.append([out, recs.tda[:n], recs.yrec[:n], recs.krec[:n],
+                         recs.misc, *grads, h0bar])
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
