@@ -123,12 +123,18 @@ order 3 and 8 logistic bases), random weights from a seed with omega =
 ``synthetic_digits`` (the data ``cli mnist`` falls back to):
 
 19. The rollout kernels (``csrc/kuramoto.cu``, B.10) against their plain
-    versions at every batch the path launches: 128 (a training step and
+    versions at every batch the path launches, 128 (a training step and
     the synthetic test eval) and 1,024 (a larger eval batch; the synthetic
-    data leaves no partial batch): features max |diff| <= 1e-4; the
-    backward (theta0bar, omegabar, Kbar) against autograd of the plain
-    rollout and against ``kuramoto_rollout_bwd_reference``, relative <
-    1e-4; omegabar and Kbar the same bits in two calls.
+    data leaves no partial batch), and at every batch where the launch
+    plan (``ops/kuramoto.py: rollout_plan``) changes form: 1, 8, 133 and
+    256 (``KURA_CHECKS``): the features plain's bits; the backward
+    (theta0bar, omegabar, Kbar) against autograd of the plain rollout and
+    against ``kuramoto_rollout_bwd_reference``, relative < 1e-4;
+    theta0bar of images 0 and B - 1 alone the same bits as in the batch;
+    omegabar and Kbar the same bits in two calls.  The same checks at 40
+    steps at 128 and 1,024 (``KURA_THETA``: the plan keeps theta_t alone,
+    sin and cos of every step not fitting a CTA), and on an 8 x 8 lattice
+    at 1,024 (``KURA_PACKED``: the plan packs several images into a CTA).
 20. The fused classifier kernel (B.11) against
     ``kuramoto_logits_reference`` at 8, 64 and 256 (serving), 128 and
     1,024: rtol = atol = 1e-3; images 0 and B - 1 alone give the same
@@ -327,12 +333,16 @@ before each run, read just after):
     8 input groups) with the same checks.
 41. B.14 against ``ops/node_common.py``'s plain solve and replay at the
     example's size (D 4, H 8, B 3, weights 0.5 N(0, 1)) and at D = 64, H
-    = 128, B = 8, 64 and 256 (weights N(0, 1) / sqrt(fan-in)), rtol 1e-4
-    / atol 1e-6, 32 attempts: both forward kernels within 1e-3, the
-    attempts as plain's and the time reached its records' and within 1e-4
-    of plain's (also where a budget of 3 attempts runs out); the backward
-    on its own records against autograd of the plain replay, relative <
-    1e-4, the same bits twice; then the example's own check
+    = 128, B = 8, 64, 67 and 256 (weights N(0, 1) / sqrt(fan-in); 64 is
+    the last batch of one cluster, 67 and 256 take the cooperative grid of
+    ``row_plan``) and D = 64, H = 512, B = 8 (``CUSTOM_WIDE``: w1 and w2,
+    271 KB, and the rows in device memory), rtol 1e-4 / atol 1e-6, 32
+    attempts: both forward
+    kernels within 1e-3, the attempts as plain's and the time reached its
+    records' and within 1e-4 of plain's (also where a budget of 3 attempts
+    runs out); output, records and gradients the same bits in two calls;
+    the backward on its own records against autograd of the plain replay,
+    relative < 1e-4; then the example's own check
     (``fetode_tpu_torch.examples.custom_field_kernel``: the forward
     against the eager while solve < 1e-4, each gradient's cosine against
     autograd of the eager scan solve > 0.9999), in this process (its
@@ -407,6 +417,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -428,7 +439,10 @@ ODE_CHECKS = (1, 8, 41, 64, 97, 256, 297)
 ODE_BACKWARD = (64, 297)
 DDPM_ROWS = (10, 80, 410, 640, 970, 2560)
 # The Kuramoto path's batches (phases 19-20, 23).
-KURA_CHECKS = (128, 1024)
+KURA_CHECKS = (1, 8, 128, 133, 256, 1024)
+KURA_THETA = (40, (128, 1024))  # steps and batches of the theta records
+KURA_PACKED = (8, 1024)         # lattice side and batch of packed images
+PLAN_KEYS = ("k", "images", "threads", "ctas", "form")  # rollout_plan's
 KURA_LOGITS = (8, 64, 128, 256, 1024)
 KURA_TIMES = (128, 256, 1024)
 # The conditional-diffusion path's node-encoder batches (phase 24): 64 (a
@@ -513,7 +527,8 @@ SPLINE_GRAD_TOL = 1e-6
 # weights ~ 1/sqrt(fan-in); the JAX example's tolerances.
 CUSTOM_SMALL = (4, 8, 3)
 CUSTOM_DH = (64, 128)
-CUSTOM_BATCHES = (8, 64, 256)
+CUSTOM_BATCHES = (8, 64, 67, 256)
+CUSTOM_WIDE = (64, 512, 8)    # weights past a CTA's shared memory
 CUSTOM_OPTS = dict(rtol=1e-4, atol=1e-6, max_steps=32)
 CUSTOM_COS = 0.9999
 
@@ -1666,7 +1681,7 @@ def kuramoto_case(device, B, seed):
 def check_kuramoto_rollout(params, lat, case):
     """Phase 19 at one batch: (features max |diff|, the worst relative
     error of (theta0bar, omegabar, Kbar) against the two plain versions,
-    their max |diff| against the written-out replay)."""
+    their max |diff| against the written-out replay, the plans)."""
     from fetode_tpu_torch.ops import kuramoto as KO
 
     om, K, th0, ct = params.omega, params.K, case["theta0"], case["ct"]
@@ -1678,13 +1693,19 @@ def check_kuramoto_rollout(params, lat, case):
     if feat.shape != (B, 2 * lat.H * lat.W) or not torch.isfinite(feat).all():
         fail(f"kuramoto_fwd B={B}: shape {tuple(feat.shape)} or non-finite")
     fwd_err = max_abs(feat, want)
-    if fwd_err > 1e-4:
-        fail(f"kuramoto_fwd B={B}: max |diff| {fwd_err:.3e} from plain")
+    if not torch.equal(feat, want):
+        fail(f"kuramoto_fwd B={B}: max |diff| {fwd_err:.3e} from plain, not "
+             "plain's bits")
     got = KO.kuramoto_bwd(om, K, th0, ct, lat)
     again = KO.kuramoto_bwd(om, K, th0, ct, lat)
+    alone = {r: KO.kuramoto_bwd(om, K, th0[r:r + 1], ct[r:r + 1], lat)[0]
+             for r in sorted({0, B - 1})}
     torch.cuda.synchronize()
     if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
         fail(f"kuramoto_bwd B={B}: omegabar or Kbar differ between two calls")
+    if not all(torch.equal(a, got[0][r:r + 1]) for r, a in alone.items()):
+        fail(f"kuramoto_bwd B={B}: theta0bar of image 0 or B-1 alone differs "
+             "from its row in the batch")
     replay = KO.kuramoto_rollout_bwd_reference(om, K, th0, ct, lat)
     leaves = [t.detach().clone().requires_grad_() for t in (th0, om, K)]
     torch.sum(KO.kuramoto_rollout_reference(leaves[1], leaves[2], leaves[0],
@@ -1695,10 +1716,45 @@ def check_kuramoto_rollout(params, lat, case):
         fail(f"kuramoto_bwd B={B}: relative errors (theta0bar, omegabar, "
              f"Kbar) vs replay, autograd {[float('%.3e' % e) for e in errs]}")
     g_abs = max(max_abs(g, w) for g, w in zip(got, replay))
-    print(f"kuramoto B={B}: features max |diff| {fwd_err:.3e}; backward rel "
-          f"vs replay / autograd {[float('%.3e' % e) for e in errs]}; "
-          "omegabar, Kbar bit-identical over two calls")
-    return dict(fwd_err=fwd_err, g_rel=max(errs), g_abs=g_abs)
+    sms = torch.cuda.get_device_properties(th0.device).multi_processor_count
+    plan = {kind: KO.rollout_plan(B, lat.H, lat.W, lat.steps, sms,
+                                  kind == "bwd") for kind in ("fwd", "bwd")}
+    print(f"kuramoto B={B}: features plain's bits; backward rel vs replay / "
+          f"autograd {[float('%.3e' % e) for e in errs]}; theta0bar of "
+          f"images 0 and B-1 alone as in the batch; omegabar, Kbar "
+          f"bit-identical over two calls; plan (sites a thread, images and "
+          f"threads a CTA, CTAs, records) "
+          + ", ".join(f"{k} {[p[f] for f in PLAN_KEYS]}"
+                      for k, p in plan.items())
+          + f" ({lat.H} x {lat.W}, {lat.steps} steps)")
+    return dict(fwd_err=fwd_err, g_rel=max(errs), g_abs=g_abs, plan=plan)
+
+
+def check_kuramoto_plans(device, params, lat, cases):
+    """Phase 19 at the plans no MNIST batch takes: the backward's theta
+    records (``KURA_THETA``: 40 steps) at 128 and 1,024, and several images
+    a CTA (``KURA_PACKED``: an 8 x 8 lattice at 1,024, seeded phases,
+    omega and cotangent); fails unless the plan takes that form."""
+    steps, batches = KURA_THETA
+    for b in batches:
+        plan = check_kuramoto_rollout(params, lat._replace(steps=steps),
+                                      cases[b])["plan"]
+        if plan["bwd"]["form"] != "theta":
+            fail(f"kuramoto_bwd B={b}, {steps} steps: the plan took "
+                 f"{plan['bwd']['form']}, not the theta records")
+    side, b = KURA_PACKED
+    rng = np.random.default_rng(side)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    c = dict(omega=t(0.3 * rng.standard_normal((side, side))), K=t(0.7),
+             theta0=t(rng.uniform(-np.pi, np.pi, (b, side * side))),
+             ct=t(rng.standard_normal((b, 2 * side * side))))
+    plan = check_kuramoto_rollout(types.SimpleNamespace(**c),
+                                  lat._replace(H=side, W=side), c)["plan"]
+    if min(p["images"] for p in plan.values()) < 2:
+        fail(f"kuramoto {side} x {side} B={b}: the plan packed no images "
+             f"({plan['fwd']['images']}, {plan['bwd']['images']} a CTA)")
 
 
 def mnist_step_fn(params, spec, x, y, rollout):
@@ -1760,8 +1816,10 @@ def kuramoto_phases(device, smi):
              for i, b in enumerate(sorted(set(KURA_LOGITS + KURA_TIMES)))}
 
     # ---- 19. B.10 against plain
-    checks = {b: check_kuramoto_rollout(params, lat, cases[b])
+    checks = {b: check_kuramoto_rollout(params, lat, cases[b] if b in cases
+                                        else kuramoto_case(device, b, 60 + b))
               for b in KURA_CHECKS}
+    check_kuramoto_plans(device, params, lat, cases)
 
     # ---- 20. B.11 against plain; the fused gradient against the pallas one
     head = TK.head_operands(params.head)
@@ -3616,17 +3674,22 @@ def spline_custom_phases(device, smi):
     rng = np.random.default_rng(41)
     custom = {}
     for (D, H, B), scale in [(CUSTOM_SMALL, 0.5)] + [
-            ((*CUSTOM_DH, b), None) for b in CUSTOM_BATCHES]:
+            ((*CUSTOM_DH, b), None) for b in CUSTOM_BATCHES] + [
+            (CUSTOM_WIDE, None)]:
         case = custom_case(device, D, H, scale, seed=B)
         h0 = torch.from_numpy(rng.standard_normal((B, D)).astype(
             np.float32)).to(device)
         hbar = torch.from_numpy(rng.standard_normal((B, D)).astype(
             np.float32)).to(device)
-        res = check_node_kernels(case, h0, hbar)
+        res = check_node_kernels(case, h0, hbar, twice=True)
         att, t_end = check_custom_more(case, h0, hbar, f"{case['name']} B={B}")
         custom[(D, H, B)] = dict(res, case=case, h0=h0, hbar=hbar)
+        p = CF.row_plan(B, D, H, bwd=True)
         print(f"  {case['name']} B={B}: attempts {att}, end time {t_end} "
-              f"(plain's within 1e-4); the backward the same bits twice")
+              f"(plain's within 1e-4); the backward the same bits twice; "
+              f"plan: {'grid' if p['grid'] else 'cluster'} of {p['C']} CTAs "
+              f"of {p['R']} rows, {p['smem_bytes']} bytes of shared memory "
+              f"a CTA (backward)")
     # an attempt budget the solve runs out of: the end time plain reaches
     D, H = CUSTOM_DH
     short = dict(CUSTOM_OPTS, max_steps=3)
@@ -3758,7 +3821,8 @@ def spline_custom_phases(device, smi):
               f"bases {row['matmul']:.4f} device ms (queued_ms); bound "
               f"{row['bound'][0]:.5f} ms ({row['bound'][2]}) ({smi})")
     c = custom[(*CUSTOM_DH, 64)]
-    times["custom"] = time_node_kernels(c["case"], c["h0"], c["hbar"], smi)
+    times["custom"] = time_node_kernels(c["case"], c["h0"], c["hbar"], smi,
+                                        device=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         with plain_spline():
@@ -4485,11 +4549,11 @@ def main():
         kernel_entry("custom_field_fwd", "fetode_tpu_torch/csrc/custom_field.cu",
                      "examples/02_custom_field_kernel.py:95",
                      sc_launches["custom_fwd"], sc_errs["custom_fwd"],
-                     ct["fwd"], ct["plain_fwd"], ct["bound_fwd"]),
+                     ct["fwd_dev"], ct["plain_fwd"], ct["bound_fwd"]),
         kernel_entry("custom_field_bwd", "fetode_tpu_torch/csrc/custom_field.cu",
                      "examples/02_custom_field_kernel.py:116",
                      sc_launches["custom_bwd"], sc_errs["custom_bwd"],
-                     ct["bwd"], ct["plain_bwd"], ct["bound_bwd"]),
+                     ct["bwd_dev"], ct["plain_bwd"], ct["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

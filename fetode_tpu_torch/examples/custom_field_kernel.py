@@ -3,11 +3,11 @@
 The port's counterpart of ``examples/02_custom_field_kernel.py``.
 ``fetode_tpu_torch/csrc/node_common.cuh`` is the port's most reusable
 asset: an adaptive dopri5 solve (Hairer's initial step, the PI
-controller, FSAL) that runs entirely inside one cooperative CUDA kernel,
+controller, FSAL) that runs entirely inside one CUDA kernel launch,
 records every step attempt, and replays the frozen step mesh backwards
 for a discrete adjoint.  A field supplies two device methods:
 
-    eval(u, out)        out = f(u)                 (B, D) -> (B, D)
+    eval(u, out)        out = f(u)                 rows -> rows
     vjp(u, w, ubar)     ubar = w^T df/du(u), parameter cotangents
                         added into buffers the field holds
 
@@ -18,6 +18,21 @@ checks both the solution and the gradients against the eager solver
 the same shape: ``csrc/logistic_node.cu``, ``ferro_node.cu``,
 ``mlp_node.cu``, ``ode_dyn.cu``, ``node_enc.cu``.
 
+The field never mixes rows, so it runs under the scaffold's row policy
+(``RowSync``): each CTA owns a block of batch rows and holds w1 and w2
+in its shared memory for the launch, and ``eval`` / ``vjp`` take that
+CTA's rows only, (nrows, D) and synchronise only the CTA; the one
+exchange between CTAs is the error norm's sum, once an attempt.  A field
+that mixes rows (a batch norm, attention over the batch) takes the grid
+policy (``GridSync``) instead, where both methods see all B rows and
+synchronise the cooperative grid (``csrc/ferro_node.cu``).  The header
+of ``csrc/custom_field.cu`` says what a field supplies under each.
+
+* ``row_plan(B, D, H, bwd)`` — the launch: up to 64 rows one
+  thread-block cluster of at most 16 CTAs, past them a cooperative grid
+  of 4-row CTAs; where each CTA holds w1, w2 and its rows (its shared
+  memory while they fit 227 KB, else device memory).  The library's
+  ``custom_field_plan`` is checked against it once a shape.
 * ``custom_field_fwd`` / ``custom_field_bwd`` — the kernel wrappers, each
   with a launch counter (``.launches``).  For CPU tensors they take the
   plain versions ``record_solve_reference`` / ``replay_vjp_reference`` of
@@ -38,7 +53,7 @@ import argparse
 import ctypes
 import functools
 import sys
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -46,6 +61,60 @@ from fetode_tpu_torch.ops import node_common as NC
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
 
 _KERNEL_NAME = "custom_field"
+# The launch (``csrc/custom_field.cu: make_geo``): one cluster of at most
+# MAX_CLUSTER CTAs up to MAX_CLUSTER * CLUSTER_ROWS rows, past them a
+# cooperative grid of at most MAX_GRID CTAs of >= CLUSTER_ROWS rows;
+# ROW_THREADS threads a CTA, TILE_SLOTS gradient tiles a thread in
+# registers, SMEM_BUDGET bytes of dynamic shared memory a CTA.
+MAX_CLUSTER, CLUSTER_ROWS, MAX_GRID = 16, 4, 128
+ROW_THREADS, TILE_SLOTS = 512, 4
+SMEM_BUDGET = 232448 - 2048
+_PART_FLOATS = 4096            # node_common.cuh: kPartFloats
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _row_stride(k: int) -> int:
+    """The smallest stride >= k that is 4 mod 32 floats."""
+    s = _round4(k)
+    while s % 32 != 4:
+        s += 4
+    return s
+
+
+def row_plan(B: int, D: int, H: int, bwd: bool = False) -> Dict[str, object]:
+    """The kernels' launch at batch B and widths D, H (``csrc/
+    custom_field.cu: make_geo``).  Up to 64 rows one cluster of ``C`` <= 16
+    CTAs, R = ceil(B / 16) rows each; past them a cooperative grid
+    (``grid``) of C = ceil(B / R) CTAs, R = max(4, ceil(B / 128)).  CTA c
+    owns the rows ``rows[c]``.  ``smem``: whether w1 and w2 (padded, rows
+    4 mod 32 floats apart) and the rows' state, stages and records sit in
+    the CTA's shared memory (``smem_bytes``), else both in device memory
+    the CTA owns (``work_floats`` of scratch, which also holds the grid
+    form's partials and, backward, every CTA's gradient tiles);
+    ``tiles``: the 4 x 4 gradient tiles, ``tile_slots`` of them a thread
+    in registers; ``record``: the row record's floats."""
+    if B < 1:
+        raise ValueError(f"row_plan: B must be >= 1, got {B}")
+    grid = B > MAX_CLUSTER * CLUSTER_ROWS
+    R = max(CLUSTER_ROWS, -(-B // MAX_GRID)) if grid else -(-B // MAX_CLUSTER)
+    C = -(-B // R)
+    D4, H4 = _round4(D), _round4(H)
+    rec = 2 * (D4 + H4) if bwd else D4 + H4
+    w = H4 * _row_stride(D) + D4 * _row_stride(H)
+    p = 4 * max(H, D, ROW_THREADS // 32 * 64) if bwd else 0
+    rows = _round4(9 * R * D) + R * rec
+    in_smem = w + p + rows <= SMEM_BUDGET // 4
+    tiles = 2 * (-(-D // 4)) * (-(-H // 4))
+    work = (_PART_FLOATS if grid else 0) + C * (
+        (0 if in_smem else w + rows) + (16 * tiles if bwd else 0))
+    return dict(grid=grid, C=C, R=R,
+                rows=[range(c * R, min(B, (c + 1) * R)) for c in range(C)],
+                smem_bytes=4 * (p + (w + rows if in_smem else 0)),
+                smem=in_smem, work_floats=work, tiles=tiles,
+                threads=ROW_THREADS, tile_slots=TILE_SLOTS, record=rec)
 
 
 def tanh_mlp_field(w1: torch.Tensor, w2: torch.Tensor) -> NC.Field:
@@ -67,7 +136,26 @@ def _lib():
         ctypes.c_int
     lib.custom_field_work_floats.argtypes = [I] * 3
     lib.custom_field_work_floats.restype = ctypes.c_longlong
+    lib.custom_field_plan.argtypes = [I] * 4 + [P]
+    lib.custom_field_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(B: int, D: int, H: int) -> None:
+    """Raise unless the library's plan is ``row_plan``'s, forward and
+    backward (once a shape)."""
+    for bwd in (False, True):
+        got = (ctypes.c_longlong * 10)()
+        _lib().custom_field_plan(B, D, H, int(bwd), ctypes.addressof(got))
+        p = row_plan(B, D, H, bwd)
+        want = [p["C"], p["R"], p["smem_bytes"], int(p["smem"]),
+                p["work_floats"], p["tiles"], p["threads"], p["tile_slots"],
+                int(p["grid"]), p["record"]]
+        if list(got) != want:
+            raise RuntimeError(f"custom_field: the library's plan {list(got)}"
+                               f" at B={B}, D={D}, H={H}, bwd={bwd} is not "
+                               f"row_plan's {want}")
 
 
 def _check_shapes(w1, w2, h0, name) -> None:
@@ -85,6 +173,7 @@ def _operands(w1, w2, h0, name) -> List[torch.Tensor]:
 
 
 def _work(B, D, H, device):
+    _check_plan(B, D, H)
     n = _lib().custom_field_work_floats(B, D, H)
     return torch.empty(n, dtype=torch.float32, device=device)
 

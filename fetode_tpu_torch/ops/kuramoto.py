@@ -20,7 +20,9 @@ scalar tensor.
 * ``kuramoto_fwd`` / ``kuramoto_bwd`` — the kernel wrappers of the
   rollout and its replay adjoint, each with a launch counter
   (``.launches``); ``kuramoto_rollout`` — the differentiable rollout over
-  the two (a ``torch.autograd.Function`` on CUDA).
+  the two (a ``torch.autograd.Function`` on CUDA); ``rollout_plan`` —
+  their launch (sites a thread, images a CTA, the backward's records),
+  checked against the library's ``kuramoto_rollout_plan`` once a shape.
 * ``kuramoto_logits`` — the fused classifier (rollout + head -> logits),
   with a launch counter; on CUDA its gradient recomputes the features
   through the rollout kernels and differentiates the plain head, as the
@@ -62,7 +64,18 @@ HEAD_KNOTS, HEAD_ORDER, MAX_CLASSES, MAX_SITES = 12, 3, 16, 1024
 # features; two images rolled out at once a CTA; at most 16 clusters.
 CLUSTER, HALVES, MAX_CLUSTERS, SITES_A_THREAD = 8, 2, 16, 4
 LOGITS_SMEM = 232448        # dynamic shared-memory bytes a CTA may take
-
+# The rollout pair's plan (``csrc/kuramoto.cu: roll_geo``): 1, 2 or 4
+# sites a thread by the waves of CTAs an SM of SM_THREADS threads, SM_REGS
+# registers (ROLL_REGS a thread) and SM_SMEM bytes (CTA_RESERVED of them a
+# CTA) runs at once, at most ROLL_BLOCKS_SM; a small lattice packs up to
+# ROLL_MAX_IMAGES images into a CTA of at most ROLL_PACK threads;
+# ROLL_SMEM bytes of shared memory a CTA, BWD_STATIC of them the
+# backward's static red[32]; the batch sums REDUCE_COLS columns a CTA.
+ROLL_BLOCKS_SM, ROLL_MAX_IMAGES, ROLL_PACK = 32, 8, 256
+SM_THREADS, SM_REGS, SM_SMEM, CTA_RESERVED = 2048, 65536, 233472, 1024
+ROLL_SMEM, BWD_STATIC, REDUCE_COLS = 232448, 128, 32
+ROLL_REGS = 64      # registers a thread: launch bounds 1024 / k, k CTAs
+ROLL_FORMS = ("sincos", "theta")
 
 class Lattice(NamedTuple):
     """The rollout's static shape: H x W sites, ``steps`` steps of ``dt``."""
@@ -86,7 +99,113 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.kuramoto_logits_plan.argtypes = [I] * 3 + [P]
     lib.kuramoto_logits_plan.restype = None
+    lib.kuramoto_rollout_plan.argtypes = [I] * 6 + [P]
+    lib.kuramoto_rollout_plan.restype = None
     return lib
+
+
+def _roll_floats(H: int, W: int, k: int, steps: int, bwd: bool,
+                 form: int) -> int:
+    """Shared-memory floats an image takes (``roll_floats``): the forward's
+    two sin | cos buffers (at k = 4 sites a thread each lattice inside a
+    zero halo); the backward's records (sin and cos of every theta_t, or
+    theta_t alone) and its buffers (two of g cos | g sin, or one of sin |
+    cos | g cos | g sin)."""
+    if not bwd:
+        return 4 * (H + 2) * (W + 2) if k == 4 else 4 * H * W
+    return (2 * steps + 4) * H * W if form == 0 else (steps + 4) * H * W
+
+
+def rollout_plan(B: int, H: int, W: int, steps: int, sms: int = 132,
+                 bwd: bool = False) -> Dict[str, object]:
+    """The rollout pair's launch at batch ``B``, an ``H`` x ``W`` lattice,
+    ``steps`` Euler steps on a card of ``sms`` SMs (``csrc/kuramoto.cu:
+    roll_geo``).
+    ``k`` sites a thread (thread ``tl`` of an image owns the sites
+    ``sites[tl]``, ``tl + j tpi`` for j < k), ``tpi`` threads an image,
+    ``images`` a CTA (CTA c owns the images ``cta_images[c]``).  Of k = 1,
+    2, 4 the one whose ``ctas`` the card runs in the fewest ``waves`` (the
+    CTAs an SM holds by threads, registers at the kernel's launch bounds
+    and shared memory), the least k of a tie: below the SM count an image
+    takes a thread a site.  A small lattice packs images into CTAs of at
+    most ``ROLL_PACK`` threads while the CTAs still cover the SMs.
+    Backward: ``form`` ``"sincos"`` (sin and cos of every theta_t recorded
+    in shared memory) where an image's fit ``ROLL_SMEM`` less
+    ``BWD_STATIC`` bytes, else ``"theta"`` (theta_t alone), with fewer
+    images a CTA where need be; ``ValueError`` if one image's fit
+    neither.
+    ``reduce_ctas``: the CTAs of the batch sums, ``REDUCE_COLS`` columns
+    of [omegabar | Kbar] each."""
+    HW = H * W
+    if B < 1 or HW < 1 or steps < 0:
+        raise ValueError(f"rollout_plan: B >= 1, H, W >= 1, steps >= 0, "
+                         f"got {B}, {H}, {W}, {steps}")
+    forms = (0, 1) if bwd else (None,)
+    fixed = BWD_STATIC if bwd else 0
+    budget = ROLL_SMEM - fixed
+    best = None
+    for f in forms:
+        if best is not None:
+            break
+        for k in (1, 2, 4):
+            per = 4 * _roll_floats(H, W, k, steps, bwd, f or 0)
+            tpi = -(-(-(-HW // k)) // 32) * 32
+            m = 1
+            while (m < ROLL_MAX_IMAGES and 2 * m <= B
+                   and 2 * m * tpi <= ROLL_PACK
+                   and -(-B // (2 * m)) >= min(B, sms)):
+                m *= 2
+            while m > 1 and m * per > budget:
+                m //= 2
+            if per > budget:
+                continue
+            ctas = -(-B // m)
+            held = sms * min(ROLL_BLOCKS_SM, SM_THREADS // (m * tpi),
+                             SM_REGS // (m * tpi * ROLL_REGS),
+                             SM_SMEM // (m * per + fixed + CTA_RESERVED))
+            waves = -(-ctas // held)
+            if best is None or waves < best["waves"]:
+                best = dict(k=k, tpi=tpi, images=m, threads=m * tpi,
+                            ctas=ctas, waves=waves,
+                            form=None if f is None else ROLL_FORMS[f],
+                            smem_bytes=m * per)
+    if best is None:
+        raise ValueError(
+            f"kuramoto_bwd: an image's records of {steps} steps of {HW} "
+            f"sites take {4 * _roll_floats(H, W, 1, steps, True, 0)} bytes as "
+            f"sin and cos, {4 * _roll_floats(H, W, 1, steps, True, 1)} as "
+            f"theta, above the {budget} bytes of a CTA's shared memory")
+    m, tpi, k = best["images"], best["tpi"], best["k"]
+    best.update(reduce_ctas=(HW + REDUCE_COLS) // REDUCE_COLS,
+                cta_images=[range(c * m, min(B, (c + 1) * m))
+                            for c in range(best["ctas"])],
+                sites=[[tl + j * tpi for j in range(k) if tl + j * tpi < HW]
+                       for tl in range(tpi)])
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _check_rollout_plan(B: int, H: int, W: int, steps: int, sms: int,
+                        bwd: bool) -> Dict[str, object]:
+    """``rollout_plan``'s plan, raising unless the library's is the same
+    (once a shape)."""
+    p = rollout_plan(B, H, W, steps, sms, bwd)
+    got = (ctypes.c_longlong * 9)()
+    _lib().kuramoto_rollout_plan(B, H, W, steps, sms, int(bwd),
+                                 ctypes.addressof(got))
+    form = -1 if p["form"] is None else ROLL_FORMS.index(p["form"])
+    want = [p["k"], p["images"], p["tpi"], p["threads"], p["ctas"], form,
+            p["smem_bytes"], 1, p["reduce_ctas"]]
+    if list(got) != want:
+        raise RuntimeError(f"kuramoto: the library's rollout plan {list(got)}"
+                           f" differs from rollout_plan's {want} at B={B}, "
+                           f"H={H}, W={W}, steps={steps}, sms={sms}, "
+                           f"bwd={bwd}")
+    return p
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def slice_plan(HW: int, C: int, n_logistic: int, B: int = 1,
@@ -268,6 +387,8 @@ def kuramoto_fwd(omega: torch.Tensor, K: torch.Tensor, theta0: torch.Tensor,
             return kuramoto_rollout_reference(omega, K, theta0, lat)
     dev, ops = _kernel_args(omega, K, theta0, lat, "kuramoto_fwd")
     B, HW = theta0.shape
+    if B:
+        _check_rollout_plan(B, lat.H, lat.W, lat.steps, _sms(dev), False)
     feat = torch.empty((B, 2 * HW), dtype=torch.float32, device=dev)
     NC.launch(_lib().kuramoto_fwd, *(NC.ptr(t) for t in ops), NC.ptr(feat),
               B, lat.H, lat.W, lat.steps, lat.dt, name="kuramoto_fwd",
@@ -283,9 +404,10 @@ def kuramoto_bwd(omega: torch.Tensor, K: torch.Tensor, theta0: torch.Tensor,
                  ct: torch.Tensor, lat: Lattice
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The replay adjoint of ``kuramoto_rollout_bwd_reference`` on CUDA
-    (the per-image kernel and the fixed-order batch reduction); the plain
-    version for CPU tensors.  Returns (theta0bar (B, H*W), omegabar (H, W),
-    Kbar ())."""
+    (the replay kernel and the batch sums over the card in a fixed order;
+    ``rollout_plan`` raises for a lattice whose records fit a CTA in
+    neither form); the plain version for CPU tensors.  Returns (theta0bar
+    (B, H*W), omegabar (H, W), Kbar ())."""
     _check(omega, K, theta0, lat, "kuramoto_bwd")
     if tuple(ct.shape) != (theta0.shape[0], 2 * lat.H * lat.W):
         raise ValueError(f"kuramoto_bwd: ct must be (B, {2 * lat.H * lat.W})"
@@ -295,6 +417,8 @@ def kuramoto_bwd(omega: torch.Tensor, K: torch.Tensor, theta0: torch.Tensor,
     dev, ops = _kernel_args(omega, K, theta0, lat, "kuramoto_bwd")
     ct = NC.kernel_operand(ct, dev, "kuramoto_bwd ct")
     B, HW = theta0.shape
+    if B:
+        _check_rollout_plan(B, lat.H, lat.W, lat.steps, _sms(dev), True)
     kw = dict(dtype=torch.float32, device=dev)
     th0bar, pom = torch.empty((B, HW), **kw), torch.empty((B, HW), **kw)
     pk, gom, gk = torch.empty(B, **kw), torch.empty(HW, **kw), \

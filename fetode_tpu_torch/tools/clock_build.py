@@ -1,7 +1,7 @@
 """Clock builds of a kernel source: ``csrc/<name>.cu`` compiled with
 ``-D<NAME>_CLOCKS``, under which it counts thread 0's cycles a CTA in
-``<name>_clocks`` (``slots`` counters a CTA, at most 1,024 CTAs), with an
-accessor appended.  Used by ``tools/kuramoto_times.py --breakdown`` and
+``<name>_clocks`` (or another ``__device__`` array ``sym``; ``slots``
+counters a CTA, at most 1,024 CTAs), with an accessor appended.  Used by ``tools/kuramoto_times.py --breakdown`` and
 ``tools/node_field_times.py --breakdown`` on the card; the wrapper's
 library is swapped for the clock build for one call."""
 
@@ -14,12 +14,11 @@ import tempfile
 from pathlib import Path
 
 ACCESS = """
-extern "C" int {name}_clocks_copy(long long* host, int n, int clear) {{
+extern "C" int {sym}_copy(long long* host, int n, int clear) {{
   static long long zeros[{slots} * 1024] = {{}};
   if (clear)
-    return (int)cudaMemcpyToSymbol({name}_clocks, zeros, sizeof(zeros));
-  return (int)cudaMemcpyFromSymbol(host, {name}_clocks,
-                                   n * sizeof(long long));
+    return (int)cudaMemcpyToSymbol({sym}, zeros, sizeof(zeros));
+  return (int)cudaMemcpyFromSymbol(host, {sym}, n * sizeof(long long));
 }}
 """
 
@@ -32,9 +31,11 @@ def has_marks(name: str) -> bool:
                                         ).read_text()
 
 
-def clock_library(name: str, slots: int, text: str | None = None):
+def clock_library(name: str, slots: int, text: str | None = None,
+                  sym: str | None = None):
     """Build and load the clock build of ``csrc/<name>.cu`` (or of ``text``
-    in its place, the other sources beside it)."""
+    in its place, the other sources beside it), its counters in ``sym``
+    (``<name>_clocks`` by default)."""
     from fetode_tpu_torch.ops import _build
 
     tmp = Path(tempfile.mkdtemp(prefix=f"{name}_clocks_"))
@@ -42,7 +43,8 @@ def clock_library(name: str, slots: int, text: str | None = None):
     src = tmp / "csrc" / f"{name}_clocks.cu"
     body = text if text is not None else (_build.SRC_DIR
                                           / f"{name}.cu").read_text()
-    src.write_text(body + ACCESS.format(name=name, slots=slots))
+    sym = sym or f"{name}_clocks"
+    src.write_text(body + ACCESS.format(sym=sym, slots=slots))
     so = tmp / f"lib{name}_clocks.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                            f"-D{name.upper()}_CLOCKS", "-o", str(so),
@@ -52,25 +54,25 @@ def clock_library(name: str, slots: int, text: str | None = None):
         raise RuntimeError(f"nvcc failed on the clock build of {name}:\n"
                            f"{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, f"{name}_clocks_copy")
+    fn = getattr(lib, f"{sym}_copy")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return lib
 
 
-def read_clocks(lib, name: str, slots: int):
+def read_clocks(lib, name: str, slots: int, sym: str | None = None):
     """The counters of the CTAs that ran (a nonzero last slot, the whole
     kernel), one list of ``slots`` a CTA."""
     host = (ctypes.c_longlong * (slots * 1024))()
-    if getattr(lib, f"{name}_clocks_copy")(ctypes.addressof(host),
-                                           slots * 1024, 0):
+    sym = sym or f"{name}_clocks"
+    if getattr(lib, f"{sym}_copy")(ctypes.addressof(host), slots * 1024, 0):
         raise RuntimeError(f"{name}: reading the clocks failed")
     return [host[slots * i:slots * (i + 1)] for i in range(1024)
             if host[slots * i + slots - 1] > 0]
 
 
-def clear_clocks(lib, name: str) -> None:
-    if getattr(lib, f"{name}_clocks_copy")(None, 0, 1):
+def clear_clocks(lib, name: str, sym: str | None = None) -> None:
+    if getattr(lib, f"{sym or name + '_clocks'}_copy")(None, 0, 1):
         raise RuntimeError(f"{name}: clearing the clocks failed")
 
 

@@ -1,9 +1,10 @@
 """Check and time B.11, the fused Kuramoto classifier
-(``csrc/kuramoto.cu: kuramoto_logits``), of the package this file is
+(``csrc/kuramoto.cu: kuramoto_logits``), and B.10, the rollout pair
+(``kuramoto_fwd`` / ``kuramoto_bwd``), of the package this file is
 imported from, on one card.
 
     python -m fetode_tpu_torch.tools.kuramoto_times [--tag NAME] [--breakdown]
-        [--b10-out FILE]
+        [--b10-out FILE] [--b10-against FILE]
 
 Run from the root of a checkout (it imports that checkout's
 ``chip_smoke`` for its inputs, bounds and timers).  To compare two
@@ -20,15 +21,25 @@ builds ``kuramoto``, then:
   (``queued_ms``) and back to back (``cuda_ms``); the bound
   (``chip_smoke.kuramoto_counts``); the launch's plan (``ops/kuramoto.py:
   slice_plan``, where the checkout has it).
-* B.10, the rollout pair that shares ``kuramoto.cu``, at every batch of
-  ``chip_smoke.KURA_TIMES`` (128, 256, 1,024), phase 19's inputs: the
-  device time a call of the forward and the backward (``queued_ms``);
-  with ``--b10-out`` its outputs at B = 128 (features, theta0bar,
-  omegabar, Kbar) saved to FILE, to hold two builds' bits against each
-  other.
-* The MNIST ``pallas_fused`` training step at B = 128 (forward,
-  cross-entropy, backward, AdamW at learning rate 0; ``cuda_ms``) and
-  ``serve --source mnist`` p50 in buckets 8, 64 and 256.
+* B.10 at every batch of ``B10_BATCHES`` (8, 64 and
+  ``chip_smoke.KURA_TIMES``: 128, 256, 1,024) and at 133, phase 19's
+  parameters: the features against plain (the same bits), theta0bar of
+  images 0 and B - 1 alone the same bits as in the batch, omegabar and
+  Kbar the same bits twice; the device time a call of the forward and
+  the backward (``queued_ms``); the bounds; the plan
+  (``ops/kuramoto.py: rollout_plan``, where the checkout has it).  The
+  backward again at 40 steps (``THETA_STEPS``, where the plan keeps
+  theta_t alone) at B = 128 and 1,024: theta0bar, omegabar and Kbar
+  against ``kuramoto_rollout_bwd_reference`` (relative error below
+  ``chip_smoke.GRAD_TOL``, phase 19's gate), its ``queued_ms`` and plan.  With
+  ``--b10-out`` its outputs at B = 8, 128 and 1,024 (features,
+  theta0bar, omegabar, Kbar) are saved to FILE; with ``--b10-against``
+  they are held against FILE, another build's: the features and
+  theta0bar bit for bit, omegabar and Kbar by their largest difference.
+* The MNIST ``pallas`` and ``pallas_fused`` training steps at B = 128
+  (forward, cross-entropy, backward, AdamW at learning rate 0;
+  ``cuda_ms``) and ``serve --source mnist`` p50 in buckets 8, 64 and
+  256.
 * With ``--breakdown``: a clock build of the checkout's ``kuramoto.cu``
   (``-DKURAMOTO_CLOCKS``; a source without those marks, the form before
   the cluster design, gets them by the fixed insertions of
@@ -38,7 +49,13 @@ builds ``kuramoto``, then:
   recursion, and SiLU), the weight products (the cluster form: SiLU's
   and the splines'; before it with the logistic terms), the logistic
   terms (sigmoids and products), the features' reads from the other
-  CTAs, the reductions and the whole kernel.
+  CTAs, the reductions and the whole kernel.  And a clock build of B.10's
+  backward (the checkout's marks in ``kuramoto_roll_clocks``, or the
+  fixed insertions of ``PARENT_B10_MARKS`` in a source without them) at
+  B = 128 and 1,024: the mean over CTAs of thread 0's cycles in the load,
+  the replay's steps, the theta records' stores, the seed of the walk
+  back, the reverse steps, the image's sums and the whole kernel, and of
+  the batch sums' CTAs in that kernel.
 
 No profiler.  Prints the card's name and power limit, one line a
 measurement, and a last JSON line ``{"tag": ..., "b11": {...}, "b10":
@@ -88,16 +105,70 @@ PARENT_MARKS = (
 SLOTS = ("rollout", "load", "bases", "weights", "logistic", "reads",
          "reductions", "total")
 
+# B.10's backward before its redesign (one 224-thread block an image, a
+# 4-block batch sum), marked on B10_SLOTS (the records' stores stay 0,
+# inside the replay) by fixed replacements: (anchor, its replacement),
+# each anchor found once.
+_ROLL = ("  load_theta(th, S, theta0, HW);\n"
+         "  rollout<true>(th, S, L, s_sin, s_cos, rec);\n")
+PARENT_B10_MARKS = (
+    ("namespace {\n",
+     "namespace {\n__device__ long long kuramoto_roll_clocks[8 * 1024];\n"),
+    (_ROLL, "  const long long kb0 = clock64();\n"
+            "  load_theta(th, S, theta0, HW);\n"
+            "  const long long kb1 = clock64();\n"
+            "  rollout<true>(th, S, L, s_sin, s_cos, rec);\n"
+            "  const long long kb2 = clock64();\n"),
+    ("  for (int t = L.steps - 1; t >= 0; --t) {\n",
+     "  const long long kb3 = clock64();\n"
+     "  for (int t = L.steps - 1; t >= 0; --t) {\n"),
+    ("  const size_t row0 = (size_t)blockIdx.x * HW;\n",
+     "  const long long kb4 = clock64();\n"
+     "  const size_t row0 = (size_t)blockIdx.x * HW;\n"),
+    ("  if (threadIdx.x == 0) pk[blockIdx.x] = total;\n",
+     "  if (threadIdx.x == 0) pk[blockIdx.x] = total;\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    long long* ck = kuramoto_roll_clocks + 8 * blockIdx.x;\n"
+     "    const long long kb5 = clock64();\n"
+     "    ck[0] = kb1 - kb0; ck[1] = kb2 - kb1; ck[3] = kb3 - kb2;\n"
+     "    ck[4] = kb4 - kb3; ck[5] = kb5 - kb4; ck[7] = kb5 - kb0;\n  }\n"),
+    ("                                       float* gom, float* gk, int B, "
+     "int HW) {\n",
+     "                                       float* gom, float* gk, int B, "
+     "int HW) {\n  const long long kr0 = clock64();\n"),
+    ("    *gk = acc;\n  }\n",
+     "    *gk = acc;\n  }\n"
+     "  if (threadIdx.x == 0) kuramoto_roll_clocks[8 * blockIdx.x + 6] = "
+     "clock64() - kr0;\n"),
+)
+B10_SLOTS = ("load", "replay steps", "records", "seed", "reverse steps",
+             "image sums", "batch sums", "total")
+B10_BATCHES = (8, 64, 128, 256, 1024)
+# Steps at which a 28 x 28 lattice's sin / cos records do not fit a CTA.
+THETA_STEPS = 40
+
+
+def _replace(src: str, marks) -> str:
+    for anchor, text in marks:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"kuramoto_times: clock anchor found "
+                               f"{src.count(anchor)} times: {anchor!r}")
+        src = src.replace(anchor, text)
+    return src
+
 
 def instrument(src: str) -> str:
     """The clock build's source: the checkout's marks, or PARENT_MARKS."""
     if "KURAMOTO_CLOCKS" not in src:
-        for anchor, text in PARENT_MARKS:
-            if src.count(anchor) != 1:
-                raise RuntimeError(f"kuramoto_times: clock anchor found "
-                                   f"{src.count(anchor)} times: {anchor!r}")
-            src = src.replace(anchor, anchor + text)
+        src = _replace(src, [(a, a + t) for a, t in PARENT_MARKS])
     return src
+
+
+def instrument_b10(src: str) -> str:
+    """B.10's clock build: the checkout's marks, or PARENT_B10_MARKS."""
+    if "kuramoto_roll_clocks" in src:
+        return src
+    return _replace(src, PARENT_B10_MARKS)
 
 
 def setup(cs, device):
@@ -118,7 +189,7 @@ def setup(cs, device):
     head = [None if t is None else t.detach()
             for t in TK.head_operands(params.head)]
     packed = KO.pack_head(*head)
-    batches = sorted(set(cs.KURA_LOGITS + cs.KURA_TIMES))
+    batches = sorted(set(cs.KURA_LOGITS + cs.KURA_TIMES + B10_BATCHES))
     cases = {b: cs.kuramoto_case(device, b, 20 + i)
              for i, b in enumerate(batches)}
     return spec, params, head, packed, cases
@@ -167,8 +238,9 @@ def b11_part(cs, device, smi, ctx):
     return out
 
 
-def b10_part(cs, device, smi, ctx, out_file=None):
-    """B.10's forward and backward, device ms a call; its outputs saved."""
+def b10_part(cs, device, smi, ctx, out_file=None, against=None):
+    """B.10's forward and backward: checks, device ms a call, plans; its
+    outputs saved to ``out_file`` or held against ``against``."""
     import torch
 
     from fetode_tpu_torch.ops import kuramoto as KO
@@ -176,32 +248,101 @@ def b10_part(cs, device, smi, ctx, out_file=None):
     spec, params, _, _, cases = ctx
     lat = spec.lattice
     om, K = params.omega.detach(), params.K.detach()
-    out = {}
-    for b in cs.KURA_TIMES:
-        th0, ct = cases[b]["theta0"], cases[b]["ct"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out, saved = {}, {}
+    for b in B10_BATCHES + (133,):
+        c = cases.get(b) or cs.kuramoto_case(device, b, 40)
+        th0, ct = c["theta0"], c["ct"]
         with torch.no_grad():
-            fwd = cs.queued_ms(lambda: KO.kuramoto_fwd(om, K, th0, lat))
-        bwd = cs.queued_ms(lambda: KO.kuramoto_bwd(om, K, th0, ct, lat))
-        out[b] = dict(fwd=fwd, bwd=bwd)
-        print(f"B.10 kuramoto rollout B={b}: forward {fwd:.4f} ms, backward "
-              f"{bwd:.4f} ms on a full queue (queued_ms) ({smi})", flush=True)
-        if out_file and b == 128:
-            with torch.no_grad():
-                feat = KO.kuramoto_fwd(om, K, th0, lat)
-            grads = KO.kuramoto_bwd(om, K, th0, ct, lat)
-            torch.save([t.cpu() for t in (feat, *grads)], out_file)
+            feat = KO.kuramoto_fwd(om, K, th0, lat)
+            want = KO.kuramoto_rollout_reference(om, K, th0, lat)
+        g1 = KO.kuramoto_bwd(om, K, th0, ct, lat)
+        g2 = KO.kuramoto_bwd(om, K, th0, ct, lat)
+        alone = [torch.equal(KO.kuramoto_bwd(om, K, th0[r:r + 1],
+                                             ct[r:r + 1], lat)[0],
+                             g1[0][r:r + 1]) for r in sorted({0, b - 1})]
+        torch.cuda.synchronize()
+        row = dict(plain_bits=bool(torch.equal(feat, want)),
+                   twice=bool(torch.equal(g1[1], g2[1])
+                              and torch.equal(g1[2], g2[2])),
+                   alone=all(alone))
+        if not all(row.values()):
+            cs.fail(f"B.10 B={b}: {row}")
+        with torch.no_grad():
+            row["fwd"] = cs.queued_ms(lambda: KO.kuramoto_fwd(om, K, th0, lat))
+        row["bwd"] = cs.queued_ms(lambda: KO.kuramoto_bwd(om, K, th0, ct,
+                                                          lat))
+        for kind in ("fwd", "bwd"):
+            row[f"bound_{kind}"] = cs.bound(*cs.kuramoto_counts(
+                b, 28, 28, 10, kind))[0]
+        if hasattr(KO, "rollout_plan"):
+            for kind in ("fwd", "bwd"):
+                p = KO.rollout_plan(b, 28, 28, 10, sms, kind == "bwd")
+                row[f"plan_{kind}"] = dict(k=p["k"], threads=p["threads"],
+                                           ctas=p["ctas"], form=p["form"],
+                                           waves=p["waves"])
+        out[b] = row
+        print(f"B.10 kuramoto rollout B={b}: forward {row['fwd']:.4f} ms, "
+              f"backward {row['bwd']:.4f} ms on a full queue (queued_ms); "
+              f"bounds {row['bound_fwd']:.5f} / {row['bound_bwd']:.5f} ms; "
+              f"features plain's bits, theta0bar alone = in the batch, "
+              f"omegabar and Kbar the same bits twice; "
+              + ", ".join(f"{k} {v}" for k, v in row.items()
+                          if k.startswith(("plan", "bwd_")))
+              + f" ({smi})", flush=True)
+        if b in (8, 128, 1024):
+            saved[b] = [t.cpu() for t in (feat, *g1)]
+    lat40 = lat._replace(steps=THETA_STEPS)
+    for b in (128, 1024):
+        c = cases[b]
+        th0, ct = c["theta0"], c["ct"]
+        got = KO.kuramoto_bwd(om, K, th0, ct, lat40)
+        want = KO.kuramoto_rollout_bwd_reference(om, K, th0, ct, lat40)
+        err = max(cs.rel_err(x, y) for x, y in zip(got, want))
+        if not err < cs.GRAD_TOL:
+            cs.fail(f"B.10 backward at {THETA_STEPS} steps B={b}: relative "
+                    f"error {err:.3e} vs plain")
+        row = dict(err=err, bwd=cs.queued_ms(
+            lambda: KO.kuramoto_bwd(om, K, th0, ct, lat40)))
+        if hasattr(KO, "rollout_plan"):
+            p = KO.rollout_plan(b, 28, 28, THETA_STEPS, sms, True)
+            row["plan_bwd"] = dict(k=p["k"], threads=p["threads"],
+                                   ctas=p["ctas"], form=p["form"],
+                                   waves=p["waves"])
+        out[f"{b} steps {THETA_STEPS}"] = row
+        print(f"B.10 kuramoto backward B={b} at {THETA_STEPS} steps: "
+              f"{row['bwd']:.4f} ms on a full queue (queued_ms); relative "
+              f"error {err:.3e} vs plain; {row.get('plan_bwd', '')} ({smi})",
+              flush=True)
+    if out_file:
+        torch.save(saved, out_file)
+    if against:
+        other = torch.load(against)
+        for b, mine in saved.items():
+            theirs = other[b]
+            same = [bool(torch.equal(x, y)) for x, y in zip(mine[:2],
+                                                           theirs[:2])]
+            diff = [float((x - y).abs().max()) for x, y in zip(mine[2:],
+                                                              theirs[2:])]
+            out[b]["against"] = dict(features_same=same[0],
+                                     theta0bar_same=same[1],
+                                     omegabar_kbar_max_diff=diff)
+            print(f"B.10 B={b} against {against}: features the same bits "
+                  f"{same[0]}, theta0bar {same[1]}; omegabar, Kbar max "
+                  f"|diff| {diff} ({smi})", flush=True)
     return out
 
 
 def steps_part(cs, device, smi, ctx):
-    """The MNIST pallas_fused step at B = 128 and serve --source mnist."""
+    """The MNIST pallas and pallas_fused steps at B = 128 and serve
+    --source mnist."""
     from fetode_tpu_torch import cli
 
     spec, params, _, _, cases = ctx
     c = cases[128]
-    out = {"mnist pallas_fused step B=128": cs.cuda_ms(
-        cs.mnist_step_fn(params, spec, c["x"], c["y"], "pallas_fused"), 10,
-        windows=5)}
+    out = {f"mnist {r} step B=128": cs.cuda_ms(
+        cs.mnist_step_fn(params, spec, c["x"], c["y"], r), 10, windows=5)
+        for r in ("pallas", "pallas_fused")}
     with tempfile.TemporaryDirectory() as tmp:
         res = cli.main(["serve", "--source", "mnist", "--device", "cuda",
                         "--buckets", "8,64,256", "--out-dir", tmp])
@@ -254,11 +395,54 @@ def breakdown_part(cs, device, smi, ctx):
     return out
 
 
+def b10_breakdown(cs, device, smi, ctx):
+    """Thread 0's cycles a CTA in each phase of B.10's backward (clock
+    build), and of the batch sums' CTAs."""
+    import torch
+
+    from fetode_tpu_torch.ops import _build
+    from fetode_tpu_torch.ops import kuramoto as KO
+    from fetode_tpu_torch.tools import clock_build as CB
+
+    spec, params, _, _, cases = ctx
+    lat = spec.lattice
+    n, sym = len(B10_SLOTS), "kuramoto_roll_clocks"
+    lib = CB.clock_library("kuramoto", n, instrument_b10(
+        (_build.SRC_DIR / "kuramoto.cu").read_text()), sym=sym)
+    CB.copy_signatures(lib, KO._lib(), ("kuramoto_fwd", "kuramoto_bwd",
+                                        "kuramoto_rollout_plan"))
+    keep = KO._lib
+    KO._lib = lambda: lib
+    out = {}
+    try:
+        for b in (128, 1024):
+            c = cases[b]
+            KO.kuramoto_bwd(params.omega, params.K, c["theta0"], c["ct"], lat)
+            torch.cuda.synchronize()
+            CB.clear_clocks(lib, "kuramoto", sym)
+            KO.kuramoto_bwd(params.omega, params.K, c["theta0"], c["ct"], lat)
+            torch.cuda.synchronize()
+            rows = CB.read_clocks(lib, "kuramoto", n, sym)
+            mean = {s: sum(r[k] for r in rows) / len(rows)
+                    for k, s in enumerate(B10_SLOTS)}
+            red = [r[6] for r in rows if r[6] > 0]
+            mean["batch sums"] = sum(red) / max(len(red), 1)
+            out[b] = dict(ctas=len(rows), **mean)
+            print(f"B.10 clock build, backward B={b}: thread 0's cycles a "
+                  f"CTA, mean over {len(rows)} CTAs: " + ", ".join(
+                      f"{s} {mean[s]:.0f}" for s in B10_SLOTS)
+                  + f" (batch sums over {len(red)} CTAs) ({smi})", flush=True)
+    finally:
+        KO._lib = keep
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="checkout")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--b10-out", default=None)
+    ap.add_argument("--b10-against", default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -280,10 +464,12 @@ def main(argv=None) -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     ctx = setup(cs, device)
     res = dict(tag=args.tag, card=smi, b11=b11_part(cs, device, smi, ctx),
-               b10=b10_part(cs, device, smi, ctx, args.b10_out),
+               b10=b10_part(cs, device, smi, ctx, args.b10_out,
+                            args.b10_against),
                steps=steps_part(cs, device, smi, ctx))
     if args.breakdown:
         res["breakdown"] = breakdown_part(cs, device, smi, ctx)
+        res["b10_breakdown"] = b10_breakdown(cs, device, smi, ctx)
     print(json.dumps(res))
     return 0
 

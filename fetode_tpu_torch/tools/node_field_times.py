@@ -1,10 +1,11 @@
 """Check and time B.5 (``csrc/logistic_node.cu``), B.6
 (``csrc/mlp_node.cu``), B.8 (``csrc/node_enc.cu``), B.7
-(``csrc/ode_dyn.cu``) and B.4 (``csrc/ferro_node.cu``) of the package
-this file is imported from, on one card, with the other kernels on
-``csrc/node_common.cuh`` beside them.
+(``csrc/ode_dyn.cu``), B.4 (``csrc/ferro_node.cu``) and B.14
+(``csrc/custom_field.cu``) of the package this file is imported from, on
+one card, with the other kernels on ``csrc/node_common.cuh`` beside them.
 
     python -m fetode_tpu_torch.tools.node_field_times [--tag NAME] [--breakdown]
+        [--parts b5,b6,b8,b7,b4,b14,others,steps]
 
 Run from the root of a checkout (it imports that checkout's
 ``chip_smoke`` for its inputs, bounds and timers).  To compare two
@@ -42,10 +43,15 @@ builds the kernels of ``node_common.cuh``, then:
   as B.7's; at B = 64 its grid form and at B = 256 its cluster form
   (``ops/logistic_node.py: GRID_PAST`` moved) beside the form the batch
   takes, where the checkout has both.
-* The other kernels that share the scaffold, at a batch their paths give
-  them: B.14 (custom_field) at D = 64, H = 128, B = 64 (both timers), and
-  B.3 (kanfet_wide) at [2, 64, 64, 2], B = 1 (``cuda_ms``): forward and
-  backward times.
+* B.14 at every shape of phase 41 of ``chip_smoke.py`` (``B14_SHAPES``,
+  kept here so that an older checkout is timed at the same ones): the
+  example's (D = 4, H = 8, B = 3), D = 64, H = 128 at B = 8, 64, 67 and
+  256, and D = 64, H = 512 at B = 8 (``CUSTOM_WIDE``: the weights past a
+  CTA's shared memory), phase 41's weights: the same readings as B.7's
+  and the launch's plan (``examples/custom_field_kernel.py: row_plan``,
+  where the checkout has it).
+* B.3 (kanfet_wide), the other kernel that shares the scaffold, at [2,
+  64, 64, 2], B = 1 (``cuda_ms``): forward and backward times.
 * The ECG ``kanfet_node``, ``kanfet_mlp_node`` and ``kanfet_node --field
   mlp`` training steps at B = 8, the ETT ``point`` step and the
   ``cond_diffusion`` ``kan_fet_all_node`` step at B = 64 (forward,
@@ -59,12 +65,21 @@ builds the kernels of ``node_common.cuh``, then:
   (of them phi, the product and the partials' sums), the VJPs (of them
   the transposed product, the columns' other work and ubar), the
   deferred gradients (of them the barrier with ga / gb, the waits for the
-  records and the products) and the whole kernel.
+  records and the products) and the whole kernel.  And B.14's clock build
+  (the checkout's marks, or ``PARENT_B14_MARKS`` in a source without
+  them) at B = 8 and 64: thread 0's cycles in the weights' load, the
+  evaluations (of them the copy of u and its barrier, or the grid
+  barrier between the products before the row policy; the first product
+  with its tanhs; the tanhs alone; the second product), the VJPs (of
+  them the products and the gradient tiles), the gradients' sums and the
+  whole kernel.
+``--parts`` runs only the parts named (all by default).
 
 No profiler (it drops device events on that machine).  Prints the card's
 name and power limit, one line a measurement, and a last JSON line
 ``{"tag": ..., "b5": {...}, "b6": {...}, "b8": {...}, "b7": {...}, "b4":
-{...}, "others": {...}, "steps": {...}}``.  Exits non-zero if a check fails.
+{...}, "b14": {...}, "others": {...}, "steps": {...}}``.  Exits non-zero
+if a check fails.
 """
 
 from __future__ import annotations
@@ -78,6 +93,63 @@ import time
 
 KERNELS = ("ode_dyn", "ferro_node", "logistic_node", "mlp_node", "node_enc",
            "custom_field", "kanfet_wide")
+PARTS = ("b5", "b6", "b8", "b7", "b4", "b14", "others", "steps")
+# chip_smoke.py's CUSTOM_SMALL, CUSTOM_DH at each of CUSTOM_BATCHES, and
+# CUSTOM_WIDE: (D, H, B).
+B14_SHAPES = ((4, 8, 3),) + tuple((64, 128, b) for b in (8, 64, 67, 256)) \
+    + ((64, 512, 8),)
+
+B14_SLOTS = ("load", "evals", "eval copy / barrier", "first product",
+             "tanh", "second product", "vjps", "vjp products", "grad tiles",
+             "grad sums", "total")
+# B.14 before the row policy (the grid policy, a thread an output), marked
+# on B14_SLOTS by fixed replacements: (anchor, its replacement), each
+# anchor found once; the tanhs, the tiles and the sums stay 0.
+_CK = "custom_field_clocks[11 * blockIdx.x + {}]"
+PARENT_B14_MARKS = (
+    ("namespace {\n",
+     "namespace {\n__device__ long long custom_field_clocks[11 * 1024];\n"),
+    ("  __device__ void eval(const float* u, float* out) const {\n",
+     "  __device__ void eval(const float* u, float* out) const {\n"
+     "    const long long kc0 = clock64();\n"),
+    ("      z[i] = tanhf(s);\n    }\n    cg::this_grid().sync();\n",
+     "      z[i] = tanhf(s);\n    }\n    const long long kc1 = clock64();\n"
+     "    cg::this_grid().sync();\n    const long long kc2 = clock64();\n"),
+    ("      out[i] = s;\n    }\n",
+     "      out[i] = s;\n    }\n    if (threadIdx.x == 0) {\n"
+     "      const long long kc3 = clock64();\n"
+     f"      {_CK.format(1)} += kc3 - kc0;\n"
+     f"      {_CK.format(3)} += kc1 - kc0;\n"
+     f"      {_CK.format(2)} += kc2 - kc1;\n"
+     f"      {_CK.format(5)} += kc3 - kc2;\n    }}\n"),
+    ("  __device__ void vjp(const float* u, const float* w, float* ubar) "
+     "const {\n",
+     "  __device__ void vjp(const float* u, const float* w, float* ubar) "
+     "const {\n    const long long kv0 = clock64();\n"),
+    ("        ubar[j] = s;\n      }\n    }\n",
+     "        ubar[j] = s;\n      }\n    }\n"
+     f"    if (threadIdx.x == 0) {_CK.format(6)} += clock64() - kv0;\n"
+     f"    if (threadIdx.x == 0) {_CK.format(7)} += clock64() - kv0;\n"),
+    ("  adaptive_solve_final<kRecord>(a.f, a.s);\n",
+     "  const long long kt0 = clock64();\n"
+     "  adaptive_solve_final<kRecord>(a.f, a.s);\n"
+     f"  if (threadIdx.x == 0) {_CK.format(10)} = clock64() - kt0;\n"),
+    ("  adjoint_replay(f, a.r);\n",
+     "  const long long kt0 = clock64();\n  adjoint_replay(f, a.r);\n"
+     f"  if (threadIdx.x == 0) {_CK.format(10)} = clock64() - kt0;\n"),
+)
+
+
+def instrument_b14(src: str) -> str:
+    """B.14's clock build: the checkout's marks, or PARENT_B14_MARKS."""
+    if "CUSTOM_FIELD_CLOCKS" in src:
+        return src
+    for anchor, text in PARENT_B14_MARKS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"node_field_times: clock anchor found "
+                               f"{src.count(anchor)} times: {anchor!r}")
+        src = src.replace(anchor, text)
+    return src
 
 
 def _same(a, b):
@@ -372,38 +444,97 @@ def b8_part(cs, device, smi):
     return out
 
 
-def others_part(cs, device, smi):
-    """The scaffold's other kernels: forward / backward ms."""
+def b14_cases(cs, device):
+    """Phase 41's B.14 cases (``B14_SHAPES``): (label, case, h0, hbar, (D,
+    H, B))."""
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(41)
+    out = []
+    for D, H, B in B14_SHAPES:
+        scale = 0.5 if (D, H, B) == B14_SHAPES[0] else None
+        case = cs.custom_case(device, D, H, scale, seed=B)
+        h0 = torch.from_numpy(rng.standard_normal((B, D)).astype(
+            np.float32)).to(device)
+        hbar = torch.from_numpy(rng.standard_normal((B, D)).astype(
+            np.float32)).to(device)
+        out.append((f"B.14 custom_field D={D} H={H}", case, h0, hbar,
+                    (D, H, B)))
+    return out
+
+
+def b14_part(cs, device, smi):
+    """B.14 at phase 41's shapes: times, attempts, bits twice, plans."""
+    from fetode_tpu_torch.examples import custom_field_kernel as CF
+
+    out = {}
+    for label, case, h0, hbar, (D, H, B) in b14_cases(cs, device):
+        row = timed_case(cs, case, h0, hbar, smi, label)
+        if hasattr(CF, "row_plan"):
+            p = CF.row_plan(B, D, H)
+            row["plan"] = dict(C=p["C"], R=p["R"], grid=p["grid"],
+                               smem_bytes=p["smem_bytes"],
+                               weights="shared" if p["smem"] else "device")
+            print(f"  plan {row['plan']}", flush=True)
+        out[f"{D} {H} {B}"] = row
+    return out
+
+
+def b14_breakdown(cs, device, smi):
+    """B.14's clock build at B = 8 and 64, forward and backward."""
+    import numpy as np
+    import torch
+
+    from fetode_tpu_torch.examples import custom_field_kernel as CF
+    from fetode_tpu_torch.ops import _build
+    from fetode_tpu_torch.tools import clock_build as CB
+
+    n = len(B14_SLOTS)
+    lib = CB.clock_library("custom_field", n, instrument_b14(
+        (_build.SRC_DIR / "custom_field.cu").read_text()))
+    CB.copy_signatures(lib, CF._lib(), (
+        "custom_field_fwd", "custom_field_bwd", "custom_field_plan",
+        "custom_field_work_floats"))
+    keep = CF._lib
+    CF._lib = lambda: lib
+    out = {}
+    try:
+        for label, case, h0, hbar, (D, H, B) in b14_cases(cs, device):
+            if (D, H) != cs.CUSTOM_DH or B not in (8, 64):
+                continue
+            with torch.no_grad():
+                _, recs = case["fwd"](h0)
+            for kind in ("fwd", "bwd"):
+                torch.cuda.synchronize()
+                CB.clear_clocks(lib, "custom_field")
+                with torch.no_grad():
+                    if kind == "fwd":
+                        case["fwd"](h0)
+                    else:
+                        case["bwd"](h0, recs, hbar)
+                torch.cuda.synchronize()
+                rows = CB.read_clocks(lib, "custom_field", n)
+                mean = {k: float(np.mean([r[i] for r in rows]))
+                        for i, k in enumerate(B14_SLOTS)}
+                out[f"{kind} {B}"] = dict(ctas=len(rows), **mean)
+                print(f"B.14 clock build {kind} B={B}: thread 0's cycles a "
+                      f"CTA, mean over {len(rows)} CTAs: " + ", ".join(
+                          f"{k} {mean[k]:.0f}" for k in B14_SLOTS)
+                      + f"; attempts {int(recs.misc[0])} ({smi})", flush=True)
+    finally:
+        CF._lib = keep
+    return out
+
+
+def others_part(cs, device, smi):
+    """B.3, the scaffold's other kernel: forward / backward ms."""
     import torch
 
     from fetode_tpu_torch.models.predprey import PredPreyNODE, PredPreyTask
     from fetode_tpu_torch.ops import kanfet_wide as KW
 
     out = {}
-
-    def both(label, case, h0, hbar):
-        with torch.no_grad():
-            _, recs = case["fwd"](h0)
-            fwd = cs.cuda_ms(lambda: case["fwd"](h0), 20)
-            fwd_dev = cs.queued_ms(lambda: case["fwd"](h0))
-        bwd = cs.cuda_ms(lambda: case["bwd"](h0, recs, hbar), 20)
-        bwd_dev = cs.queued_ms(lambda: case["bwd"](h0, recs, hbar))
-        out[label] = dict(fwd=fwd, bwd=bwd, fwd_dev=fwd_dev, bwd_dev=bwd_dev,
-                          attempts=int(recs.misc[0]))
-        print(f"{label}: forward {fwd:.4f} ms, backward {bwd:.4f} ms "
-              f"(cuda_ms); device {fwd_dev:.4f} / {bwd_dev:.4f} ms "
-              f"(queued_ms); {int(recs.misc[0])} attempts ({smi})",
-              flush=True)
-
-    rng = np.random.default_rng(6)
-    ccase = cs.custom_case(device, 64, 128, None, 1)
-    h0 = torch.from_numpy(rng.standard_normal((64, 64)).astype(
-        np.float32)).to(device)
-    hb = torch.from_numpy(rng.standard_normal((64, 64)).astype(
-        np.float32)).to(device)
-    both("B.14 custom_field D=64 H=128 B=64", ccase, h0, hb)
-
     task = PredPreyTask()
     ts = torch.linspace(0.0, task.tf_learn, task.n_train,
                         dtype=torch.float32, device=device)
@@ -521,7 +652,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="checkout")
     ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--parts", default=",".join(PARTS))
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -536,26 +669,29 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}; {args.tag}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(_build.build, KERNELS))
-    for name, so in zip(KERNELS, built):
+    names = ("custom_field",) if parts == ["b14"] else KERNELS
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    for name, so in zip(names, built):
         _build.load_library(name)
         for line in so.with_suffix(".log").read_text().splitlines():
-            if name in ("logistic_node", "mlp_node", "node_enc") and (
+            if name in ("logistic_node", "mlp_node", "node_enc",
+                        "custom_field") and (
                     "registers" in line or "spill" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    res = dict(tag=args.tag, card=smi, b5=b5_part(cs, device, smi),
-               b6=b6_part(cs, device, smi),
-               b8=b8_part(cs, device, smi), b7=b7_part(cs, device, smi),
-               b4=b4_part(cs, device, smi),
-               others=others_part(cs, device, smi),
-               steps=steps_part(cs, device, smi))
+    fns = dict(b5=b5_part, b6=b6_part, b8=b8_part, b7=b7_part, b4=b4_part,
+               b14=b14_part, others=others_part, steps=steps_part)
+    res = dict(tag=args.tag, card=smi)
+    for name in parts:
+        res[name] = fns[name](cs, device, smi)
     if args.breakdown:
         from fetode_tpu_torch.tools import clock_build as CB
 
-        if CB.has_marks("logistic_node"):
+        if "b5" in parts and CB.has_marks("logistic_node"):
             res["b5_breakdown"] = b5_breakdown(cs, device, smi)
+        if "b14" in parts:
+            res["b14_breakdown"] = b14_breakdown(cs, device, smi)
     print(json.dumps(res))
     return 0
 

@@ -161,3 +161,54 @@ def test_kernels_match_plain_on_card():
                                            leaves, h0, recs, hbar)
     for a, b in zip(list(g) + [h0bar], list(g_r) + [h0bar_r]):
         assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
+# ------------------------------------------------ the row plan (CPU)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 63, 64, 65, 256, 257])
+@pytest.mark.parametrize("D,H", [(4, 8), (64, 128)], ids=["example", "wide"])
+def test_row_plan_covers_every_row_once(D, H, B):
+    """``row_plan``: every row is owned by exactly one CTA, in order; up to
+    64 rows one cluster of at most 16 CTAs of ceil(B / 16) rows, past them
+    a cooperative grid of 4-row CTAs; the weights and rows in shared
+    memory at these widths, a CTA within 227 KB, forward and backward."""
+    for bwd in (False, True):
+        p = CF.row_plan(B, D, H, bwd)
+        assert [b for rg in p["rows"] for b in rg] == list(range(B))
+        assert len(p["rows"]) == p["C"] and all(len(rg) for rg in p["rows"])
+        if B <= 64:
+            assert not p["grid"] and p["C"] <= 16
+            assert p["R"] == -(-B // 16)
+        else:
+            assert p["grid"] and p["R"] == 4
+            assert max(len(rg) for rg in p["rows"]) == 4
+        assert p["smem"] and p["smem_bytes"] <= 232448 - 2048
+        assert p["tiles"] == 2 * (-(-D // 4)) * (-(-H // 4))
+        # backward: every CTA's gradient tiles in device scratch
+        assert p["work_floats"] >= (16 * p["tiles"] * p["C"] if bwd else 0)
+
+
+def test_row_plan_places_wide_fields_in_device_memory():
+    """Weights that do not fit a CTA go to device memory the CTA owns, with
+    its rows, and the scratch grows by a copy a CTA (phase 41's wide case,
+    D = 64, H = 512); a batch of 0 rows is refused."""
+    for bwd in (False, True):
+        p = CF.row_plan(8, 64, 512, bwd)            # w1, w2: 271 KB
+        assert not p["smem"] and p["smem_bytes"] <= 4 * 4096
+        assert p["work_floats"] >= 8 * (512 * 68 + 64 * 516)
+    assert CF.row_plan(8, 4, 8, bwd=True)["smem"]
+    with pytest.raises(ValueError, match="B must be"):
+        CF.row_plan(0, 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 64, 67, 256])
+def test_row_plan_matches_library_on_card(B):
+    """The library's ``custom_field_plan`` is ``row_plan``'s (the wrapper
+    checks it before a launch; here at the phase-41 shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the library is built there")
+    for D, H in ((4, 8), (64, 128)):
+        CF._check_plan.cache_clear()
+        CF._check_plan(B, D, H)

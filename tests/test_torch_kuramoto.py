@@ -574,3 +574,78 @@ def test_fused_kernel_image_alone_equals_batch_on_card(heads):
     for r in range(B):
         assert torch.equal(alone[r], got[r:r + 1])
         assert torch.equal(got[r::B], got[r:r + 1].expand(40, -1))
+
+
+# ------------------------------------------------ B.10's launch plan (CPU)
+
+
+@pytest.mark.parametrize("B", [1, 8, 128, 132, 133, 256, 1024])
+@pytest.mark.parametrize("HW", [16, 28 * 28, 1024])
+def test_rollout_plan_covers_every_image_and_site_once(HW, B):
+    side = int(HW ** 0.5)                       # 4 x 4, 28 x 28, 32 x 32
+    """``rollout_plan``: the CTAs own disjoint image ranges that cover the
+    batch, the threads of an image disjoint sites that cover the lattice;
+    1, 2 or 4 sites a thread, a thread a site while the batch is within
+    the SM count (132), more sites a thread past it at MNIST's lattice;
+    a CTA within 1,024 threads and 227 KB; the backward records sin and
+    cos where they fit."""
+    for bwd in (False, True):
+        p = KO.rollout_plan(B, side, side, 10, 132, bwd)
+        assert [i for rg in p["cta_images"] for i in rg] == list(range(B))
+        assert len(p["cta_images"]) == p["ctas"]
+        assert sorted(s for ss in p["sites"] for s in ss) == list(range(HW))
+        assert all(len(ss) <= p["k"] for ss in p["sites"])
+        assert p["k"] in (1, 2, 4) and p["threads"] == p["images"] * p["tpi"]
+        assert p["tpi"] % 32 == 0 and p["threads"] <= 1024
+        assert p["smem_bytes"] + bwd * KO.BWD_STATIC <= KO.ROLL_SMEM
+        if B <= 132:
+            assert p["k"] == 1
+        elif HW == 28 * 28:
+            assert p["k"] > 1
+        assert p["form"] == ("sincos" if bwd else None)
+        assert p["reduce_ctas"] * KO.REDUCE_COLS >= HW + 1
+
+
+def test_rollout_plan_records_form_and_refusal():
+    """The backward keeps theta_t alone where sin and cos of every step do
+    not fit a CTA (40 steps at MNIST: 263 KB against 138 KB), and refuses a
+    lattice whose records fit neither form, naming the sizes."""
+    p = KO.rollout_plan(128, 28, 28, 40, 132, bwd=True)
+    assert p["form"] == "theta" and p["smem_bytes"] == 44 * 784 * 4
+    assert KO.rollout_plan(128, 28, 28, 40, 132)["form"] is None
+    with pytest.raises(ValueError, match=r"514304 bytes as sin and cos, "
+                                         r"263424 as theta"):
+        KO.rollout_plan(8, 28, 28, 80, 132, bwd=True)
+    with pytest.raises(ValueError, match="rollout_plan"):
+        KO.rollout_plan(0, 28, 28, 10)
+
+
+@pytest.mark.parametrize("side, steps, fits", [
+    (28, 70, True), (28, 71, False), (32, 52, True), (32, 53, False)])
+def test_rollout_plan_theta_form_keeps_the_envelope(side, steps, fits):
+    """The theta-records form takes (steps + 4) H W floats and the static
+    128 bytes, as the records of the form before the sin / cos one did, so
+    the backward refuses no lattice that form ran: 70 steps at 28 x 28 (a
+    ``kuramoto_steps`` the MNIST config accepts) and 52 at 32 x 32 fit, one
+    step more does not."""
+    if not fits:
+        with pytest.raises(ValueError, match="kuramoto_bwd"):
+            KO.rollout_plan(128, side, side, steps, 132, bwd=True)
+        return
+    p = KO.rollout_plan(128, side, side, steps, 132, bwd=True)
+    assert p["form"] == "theta" and p["images"] == 1
+    assert p["smem_bytes"] == (steps + 4) * side * side * 4
+    assert p["smem_bytes"] + KO.BWD_STATIC <= KO.ROLL_SMEM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 128, 133, 256, 1024])
+def test_rollout_plan_matches_library_on_card(B):
+    """The library's ``kuramoto_rollout_plan`` is ``rollout_plan``'s at the
+    card's SM count (the wrappers check it before a launch), in both
+    records forms and where images are packed."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bwd in (False, True):
+        for side, steps in ((28, 10), (28, 40), (8, 10)):
+            KO._check_rollout_plan(B, side, side, steps, sms, bwd)
