@@ -8,8 +8,9 @@ serving, predprey training on wide KANFET stacks, symbolic regression,
 the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
 ``--model all``) with ETT's KAN-RNN encoder, the KAN layers' spline term
 (B.12) on every KAN path, the custom-field whole-solve example (B.14),
-and B.1 / B.2 on other pure-KANFET stacks — on the card and checks them,
-in phases that run in order; any failure exits non-zero.
+B.1 / B.2 on other pure-KANFET stacks, and the ECG noise study on B.4's
+member form — on the card and checks them, in phases that run in order;
+any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -400,6 +401,32 @@ weights from a seed, x0 from U[0.5, 2.0]:
     CUDA events: their while solves wait on the device at every step, so
     they cannot queue), with the kernels' bounds.
 
+The ECG noise study (``cli ecg --model noise_study``), the ferro
+``KanFetMLPNODE`` at ECGPreset's widths (latent 64, hidden 128, 12
+bases, dopri5 at rtol 1e-2 / atol 1e-3, max_steps 16) for the grid of
+``NOISE_STDS`` x ``NOISE_SEEDS``, 12 members, random weights from a seed,
+series from ``synthetic_ecg200``:
+
+45. (a) The member kernels (``ferro_node_fwd_members`` /
+    ``ferro_node_bwd_members``, ``csrc/ferro_node.cu`` at P = 12) at B = 8
+    (a training step) and 16 (the eval chunk), clean and with the study's
+    noise stds, the members' coefs scaled by ``MEMBER_SCALES`` so that
+    they take different attempt counts (a line says so): every member's
+    output (with and without records), records of the attempts made,
+    gradients and h0bar the bits of its own P = 1 launch, with its
+    attempts; the plain member version on the card within rtol = atol =
+    1e-3 with the same attempts; each member's backward on the kernel's
+    records within 1e-4 (relative) of autograd of the plain replay of
+    those records.  (b) ``cli.main(["ecg", "--model", "noise_study",
+    "--solver_mode", "pallas", "--epochs", "2", ...])``: the member kernels
+    launched and no single B.4, every member's loss finite,
+    ``noise_study.json`` with the 4 x 3 grid.  (c) Times at P = 12, B =
+    8, noisy: the member forward and backward on a full queue
+    (``queued_ms``) beside the same work as 12 single launches back to
+    back and one single launch, the plain member version, the bound (the
+    members' counts at their own attempts, summed), and the population
+    training step (CUDA events, median of 3 windows).
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -531,6 +558,13 @@ CUSTOM_BATCHES = (8, 64, 67, 256)
 CUSTOM_WIDE = (64, 512, 8)    # weights past a CTA's shared memory
 CUSTOM_OPTS = dict(rtol=1e-4, atol=1e-6, max_steps=32)
 CUSTOM_COS = 0.9999
+# Phase 45: the noise study's grid (ECGPreset's noise_stds x noise_seeds),
+# its batches (a training step, the eval chunk of 2 x 8) and the members'
+# coef scales that give them different meshes.
+NOISE_STDS = (0.0, 0.1, 0.2, 0.5)
+NOISE_SEEDS = (0, 1, 2)
+MEMBER_BATCHES = (8, 16)
+MEMBER_SCALES = tuple(1.0 + 0.1 * m for m in range(12))
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -4183,6 +4217,268 @@ def stack_phases(device, smi, ts_fit):
     return [a + b for a, b in zip(cli_launches, traj_launches)]
 
 
+# ------------------------------------------- the ECG noise study (phase 45)
+
+
+def member_params(spec, device, scales):
+    """The study's members at ECGPreset's widths, member m from seed m, its
+    two coefs times ``scales[m]`` (so the members take different attempt
+    counts)."""
+    from fetode_tpu_torch.models import ecg as M
+
+    out = []
+    for m, scale in enumerate(scales):
+        p = M.kanfet_mlp_node_init(torch.Generator().manual_seed(100 + m),
+                                   spec, device=device)
+        with torch.no_grad():
+            p.fc1.coef.mul_(scale)
+            p.fc2.coef.mul_(scale)
+        out.append(p)
+    return out
+
+
+def check_members(fc1s, fc2s, cfg, h0, hbar, noise, label):
+    """Phase 45(a) at one batch: the member kernels (forward with and
+    without records, backward) against one P = 1 launch a member, bit for
+    bit (output, records of the attempts made, gradients, h0bar) with the
+    same attempts, and against the plain member version on the card:
+    forwards within rtol = atol = 1e-3 and the same attempts, each
+    member's backward on the kernel's records within 1e-4 (relative) of
+    autograd of the plain replay on those records."""
+    from fetode_tpu_torch.ops import ferro_node as FN
+
+    P = h0.shape[0]
+    with torch.no_grad():
+        out_k, rec_k = FN.ferro_node_fwd_members(fc1s, fc2s, h0, cfg,
+                                                 noise=noise)
+        out_n, _ = FN.ferro_node_fwd_members(fc1s, fc2s, h0, cfg,
+                                             noise=noise, record=False)
+    g_k, hb_k = FN.ferro_node_bwd_members(fc1s, fc2s, h0, rec_k, hbar, cfg,
+                                          noise=noise)
+    counts = [int(rec_k.misc[m, 0]) for m in range(P)]
+    for m in range(P):
+        nz = None if noise is None else (noise[0][m], noise[1][m])
+        with torch.no_grad():
+            o1, r1 = FN.ferro_node_fwd(fc1s[m], fc2s[m], h0[m], cfg, noise=nz)
+            on1, _ = FN.ferro_node_fwd(fc1s[m], fc2s[m], h0[m], cfg, noise=nz,
+                                       record=False)
+        g1, hb1 = FN.ferro_node_bwd(fc1s[m], fc2s[m], h0[m], r1, hbar[m],
+                                    cfg, noise=nz)
+        n = int(r1.misc[0])
+        if n != counts[m]:
+            fail(f"{label} member {m}: {counts[m]} attempts in the member "
+                 f"launch, {n} alone")
+        rm = FN._member(rec_k, m)
+        if not (same_bits(out_k[m], o1) and same_bits(out_n[m], on1)
+                and same_bits([rm.tda, rm.misc, rm.yrec[:n], rm.krec[:n]],
+                              [r1.tda, r1.misc, r1.yrec[:n], r1.krec[:n]])):
+            fail(f"{label} member {m}: the member forward differs from the "
+                 "member's own launch")
+        if not same_bits(list(g_k[m]) + [hb_k[m]], list(g1) + [hb1]):
+            fail(f"{label} member {m}: the member backward differs from the "
+                 "member's own launch")
+    torch.cuda.synchronize()
+    out_p, rec_p = FN.ferro_node_fwd_members_reference(fc1s, fc2s, h0, cfg,
+                                                       noise=noise)
+    counts_p = [int(rec_p.misc[m, 0]) for m in range(P)]
+    if counts_p != counts:
+        fail(f"{label}: attempts {counts} in the kernel, {counts_p} in plain")
+    if not (torch.isfinite(out_k).all() and torch.isfinite(out_n).all()):
+        fail(f"{label}: non-finite member output")
+    fwd_err = max(max_abs(out_k, out_p), max_abs(out_n, out_p))
+    if not (torch.allclose(out_k, out_p, rtol=TOL, atol=TOL)
+            and torch.allclose(out_n, out_p, rtol=TOL, atol=TOL)):
+        fail(f"{label}: the member forward disagrees with plain (max |diff| "
+             f"{fwd_err:.3e})")
+    g_p, hb_p = FN.ferro_node_bwd_members_reference(fc1s, fc2s, h0, rec_k,
+                                                    hbar, cfg, noise=noise)
+    g_rel = max(rel_err(flat(g_k[m]), flat(g_p[m])) for m in range(P))
+    h_rel = max(rel_err(hb_k[m], hb_p[m]) for m in range(P))
+    g_abs = max(max(max_abs(flat(g_k[m]), flat(g_p[m])) for m in range(P)),
+                max_abs(hb_k, hb_p))
+    if not (g_rel < GRAD_TOL and h_rel < GRAD_TOL):
+        fail(f"{label}: the member backward vs the plain replay on its "
+             f"records: grads rel {g_rel:.3e}, h0bar rel {h_rel:.3e}")
+    # Context, no gate: both float32 backwards against the float64 replay
+    # of the same records (how well float32 conditions these gradients).
+    g64, _ = FN.ferro_node_bwd_members_reference(
+        [copy.deepcopy(f).double() for f in fc1s],
+        [copy.deepcopy(f).double() for f in fc2s], h0.double(),
+        type(rec_k)(*(r.double() for r in rec_k)), hbar.double(), cfg,
+        noise=None if noise is None else tuple(n.double() for n in noise))
+    k64 = max(rel_err(flat(g_k[m]).double(), flat(g64[m])) for m in range(P))
+    p64 = max(rel_err(flat(g_p[m]).double(), flat(g64[m])) for m in range(P))
+    print(f"{label}: every member the bits and attempts of its own launch "
+          f"(forward with and without records, backward); attempts "
+          f"{counts} as plain; forward max |diff| {fwd_err:.3e}; backward "
+          f"on the kernel's records: grads rel {g_rel:.3e}, h0bar rel "
+          f"{h_rel:.3e} (worst member); against the float64 replay: kernel "
+          f"{k64:.3e}, float32 plain {p64:.3e}")
+    return dict(fwd_err=fwd_err, g_abs=g_abs, counts=counts, recs=rec_k)
+
+
+def noise_phases(device, smi):
+    """Phase 45, the noise study: the member kernels against one launch a
+    member and against the plain member version at the study's batches,
+    ``cli ecg --model noise_study`` through them, and their times."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.ops import ferro_node as FN
+    from fetode_tpu_torch.train.ecg_driver import cross_entropy
+    from fetode_tpu_torch.train.loop import (
+        PopulationState,
+        init_state,
+        make_population_epochs_scanner,
+    )
+    from fetode_tpu_torch.train.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    spec = M.KanFetMLPNODESpec(num_basis=12, solver_mode="pallas")
+    cfg = FN.ferro_node_config(spec)
+    members = [(std, seed) for std in NOISE_STDS for seed in NOISE_SEEDS]
+    P, D = len(members), spec.latent_dim
+    params = member_params(spec, device, MEMBER_SCALES)
+    fc1s, fc2s = [p.fc1 for p in params], [p.fc2 for p in params]
+    stds = [std for std, _ in members]
+    data = synthetic_ecg200()
+    series = np.concatenate([data[0], data[2]])
+    rng = np.random.default_rng(45)
+
+    # ---- 45(a). the member kernels against single launches and plain
+    checks, cases = {}, {}
+    for b in MEMBER_BATCHES:
+        x = torch.from_numpy(np.stack([
+            series[(np.arange(b) + 7 * m) % len(series)]
+            for m in range(P)]).astype(np.float32)).to(device)
+        with torch.no_grad():
+            h0 = torch.stack([x[m] @ p.encoder_w.T + p.encoder_b
+                              for m, p in enumerate(params)]).contiguous()
+        hbar = torch.from_numpy(rng.standard_normal((P, b, D)).astype(
+            np.float32)).to(device)
+        noise = FN.frozen_solve_noise_members(
+            [torch.Generator(device=device).manual_seed(1000 + m)
+             for m in range(P)], b, spec.fc1_cfg, spec.fc2_cfg, stds,
+            device=device)
+        for kind, nz in (("clean", None), ("noisy", noise)):
+            label = f"ferro_node members P={P} B={b} {kind}"
+            checks[(kind, b)] = check_members(fc1s, fc2s, cfg, h0, hbar, nz,
+                                              label)
+            cases[(kind, b)] = (h0, hbar, nz)
+    counts = checks[("noisy", 8)]["counts"]
+    if len(set(counts)) < 2:
+        fail(f"the members took one attempt count {counts}: the phase holds "
+             "members of different meshes")
+    print(f"members of different meshes: coefs scaled {MEMBER_SCALES}, "
+          f"attempts at B = 8 {checks[('clean', 8)]['counts']} clean, "
+          f"{counts} noisy at stds {stds}")
+
+    # ---- 45(b). the study through the CLI
+    kernels = (FN.ferro_node_fwd_members, FN.ferro_node_bwd_members,
+               FN.ferro_node_fwd, FN.ferro_node_bwd)
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in kernels:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(["ecg", "--device", "cuda", "--solver_mode", "pallas",
+                        "--model", "noise_study", "--epochs", "2",
+                        "--out-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [f.launches for f in kernels]
+        with open(os.path.join(tmp, "noise_study.json")) as fh:
+            summary = json.load(fh)
+    if min(launches[:2]) < 1 or max(launches[2:]) > 0:
+        fail(f"cli ecg --model noise_study: launches (members fwd, bwd, "
+             f"single fwd, bwd) {launches}")
+    curves = res["loss_curves"]
+    if len(curves) != P or not np.isfinite(list(curves.values())).all():
+        fail(f"cli ecg --model noise_study: member losses {curves}")
+    if sorted(summary) != sorted(str(s) for s in NOISE_STDS) or any(
+            len(v["per_seed"]) != len(NOISE_SEEDS) for v in summary.values()):
+        fail(f"noise_study.json: {summary}")
+    blocks = [round(t, 3) for t in res["block_seconds"]]
+    print(f"cli ecg --model noise_study (pallas, 2 epochs, {P} members): "
+          f"{wall:.2f} s wall, blocks {blocks} s (training steps), eval "
+          f"chunk {res['eval_chunk']}; mean best test acc "
+          f"{ {k: v['mean_best_test_acc'] for k, v in summary.items()} }; "
+          f"launches (members fwd, bwd, single fwd, bwd) {launches}; member "
+          f"losses finite ({smi})")
+
+    # ---- 45(c). times at P = 12, B = 8, noisy (the training step's)
+    h0, hbar, nz = cases[("noisy", 8)]
+    recs = checks[("noisy", 8)]["recs"]
+    singles = [(fc1s[m], fc2s[m], h0[m], (nz[0][m], nz[1][m]))
+               for m in range(P)]
+    with torch.no_grad():
+        s_recs = [FN.ferro_node_fwd(a, b, h, cfg, noise=n)[1]
+                  for a, b, h, n in singles]
+        # The twelve single launches four calls a window: each launch and
+        # its packing copies queue several operations, and at twenty calls
+        # they fill the stream's launch queue, so the host waits behind
+        # queued_ms's sleep.
+        t = dict(
+            fwd=queued_ms(lambda: FN.ferro_node_fwd_members(
+                fc1s, fc2s, h0, cfg, noise=nz)),
+            fwd_singles=queued_ms(lambda: [FN.ferro_node_fwd(
+                a, b, h, cfg, noise=n) for a, b, h, n in singles], n=4),
+            fwd_one=queued_ms(lambda: FN.ferro_node_fwd(
+                *singles[0][:3], cfg, noise=singles[0][3])),
+            plain_fwd=cuda_ms(lambda: FN.ferro_node_fwd_members_reference(
+                fc1s, fc2s, h0, cfg, noise=nz), 1))
+    t["bwd"] = queued_ms(lambda: FN.ferro_node_bwd_members(
+        fc1s, fc2s, h0, recs, hbar, cfg, noise=nz))
+    t["bwd_singles"] = queued_ms(lambda: [FN.ferro_node_bwd(
+        a, b, h, r, hbar[m], cfg, noise=n)
+        for m, ((a, b, h, n), r) in enumerate(zip(singles, s_recs))], n=4)
+    t["bwd_one"] = queued_ms(lambda: FN.ferro_node_bwd(
+        *singles[0][:3], s_recs[0], hbar[0], cfg, noise=singles[0][3]))
+    t["plain_bwd"] = cuda_ms(lambda: FN.ferro_node_bwd_members_reference(
+        fc1s, fc2s, h0, recs, hbar, cfg, noise=nz), 1)
+    ev, vjp, n_par = ferro_counts(8, D, spec.ode_hidden, spec.num_basis,
+                                  True)
+    n_noise = nz[0][0].numel() + nz[1][0].numel()
+    for kind in ("fwd", "bwd"):
+        per = [node_counts(ev, vjp, n_par, n_noise, 8, D,
+                           FN._member(recs, m), kind) for m in range(P)]
+        t[f"bound_{kind}"] = bound(*(sum(c[i] for c in per)
+                                     for i in range(3)))
+        t[f"bound_{kind}_sum"] = sum(bound(*c)[0] for c in per)
+    x8 = torch.from_numpy(np.stack([series[(np.arange(8) + 7 * m)
+                                           % len(series)]
+                                    for m in range(P)]).astype(
+        np.float32)).to(device)
+    y8 = torch.from_numpy(np.stack([data[1][(np.arange(8) + 7 * m) % 64]
+                                    for m in range(P)])).long().to(device)
+    pop = PopulationState(tuple(init_state(p, make_optimizer(
+        0.0, params=p.parameters(), kind="adamw", weight_decay=1e-4,
+        grad_clip=1.0)) for p in copy.deepcopy(params)))
+    step = make_population_epochs_scanner(
+        lambda ps, gens, std_v, xb, yb: torch.stack([
+            cross_entropy(lg, yb[m]) for m, lg in enumerate(
+                M.kanfet_mlp_node_apply_members(ps, spec, xb, generators=gens,
+                                                noise_stds=std_v))]))
+    batch = (x8[:, None, None], y8[:, None, None])
+    t["step"] = cuda_ms(lambda: step(pop, [(s, 0) for s in range(P)], stds,
+                                     batch), 5)
+    print(f"time ferro_node members P={P} B=8 noisy: forward "
+          f"{t['fwd']:.4f} ms (the same work as {P} single launches "
+          f"{t['fwd_singles']:.4f} ms, one launch {t['fwd_one']:.4f} ms), "
+          f"backward {t['bwd']:.4f} ms ({P} single {t['bwd_singles']:.4f}, "
+          f"one {t['bwd_one']:.4f}), device time on a full queue; plain "
+          f"{t['plain_fwd']:.3f} / {t['plain_bwd']:.3f} ms; bounds fwd "
+          f"{t['bound_fwd'][0]:.5f} ms ({t['bound_fwd'][2]}; the members' "
+          f"own bounds sum to {t['bound_fwd_sum']:.5f}), bwd "
+          f"{t['bound_bwd'][0]:.5f} ms ({t['bound_bwd'][2]}; "
+          f"{t['bound_bwd_sum']:.5f}); attempts {counts}; population "
+          f"training step (forward, backward, {P} clips and AdamW steps) "
+          f"{t['step']:.3f} ms, CUDA events, median of 3 windows ({smi})")
+    print(f"phase 45 took {time.perf_counter() - t_phase:.1f} s")
+    errs = dict(fwd=max(c["fwd_err"] for c in checks.values()),
+                bwd=max(c["g_abs"] for c in checks.values()))
+    return errs, t, launches
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -4417,6 +4713,7 @@ def main():
     ff_err, ff_times, ff_launches = rnn_phases(device, smi)
     sc_errs, sc_times, sc_launches = spline_custom_phases(device, smi)
     stack_launches = stack_phases(device, smi, ts_fit)
+    nm_errs, nm_times, nm_launches = noise_phases(device, smi)
     serve_launches += stack_launches[0]
     fwd_launches += stack_launches[1]
     bwd_launches += stack_launches[2]
@@ -4554,6 +4851,16 @@ def main():
                      "examples/02_custom_field_kernel.py:116",
                      sc_launches["custom_bwd"], sc_errs["custom_bwd"],
                      ct["bwd_dev"], ct["plain_bwd"], ct["bound_bwd"]),
+        kernel_entry("ferro_node_fwd_members",
+                     "fetode_tpu_torch/csrc/ferro_node.cu",
+                     "fetode_tpu/ops/pallas_ferro_node.py:475",
+                     nm_launches[0], nm_errs["fwd"], nm_times["fwd"],
+                     nm_times["plain_fwd"], nm_times["bound_fwd"]),
+        kernel_entry("ferro_node_bwd_members",
+                     "fetode_tpu_torch/csrc/ferro_node.cu",
+                     "fetode_tpu/ops/pallas_ferro_node.py:505",
+                     nm_launches[1], nm_errs["bwd"], nm_times["bwd"],
+                     nm_times["plain_bwd"], nm_times["bound_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

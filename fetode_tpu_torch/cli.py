@@ -15,7 +15,9 @@ CLI, so one command line drives either package.  Ported so far:
   reports the best test accuracy; ``--model all`` trains the JAX CLI's
   comparison set (``digital_rnn``, ``fepa_rnn``, ``kanfet_node``,
   ``kanfet_mlp_node`` clean and noisy) and writes
-  ``accuracy_table.json``.
+  ``accuracy_table.json``; ``--model noise_study`` trains the
+  ``--noise_stds`` x ``--noise_seeds`` grid of the ferro model as one
+  population and writes ``noise_study.json``.
 * ``ett`` — trains a forecaster, ``--model point`` (the default),
   ``diffusion``, ``kan_diffusion`` or ``kan_fet_diffusion`` (the KAN-RNN
   context encoder; ``train/forecast_driver.py``), on the ETT CSV when
@@ -124,9 +126,6 @@ def run_predprey(cfg, out_dir, plots):
             "final_train": hist["train"][-1]}
 
 
-# ECG models of the JAX CLI not ported yet.
-_ECG_TODO = {"noise_study": "ROADMAP A.7c (the noise study and its "
-                            "population trainer)"}
 # ``ecg --model all``: the JAX CLI's comparison set, then kanfet_mlp_node
 # with device noise (the --noise_std given, else 0.2).
 _ECG_ALL_MODELS = ("digital_rnn", "fepa_rnn", "kanfet_node",
@@ -219,6 +218,78 @@ def _run_ecg_all(cfg, data, out_dir):
     return {"best_test_acc": table, "loss_curves": curves}
 
 
+def _run_ecg_noise_study(cfg, data, out_dir, device):
+    """The reference's clean-vs-noisy device study
+    (``compare_noise_ecg.py:1250-1452``) as one population: every
+    (noise_std, seed) member of ``--noise_stds`` x ``--noise_seeds`` trains
+    as a member of ``train/ecg_driver.py: compare_noise_population``, the
+    ferro ``KanFetMLPNODE`` at the CLI's widths with each member's noise
+    std its own.  On the card (``--solver_mode pallas``, or ``auto``) the
+    members' latent solves are one launch of the member kernels
+    (``ops/ferro_node.py: ferro_node_solve_members``); on the CPU each
+    member's eager solve runs in turn.  ``scan`` runs as ``auto``, as in
+    the JAX CLI.  Writes ``noise_study.json``: per std the mean best test
+    accuracy and each seed's.
+
+    Unlike the JAX CLI, which sets it in pallas mode only
+    (``fetode_tpu/cli.py:294``), the accuracy evals run in chunks of
+    ``eval_chunk = 2 * batch_size`` rows in every solver mode, so both
+    modes draw the same eval noise and evaluate the same function."""
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.train.ecg_driver import (
+        ECGRun,
+        compare_noise_population,
+    )
+
+    T = data[0].shape[1]
+    stds = tuple(float(s) for s in str(cfg.noise_stds).split(",") if s)
+    seeds = tuple(int(s) for s in str(cfg.noise_seeds).split(",") if s)
+    solver_mode = cfg.solver_mode if cfg.solver_mode != "scan" else "auto"
+    if cfg.solver_mode == "scan":
+        print("[noise_study] --solver-mode scan runs as 'auto' here "
+              "(no-grad eval passes through a checkpointed scan compile "
+              "pathologically)", flush=True)
+    if cfg.mesh_model > 1:
+        raise SystemExit("[noise_study] --mesh model>1 is not supported: "
+                         "the study shards the POPULATION axis over "
+                         "'data' (train/ecg_driver.py)")
+    spec = M.KanFetMLPNODESpec(T=T, latent_dim=cfg.latent_dim,
+                               num_basis=cfg.num_basis, solver=cfg.solver,
+                               rtol=cfg.rtol, atol=cfg.atol,
+                               solver_mode=solver_mode)
+    run = ECGRun(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
+                 weight_decay=cfg.weight_decay, seed=cfg.seed,
+                 epochs_per_call=max(1, cfg.epochs_per_call),
+                 eval_noise_draws=4, aot_cache=cfg.aot_cache,
+                 mesh_devices=cfg.mesh_devices,
+                 eval_chunk=2 * cfg.batch_size, device=cfg.device)
+    results = compare_noise_population(
+        lambda g: M.kanfet_mlp_node_init(g, spec, device=device),
+        lambda ps, x, gens, std_v: M.kanfet_mlp_node_apply_members(
+            ps, spec, x, generators=gens, noise_stds=std_v),
+        data, noise_stds=stds, run=run, seeds=seeds,
+        log=lambda m: print(m, flush=True))
+    summary = {
+        str(std): {
+            "mean_best_test_acc": float(
+                sum(h["best_test_acc"] for h in per_seed.values())
+                / len(per_seed)),
+            "per_seed": {str(s): float(h["best_test_acc"])
+                         for s, h in per_seed.items()},
+        }
+        for std, per_seed in results.items()
+    }
+    with open(os.path.join(out_dir, "noise_study.json"), "w") as fh:
+        json.dump(summary, fh, indent=2)
+    hists = {f"{std}/{seed}": h for std, per_seed in results.items()
+             for seed, h in per_seed.items()}
+    return {"noise_study": summary,
+            "loss_curves": {k: [float(v) for v in h["loss"]]
+                            for k, h in hists.items()},
+            "block_seconds": next(iter(hists.values()))["block_seconds"],
+            "eval_chunk": run.eval_chunk}
+
+
 def run_ecg(cfg, out_dir, plots, data=None):
     """Train an ECG200 classifier (``cfg.model``; ``all``, the comparison
     set), on the ECG200 files when they are found, else on the synthetic
@@ -231,9 +302,6 @@ def run_ecg(cfg, out_dir, plots, data=None):
             f"--gate-impl {cfg.gate_impl!r} is only supported by "
             f"--model kanfet_mlp_node (model {cfg.model!r} has no "
             f"gate_impl field)")
-    if cfg.model in _ECG_TODO:
-        raise NotImplementedError(f"ecg --model {cfg.model} is not ported "
-                                  f"yet: {_ECG_TODO[cfg.model]}")
     if plots:
         raise NotImplementedError("--plots: the plotting diagnostics are not "
                                   "ported yet: ROADMAP A.11")
@@ -242,6 +310,8 @@ def run_ecg(cfg, out_dir, plots, data=None):
         data = _ecg_data()
     if cfg.model == "all":
         return _run_ecg_all(cfg, data, out_dir)
+    if cfg.model == "noise_study":
+        return _run_ecg_noise_study(cfg, data, out_dir, device)
     init_fn, apply_fn = _ecg_model(cfg, data[0].shape[1], device)
     run = ECGRun(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
                  weight_decay=cfg.weight_decay, seed=cfg.seed,

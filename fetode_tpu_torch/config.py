@@ -57,8 +57,9 @@ class ECGPreset:
     64, basis 12, dopri5 rtol 1e-2 atol 1e-3, AdamW 1e-3 wd 1e-4)."""
 
     # kanfet_node | kanfet_mlp_node | fepa_rnn | digital_rnn | node_rnn;
-    # "all": the comparison set (cli.py: _run_ecg_all).  "noise_study"
-    # raises naming ROADMAP A.7c.
+    # "all": the comparison set (cli.py: _run_ecg_all); "noise_study":
+    # the clean-vs-noisy grid over noise_stds x noise_seeds as one
+    # population (cli.py: _run_ecg_noise_study).
     model: str = "kanfet_node"
     noise_stds: str = "0,0.1,0.2,0.5"
     noise_seeds: str = "0,1,2"

@@ -1,14 +1,18 @@
 // Whole-solve kernels of the ECG ferro MLP-NODE latent field for Hopper
 // (sm_90a): the forward dopri5 solve over [0, 1] (with or without
 // per-attempt records) and the reverse replay, the discrete adjoint on
-// the recorded step mesh, with optional frozen device noise.
+// the recorded step mesh, with optional frozen device noise, for P
+// independent members (P = 1: the single solve) in one launch.
 //
 // Replaces the TPU kernel fetode_tpu/ops/pallas_ferro_node.py:416
 // (make_ferro_node_solver: forward _make_fwd_kernel :87, backward
 // _make_bwd_kernel :150; the batch-vectorized pair :259 / :309 is another
-// TPU layout of the same function and maps to these kernels too).  The
-// field, D -> H -> D with two ferro layers whose parameters are (out, L),
-// L = in*K, l = i*K + k:
+// TPU layout of the same function and maps to these kernels too), and the
+// vmap of it over a population's members (fetode_tpu/train/ecg_driver.py:
+// train_ecg_population with solver_mode "pallas"), where each member has
+// its own weights, h0 batch, pre-scaled frozen noise and step control.
+// The field, D -> H -> D with two ferro layers whose parameters are
+// (out, L), L = in*K, l = i*K + k:
 //
 //   hb = h_bound tanh(y / h_bound)
 //   z  = tanh(sum_l fb1[b, o, l] coef1[o, l])          (B, H)
@@ -26,42 +30,60 @@
 // columns, RG * CG = 32 (every k of each column: l = i*K + k), RG chosen
 // so that a row's sum and a column's sum cross about as few tiles each
 // (slice_plan; ops/ferro_node.py mirrors it; 16 and 16 at the ECG
-// widths).  Tile q goes to block q mod G, which keeps its five parameter
-// arrays (and, in the backward, their five gradients) in shared memory
-// for the whole launch.  A work unit is an element of the block's tiles
-// and a run of samples (8 samples a pass, the inputs of 64 formed at
-// once): the backward's thread owns its elements and sums their gradients
-// over the samples in order, the forward cuts the run to 4 samples so the
-// units spread evenly over the threads; either way a parameter is read
-// once for several samples.  The terms go to a shared buffer, where a
-// warp a sample gives each (row, column) of the tile a lane that sums its
-// K terms in order.  The forward adds a row's lanes in
-// a fixed shuffle tree into the tile's partial of that row, and the
-// consumer adds a row's partials in tile order; the backward adds a
-// column's lanes the same way into the tile's partial of the input
-// cotangent, added over the row groups in order.  No (B, out, L) staging
-// tensor, no atomics: every output and gradient is the same bits on every
-// run, and each gradient is written once, at the end.
+// widths).  Member m's tile q is the layer's tile Q = m * tiles + q, on
+// block Q mod G, which keeps its five parameter arrays (and, in the
+// backward, their five gradients) for the whole launch: in shared memory
+// while the block's first tiles fit kSliceSmem, past that in device
+// memory, each element still read and written by its one owner.  A work
+// unit is an element of the block's tiles and a run of samples (8 samples
+// a pass, the inputs of 64 formed at once): the backward's thread owns its
+// elements and sums their gradients over the samples in order, the
+// forward cuts the run to 4 samples so the units spread evenly over the
+// threads; either way a parameter is read once for several samples.  The
+// terms go to a shared buffer, where a warp a sample gives each (row,
+// column) of the tile a lane that sums its K terms in order.  The forward
+// adds a row's lanes in a fixed shuffle tree into the tile's partial of
+// that row, and the consumer adds a row's partials in tile order; the
+// backward adds a column's lanes the same way into the tile's partial of
+// the input cotangent, added over the row groups in order.  No (B, out, L)
+// staging tensor, no atomics: every output and gradient is the same bits
+// on every run, and each gradient is written once, at the end.
 //
-// The solve takes node_common.cuh's fused-stage hook: the stage input
-// u = y + dt sum_l a_jl k_l, the tanh bound and the sigmoid of the input
-// are formed in layer 1's prologue, each block for the (b, i) its tiles
+// The solve takes node_common.cuh's fused-stage hook in its member form
+// (adaptive_solve_members, adjoint_replay_members): the stage input u = y
+// + dt sum_l a_jl k_l, the tanh bound and the sigmoid of the input are
+// formed in layer 1's prologue, each block for the (m, b, i) its tiles
 // read, straight from y, the stages and the partials of the stage still
-// pending.  So an evaluation is two grid phases (layer 1, layer 2) and
-// two barriers, and a VJP four: the two forward layers, layer 2's
-// backward, layer 1's backward (the previous layer's partials form the
-// input cotangent in each prologue).  Every consumer's sum starts all
-// its loads at once and adds them in order.  The sigmoid's quotient is
-// rcp_sigmoid (knot_quotient.cuh): IEEE's bits without the branch that
-// serialised a lane's terms.
+// pending.  So an evaluation is two grid phases (layer 1, layer 2) and two
+// barriers, and a VJP four: the two forward layers, layer 2's backward,
+// layer 1's backward (the previous layer's partials form the input
+// cotangent in each prologue).  Every consumer's sum starts all its loads
+// at once and adds them in order.  The sigmoid's quotient is rcp_sigmoid
+// (knot_quotient.cuh): IEEE's bits without the branch that serialised a
+// lane's terms.
+//
+// The member form is one cooperative launch in lockstep, the simple one of
+// the two possible: each grid phase runs the current stage for every member
+// still stepping, a finished member's tiles skip their work while its
+// blocks keep passing the barriers, and each member's error norm is its own
+// reduction (node_common.cuh's member section).  Blocks split by member,
+// with per-member barriers on counters in device memory, would let a
+// finished member's blocks go idle sooner but need a second barrier
+// mechanism; at the study's P = 12 every member starts together and the
+// attempt counts differ by a few.  Since a member's tile sums run in tile
+// order and its norm over a virtual grid that depends on N alone, member
+// m's output, records, attempts and gradients are the bits of the P = 1
+// launch on member m, wherever its tiles and elements land.
 //
 // What bounds it on this card: the special-function unit, by count.  At
 // the ECG widths (D = 64, H = 128, K = 12, B = 8) an evaluation is 2 x 8
-// x 98,304 ferro terms, each an expf, a reciprocal and a tanhf (about 4
-// SFU results), 0.75 us of the 132 SMs' SFUs a layer; a VJP evaluates the
-// terms twice.  In practice the terms' instruction rate (about 60 a term
-// in plain's rounding) sets the pace, then the barriers (two an
-// evaluation, four a VJP) and the prologues' loads.
+// x 98,304 ferro terms a member, each an expf, a reciprocal and a tanhf
+// (about 4 SFU results), 0.75 us of the 132 SMs' SFUs a layer; a VJP
+// evaluates the terms twice.  In practice the terms' instruction rate
+// (about 60 a term in plain's rounding) sets the pace, then the barriers
+// (two an evaluation, four a VJP, shared by all members) and the
+// prologues' loads; with noise, each member's (B, out, L) noise read once
+// an evaluation.
 
 #include "knot_quotient.cuh"
 #include "node_common.cuh"
@@ -75,13 +97,18 @@ constexpr int kChunk = kWarps;     // samples a term pass takes at once
 constexpr int kRun = 4;            // samples a forward work unit takes
 constexpr int kPro = 64;           // samples a prologue forms at once
 constexpr int kLanes = 32;         // (row, column) pairs a tile holds
-// Bytes of parameter (and gradient) tiles a block keeps in shared
-// memory; past it they stay in device memory, each element still read by
-// its one owner.
-constexpr long long kSliceSmem = 96 * 1024;
+// Bytes of parameter (and gradient) tiles a block keeps in shared memory,
+// so that two blocks of the largest layout still fit an SM; past it they
+// stay in device memory, each element still read by its one owner.
+constexpr long long kSliceSmem = 72 * 1024;
 // Dynamic shared memory a block may take: the card's 227 KB less the
-// static arrays of the scaffold's reductions.
+// static arrays of the scaffold's reductions and member scalars.
 constexpr size_t kMaxDynamicSmem = 232448 - 2048;
+
+// The block's dynamic shared memory and the members' scalars, read by the
+// field's methods directly, so the field holds nothing set per block.
+extern __shared__ __align__(16) float ferro_smem[];
+__shared__ MemberCtl ferro_ctl;
 
 __device__ __forceinline__ float ferro_sigmoid(float z) {
   return rcp_sigmoid(1.0f + expf(-z));
@@ -102,7 +129,7 @@ struct SlicePlan {
   int RG, CG;   // rows and columns of a tile, RG * CG = 32
   int NR, NC;   // row groups and column chunks
   int nsl;      // NR * NC tiles; tile q = rg * NC + cc
-  int ns;       // tiles a block holds, at most
+  int ns;       // tiles a block holds, at most, of one member
 };
 
 // RG the power of two that makes max(NR, NC) least (the partials a
@@ -131,31 +158,47 @@ __host__ __device__ inline SlicePlan slice_plan(int G, int O, int I, int K) {
   return p;
 }
 
-// The block's shared-memory layout (floats) for G blocks.
+// The block's shared-memory layout (floats) for G blocks and P members.
 struct FerroGeo {
   SlicePlan p1, p2;  // layer 1 (H, D, K1), layer 2 (D, H, K2)
-  int G, in_smem, bwd;
+  int G, P, bwd;
   int SL1, SL2;      // floats of one parameter array of a tile
+  int ns1, ns2;      // tiles of each layer a block holds, at most
+  int sm1, sm2;      // of those, the first ones in shared memory
   int g_off, buf_off, xs_off, ms_off, wc_off, BS;
   long long smem_floats;
 };
 
-FerroGeo make_geo(int G, int D, int H, int K1, int K2, bool bwd) {
+FerroGeo make_geo(int G, int P, int D, int H, int K1, int K2, bool bwd) {
   FerroGeo g{};
   g.G = G;
+  g.P = P;
   g.bwd = bwd;
   g.p1 = slice_plan(G, H, D, K1);
   g.p2 = slice_plan(G, D, H, K2);
+  g.ns1 = (P * g.p1.nsl + G - 1) / G;
+  g.ns2 = (P * g.p2.nsl + G - 1) / G;
   g.SL1 = kLanes * K1;
   g.SL2 = kLanes * K2;
-  const long long prm = 5LL * (g.p1.ns * g.SL1 + g.p2.ns * g.SL2);
-  const long long slices = bwd ? 2 * prm : prm;
-  g.in_smem = slices * (long long)sizeof(float) <= kSliceSmem;
+  // Tiles of both layers in equal numbers while they fit, then the rest.
+  const long long f = bwd ? 2 : 1;
+  const long long per1 = f * 5 * g.SL1, per2 = f * 5 * g.SL2;
+  long long room = kSliceSmem / (long long)sizeof(float);
+  const long long both = room / (per1 + per2);
+  g.sm1 = (int)(both < g.ns1 ? both : g.ns1);
+  g.sm2 = (int)(both < g.ns2 ? both : g.ns2);
+  room -= g.sm1 * per1 + g.sm2 * per2;
+  const long long more1 = room / per1;
+  const int add1 = (int)(more1 < g.ns1 - g.sm1 ? more1 : g.ns1 - g.sm1);
+  g.sm1 += add1;
+  room -= add1 * per1;
+  const long long more2 = room / per2;
+  g.sm2 += (int)(more2 < g.ns2 - g.sm2 ? more2 : g.ns2 - g.sm2);
+  const long long prm = 5LL * (g.sm1 * g.SL1 + g.sm2 * g.SL2);
   const int Km = K1 > K2 ? K1 : K2;
   g.BS = kLanes * (Km + 1);
-  const long long at = g.in_smem ? slices : 0;
   g.g_off = (int)prm;
-  g.buf_off = (int)at;
+  g.buf_off = (int)(f * prm);
   g.xs_off = g.buf_off + kChunk * g.BS;
   g.ms_off = g.xs_off + kPro * kLanes;
   g.wc_off = g.ms_off + kPro * kLanes;
@@ -164,67 +207,69 @@ FerroGeo make_geo(int G, int D, int H, int K1, int K2, bool bwd) {
 }
 
 struct FerroLayer {
-  const float* prm;  // (5, out, L): k, ec, ps, bias, coef
-  const float* nz;   // (B, out, L) frozen noise, or null
-  float* grd;        // (5, out, L) gradients, VJP only
+  const float* prm;  // (P, 5, out, L): k, ec, ps, bias, coef
+  const float* nz;   // (P, B, out, L) frozen noise, or null
+  float* grd;        // (P, 5, out, L) gradients, VJP only
   int out, K, L;
 };
 
-// One tile of a layer as this block holds it: rows o0 .. o0 + RG - 1 and
-// columns c0 .. c0 + CG - 1 (those inside the layer); element e = (r CG +
-// c) K + k; parameter a of element e at prm[a * astride + off(e)], its
-// gradient at grd[a * astride + off(e)], off(e) = e in shared memory and
-// r L + c K + k in device memory.
+// One tile of a layer as this block holds it: member m's rows o0 .. o0 +
+// RG - 1 and columns c0 .. c0 + CG - 1 (those inside the layer); element
+// e = (r CG + c) K + k; parameter a of element e at prm[a * astride +
+// off(e)], its gradient at grd[a * astride + off(e)], off(e) = e in shared
+// memory and r L + c K + k in device memory.
 struct Slice {
   const float* prm;
   float* grd;
-  int astride, rg, cc, o0, c0, rows, cols;
+  int astride, m, rg, cc, o0, c0, rows, cols;
   bool dev;
 };
 
 struct FerroField {
-  static constexpr bool kFused = true;
   FerroLayer l1, l2;
-  int B, D, H;
+  int P, B, D, H, N;
   float gate, alpha, oma, c2;  // c2 = 2 gate (1 - alpha)
   float h_bound, inv_hb, dh_clip;
-  float* part1;  // (B, H, NC1) layer 1's row partials
-  float* part2;  // (B, D, NC2) layer 2's row partials
-  float* px2;    // (B, H, NR2) layer 2's input-cotangent partials
-  float* px1;    // (B, D, NR1) layer 1's input-cotangent partials
+  float* part1;  // (P, B, H, NC1) layer 1's row partials
+  float* part2;  // (P, B, D, NC2) layer 2's row partials
+  float* px2;    // (P, B, H, NR2) layer 2's input-cotangent partials
+  float* px1;    // (P, B, D, NR1) layer 1's input-cotangent partials
   FerroGeo geo;
-  float* sm;     // the block's dynamic shared memory
 
   __device__ __forceinline__ Slice slice(int layer, int slot) const {
-    const FerroLayer& P = layer == 1 ? l1 : l2;
+    const FerroLayer& P_ = layer == 1 ? l1 : l2;
     const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
-    const int q = blockIdx.x + slot * geo.G;
+    const int Q = blockIdx.x + slot * geo.G;
     Slice sl;
+    sl.m = Q / pl.nsl;
+    const int q = Q - sl.m * pl.nsl;
     sl.rg = q / pl.NC;
     sl.cc = q - sl.rg * pl.NC;
     sl.o0 = sl.rg * pl.RG;
     sl.c0 = sl.cc * pl.CG;
     sl.rows = min(pl.RG, pl.O - sl.o0);
     sl.cols = min(pl.CG, pl.I - sl.c0);
-    sl.dev = !geo.in_smem;
-    if (geo.in_smem) {
+    sl.dev = slot >= (layer == 1 ? geo.sm1 : geo.sm2);
+    if (!sl.dev) {
       const int SL = layer == 1 ? geo.SL1 : geo.SL2;
-      const int off = layer == 1 ? 0 : 5 * geo.p1.ns * geo.SL1;
-      sl.prm = sm + off + slot * 5 * SL;
-      sl.grd = sm + geo.g_off + off + slot * 5 * SL;
+      const int off = layer == 1 ? slot * 5 * SL
+                                 : 5 * geo.sm1 * geo.SL1 + slot * 5 * SL;
+      sl.prm = ferro_smem + off;
+      sl.grd = ferro_smem + geo.g_off + off;
       sl.astride = SL;
     } else {
-      const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
-      sl.prm = P.prm + at;
-      sl.grd = P.grd + at;
-      sl.astride = P.out * P.L;
+      const size_t at = (size_t)sl.m * 5 * P_.out * P_.L +
+                        (size_t)sl.o0 * P_.L + sl.c0 * P_.K;
+      sl.prm = P_.prm + at;
+      sl.grd = P_.grd ? P_.grd + at : nullptr;
+      sl.astride = P_.out * P_.L;
     }
     return sl;
   }
 
   __device__ __forceinline__ int slots(int layer) const {
     const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
-    return ((int)pl.nsl - (int)blockIdx.x + geo.G - 1) / geo.G;
+    return (P * pl.nsl - (int)blockIdx.x + geo.G - 1) / geo.G;
   }
 
   // Element e of a tile: its lane q, row r and column c, whether it lies
@@ -241,26 +286,26 @@ struct FerroField {
     return r < sl.rows && c < sl.cols;
   }
 
-  // The tiles' parameters into shared memory and the gradients zeroed.
+  // The tiles held in shared memory loaded, and the gradients zeroed.
   __device__ void load() const {
     for (int layer = 1; layer <= 2; ++layer) {
-      const FerroLayer& P = layer == 1 ? l1 : l2;
+      const FerroLayer& P_ = layer == 1 ? l1 : l2;
       const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
-      const size_t n = (size_t)P.out * P.L;
+      const size_t n = (size_t)P_.out * P_.L;
       for (int k = 0; k < slots(layer); ++k) {
         const Slice sl = slice(layer, k);
-        const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
-        const unsigned mK = magic(P.K);
+        const float* src = P_.prm + (size_t)sl.m * 5 * n +
+                           (size_t)sl.o0 * P_.L + sl.c0 * P_.K;
+        const unsigned mK = magic(P_.K);
         const int lcg = __ffs(pl.CG) - 1;
-        for (int e = threadIdx.x; e < kLanes * P.K; e += blockDim.x) {
+        for (int e = threadIdx.x; e < kLanes * P_.K; e += blockDim.x) {
           int q, r, c, off;
           if (!element(sl, pl, mK, lcg, e, q, r, c, off)) continue;
           const int i = sl.dev ? off : e;
 #pragma unroll
           for (int a = 0; a < 5; ++a) {
             if (!sl.dev)
-              const_cast<float*>(sl.prm)[a * sl.astride + e] =
-                  P.prm[a * n + at + off];
+              const_cast<float*>(sl.prm)[a * sl.astride + e] = src[a * n + off];
             if (geo.bwd) sl.grd[a * sl.astride + i] = 0.0f;
           }
         }
@@ -270,71 +315,74 @@ struct FerroField {
 
   // The gradients held in shared memory to the outputs, by their owners.
   __device__ void store() const {
-    if (!geo.in_smem) return;
     for (int layer = 1; layer <= 2; ++layer) {
-      const FerroLayer& P = layer == 1 ? l1 : l2;
+      const FerroLayer& P_ = layer == 1 ? l1 : l2;
       const SlicePlan& pl = layer == 1 ? geo.p1 : geo.p2;
-      const size_t n = (size_t)P.out * P.L;
+      const size_t n = (size_t)P_.out * P_.L;
       for (int k = 0; k < slots(layer); ++k) {
         const Slice sl = slice(layer, k);
-        const size_t at = (size_t)sl.o0 * P.L + sl.c0 * P.K;
-        const unsigned mK = magic(P.K);
+        if (sl.dev) continue;
+        float* dst = P_.grd + (size_t)sl.m * 5 * n + (size_t)sl.o0 * P_.L +
+                     sl.c0 * P_.K;
+        const unsigned mK = magic(P_.K);
         const int lcg = __ffs(pl.CG) - 1;
-        for (int e = threadIdx.x; e < kLanes * P.K; e += blockDim.x) {
+        for (int e = threadIdx.x; e < kLanes * P_.K; e += blockDim.x) {
           int q, r, c, off;
           if (!element(sl, pl, mK, lcg, e, q, r, c, off)) continue;
 #pragma unroll
           for (int a = 0; a < 5; ++a)
-            P.grd[a * n + at + off] = sl.grd[a * sl.astride + e];
+            dst[a * n + off] = sl.grd[a * sl.astride + e];
         }
       }
     }
   }
 
-  // Layer 2's pending output at element e, unclipped and clipped; z of
-  // layer 1's row (b, o); each the row's partials added in tile order.
-  __device__ __forceinline__ float dh_at(int e) const {
-    return ordered_sum(part2 + (size_t)e * geo.p2.NC, geo.p2.NC);
+  // Member m's layer-2 pending output at element e, unclipped and clipped;
+  // z of layer 1's row (b, o); each the row's partials added in tile order.
+  __device__ __forceinline__ float dh_at(int m, int e) const {
+    return ordered_sum(part2 + ((size_t)m * N + e) * geo.p2.NC, geo.p2.NC);
   }
-  __device__ __forceinline__ float pend(int e) const {
-    return fminf(fmaxf(dh_at(e), -dh_clip), dh_clip);
+  __device__ __forceinline__ float pend(int m, int e) const {
+    return fminf(fmaxf(dh_at(m, e), -dh_clip), dh_clip);
   }
-  __device__ __forceinline__ float z_at(int b, int o) const {
-    return tanhf(ordered_sum(part1 + ((size_t)b * H + o) * geo.p1.NC,
-                             geo.p1.NC));
+  __device__ __forceinline__ float z_at(int m, int b, int o) const {
+    return tanhf(ordered_sum(
+        part1 + (((size_t)m * B + b) * H + o) * geo.p1.NC, geo.p1.NC));
   }
   __device__ __forceinline__ float bound(float u) const {
     return h_bound * tanhf(u * inv_hb);
   }
 
-  // The stage input at element e (node_common.cuh: stage_input), the
-  // pending stage read from its partials.
-  __device__ __forceinline__ float stage_u(const StageIn& in, int e) const {
-    return stage_input(in, e, [&](int i) { return pend(i); });
-  }
-
-  // One layer over the block's tiles.  xf(b, i): the layer's input;
-  // kBwd: wf(b, o) the output cotangent, the five gradients accumulated
-  // and each column's partial of the input cotangent written to `out`
-  // (B, in, NR); else each row's partial to `out` (B, out, NC).
+  // One layer over the block's tiles of the members that are on.
+  // xf(m, b, i): the layer's input; kBwd: wf(m, b, o) the output
+  // cotangent, the five gradients accumulated and each column's partial of
+  // the input cotangent written to member m's part of `out` (B, in, NR);
+  // else each row's partial to member m's part of `out` (B, out, NC).
   template <bool kBwd, class XF, class WF>
   __device__ __forceinline__ void layer(int which, const XF& xf, const WF& wf,
                                         float* out) const {
-    const FerroLayer& P = which == 1 ? l1 : l2;
+    const FerroLayer& P_ = which == 1 ? l1 : l2;
     const SlicePlan& pl = which == 1 ? geo.p1 : geo.p2;
-    const int K = P.K, BS = geo.BS, CG = pl.CG, RG = pl.RG;
-    float* buf = sm + geo.buf_off;
-    float* xs = sm + geo.xs_off;
-    float* ms = sm + geo.ms_off;
-    float* wc = sm + geo.wc_off;
+    const int K = P_.K, BS = geo.BS, CG = pl.CG, RG = pl.RG;
+    float* buf = ferro_smem + geo.buf_off;
+    float* xs = ferro_smem + geo.xs_off;
+    float* ms = ferro_smem + geo.ms_off;
+    float* wc = ferro_smem + geo.wc_off;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int lr = lane / CG, lc = lane - lr * CG;
     const unsigned mK = magic(K), mSL = magic(kLanes * K);
     const int lcg = __ffs(CG) - 1;
+    const size_t out_stride =
+        (size_t)B * (kBwd ? pl.I * pl.NR : pl.O * pl.NC);
     for (int k = 0; k < slots(which); ++k) {
       const Slice sl = slice(which, k);
+      const int m = sl.m;
+      if (!ferro_ctl.on[m]) continue;
       const float* nzs =
-          P.nz ? P.nz + (size_t)sl.o0 * P.L + sl.c0 * K : nullptr;
+          P_.nz ? P_.nz + (size_t)m * B * P_.out * P_.L +
+                      (size_t)sl.o0 * P_.L + sl.c0 * K
+                : nullptr;
+      float* om = out + m * out_stride;
       const bool lane_in = lr < sl.rows && lc < sl.cols;
       for (int p0 = 0; p0 < B; p0 += kPro) {
         // The inputs (and cotangents) of up to kPro samples at once, so a
@@ -343,14 +391,14 @@ struct FerroField {
         for (int i = threadIdx.x; i < np * CG; i += blockDim.x) {
           const int bb = i / CG, c = i - bb * CG;
           if (c >= sl.cols) continue;
-          const float x = xf(p0 + bb, sl.c0 + c);
+          const float x = xf(m, p0 + bb, sl.c0 + c);
           xs[bb * CG + c] = x;
           ms[bb * CG + c] = ferro_sigmoid(gate * x);
         }
         if constexpr (kBwd)
           for (int i = threadIdx.x; i < np * RG; i += blockDim.x) {
             const int bb = i / RG, r = i - bb * RG;
-            if (r < sl.rows) wc[bb * RG + r] = wf(p0 + bb, sl.o0 + r);
+            if (r < sl.rows) wc[bb * RG + r] = wf(m, p0 + bb, sl.o0 + r);
           }
         __syncthreads();
         for (int b0 = 0; b0 < np; b0 += kChunk) {
@@ -375,7 +423,7 @@ struct FerroField {
 #pragma unroll
             for (int j = 0; j < kChunk; ++j)
               nzv[j] = (nzs && s0 + j < s1)
-                  ? nzs[(size_t)(p0 + b0 + s0 + j) * P.out * P.L + off] : 0.0f;
+                  ? nzs[(size_t)(p0 + b0 + s0 + j) * P_.out * P_.L + off] : 0.0f;
             float gk = 0.0f, gec = 0.0f, gps = 0.0f, gbias = 0.0f;
             float gcoef = 0.0f;
 #pragma unroll
@@ -431,12 +479,12 @@ struct FerroField {
               for (int d = kLanes / 2; d >= CG; d >>= 1)
                 v += __shfl_down_sync(0xffffffffu, v, d);
               if (lr == 0 && lc < sl.cols)
-                out[((size_t)b * pl.I + sl.c0 + lc) * pl.NR + sl.rg] = v;
+                om[((size_t)b * pl.I + sl.c0 + lc) * pl.NR + sl.rg] = v;
             } else {
               for (int d = CG / 2; d >= 1; d >>= 1)
                 v += __shfl_down_sync(0xffffffffu, v, d, CG);
               if (lc == 0 && lr < sl.rows)
-                out[((size_t)b * pl.O + sl.o0 + lr) * pl.NC + sl.cc] = v;
+                om[((size_t)b * pl.O + sl.o0 + lr) * pl.NC + sl.cc] = v;
             }
           }
           __syncthreads();
@@ -445,105 +493,117 @@ struct FerroField {
     }
   }
 
-  // f(u) of the stage, left pending in part2.
-  __device__ void stage(const StageIn& in) const {
+  // f(u) of the stage for every member on, left pending in part2.
+  __device__ void stage(const MemberStageIn& in) const {
     if (in.pending >= 0)
-      for (int e = grid_tid(); e < in.N; e += grid_threads())
-        in.ks[(size_t)in.pending * in.N + e] = pend(e);
-    auto none = [](int, int) { return 0.0f; };
-    layer<false>(1, [&](int b, int i) { return bound(stage_u(in, b * D + i)); },
-                 none, part1);
+      member_for_each(ferro_ctl, P, N, [&](int m, int e) {
+        in.pending_stage(m)[e] = pend(m, e);
+      });
+    auto none = [](int, int, int) { return 0.0f; };
+    layer<false>(1, [&](int m, int b, int i) {
+      return bound(stage_input(in.member(m), b * D + i,
+                               [&](int q) { return pend(m, q); }));
+    }, none, part1);
     cg::this_grid().sync();
-    layer<false>(2, [&](int b, int i) { return z_at(b, i); }, none, part2);
+    layer<false>(2, [&](int m, int b, int i) { return z_at(m, b, i); }, none,
+                 part2);
   }
 
-  __device__ __forceinline__ float take(int e, float* dst) const {
-    const float v = pend(e);
+  __device__ __forceinline__ float take(int m, int e, float* dst) const {
+    const float v = pend(m, e);
     dst[e] = v;
     return v;
   }
 
-  // The VJP of stage j at its recorded input, cotangent in.w; ubar left
-  // pending in px1.  Layer 2's output passes the cotangent strictly inside
-  // (-c, c), as the plain field's clip.
-  __device__ void vjp_stage(const VjpIn& in) const {
-    auto none = [](int, int) { return 0.0f; };
-    auto hb = [&](int b, int i) { return bound(record_input(in, b * D + i)); };
-    auto zf = [&](int b, int i) { return z_at(b, i); };
+  // The VJP of stage j at its recorded input, cotangent in.w, for every
+  // member on; ubar left pending in px1.  Layer 2's output passes the
+  // cotangent strictly inside (-c, c), as the plain field's clip.
+  __device__ void vjp_stage(const MemberVjpIn& in) const {
+    auto none = [](int, int, int) { return 0.0f; };
+    auto hb = [&](int m, int b, int i) {
+      return bound(record_input(in.member(m), b * D + i));
+    };
+    auto zf = [&](int m, int b, int i) { return z_at(m, b, i); };
     cg::grid_group grid = cg::this_grid();
     layer<false>(1, hb, none, part1);
     grid.sync();
     layer<false>(2, zf, none, part2);
     grid.sync();
-    layer<true>(2, zf, [&](int b, int o) {
-      const float dh = dh_at(b * D + o);
-      return (dh > -dh_clip && dh < dh_clip) ? ld(in.w + b * D + o) : 0.0f;
+    layer<true>(2, zf, [&](int m, int b, int o) {
+      const float dh = dh_at(m, b * D + o);
+      return (dh > -dh_clip && dh < dh_clip)
+                 ? ld(in.member(m).w + b * D + o) : 0.0f;
     }, px2);
     grid.sync();
-    layer<true>(1, hb, [&](int b, int o) {
-      const float s = ordered_sum(px2 + ((size_t)b * H + o) * geo.p2.NR,
-                                  geo.p2.NR);
-      const float z = z_at(b, o);
+    layer<true>(1, hb, [&](int m, int b, int o) {
+      const float s = ordered_sum(
+          px2 + (((size_t)m * B + b) * H + o) * geo.p2.NR, geo.p2.NR);
+      const float z = z_at(m, b, o);
       return s * (1.0f - z * z);
     }, px1);
   }
 
-  __device__ __forceinline__ float take_ub(int e, const VjpIn& in) const {
+  __device__ __forceinline__ float take_ub(int m, int e,
+                                           const VjpIn& in) const {
     const float v = bound(record_input(in, e)) * inv_hb;
-    const float s = ordered_sum(px1 + (size_t)e * geo.p1.NR, geo.p1.NR);
+    const float s =
+        ordered_sum(px1 + ((size_t)m * N + e) * geo.p1.NR, geo.p1.NR);
     return s * (1.0f - v * v);
   }
 };
 
 struct FwdArgs {
   FerroField f;
-  SolveBufs s;
+  MemberSolveBufs s;
 };
 
 struct BwdArgs {
   FerroField f;
-  ReplayBufs r;
+  MemberReplayBufs r;
 };
 
+// The forward works on a copy of the field; the backward reads it where the
+// launch put it (__grid_constant__: no copy a thread).  Each is the faster
+// of the two forms on the H100 at B = 8 (PERF.md, the member form's
+// findings): the backward 18% faster read in place, the forward 6% slower
+// so.
 template <bool kRecord>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     ferro_node_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  FerroField f = a.f;
-  f.sm = smem;
+  const FerroField f = a.f;
   f.load();
   __syncthreads();
-  adaptive_solve_final<kRecord>(f, a.s);
+  adaptive_solve_members<kRecord>(f, a.s, ferro_ctl);
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-    ferro_node_bwd_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  FerroField f = a.f;
-  f.sm = smem;
+    ferro_node_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  const FerroField& f = a.f;
   f.load();
   cg::this_grid().sync();  // device-memory gradients zeroed by their owners
-  adjoint_replay(f, a.r);
+  adjoint_replay_members(f, a.r, ferro_ctl);
   f.store();
 }
 
-// Scratch layout in `work` (floats), N = B*D: the scaffold's 10N and
-// part; part1 (B*H*NC1) and part2 (B*D*NC2); then, for the backward only,
-// px2 (B*H*NR2) and px1 (B*D*NR1).
+// Scratch layout in `work` (floats), PN = P*B*D: the scaffold's state,
+// stages and step input (forward: y PN, ks 7PN, u PN; backward: lam PN,
+// kbar 6PN) in 9PN, then its member sums; part1 (P*B*H*NC1) and part2
+// (P*B*D*NC2); then, for the backward only, px2 (P*B*H*NR2) and px1
+// (P*B*D*NR1).
 struct WorkLayout {
   size_t part, part1, part2, px2, px1, total;
 };
 
-WorkLayout work_layout(int B, int D, int H, int K1, int K2, bool bwd) {
-  const FerroGeo g = make_geo(1, D, H, K1, K2, bwd);
-  const size_t N = (size_t)B * D;
+WorkLayout work_layout(int P, int B, int D, int H, int K1, int K2, bool bwd) {
+  const SlicePlan p1 = slice_plan(1, H, D, K1), p2 = slice_plan(1, D, H, K2);
+  const size_t N = (size_t)B * D, PN = (size_t)P * N;
   WorkLayout w;
-  w.part = 10 * N;
-  w.part1 = w.part + kPartFloats;
-  w.part2 = w.part1 + (size_t)B * H * g.p1.NC;
-  w.px2 = w.part2 + (size_t)B * D * g.p2.NC;
-  w.px1 = w.px2 + (bwd ? (size_t)B * H * g.p2.NR : 0);
-  w.total = w.px1 + (bwd ? (size_t)B * D * g.p1.NR : 0);
+  w.part = 9 * PN;
+  w.part1 = w.part + 2 * kMaxSums * (size_t)P * member_vblocks((int)N);
+  w.part2 = w.part1 + (size_t)P * B * H * p1.NC;
+  w.px2 = w.part2 + (size_t)P * B * D * p2.NC;
+  w.px1 = w.px2 + (bwd ? (size_t)P * B * H * p2.NR : 0);
+  w.total = w.px1 + (bwd ? (size_t)P * B * D * p1.NR : 0);
   return w;
 }
 
@@ -561,15 +621,17 @@ FerroLayer make_layer(const float* prm, const float* nz, float* grads,
 
 FerroField make_field(const float* prm1, const float* prm2, const float* nz1,
                       const float* nz2, float* g1, float* g2, float* work,
-                      const WorkLayout& w, int B, int D, int H, int K1,
+                      const WorkLayout& w, int P, int B, int D, int H, int K1,
                       int K2, float gate, float alpha, float oma, float c2,
                       float h_bound, float dh_clip) {
   FerroField f{};
   f.l1 = make_layer(prm1, nz1, g1, H, D, K1);
   f.l2 = make_layer(prm2, nz2, g2, D, H, K2);
+  f.P = P;
   f.B = B;
   f.D = D;
   f.H = H;
+  f.N = B * D;
   f.gate = gate;
   f.alpha = alpha;
   f.oma = oma;
@@ -591,9 +653,13 @@ int launch_ferro(void (*kernel)(Args), Args& args, bool bwd,
                  cudaStream_t stream) {
   const FerroField& f = args.f;
   return launch_grid(kernel, args, [&](int G) {
-    args.f.geo = make_geo(G, f.D, f.H, f.l1.K, f.l2.K, bwd);
+    args.f.geo = make_geo(G, f.P, f.D, f.H, f.l1.K, f.l2.K, bwd);
     return (size_t)args.f.geo.smem_floats * sizeof(float);
   }, kMaxDynamicSmem, stream);
+}
+
+bool bad_shape(int P, int B, int D, int H) {
+  return P < 1 || P > kMaxMembers || B <= 0 || D > kMaxRow || H > kMaxRow;
 }
 
 }  // namespace
@@ -618,31 +684,34 @@ extern "C" int ferro_node_grid() {
   return G > kMaxBlocks ? kMaxBlocks : G;
 }
 
-extern "C" long long ferro_node_work_floats(int B, int D, int H, int K1,
-                                            int K2, int bwd) {
-  return (long long)work_layout(B, D, H, K1, K2, bwd != 0).total;
+// The most members one launch takes.
+extern "C" int ferro_node_max_members() { return kMaxMembers; }
+
+extern "C" long long ferro_node_work_floats(int P, int B, int D, int H,
+                                            int K1, int K2, int bwd) {
+  return (long long)work_layout(P, B, D, H, K1, K2, bwd != 0).total;
 }
 
-// h0 (B, D); prm1 (5, H, D*K1) and prm2 (5, D, H*K2), the arrays k, ec,
-// ps, bias, coef of each layer; nz1 (B, H, D*K1) and nz2 (B, D, H*K2), or
-// null -> out (B, D) and, when record is nonzero, tda (M, 4), yrec
-// (M, B, D), krec (M, 7, B, D), misc (4).
+// P members at once.  h0 (P, B, D); prm1 (P, 5, H, D*K1) and prm2 (P, 5,
+// D, H*K2), each member's arrays k, ec, ps, bias, coef of each layer; nz1
+// (P, B, H, D*K1) and nz2 (P, B, D, H*K2), or null -> out (P, B, D) and,
+// when record is nonzero, tda (P, M, 4), yrec (P, M, B, D), krec (P, M, 7,
+// B, D), misc (P, 4), M = max_steps.
 extern "C" int ferro_node_fwd(const float* h0, const float* prm1,
                               const float* prm2, const float* nz1,
                               const float* nz2, float* out, float* tda,
                               float* yrec, float* krec, float* misc,
-                              float* work, int B, int D, int H, int K1, int K2,
-                              int max_steps, float rtol, float atol,
+                              float* work, int P, int B, int D, int H, int K1,
+                              int K2, int max_steps, float rtol, float atol,
                               float gate, float alpha, float oma, float c2,
                               float h_bound, float dh_clip, int record,
                               void* stream) {
-  if (B <= 0) return 0;
-  if (D > kMaxRow || H > kMaxRow) return (int)cudaErrorInvalidValue;
-  const WorkLayout w = work_layout(B, D, H, K1, K2, false);
+  if (bad_shape(P, B, D, H)) return (int)cudaErrorInvalidValue;
+  const WorkLayout w = work_layout(P, B, D, H, K1, K2, false);
   FwdArgs a{};
-  a.f = make_field(prm1, prm2, nz1, nz2, nullptr, nullptr, work, w, B, D, H,
-                   K1, K2, gate, alpha, oma, c2, h_bound, dh_clip);
-  const size_t N = (size_t)B * D;
+  a.f = make_field(prm1, prm2, nz1, nz2, nullptr, nullptr, work, w, P, B, D,
+                   H, K1, K2, gate, alpha, oma, c2, h_bound, dh_clip);
+  const size_t PN = (size_t)P * B * D;
   a.s.h0 = h0;
   a.s.out = out;
   a.s.tda = tda;
@@ -650,10 +719,11 @@ extern "C" int ferro_node_fwd(const float* h0, const float* prm1,
   a.s.krec = krec;
   a.s.misc = misc;
   a.s.y = work;
-  a.s.ks = work + N;
-  a.s.u = work + 8 * N;
+  a.s.ks = work + PN;
+  a.s.u = work + 8 * PN;
   a.s.part = work + w.part;
-  a.s.N = (int)N;
+  a.s.P = P;
+  a.s.N = B * D;
   a.s.max_steps = max_steps;
   a.s.rtol = rtol;
   a.s.atol = atol;
@@ -662,24 +732,23 @@ extern "C" int ferro_node_fwd(const float* h0, const float* prm1,
                 : launch_ferro(ferro_node_fwd_kernel<false>, a, false, s);
 }
 
-// hbar (B, D) and the forward's records -> g1 (5, H, D*K1), g2
-// (5, D, H*K2), h0bar (B, D).
+// hbar (P, B, D) and the forward's records (M = max_steps) -> g1 (P, 5,
+// H, D*K1), g2 (P, 5, D, H*K2), h0bar (P, B, D).
 extern "C" int ferro_node_bwd(const float* hbar, const float* tda,
                               const float* yrec, const float* krec,
                               const float* misc, const float* prm1,
                               const float* prm2, const float* nz1,
                               const float* nz2, float* g1, float* g2,
-                              float* h0bar, float* work, int B, int D, int H,
-                              int K1, int K2, float gate, float alpha,
-                              float oma, float c2, float h_bound,
-                              float dh_clip, void* stream) {
-  if (B <= 0) return 0;
-  if (D > kMaxRow || H > kMaxRow) return (int)cudaErrorInvalidValue;
-  const WorkLayout w = work_layout(B, D, H, K1, K2, true);
+                              float* h0bar, float* work, int P, int B, int D,
+                              int H, int K1, int K2, int max_steps,
+                              float gate, float alpha, float oma, float c2,
+                              float h_bound, float dh_clip, void* stream) {
+  if (bad_shape(P, B, D, H)) return (int)cudaErrorInvalidValue;
+  const WorkLayout w = work_layout(P, B, D, H, K1, K2, true);
   BwdArgs a{};
-  a.f = make_field(prm1, prm2, nz1, nz2, g1, g2, work, w, B, D, H, K1, K2,
+  a.f = make_field(prm1, prm2, nz1, nz2, g1, g2, work, w, P, B, D, H, K1, K2,
                    gate, alpha, oma, c2, h_bound, dh_clip);
-  const size_t N = (size_t)B * D;
+  const size_t PN = (size_t)P * B * D;
   a.r.hbar = hbar;
   a.r.tda = tda;
   a.r.yrec = yrec;
@@ -687,10 +756,10 @@ extern "C" int ferro_node_bwd(const float* hbar, const float* tda,
   a.r.misc = misc;
   a.r.h0bar = h0bar;
   a.r.lam = work;
-  a.r.kbar = work + N;
-  a.r.u = work + 8 * N;
-  a.r.ub = work + 9 * N;
-  a.r.N = (int)N;
+  a.r.kbar = work + PN;
+  a.r.P = P;
+  a.r.N = B * D;
+  a.r.max_steps = max_steps;
   return launch_ferro(ferro_node_bwd_kernel, a, true,
                       static_cast<cudaStream_t>(stream));
 }

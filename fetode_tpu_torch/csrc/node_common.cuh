@@ -27,8 +27,9 @@
 // complete).  u, w, out and ubar are (B, D) row-major, N = B*D floats;
 // u and w are written by other blocks, so a field reads them with ld().
 //
-// That is the grid policy (GridSync), every field but B.3's, B.5's, B.7's
-// and B.8's.  The cluster policy (ClusterSync, B.3's csrc/kanfet_wide.cu)
+// That is the grid policy (GridSync), B.6's; B.4 runs the member form of
+// its fused solve and replay (the "members" section below: P independent
+// solves in one cooperative launch, P = 1 the single solve).  The cluster policy (ClusterSync, B.3's csrc/kanfet_wide.cu)
 // runs the same solve in each CTA of one thread-block cluster: every CTA
 // keeps its own copy of
 // the state, stages and scratch in shared memory and runs every
@@ -447,12 +448,11 @@ __device__ __forceinline__ void field_vjp(const Field& f, const float* u,
   if constexpr (kTraj) f.vjp(u, t, w, ubar); else f.vjp(u, w, ubar);
 }
 
-// The fused-stage hook, B.4's and B.6's (csrc/ferro_node.cu,
-// csrc/mlp_node.cu; a field opts in with `static constexpr bool kFused =
-// true`).  The field forms the stage
-// input itself, inside its first phase, and leaves its output pending in
-// its own partial sums, so an evaluation needs no barrier before it and
-// none of its own after it:
+// The fused-stage hook, B.6's (csrc/mlp_node.cu; a field opts in with
+// `static constexpr bool kFused = true`) and, in its member form, B.4's.
+// The field forms the stage input itself, inside its first phase, and
+// leaves its output pending in its own partial sums, so an evaluation
+// needs no barrier before it and none of its own after it:
 //
 //   void stage(const StageIn&) const;     // f(u), pending
 //   float take(int e, float* dst) const;  // the pending f at element e,
@@ -781,7 +781,7 @@ struct ReplayBufs {
 // an output falls in the window, so its VJP is skipped only when none
 // does.  The outputs at ts <= ts[0] read h0 and add to h0bar last.
 //
-// A fused field (B.4) forms each stage input from the records inside its
+// A fused field (B.6) forms each stage input from the records inside its
 // VJP, so the VJP needs no barrier before it; the pass after it reads the
 // field's pending ubar (take_ub).
 template <bool kTraj, class Field, class Sync = GridSync>
@@ -892,6 +892,411 @@ __device__ void adjoint_replay(const Field& field, const ReplayBufs& r) {
 template <class Sync = GridSync, class Field>
 __device__ void adjoint_replay_traj(const Field& field, const ReplayBufs& r) {
   adjoint_replay_impl<true, Field, Sync>(field, r);
+}
+
+// ------------------------------------------------------------ members
+//
+// The member form (B.4's csrc/ferro_node.cu, ROADMAP A.12): P independent
+// final-state solves of one fused field in one cooperative launch, member
+// m with its own parameters, state, t, dt, attempt count, accept flag and
+// error norm, as a vmap of the JAX kernel gives each program instance its
+// own.  Within a member the step control stays shared over its B rows.
+//
+// Lockstep: every grid phase runs the current stage for each member still
+// stepping (its "on" flag); a member that has finished skips its work but
+// its blocks keep passing the grid barriers, and the loop ends when no
+// member steps.  The replay takes each member's accepted attempts from its
+// own last one down, one a round.  Each block keeps every member's scalars
+// in shared memory (MemberCtl), computed by thread m from totals that
+// every block reads in the same order, so all blocks agree with no vote;
+// a member never reads another's dt, accept flag or norm.
+//
+// A member's bits do not depend on P, on the grid or on where its work
+// lands.  Element e of a member belongs to the virtual thread e mod Gv
+// kThreads of a virtual grid of Gv = ceil(N / kThreads) blocks (at most
+// kMaxBlocks), a function of N alone; virtual block (m, vb) runs on real
+// block (m Gv + vb) mod G with the same thread index.  An error norm sums
+// each virtual thread's elements in order, each warp in warp_sum's tree,
+// each virtual block's 8 warps in order, then each lane the virtual
+// blocks lane, lane + 32, ... in order and warp_sum over the lanes: the
+// same sum at P = 1 as at any P.  (Where a thread of the single-solve
+// GridSync grid owns one element, the sum is grid_sum's too.)  The field
+// spreads its own work over the members' tiles with sums in fixed orders.
+
+constexpr int kMaxMembers = 32;
+
+// Every member's scalars, in each block's shared memory.  Thread m < P
+// writes member m's between two __syncthreads; every thread reads them.
+struct MemberCtl {
+  float t[kMaxMembers], dt[kMaxMembers], errp[kMaxMembers], h[kMaxMembers];
+  float tot[kMaxMembers][kMaxSums];  // the last member_sum's totals
+  int att[kMaxMembers];  // forward: attempts made; replay: attempt replayed
+  int rec[kMaxMembers];  // forward: the attempt being recorded
+  unsigned char on[kMaxMembers];     // stepping / replaying this round
+  unsigned char fresh[kMaxMembers];  // forward: the last attempt accepted
+};
+
+// The virtual grid of one member: N elements on Gv virtual blocks.
+__host__ __device__ inline int member_vblocks(int N) {
+  const int g = (N + kThreads - 1) / kThreads;
+  return g < kMaxBlocks ? g : kMaxBlocks;
+}
+
+// f(m, e) for each element e of each member m that is on, by the owner of
+// (m, e) (the same thread in every pass: passes need no barrier between
+// them).
+template <class F>
+__device__ __forceinline__ void member_for_each(const MemberCtl& c, int P,
+                                                int N, const F& f) {
+  const int Gv = member_vblocks(N);
+  for (int vbg = blockIdx.x; vbg < P * Gv; vbg += gridDim.x) {
+    const int m = vbg / Gv, vb = vbg - m * Gv;
+    if (!c.on[m]) continue;
+    for (int e = vb * kThreads + threadIdx.x; e < N; e += Gv * kThreads)
+      f(m, e);
+  }
+}
+
+// Each member's sums of NV values f(m, e, v) adds over its elements, into
+// c.tot[m] in every block (see the head of this section for the order).
+// part holds 2 * kMaxSums * P * Gv floats; slot alternates halves as in
+// grid_sum.  Ends with every block's c.tot complete.
+template <int NV, class F>
+__device__ void member_sum(MemberCtl& c, int P, int N, float* part, int& slot,
+                           const F& f) {
+  static_assert(NV <= kMaxSums, "member_sum: too many values");
+  __shared__ float red[kWarps][kMaxSums];
+  const int lane = lane_id(), warp = threadIdx.x >> 5;
+  const int Gv = member_vblocks(N);
+  float* p = part + (size_t)slot * kMaxSums * P * Gv;
+  for (int vbg = blockIdx.x; vbg < P * Gv; vbg += gridDim.x) {
+    const int m = vbg / Gv, vb = vbg - m * Gv;
+    if (!c.on[m]) continue;
+    float v[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) v[n] = 0.0f;
+    for (int e = vb * kThreads + threadIdx.x; e < N; e += Gv * kThreads)
+      f(m, e, v);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const float s = warp_sum(v[n]);
+      if (lane == 0) red[warp][n] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < NV) {
+      float s = 0.0f;
+      for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+      p[((size_t)threadIdx.x * P + m) * Gv + vb] = s;
+    }
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+  for (int q = warp; q < P * NV; q += kWarps) {
+    const int m = q / NV, n = q - m * NV;
+    if (!c.on[m]) continue;
+    const float* pm = p + ((size_t)n * P + m) * Gv;
+    float s = 0.0f;
+    for (int i = lane; i < Gv; i += 32) s += ld(pm + i);
+    s = warp_sum(s);
+    if (lane == 0) c.tot[m][n] = s;
+  }
+  __syncthreads();
+  slot ^= 1;
+}
+
+__device__ __forceinline__ bool any_on(const MemberCtl& c, int P) {
+  bool any = false;
+  for (int m = 0; m < P; ++m) any |= c.on[m] != 0;
+  return any;
+}
+
+// Sets every member on (after the loops, for the final writes).
+__device__ __forceinline__ void all_on(MemberCtl& c, int P) {
+  __syncthreads();
+  if ((int)threadIdx.x < P) c.on[threadIdx.x] = 1;
+  __syncthreads();
+}
+
+// The member form's arrays: member m's h0, out, y, u at m N, its ks at
+// m 7 N, tda at m 4 M, yrec at m M N, krec at m 7 M N, misc at 4 m.
+struct MemberSolveBufs {
+  const float* h0;
+  float* out;
+  float* tda;
+  float* yrec;
+  float* krec;
+  float* misc;
+  float* y;
+  float* ks;
+  float* u;
+  float* part;  // 2 * kMaxSums * P * member_vblocks(N)
+  int P, N, max_steps;
+  float rtol, atol;
+};
+
+// A fused field's stage input for every member (the StageIn of member(m)):
+// member m's stage j at step c->h[m]; at j = 1 after an accepted attempt
+// (c->fresh[m]) y1 and k7 where the error pass left them.
+struct MemberStageIn {
+  const float* y;
+  const float* u;
+  float* ks;
+  int N, j, pending;
+  const MemberCtl* c;
+  __device__ __forceinline__ StageIn member(int m) const {
+    const bool f = j == 1 && c->fresh[m];
+    const size_t at = (size_t)m * N;
+    return StageIn{(f ? u : y) + at, ks + 7 * at + (f ? 6 * (size_t)N : 0), N,
+                   j, pending, c->h[m]};
+  }
+  __device__ __forceinline__ float* pending_stage(int m) const {
+    return ks + ((size_t)m * 7 + pending) * N;
+  }
+};
+
+// The records of the stage each member replays this round (c->att[m]).
+struct MemberVjpIn {
+  const float* yrec;
+  const float* krec;
+  const float* kbar;
+  int N, M, j;
+  const MemberCtl* c;
+  __device__ __forceinline__ VjpIn member(int m) const {
+    const size_t a = (size_t)m * M + c->att[m];
+    return VjpIn{yrec + a * N, krec + a * 7 * N,
+                 kbar + ((size_t)m * 6 + j) * N, N, j, c->dt[m]};
+  }
+};
+
+// adaptive_solve's fused final-state solve for P members in lockstep (see
+// the head of this section): each member's arithmetic is adaptive_solve's.
+// The field takes MemberStageIn in stage() and (m, e, dst) in take(); it
+// skips the members that are not on.
+template <bool kRecord, class Field>
+__device__ void adaptive_solve_members(const Field& field,
+                                       const MemberSolveBufs& s,
+                                       MemberCtl& c) {
+  const int P = s.P, N = s.N, M = s.max_steps;
+  const float rtol = s.rtol, atol = s.atol, inv_n = 1.0f / (float)N;
+  const float tiny = 1e-12f, t_final = 1.0f;
+  const size_t N7 = 7 * (size_t)N;
+  int slot = 0;
+  cg::grid_group grid = cg::this_grid();
+  auto stage = [&](int j, int pending) {
+    field.stage(MemberStageIn{s.y, s.u, s.ks, N, j, pending, &c});
+  };
+
+  if ((int)threadIdx.x < P) {
+    const int m = threadIdx.x;
+    c.on[m] = 1;
+    c.fresh[m] = 0;
+    c.att[m] = 0;
+    c.t[m] = 0.0f;
+    c.errp[m] = 1.0f;
+    c.h[m] = 0.0f;
+  }
+  __syncthreads();
+  member_for_each(c, P, N, [&](int m, int e) {
+    s.y[(size_t)m * N + e] = s.h0[(size_t)m * N + e];
+  });
+  grid.sync();
+  stage(0, -1);
+  grid.sync();
+
+  // Hairer's initial step, each member's own.
+  member_sum<2>(c, P, N, s.part, slot, [&](int m, int e, float* v) {
+    const float y = s.y[(size_t)m * N + e], sc = atol + rtol * fabsf(y);
+    const float f = field.take(m, e, s.ks + m * N7);
+    const float a = y / sc, b = f / sc;
+    v[0] += a * a;
+    v[1] += b * b;
+  });
+  if ((int)threadIdx.x < P) {
+    const int m = threadIdx.x;
+    const float d0 = sqrtf(c.tot[m][0] * inv_n);
+    const float d1 = sqrtf(c.tot[m][1] * inv_n);
+    c.h[m] = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f
+                                         : 0.01f * d0 / fmaxf(d1, 1e-30f);
+    c.dt[m] = d1;
+  }
+  __syncthreads();
+  stage(-1, -1);
+  grid.sync();
+  member_sum<1>(c, P, N, s.part, slot, [&](int m, int e, float* v) {
+    float* ks = s.ks + m * N7;
+    const float sc = atol + rtol * fabsf(s.y[(size_t)m * N + e]);
+    const float f = field.take(m, e, ks + N);
+    const float a = (f - ld(ks + e)) / sc;
+    v[0] += a * a;
+  });
+  if ((int)threadIdx.x < P) {
+    const int m = threadIdx.x;
+    const float h0 = c.h[m];
+    const float d2 = sqrtf(c.tot[m][0] * inv_n) / h0;
+    const float dmax = fmaxf(c.dt[m], d2);
+    const float h1 = dmax <= 1e-15f
+                         ? fmaxf(1e-6f, h0 * 1e-3f)
+                         : powf(0.01f / fmaxf(dmax, 1e-30f), kInitExp);
+    c.dt[m] = fminf(fminf(100.0f * h0, h1), t_final);
+  }
+
+  for (;;) {
+    __syncthreads();
+    if ((int)threadIdx.x < P) {
+      const int m = threadIdx.x;
+      const bool on = c.att[m] < M && c.t[m] < t_final - tiny;
+      c.on[m] = on;
+      if (on) c.h[m] = c.dt[m] = fminf(c.dt[m], t_final - c.t[m]);
+    }
+    __syncthreads();
+    if (!any_on(c, P)) break;
+    for (int j = 1; j < 7; ++j) {
+      stage(j, j >= 2 ? j - 1 : -1);
+      grid.sync();
+    }
+    member_sum<1>(c, P, N, s.part, slot, [&](int m, int e, float* v) {
+      const float dt = c.dt[m];
+      const float* ks = s.ks + m * N7;
+      const float k0 = ld(ks + e), y = s.y[(size_t)m * N + e];
+      float y1 = y + (dt * kB[0]) * k0, ye = kE[0] * k0;
+#pragma unroll
+      for (int j = 1; j < 7; ++j) {
+        const float kj = j == 6 ? field.take(m, e, s.ks + m * N7 + 6 * N)
+                                : ld(ks + j * N + e);
+        y1 += (dt * kB[j]) * kj;
+        ye += kE[j] * kj;
+      }
+      const float r = dt * ye / (atol + rtol * fmaxf(fabsf(y), fabsf(y1)));
+      v[0] += r * r;
+      s.u[(size_t)m * N + e] = y1;
+    });
+    if ((int)threadIdx.x < P && c.on[threadIdx.x]) {
+      const int m = threadIdx.x;
+      const float dt = c.dt[m], dt_safe = dt == 0.0f ? 1.0f : dt;
+      const float err = fmaxf(sqrtf(c.tot[m][0] * inv_n), 1e-10f);
+      const bool accept = err <= 1.0f;
+      const float fac_acc = fminf(fmaxf(kSafety * powf(err, -kAlpha) *
+                                            powf(c.errp[m], kBeta),
+                                        kDFactor),
+                                  kIFactor);
+      const float fac_rej =
+          fminf(fmaxf(kSafety * powf(err, kRejExp), kDFactor), 1.0f);
+      if (kRecord && blockIdx.x == 0) {
+        float* r = s.tda + ((size_t)m * M + c.att[m]) * 4;
+        r[0] = dt;
+        r[1] = accept ? 1.0f : 0.0f;
+        r[2] = c.t[m];
+        r[3] = 0.0f;
+      }
+      c.rec[m] = c.att[m]++;
+      c.fresh[m] = accept;
+      if (accept) {
+        c.t[m] += dt;
+        c.errp[m] = err;
+      }
+      c.dt[m] = dt_safe * (accept ? fac_acc : fac_rej);
+    }
+    __syncthreads();
+    if (kRecord)
+      member_for_each(c, P, N, [&](int m, int e) {
+        const size_t a = (size_t)m * M + c.rec[m];
+        s.yrec[a * N + e] = s.y[(size_t)m * N + e];
+#pragma unroll
+        for (int j = 0; j < 7; ++j)
+          s.krec[(a * 7 + j) * N + e] = ld(s.ks + m * N7 + j * N + e);
+      });
+    member_for_each(c, P, N, [&](int m, int e) {
+      if (!c.fresh[m]) return;
+      const size_t at = (size_t)m * N + e;
+      const float k6 = ld(s.ks + m * N7 + 6 * N + e);
+      s.y[at] = s.u[at];
+      s.ks[m * N7 + e] = k6;  // FSAL
+    });
+  }
+  all_on(c, P);
+  member_for_each(c, P, N, [&](int m, int e) {
+    s.out[(size_t)m * N + e] = s.y[(size_t)m * N + e];
+  });
+  if (kRecord && blockIdx.x == 0 && (int)threadIdx.x < P) {
+    float* misc = s.misc + 4 * threadIdx.x;
+    misc[0] = (float)c.att[threadIdx.x];
+    misc[1] = c.t[threadIdx.x];
+    misc[2] = 0.0f;
+    misc[3] = 0.0f;
+  }
+}
+
+// The member form's replay arrays: member m's hbar, h0bar, lam at m N,
+// kbar at m 6 N, its records as MemberSolveBufs lays them out.
+struct MemberReplayBufs {
+  const float* hbar;
+  const float* tda;
+  const float* yrec;
+  const float* krec;
+  const float* misc;
+  float* h0bar;
+  float* lam;
+  float* kbar;
+  int P, N, max_steps;
+};
+
+// adjoint_replay's fused final-state replay for P members in lockstep:
+// each round replays, for every member that has one left, its latest
+// accepted attempt not yet replayed (rejected attempts have a zero
+// cotangent and are skipped); a member's VJPs run in adjoint_replay's
+// order.  The field takes MemberVjpIn in vjp_stage() and (m, e, VjpIn) in
+// take_ub().
+template <class Field>
+__device__ void adjoint_replay_members(const Field& field,
+                                       const MemberReplayBufs& r,
+                                       MemberCtl& c) {
+  const int P = r.P, N = r.N, M = r.max_steps;
+  const size_t N6 = 6 * (size_t)N;
+  cg::grid_group grid = cg::this_grid();
+  if ((int)threadIdx.x < P) {
+    c.att[threadIdx.x] = (int)r.misc[4 * threadIdx.x];
+    c.on[threadIdx.x] = 1;
+  }
+  __syncthreads();
+  member_for_each(c, P, N, [&](int m, int e) {
+    r.lam[(size_t)m * N + e] = r.hbar[(size_t)m * N + e];
+  });
+  for (;;) {
+    __syncthreads();
+    if ((int)threadIdx.x < P) {
+      const int m = threadIdx.x;
+      const float* tda = r.tda + (size_t)m * M * 4;
+      int a = c.att[m] - 1;
+      while (a >= 0 && tda[4 * a + 1] < 0.5f) --a;
+      c.att[m] = a;
+      c.on[m] = a >= 0;
+      c.dt[m] = a >= 0 ? tda[4 * a] : 0.0f;
+    }
+    __syncthreads();
+    if (!any_on(c, P)) break;
+    member_for_each(c, P, N, [&](int m, int e) {
+      const float lam = r.lam[(size_t)m * N + e], dt = c.dt[m];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) r.kbar[m * N6 + j * N + e] = (dt * kB[j]) * lam;
+    });
+    for (int j = 5; j >= 0; --j) {
+      const MemberVjpIn in{r.yrec, r.krec, r.kbar, N, M, j, &c};
+      field.vjp_stage(in);
+      grid.sync();
+      member_for_each(c, P, N, [&](int m, int e) {
+        const float dt = c.dt[m];
+        const float ub = field.take_ub(m, e, in.member(m));
+        float* kbar = r.kbar + m * N6;
+#pragma unroll
+        for (int l = 0; l < j; ++l) kbar[l * N + e] += (dt * kA[j][l]) * ub;
+        r.lam[(size_t)m * N + e] += ub;
+      });
+    }
+  }
+  all_on(c, P);
+  member_for_each(c, P, N, [&](int m, int e) {
+    r.h0bar[(size_t)m * N + e] = r.lam[(size_t)m * N + e];
+  });
 }
 
 // Launches kernel(args) as a cooperative grid of kThreads-thread blocks,

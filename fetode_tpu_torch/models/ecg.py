@@ -6,10 +6,13 @@ a projection; its whole-solve kernels are ``ops/logistic_node.py``) and
 with the 'mlp' field (layer norm, tanh bound, logistic mixer, a two-layer
 B-spline KAN and an output layer; ``ops/mlp_node.py``), and
 ``KanFetMLPNODE``, the two-layer ferro field (``ops/ferro_node.py``),
-all with the adaptive dopri5 latent solve over [0, 1].  Parameters live
-in ``nn.Module``s whose ``state_dict`` keys are the JAX package's dict
-keys (``encoder_w``, ``field_mixer.a``, ``kan.layers.0.base_weight``,
-``fc1.k`` ...), so ``convert.ecg_params_from_numpy`` loads a JAX tree.
+all with the adaptive dopri5 latent solve over [0, 1];
+``kanfet_mlp_node_apply_members`` applies P members of a population (the
+noise study) at once, their latent solves one member launch of the
+kernels.  Parameters live in ``nn.Module``s whose ``state_dict`` keys
+are the JAX package's dict keys (``encoder_w``, ``field_mixer.a``,
+``kan.layers.0.base_weight``, ``fc1.k`` ...), so
+``convert.ecg_params_from_numpy`` loads a JAX tree.
 
 Solver dispatch (``solver_mode``): ``"pallas"`` takes the whole-solve
 CUDA kernels and raises for a CPU tensor; ``"auto"`` takes them for a
@@ -63,7 +66,9 @@ from fetode_tpu_torch.ops.ferro import (
 from fetode_tpu_torch.ops.ferro_node import (
     basis_layout,
     ferro_node_solve,
+    ferro_node_solve_members,
     frozen_solve_noise,
+    frozen_solve_noise_members,
 )
 from fetode_tpu_torch.ops.logistic import (
     LogisticParams,
@@ -360,6 +365,62 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
         params, spec, t, h, states, noise, **fresh), h0, spec,
         n_steps=spec.n_steps)
     return hT @ params.cls_w.T + params.cls_b
+
+
+def kanfet_mlp_node_apply_members(params, spec: KanFetMLPNODESpec,
+                                  x: torch.Tensor, *, generators=None,
+                                  noise_stds=None) -> torch.Tensor:
+    """P members' ``kanfet_mlp_node_apply``: ``params`` the members'
+    ``KanFetMLPNODEParams``, x (P, B, T) -> logits (P, B, classes); member
+    m's device noise from ``generators[m]`` at ``noise_stds[m]`` (which
+    overrides ``spec.noise_std``, as ``noise_std`` does there), so that
+    member m's logits are ``kanfet_mlp_node_apply`` of its own.
+
+    On the kernel path (``use_kernel``) the encoders and classifiers run
+    per member and the latent solves go through
+    ``ferro_node_solve_members``, every member's noise drawn and scaled
+    up front (a std-0 member rides zero-valued noise operands, as in the
+    JAX package's population).  Otherwise each member's eager solve runs
+    in turn: one batched eager solve would share step control across the
+    members."""
+    P = len(params)
+    if x.ndim != 3 or x.shape[0] != P:
+        raise ValueError(f"x must be (P, B, T) for {P} members, got "
+                         f"{tuple(x.shape)}")
+    gens = [None] * P if generators is None else list(generators)
+    stds = [None] * P if noise_stds is None else [float(s) for s in
+                                                  noise_stds]
+    noisy = spec.noise_std > 0.0 or noise_stds is not None
+    if noise_stds is not None and spec.solver_mode == "pallas" \
+            and None in gens:
+        raise ValueError("an overriding noise_std on the pallas path requires "
+                         "a generator for every member (std-0 members ride "
+                         "zero-valued noise operands)")
+    if spec.gate_impl != "sigmoid" and spec.solver_mode == "pallas":
+        raise ValueError("gate_impl='tanh' requires an eager solve: the "
+                         "whole-solve kernel implements the sigmoid form")
+    kernel = use_kernel(spec, x) and spec.gate_impl == "sigmoid"
+    if not kernel or spec.solver != "dopri5":
+        return torch.stack([kanfet_mlp_node_apply(p, spec, x[m],
+                                                  generator=gens[m],
+                                                  noise_std=stds[m])
+                            for m, p in enumerate(params)])
+    if noisy and None in gens:
+        raise ValueError("noise_std > 0 requires a generator for every "
+                         "member")
+    h0 = torch.stack([x[m] @ p.encoder_w.T + p.encoder_b
+                      for m, p in enumerate(params)])
+    noise = None
+    if noisy:
+        noise = frozen_solve_noise_members(
+            gens, x.shape[1], spec.fc1_cfg, spec.fc2_cfg,
+            [spec.noise_std if s is None else s for s in stds],
+            device=x.device)
+    hT = ferro_node_solve_members([p.fc1 for p in params],
+                                  [p.fc2 for p in params], h0, spec,
+                                  noise=noise)
+    return torch.stack([hT[m] @ p.cls_w.T + p.cls_b
+                        for m, p in enumerate(params)])
 
 
 # --------------------------------------------- input-driven NODE encoders

@@ -13,11 +13,21 @@ noiseless model ignores them.  ``eval_chunk`` evaluates in chunks of
 that many rows, padding the last with the last row, in every solver
 mode alike.
 
+``train_ecg_population`` trains P (noise_std, seed) members at once
+(counterpart of the JAX package's ``train_ecg_population``): each member
+is seeded, shuffled, noised and evaluated as ``train_ecg_model`` with
+that seed and std, so its curve is that sequential run's; the members'
+latent solves share one launch of the member kernels on the card
+(``models/ecg.py: kanfet_mlp_node_apply_members``).
+``compare_noise_population`` runs the clean-vs-noisy grid through it,
+``compare_noise`` the same grid one run at a time.
+
 Not ported yet, each raising an error that names its ROADMAP item:
 the mesh (``mesh_devices``, ``mesh_model``), checkpoint/resume
-(``ckpt_dir``, ``ckpt_every``, ``resume``), the AOT cache
-(``aot_cache``, ``aot_tag``), and the population trainer and noise
-study.
+(``ckpt_dir``, ``ckpt_every``, ``resume``) and the AOT cache
+(``aot_cache``, ``aot_tag``).  The population trainer refuses
+``ckpt_dir`` and ``mesh_model > 1`` with ``ValueError``, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -34,10 +44,12 @@ import torch.nn.functional as F
 
 from fetode_tpu_torch.data.ecg200 import batch_iterator
 from fetode_tpu_torch.train.loop import (
+    PopulationState,
     derived_seed,
     init_state,
     make_minibatch_epoch,
     make_minibatch_epochs_scanner,
+    make_population_epochs_scanner,
 )
 from fetode_tpu_torch.train.optim import make_optimizer
 from fetode_tpu_torch.utils.device import resolve_device
@@ -193,3 +205,169 @@ def train_ecg_model(init_fn: Callable, apply_fn: Callable, data,
     history["wall_seconds"] = time.perf_counter() - t0
     history["best_test_acc"] = best[0]
     return best[1], history
+
+
+def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
+                         run: ECGRun, members, log=print):
+    """Train P independent (noise_std, seed) members at once.
+
+    ``init_fn(generator) -> params`` (one member's, the architecture shared
+    by all); ``apply_fn(params, x, generators, noise_stds) -> logits``
+    for every member at once: ``params`` the members' modules, x (P, B,
+    T), member m's device noise from ``generators[m]`` at
+    ``noise_stds[m]`` (std 0 adds zeros), logits (P, B, classes).
+    ``members``: (noise_std, seed) pairs.  Member m is initialised,
+    shuffled (``batch_iterator(seed=seed + epoch)``), noised (step
+    generators from (seed, epoch, step)) and evaluated (the fixed eval
+    draws of ``train_ecg_model``, ``eval_chunk`` alike) as
+    ``train_ecg_model`` with ``run.seed = seed`` and its std, with its own
+    AdamW state and global-norm clip: its curve is that sequential run's.
+
+    Returns ``(best_params, histories)``: ``best_params`` maps each
+    parameter name to a (P, ...) stack of the members' best-test-accuracy
+    parameters; ``histories`` is a list of P dicts shaped like
+    ``train_ecg_model``'s history, plus ``block_seconds`` (wall seconds of
+    each block's training steps, the first with the kernels' build when
+    they are not built yet).
+    """
+    if run.ckpt_dir:
+        raise ValueError("train_ecg_population does not support "
+                         "checkpoint options — use train_ecg_model")
+    if run.mesh_model > 1:
+        raise ValueError("train_ecg_population shards the POPULATION axis "
+                         "over 'data'; mesh_model tensor-sharding is not "
+                         "supported here")
+    _check_ported(run)
+    device = resolve_device(run.device)
+    x_train, y_train, x_test, y_test = data
+    P = len(members)
+    stds = [float(m[0]) for m in members]
+    seeds = [int(m[1]) for m in members]
+    states = []
+    for seed in seeds:
+        params = init_fn(torch.Generator().manual_seed(seed))
+        states.append(init_state(params, make_optimizer(
+            run.lr, params=params.parameters(), kind="adamw",
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip)))
+    states = PopulationState(tuple(states))
+    noise_seeds = [derived_seed(seed, _NOISE) for seed in seeds]
+    n_draws = max(1, run.eval_noise_draws)
+    eval_seeds = [[derived_seed(seed, _EVAL, i) for i in range(n_draws)]
+                  for seed in seeds]
+
+    def loss_fn(ps, gens, std_v, xb, yb):
+        logits = apply_fn(ps, xb, gens, std_v)
+        return torch.stack([cross_entropy(logits[m], yb[m])
+                            for m in range(P)])
+
+    block_fn = make_population_epochs_scanner(loss_fn)
+
+    def tensors(x, y):
+        return (torch.as_tensor(x, dtype=torch.float32, device=device),
+                torch.as_tensor(y, dtype=torch.long, device=device))
+
+    @torch.no_grad()
+    def eval_acc(ps, x, y):
+        def apply_i(xc, i):
+            gens = [torch.Generator(device=device).manual_seed(s[i])
+                    for s in eval_seeds]
+            return apply_fn(ps, xc.expand((P,) + tuple(xc.shape)), gens,
+                            stds).transpose(0, 1)
+        logits = _chunked_logits(apply_i, x, n_draws, run.eval_chunk)
+        return [float(accuracy(logits[:, m], y)) for m in range(P)]
+
+    train_split, test_split = tensors(x_train, y_train), tensors(x_test,
+                                                                 y_test)
+    curves = {"loss": [], "train_acc": [], "test_acc": []}
+    best_acc = [-1.0] * P
+    best = [copy.deepcopy(p) for p in states.params]
+    block_seconds = []
+    t0 = time.perf_counter()
+    E = max(1, run.epochs_per_call)
+    for ep in range(0, run.epochs, E):
+        tb0 = time.perf_counter()
+        n = min(E, run.epochs - ep)
+        shuffles = [[batch_iterator(x_train, y_train, run.batch_size,
+                                    seed=seed + ep + i) for i in range(n)]
+                    for seed in seeds]
+        eb = tensors(np.stack([[b[0] for b in row] for row in shuffles]),
+                     np.stack([[b[1] for b in row] for row in shuffles]))
+        states, losses = block_fn(states, [(s, ep) for s in noise_seeds],
+                                  stds, eb)
+        losses = losses.cpu()
+        block_seconds.append(time.perf_counter() - tb0)
+        tr = eval_acc(states.params, *train_split)
+        te = eval_acc(states.params, *test_split)
+        curves["loss"].append([float(losses[m].mean()) for m in range(P)])
+        curves["train_acc"].append(tr)
+        curves["test_acc"].append(te)
+        for m in range(P):
+            if te[m] > best_acc[m]:
+                best_acc[m] = te[m]
+                best[m] = copy.deepcopy(states.params[m])
+        if log is not None and (
+                (ep + n - 1) // run.log_every > (ep - 1) // run.log_every
+                or ep + n >= run.epochs):
+            log(f"epoch {ep + n - 1:3d} | population P={P} | test_acc "
+                f"mean {np.mean(te)*100:.1f}% "
+                f"[{np.min(te)*100:.1f}, {np.max(te)*100:.1f}]%")
+    wall = time.perf_counter() - t0
+    histories = [{
+        "loss": [row[m] for row in curves["loss"]],
+        "train_acc": [row[m] for row in curves["train_acc"]],
+        "test_acc": [row[m] for row in curves["test_acc"]],
+        "best_test_acc": best_acc[m],
+        "wall_seconds": wall,            # shared: one loop trains them all
+        "block_seconds": block_seconds,
+    } for m in range(P)]
+    sds = [b.state_dict() for b in best]
+    stacked = {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}
+    return stacked, histories
+
+
+def _summary(results, log):
+    if log is None:
+        return
+    for std, per_seed in results.items():
+        accs = np.asarray([h["best_test_acc"] for h in per_seed.values()])
+        log(f"noise_std {std}: best test acc "
+            f"{accs.mean()*100:.1f}% +/- {accs.std()*100:.1f}% "
+            f"(seeds {list(per_seed)})")
+
+
+def compare_noise_population(init_fn: Callable, apply_fn: Callable, data,
+                             noise_stds=(0.0, 0.2), run: ECGRun = ECGRun(),
+                             seeds=(0,), log=print):
+    """The noise levels x seeds grid as one population
+    (``train_ecg_population``; the reference's 3-seed x 4-noise study,
+    ``compare_noise_ecg.py:1250-1452``).  ``apply_fn`` is the population
+    form, ``(params, x, generators, noise_stds) -> logits``.  Returns
+    ``{std: {seed: history}}``, as ``compare_noise``."""
+    members = [(std, seed) for std in noise_stds for seed in seeds]
+    _, hists = train_ecg_population(init_fn, apply_fn, data, run, members,
+                                    log=log)
+    results = {}
+    for (std, seed), hist in zip(members, hists):
+        results.setdefault(std, {})[seed] = hist
+    _summary(results, log)
+    return results
+
+
+def compare_noise(make_model: Callable, data, noise_stds=(0.0, 0.2),
+                  run: ECGRun = ECGRun(), seeds=(0,), log=print):
+    """The same architecture trained at each device-noise level and seed,
+    one ``train_ecg_model`` run after another; ``make_model(std) ->
+    (init_fn, apply_fn)``.  Returns ``{std: {seed: history}}``."""
+    results = {}
+    for std in noise_stds:
+        per_seed = {}
+        for seed in seeds:
+            if log is not None:
+                log(f"--- noise_std = {std}, seed = {seed} ---")
+            init_fn, apply_fn = make_model(std)
+            _, per_seed[seed] = train_ecg_model(
+                init_fn, apply_fn, data, dataclasses.replace(run, seed=seed),
+                log)
+        results[std] = per_seed
+    _summary(results, log)
+    return results

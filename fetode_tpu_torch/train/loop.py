@@ -13,8 +13,14 @@ Their keyed form replaces the JAX package's split PRNG keys: the loss
 takes a ``torch.Generator`` (``loss_fn(params, generator, *batch)``),
 and every step gets a fresh one, seeded from (seed, epoch, step) by
 ``step_generator``, so one epoch draws the same numbers whether it runs
-alone or inside a block.  The population scanner waits for the
-noise-study slice (ROADMAP A.7).
+alone or inside a block.
+
+The population scanner trains P independent members (the noise study,
+``train/ecg_driver.py: train_ecg_population``) in one loop: each member
+has its own parameters, optimiser state and global-norm clip, and its
+own step generators, seeded from (member seed, epoch, step) as a single
+run's; one loss call computes every member's loss, so the members' latent
+solves can share one kernel launch.
 """
 
 from __future__ import annotations
@@ -135,3 +141,60 @@ def make_minibatch_epochs_scanner(loss_fn: Callable, *, keyed: bool = False
     if not keyed:
         return run
     return lambda state, key, epoch_batches: run(state, epoch_batches, key)
+
+
+class PopulationState(NamedTuple):
+    """P members' training states, each its own parameters and optimiser
+    (with its own clip)."""
+
+    members: Tuple[TrainState, ...]
+
+    @property
+    def params(self):
+        return [m.params for m in self.members]
+
+
+def make_population_epochs_scanner(loss_fn: Callable) -> Callable:
+    """Population training: P independent runs in one call (counterpart of
+    ``fetode_tpu/train/loop.py: make_population_epochs_scanner``, the
+    ``vmap`` written out as a member axis).
+
+    ``loss_fn(params, generators, extras, *batch) -> losses (P,)``: member
+    m's loss from its own parameters ``params[m]``, its generator
+    ``generators[m]`` and config ``extras[m]`` (e.g. a device-noise std)
+    and its minibatch ``batch[...][m]``.  Returns ``fn(states, keys,
+    extras, epoch_batches) -> (states, losses[P, n_epochs, n_batches])``:
+    ``keys[m] = (seed, epoch0)`` of member m, every tensor of
+    ``epoch_batches`` with leading axes (P, n_epochs, n_batches, B, ...).
+    A step sums the members' losses, so one backward gives each member
+    the gradient of its own loss, then steps each member's optimiser,
+    whose global-norm clip sees that member's gradients alone.  Member m
+    draws at epoch ``epoch0 + e``, step i, from ``step_generator(seed,
+    epoch0 + e, i)``: its curve is ``make_minibatch_epochs_scanner``'s
+    (keyed) for that member alone.
+    """
+    def step(states: PopulationState, gens, extras, *batch):
+        for s in states.members:
+            s.opt.zero_grad()
+        losses = loss_fn(states.params, gens, extras, *batch)
+        losses.sum().backward()
+        for s in states.members:
+            s.opt.step()
+        return states, losses.detach()
+
+    def run(states: PopulationState, keys, extras,
+            epoch_batches: Sequence[torch.Tensor]):
+        n_epochs, n_batches = epoch_batches[0].shape[1:3]
+        device = epoch_batches[0].device
+        losses = []
+        for e in range(n_epochs):
+            for i in range(n_batches):
+                gens = [step_generator(seed, ep0 + e, i, device)
+                        for seed, ep0 in keys]
+                states, loss = step(states, gens, extras,
+                                    *(b[:, e, i] for b in epoch_batches))
+                losses.append(loss)
+        return states, torch.stack(losses, 1).reshape(-1, n_epochs,
+                                                      n_batches)
+
+    return run

@@ -435,10 +435,11 @@ def test_refusals(case, tmp_path):
         with pytest.raises(NotImplementedError, match="A.3"):
             predict(params, pspec, torch.ones(2), torch.linspace(0, 1, 3))
     elif case == "rnn_model":
-        # The RNN models and 'all' are ported (tests/test_torch_rnn.py);
-        # the noise study is not.
-        with pytest.raises(NotImplementedError, match="A.7c"):
-            cli.main(["ecg", "--device", "cpu", "--model", "noise_study",
+        # The RNN models, 'all' (tests/test_torch_rnn.py) and the noise
+        # study (tests/test_torch_population.py) are ported; an unknown
+        # model is refused.
+        with pytest.raises(SystemExit, match="unknown ECG model"):
+            cli.main(["ecg", "--device", "cpu", "--model", "no_such_model",
                       "--out-dir", str(tmp_path)])
     elif case == "plots":
         with pytest.raises(NotImplementedError, match="A.11"):
