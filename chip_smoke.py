@@ -8,9 +8,11 @@ serving, predprey training on wide KANFET stacks, symbolic regression,
 the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
 ``--model all``) with ETT's KAN-RNN encoder, the KAN layers' spline term
 (B.12) on every KAN path, the custom-field whole-solve example (B.14),
-B.1 / B.2 on other pure-KANFET stacks, and the ECG noise study on B.4's
-member form — on the card and checks them, in phases that run in order;
-any failure exits non-zero.
+B.1 / B.2 on other pure-KANFET stacks, the ECG noise study on B.4's
+member form, Time-MMD forecasting (unimodal and text-fused) and the rest
+of the solvers (predprey's fixed-step methods, ``Dopri5Stats``, the
+continuous adjoint) — on the card and checks them, in phases that run in
+order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -427,6 +429,35 @@ series from ``synthetic_ecg200``:
     members' counts at their own attempts, summed), and the population
     training step (CUDA events, median of 3 windows).
 
+Time-MMD forecasting (``cli timemmd``), at the width of
+``TimeMMDPreset`` (context 50, pred_len 12, text SVD dim 7, batch 48; the
+``kanrnn`` diffusion forecaster: latent 64, hidden 128, KAN-RNN hidden
+64, diff_T 100, eps-head hidden 256, 10 samples), random weights from a
+seed, the synthetic series (1,200 steps, 5 columns) and texts that the
+CLI falls back to:
+
+46. (a) ``cli.main(["timemmd", "--device", "cuda", "--epochs", "2",
+    "--multimodal", "false" | "true", ...])``: B.7's forward and backward
+    and B.9 launched (the counts set to 0 just before each run), every
+    loss finite; each launch's batch (B.7) and rows (B.9) logged.  (b)
+    B.7 against its plain version at every batch logged (the training
+    batch 48 with its backward, the validation and test splits, the
+    final window), as phase 14 holds it, on the encoder's states of the
+    path's windows; B.9 against its plain chain at every row count logged
+    (10 samples times the eval batch), the same bits in two calls; B.12
+    at every shape first launched here.  (c) B.7's times at the training
+    batch (device time on a full queue), B.9's at the test chain, their
+    plain versions and bounds.
+47. (a) ``cli.main(["predprey", "--method", "rk4", "--epochs", "4",
+    ...])``: the eager fixed-step solve, no B.1 / B.2 launch, B.12 in the
+    KAN layers (new shapes checked against plain), finite losses.  (b)
+    ``predict(..., full_output=True)`` (the eager dopri5) on the card:
+    ``Dopri5Stats`` equal to the CPU's at rtol 1e-3, the trajectory within
+    1e-3 (relative) on its first 10 output times.  (c) ``odeint_adjoint``
+    in float64 (a tanh MLP field, D = 4, H = 32, 6 output times, rtol
+    1e-10): its gradients of y0 and the weights within 1e-6 (relative) of
+    the scan-mode gradient, and both timed.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -565,6 +596,10 @@ NOISE_STDS = (0.0, 0.1, 0.2, 0.5)
 NOISE_SEEDS = (0, 1, 2)
 MEMBER_BATCHES = (8, 16)
 MEMBER_SCALES = tuple(1.0 + 0.1 * m for m in range(12))
+# Time-MMD (phase 46): epochs of each ``cli timemmd`` run; the solvers
+# (phase 47): epochs of ``cli predprey --method rk4``.
+TIMEMMD_EPOCHS = 2
+RK4_EPOCHS = 4
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -4479,6 +4514,301 @@ def noise_phases(device, smi):
     return errs, t, launches
 
 
+# --------------------------------------------------- Time-MMD and solvers
+
+
+def check_new_spline_shapes(device, mark, label):
+    """B.12 against plain (phase 40's ``check_spline``) at every shape
+    first launched after ``mark``, a copy of ``SPLINE_LOG``; the worst
+    error."""
+    rng = np.random.default_rng(48)
+    new = sorted(SPLINE_LOG - mark)
+    errs = [check_spline(device, rng, R, I, O, None, nk, order)[0]
+            for R, I, O, nk, order in new]
+    print(f"{label}: B.12 shapes first launched here {[n[:3] for n in new]}"
+          f", each against plain within {SPLINE_TOL}")
+    return max(errs, default=0.0)
+
+
+def timemmd_windows(multimodal):
+    """The windows ``cli timemmd`` trains and evaluates on (the synthetic
+    stand-in at TimeMMDPreset's widths, the texts' embedding appended
+    when ``multimodal``), all splits as one (M, 50, F) array."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.train.forecast_driver import (
+        ForecastRun,
+        prepare_windows,
+    )
+
+    cfg = make_config("timemmd", {"multimodal": str(multimodal)})
+    X, y = cli.timemmd_data(cfg)
+    windows, _, _ = prepare_windows(X, y, ForecastRun(
+        context_len=cfg.context_len, pred_len=cfg.pred_len))
+    return np.concatenate([windows[k][0] for k in ("train", "val",
+                                                   "test")])
+
+
+def log_timemmd_shapes(OD, DD, seen):
+    """Record the batch of every B.7 launch (forward and backward) and
+    the rows of every B.9 launch into ``seen``; returns the undo.  B.9's
+    wrapper counts its launches on the module's name, so the stand-in
+    carries the count and the undo hands it back."""
+    fwd, bwd, chain = OD._launch_fwd, OD._launch_bwd, DD.ddpm_chain
+
+    def launch_fwd(ops, z0, *a, **kw):
+        seen.add(("fwd", z0.shape[0]))
+        return fwd(ops, z0, *a, **kw)
+
+    def launch_bwd(ops, records, ct):
+        seen.add(("bwd", ct.shape[1]))
+        return bwd(ops, records, ct)
+
+    def ddpm_chain(*a):
+        seen.add(("ddpm", a[0].shape[0]))
+        return chain(*a)
+    ddpm_chain.launches = 0
+    OD._launch_fwd, OD._launch_bwd, DD.ddpm_chain = (launch_fwd, launch_bwd,
+                                                     ddpm_chain)
+
+    def undo():
+        OD._launch_fwd, OD._launch_bwd, DD.ddpm_chain = fwd, bwd, chain
+        chain.launches += ddpm_chain.launches
+    return undo
+
+
+def timemmd_phases(device, smi):
+    """Phase 46, Time-MMD forecasting: ``cli timemmd`` unimodal and
+    text-fused through B.7 and B.9, then both kernels against their plain
+    versions at every shape those runs launched, and their times."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.models import forecasting as F
+    from fetode_tpu_torch.nn import diffusion as TD
+    from fetode_tpu_torch.ops import ddpm as DD
+    from fetode_tpu_torch.ops import ode_dyn as OD
+
+    t_phase = time.perf_counter()
+    mark = set(SPLINE_LOG)
+    cfg = make_config("timemmd")
+    kernels = (OD.ode_dyn_fwd, OD.ode_dyn_bwd, DD.ddpm_chain)
+    launches, shapes, walls = [0, 0, 0], {}, {}
+    # ---- 46(a). the slice, through the CLI
+    for mm in (False, True):
+        seen = set()
+        with tempfile.TemporaryDirectory() as tmp:
+            for f in kernels:
+                f.launches = 0
+            undo = log_timemmd_shapes(OD, DD, seen)
+            label = f"cli timemmd{' --multimodal true' if mm else ''}"
+            try:
+                t0 = time.perf_counter()
+                res = count_spline(label, lambda: cli.main(
+                    ["timemmd", "--device", "cuda", "--epochs",
+                     str(TIMEMMD_EPOCHS), "--multimodal", str(mm).lower(),
+                     "--out-dir", tmp]))
+                walls[mm] = time.perf_counter() - t0
+            finally:
+                undo()
+        counts = [f.launches for f in kernels]
+        if min(counts) < 1:
+            fail(f"{label}: launches (ode_dyn fwd, bwd, ddpm) {counts}")
+        curves = res["train_curve"] + res["val_curve"] + [res["test_mse"]]
+        if not np.isfinite(curves).all():
+            fail(f"{label}: non-finite losses {curves}")
+        launches = [a + b for a, b in zip(launches, counts)]
+        shapes[mm] = seen
+        print(f"{label} ({TIMEMMD_EPOCHS} epochs, auto: the kernels on "
+              f"CUDA): train {[round(v, 5) for v in res['train_curve']]}, "
+              f"val {[round(v, 5) for v in res['val_curve']]}, test MSE "
+              f"{res['test_mse']:.5f}; {walls[mm]:.2f} s wall, training "
+              f"{res['wall_seconds']:.2f} s; launches (ode_dyn fwd, bwd, "
+              f"ddpm) {counts}, B.12 {SPLINE_RUNS.get(label, 0)}; shapes "
+              f"{sorted(seen)} ({smi})")
+
+    # ---- 46(b). B.7 and B.9 against plain at every launched shape
+    rng = np.random.default_rng(46)
+    ts = torch.arange(cfg.pred_len, dtype=torch.float32, device=device)
+    checks, ddpm_errs, cases = {}, {}, {}
+    for mm, seen in shapes.items():
+        wins = timemmd_windows(mm)
+        spec = F.DiffusionForecasterSpec(
+            num_features=wins.shape[2], context_len=cfg.context_len,
+            pred_len=cfg.pred_len, encoder="kanrnn")
+        params = F.diffusion_forecaster_init(
+            torch.Generator().manual_seed(46), spec, device=device)
+        sched = TD.make_schedule(spec.diff_T, device=device)
+        ocase = ode_dyn_case(params["dynamics"], ts)
+
+        def xs(b, off=0):
+            return torch.from_numpy(wins[(off + np.arange(b)) % len(wins)]
+                                    ).to(device)
+        for kind, b in sorted(seen):
+            if kind == "fwd":
+                with torch.no_grad():
+                    z0 = F._encode(params, spec, xs(b, 13 * b))
+                ct = torch.from_numpy(rng.standard_normal(
+                    (len(ts), b, spec.latent_dim)).astype(np.float32)).to(
+                    device)
+                checks[(mm, b)] = check_node_kernels(
+                    ocase, z0, ct, backward=("bwd", b) in seen, twice=True)
+                cases[(mm, b)] = (ocase, z0, ct)
+            elif kind == "ddpm":
+                c = ddpm_case(params, spec, sched, xs(b // 10, 7 * b), b)
+                with torch.no_grad():
+                    got = DD.ddpm_chain(*c["chain"])
+                    again = DD.ddpm_chain(*c["chain"])
+                    torch.cuda.synchronize()
+                    want = DD.ddpm_chain_reference(*c["chain"])
+                if not (torch.isfinite(got).all()
+                        and torch.isfinite(want).all()):
+                    fail(f"timemmd ddpm rows={b}: non-finite samples")
+                err = max_abs(got, want)
+                ddpm_errs[(mm, b)] = err
+                if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+                    fail(f"timemmd ddpm rows={b}: chain kernel disagrees "
+                         f"with plain (max |diff| {err:.3e})")
+                if not torch.equal(got, again):
+                    fail(f"timemmd ddpm rows={b}: two calls differ")
+                cases[(mm, "ddpm", b)] = (c["chain"], spec)
+        if not any(k == "bwd" for k, _ in seen):
+            fail(f"cli timemmd multimodal={mm}: no B.7 backward launch seen")
+        if any(("fwd", b) not in seen for k, b in seen if k == "bwd"):
+            fail(f"timemmd: a B.7 backward batch without its forward {seen}")
+    print(f"timemmd ddpm chain vs plain at rows "
+          f"{sorted(k[1] for k in ddpm_errs)}: max |diff| "
+          f"{max(ddpm_errs.values()):.3e}; the same bits twice")
+
+    # ---- 46(c). times at the training batch and the test chain
+    b_train = max(b for k, b in shapes[True] if k == "bwd")
+    t = time_node_kernels(*cases[(True, b_train)], smi, device=True)
+    r_test = max(b for k, b in shapes[True] if k == "ddpm")
+    chain, spec = cases[(True, "ddpm", r_test)]
+    t["ddpm_rows"] = r_test
+    t["ddpm"] = cuda_ms(lambda: DD.ddpm_chain(*chain), 5)
+    with torch.no_grad():
+        t["ddpm_plain"] = cuda_ms(lambda: DD.ddpm_chain_reference(*chain), 1)
+    t["ddpm_bound"] = bound(*ddpm_counts(r_test, spec.pred_len,
+                                         spec.diff_hidden, spec.diff_T))
+    t["walls"] = walls
+    print(f"time timemmd ddpm rows={r_test}: kernel {t['ddpm']:.4f} ms, "
+          f"plain {t['ddpm_plain']:.3f} ms; bound "
+          f"{t['ddpm_bound'][0]:.5f} ms ({t['ddpm_bound'][2]}) ({smi})")
+    errs = dict(fwd=max(c["fwd_err"] for c in checks.values()),
+                bwd=max(c["g_abs"] for c in checks.values() if "g_abs" in c),
+                ddpm=max(ddpm_errs.values()),
+                spline=check_new_spline_shapes(device, mark, "phase 46"))
+    print(f"phase 46 took {time.perf_counter() - t_phase:.1f} s")
+    return errs, t, launches
+
+
+def solvers_phases(device, smi):
+    """Phase 47, the rest of ``solvers/`` on the card: ``cli predprey
+    --method rk4`` (the eager fixed-step solve, no kernel), the eager
+    dopri5's ``Dopri5Stats`` against the CPU's, and an ``odeint_adjoint``
+    gradient against the scan-mode gradient."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.models import predprey as PP
+    from fetode_tpu_torch.ops.kanfet_adjoint import (
+        kanfet_adjoint_bwd,
+        kanfet_adjoint_fwd,
+    )
+    from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
+    from fetode_tpu_torch.solvers import odeint_adjoint, odeint_dopri5
+
+    t_phase = time.perf_counter()
+    mark = set(SPLINE_LOG)
+    # ---- 47(a). predprey with a fixed-step method through the CLI
+    kernels = (kanfet_solve, kanfet_adjoint_fwd, kanfet_adjoint_bwd)
+    label = "cli predprey --method rk4"
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in kernels:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = count_spline(label, lambda: cli.main(
+            ["predprey", "--device", "cuda", "--method", "rk4", "--epochs",
+             str(RK4_EPOCHS), "--epochs_per_call", str(RK4_EPOCHS // 2),
+             "--out-dir", tmp]))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            curve = [json.loads(line) for line in fh]
+    counts = [f.launches for f in kernels]
+    train = [row["train"] for row in curve]
+    tests = [row["test"] for row in curve]
+    if not np.isfinite(train + tests).all() or max(counts) > 0 or \
+            SPLINE_RUNS[label] < 1:
+        fail(f"{label}: losses {train} / {tests}, B.1 / B.2 launches "
+             f"{counts} (a fixed method runs eager), B.12 launches "
+             f"{SPLINE_RUNS[label]} (its KAN layers)")
+    print(f"{label} ({RK4_EPOCHS} epochs, eager on the card): train "
+          f"{[round(v, 6) for v in train]}, test "
+          f"{[round(v, 6) for v in tests]}; {res['epochs_per_sec']:.2f} "
+          f"epochs/s, {wall:.2f} s wall; B.1 / B.2 launches {counts}, B.12 "
+          f"{SPLINE_RUNS[label]} ({smi})")
+    spline_err = check_new_spline_shapes(device, mark, "phase 47")
+
+    # ---- 47(b). Dopri5Stats on the card against the CPU's: float32 (the
+    # KAN's spline term is B.12 on the card) at rtol 1e-3, where rounding
+    # decides no attempt
+    spec = PP.PredPreyNODE.kanfet(rtol=1e-3, atol=1e-5, max_steps=64)
+    model = PP.predprey_init(torch.Generator().manual_seed(47), spec)
+    ts = torch.linspace(0.0, 3.5, 35)
+    x0 = torch.tensor([1.0, 1.0])
+    with torch.no_grad():
+        y_cpu, s_cpu = PP.predict(model, spec, x0, ts, full_output=True)
+        y_gpu, s_gpu = PP.predict(copy.deepcopy(model).to(device), spec,
+                                  x0.to(device), ts.to(device),
+                                  full_output=True)
+    # The random field amplifies float32 rounding (B.12's sums against
+    # plain's) over the horizon: the values are held on the first 10
+    # output times (t < 1), the whole trajectory is reported.
+    stats = [(int(a), int(b)) for a, b in zip(s_gpu, s_cpu)]
+    y_gpu = y_gpu.cpu()
+    stats_err = rel_err(y_gpu[:10], y_cpu[:10])
+    if any(a != b for a, b in stats) or not stats_err < TOL:
+        fail(f"Dopri5Stats on the card {stats} (card, CPU), trajectories "
+             f"relative error {stats_err:.3e} on t < 1")
+    print(f"predprey predict(full_output=True) on the card (eager dopri5): "
+          f"Dopri5Stats (accepted, rejected, success) "
+          f"{[a for a, _ in stats]} as the CPU's; trajectories relative "
+          f"error {stats_err:.3e} on t < 1, {rel_err(y_gpu, y_cpu):.3e} on "
+          f"all 35 times (max |y| {float(y_cpu.abs().max()):.3g})")
+
+    # ---- 47(c). odeint_adjoint against the scan-mode gradient, float64
+    rng = np.random.default_rng(47)
+    D, H = 4, 32
+    w = [torch.from_numpy(a).to(device).requires_grad_() for a in (
+        0.5 * rng.standard_normal((H, D)), 0.1 * rng.standard_normal(H),
+        0.5 * rng.standard_normal((D, H)))]
+    y0 = torch.from_numpy(rng.standard_normal(D)).to(device).requires_grad_()
+    tsa = torch.linspace(0.0, 2.0, 6, dtype=torch.float64, device=device)
+    ct = torch.from_numpy(rng.standard_normal((6, D))).to(device)
+
+    def field(t, y, w1, b1, w2):
+        return w2 @ torch.tanh(w1 @ y + b1)
+
+    def adjoint():
+        ys = odeint_adjoint(field, y0, tsa, *w, rtol=1e-10, atol=1e-12)
+        return torch.autograd.grad(torch.sum(ys * ct), [y0] + w)
+
+    def scan():
+        ys = odeint_dopri5(lambda t, y: field(t, y, *w), y0, tsa,
+                           rtol=1e-10, atol=1e-12, mode="scan")
+        return torch.autograd.grad(torch.sum(ys * ct), [y0] + w)
+
+    g_adj, g_scan = adjoint(), scan()
+    adj_rel = rel_err(flat(g_adj), flat(g_scan))
+    if not adj_rel < 1e-6:
+        fail(f"odeint_adjoint gradient vs scan on the card: rel {adj_rel:.3e}")
+    t_adj, t_scan = cuda_ms(adjoint, 1), cuda_ms(scan, 1)
+    print(f"odeint_adjoint float64 on the card (D = {D}, H = {H}, 6 times, "
+          f"rtol 1e-10): gradient vs the scan-mode gradient rel "
+          f"{adj_rel:.3e}; {t_adj:.1f} ms against {t_scan:.1f} ms, CUDA "
+          f"events ({smi})")
+    print(f"phase 47 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(spline=spline_err)
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -4701,19 +5031,35 @@ def main():
     step_times = {b: time_training(params, spec, x, ts_fit, targets[b], smi)
                   for b, x in batches.items()}
 
-    ecg_checks, ecg_times, ecg_launches = ecg_phases(device, smi)
-    ode_checks, ddpm_errs, ett_times, ett_launches = forecast_phases(device,
-                                                                     smi)
-    kura_checks, kura_errs, kura_times, kura_launches = kuramoto_phases(
-        device, smi)
-    enc_checks, enc_times, enc_launches = cond_diffusion_phases(device, smi)
-    mlp_checks, mlp_times, mlp_launches = mlp_phases(device, smi)
-    wide_checks, wide_times, wide_launches = wide_phases(device, smi,
-                                                         ts_fit, x0_task)
-    ff_err, ff_times, ff_launches = rnn_phases(device, smi)
-    sc_errs, sc_times, sc_launches = spline_custom_phases(device, smi)
-    stack_launches = stack_phases(device, smi, ts_fit)
+    print(f"phases 1-8 took {time.perf_counter() - t0:.1f} s since the "
+          f"builds began", flush=True)
+
+    def timed(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        print(f"{label} took {time.perf_counter() - t1:.1f} s", flush=True)
+        return out
+
+    ecg_checks, ecg_times, ecg_launches = timed("phases 9-13", ecg_phases,
+                                                device, smi)
+    ode_checks, ddpm_errs, ett_times, ett_launches = timed(
+        "phases 14-18", forecast_phases, device, smi)
+    kura_checks, kura_errs, kura_times, kura_launches = timed(
+        "phases 19-23", kuramoto_phases, device, smi)
+    enc_checks, enc_times, enc_launches = timed(
+        "phases 24-27", cond_diffusion_phases, device, smi)
+    mlp_checks, mlp_times, mlp_launches = timed("phases 28-31", mlp_phases,
+                                                device, smi)
+    wide_checks, wide_times, wide_launches = timed(
+        "phases 32-35", wide_phases, device, smi, ts_fit, x0_task)
+    ff_err, ff_times, ff_launches = timed("phases 36-39", rnn_phases, device,
+                                          smi)
+    sc_errs, sc_times, sc_launches = timed(
+        "phases 40-43", spline_custom_phases, device, smi)
+    stack_launches = timed("phase 44", stack_phases, device, smi, ts_fit)
     nm_errs, nm_times, nm_launches = noise_phases(device, smi)
+    tm_errs, tm_times, tm_launches = timemmd_phases(device, smi)
+    sv_errs = solvers_phases(device, smi)
     serve_launches += stack_launches[0]
     fwd_launches += stack_launches[1]
     bwd_launches += stack_launches[2]
@@ -4780,18 +5126,22 @@ def main():
                      ecg_launches[3], worst("ferro", "g_abs"),
                      ft["bwd_dev"], ft["plain_bwd"], ft["bound_bwd"]),
         kernel_entry("ode_dyn_fwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
-                     "fetode_tpu/ops/pallas_ode_dyn.py:173", ett_launches[0],
-                     max(c["fwd_err"] for c in ode_checks.values()),
+                     "fetode_tpu/ops/pallas_ode_dyn.py:173",
+                     ett_launches[0] + tm_launches[0],
+                     max([c["fwd_err"] for c in ode_checks.values()]
+                         + [tm_errs["fwd"]]),
                      ot["fwd_dev"], ot["plain_fwd"], ot["bound_fwd"]),
         kernel_entry("ode_dyn_bwd", "fetode_tpu_torch/csrc/ode_dyn.cu",
-                     "fetode_tpu/ops/pallas_ode_dyn.py:192", ett_launches[1],
-                     max(c["g_abs"] for c in ode_checks.values()
-                         if "g_abs" in c),
+                     "fetode_tpu/ops/pallas_ode_dyn.py:192",
+                     ett_launches[1] + tm_launches[1],
+                     max([c["g_abs"] for c in ode_checks.values()
+                          if "g_abs" in c] + [tm_errs["bwd"]]),
                      ot["bwd_dev"], ot["plain_bwd"], ot["bound_bwd"]),
         kernel_entry("ddpm_chain", "fetode_tpu_torch/csrc/ddpm.cu",
-                     "fetode_tpu/ops/pallas_ddpm.py:160", ett_launches[2],
-                     max(ddpm_errs.values()), dt["ms"], dt["plain"],
-                     dt["bound"]),
+                     "fetode_tpu/ops/pallas_ddpm.py:160",
+                     ett_launches[2] + tm_launches[2],
+                     max(list(ddpm_errs.values()) + [tm_errs["ddpm"]]),
+                     dt["ms"], dt["plain"], dt["bound"]),
         kernel_entry("kuramoto_fwd", "fetode_tpu_torch/csrc/kuramoto.cu",
                      "fetode_tpu/ops/pallas_kuramoto.py:241",
                      kura_launches[0],
@@ -4841,8 +5191,10 @@ def main():
                      ff_err, ff["ms"], ff["plain"], ff["bound"]),
         kernel_entry("spline_matmul_fused", "fetode_tpu_torch/csrc/spline.cu",
                      "fetode_tpu/ops/pallas_spline.py:65",
-                     sc_launches["spline"], sc_errs["spline"], st["ms"],
-                     st["plain"], st["bound"]),
+                     sum(SPLINE_RUNS.values()),
+                     max(sc_errs["spline"], tm_errs["spline"],
+                         sv_errs["spline"]), st["ms"], st["plain"],
+                     st["bound"]),
         kernel_entry("custom_field_fwd", "fetode_tpu_torch/csrc/custom_field.cu",
                      "examples/02_custom_field_kernel.py:95",
                      sc_launches["custom_fwd"], sc_errs["custom_fwd"],

@@ -29,6 +29,11 @@ CLI, so one command line drives either package.  Ported so far:
   ``$FETODE_DATA_DIR`` holds it, else on the synthetic stand-in, and
   reports the last validation loss and the test MSE / MAE of the sample
   mean.
+* ``timemmd`` — trains the diffusion forecaster with the KAN-RNN context
+  encoder on a Time-MMD domain's CSV when ``$FETODE_DATA_DIR`` holds it,
+  else on the synthetic stand-in; ``--multimodal true`` appends the
+  TF-IDF + SVD embedding of the report texts (``data/multimodal.py``;
+  synthetic texts on the stand-in), and reports the test MSE.
 * ``mnist`` — trains the Kuramoto-lattice KAN classifier
   (``models/kuramoto.py``) on the MNIST idx files when they are found,
   else on synthetic digits, and reports the test accuracy.
@@ -40,9 +45,8 @@ CLI, so one command line drives either package.  Ported so far:
   a serving bundle, loads it back and reports p50/p99 latency per batch
   bucket.
 
-The other workloads raise an error naming the ROADMAP item that ports
-them.  ``--device cuda`` (the default) without CUDA
-raises; nothing falls back to the CPU.
+``--device cuda`` (the default) without CUDA raises; nothing falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -58,12 +62,6 @@ import torch
 
 WORKLOADS = ("predprey", "ecg", "ett", "cond_diffusion", "timemmd", "mnist",
              "symbolic", "serve")
-
-# Where each workload / serve source not yet ported is queued.
-_WORKLOAD_TODO = {
-    "timemmd": "ROADMAP A.8 (Time-MMD: its CSVs and data/multimodal.py; "
-               "the kanrnn encoder it uses is ported)",
-}
 
 
 def _parse(argv):
@@ -380,6 +378,69 @@ def run_ett(cfg, out_dir, plots):
                                        encoder=_ETT_ENCODERS[cfg.model],
                                        **common)
         _, hist = train_diffusion_forecaster(spec, X, y, run, log=log)
+    return {"test_mse": hist["test_mse"],
+            "wall_seconds": hist["wall_seconds"],
+            "train_curve": hist["train"], "val_curve": hist["val"]}
+
+
+def timemmd_data(cfg):
+    """The Time-MMD series ``cli timemmd`` trains on: (X (N, F), y (N,)),
+    the domain's CSV when it is found, else the synthetic stand-in;
+    ``cfg.multimodal`` appends the report texts' embedding."""
+    from fetode_tpu_torch.data.multimodal import fuse_features
+    from fetode_tpu_torch.data.paths import locate
+    from fetode_tpu_torch.data.timeseries import (
+        load_timemmd_csv,
+        synthetic_series,
+    )
+
+    fuse = dict(embed_dim=cfg.text_embed_dim,
+                max_features=cfg.tfidf_max_features)
+    csv = locate(f"../Time_MMD/numerical/{cfg.domain}/{cfg.domain}.csv") or \
+        locate(f"Time_MMD/numerical/{cfg.domain}/{cfg.domain}.csv")
+    if csv:
+        X, y, df = load_timemmd_csv(csv, target_col="OT")
+        if cfg.multimodal and "text" in df:
+            X, _ = fuse_features(X, list(df["text"]), int(len(X) * 0.7),
+                                 **fuse)
+    else:
+        print(f"Time-MMD {cfg.domain} csv not found; using synthetic stand-in")
+        # n=1200 keeps every chronological split (10% val) longer than
+        # the preset's context_len + pred_len window (50 + 12).
+        X, y = synthetic_series(n=1200, n_features=4)
+        if cfg.multimodal:
+            # Synthetic report texts, the JAX CLI's, so that the fusion
+            # runs end to end without the dataset.
+            texts = [f"report level {int(v * 7) % 11} trend "
+                     f"{'up' if i % 3 else 'down'}" for i, v in enumerate(y)]
+            X, _ = fuse_features(X, texts, int(len(X) * 0.7), **fuse)
+    return X, y
+
+
+def run_timemmd(cfg, out_dir, plots):
+    """Train the Time-MMD diffusion forecaster (the KAN-RNN context
+    encoder) on ``timemmd_data``."""
+    from fetode_tpu_torch.models.forecasting import DiffusionForecasterSpec
+    from fetode_tpu_torch.train import forecast_driver
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    if plots:
+        raise NotImplementedError("--plots: the plotting diagnostics are not "
+                                  "ported yet: ROADMAP A.11")
+    resolve_device(cfg.device)
+    X, y = timemmd_data(cfg)
+    run = forecast_driver.ForecastRun(
+        context_len=cfg.context_len, pred_len=cfg.pred_len,
+        batch_size=cfg.batch_size, epochs=cfg.epochs, lr=cfg.lr,
+        seed=cfg.seed, mesh_devices=cfg.mesh_devices,
+        mesh_model=cfg.mesh_model, ckpt_dir=cfg.ckpt_dir,
+        ckpt_every=cfg.ckpt_every, resume=cfg.resume,
+        aot_cache=cfg.aot_cache, device=cfg.device)
+    spec = DiffusionForecasterSpec(num_features=X.shape[1],
+                                   context_len=cfg.context_len,
+                                   pred_len=cfg.pred_len, encoder="kanrnn")
+    _, hist = forecast_driver.train_diffusion_forecaster(
+        spec, X, y, run, log=lambda m: print(m, flush=True))
     return {"test_mse": hist["test_mse"],
             "wall_seconds": hist["wall_seconds"],
             "train_curve": hist["train"], "val_curve": hist["val"]}
@@ -771,6 +832,7 @@ RUNNERS = {
     "ecg": run_ecg,
     "ett": run_ett,
     "cond_diffusion": run_cond_diffusion,
+    "timemmd": run_timemmd,
     "mnist": run_mnist,
     "symbolic": run_symbolic,
     "serve": run_serve,
@@ -781,9 +843,6 @@ def main(argv=None):
     from fetode_tpu_torch.config import make_config
 
     args, overrides = _parse(argv if argv is not None else sys.argv[1:])
-    if args.workload not in RUNNERS:
-        raise NotImplementedError(f"workload {args.workload!r} is not ported "
-                                  f"yet: {_WORKLOAD_TODO[args.workload]}")
     cfg = make_config(args.workload, overrides)
     os.makedirs(args.out_dir, exist_ok=True)
     print(f"workload={args.workload} config={cfg}")

@@ -1,11 +1,10 @@
 """Workload configuration presets + flag overrides (counterpart of
 ``fetode_tpu/config.py``).
 
-Ported: the ``predprey``, ``ecg``, ``ett``, ``cond_diffusion``,
-``mnist``, ``symbolic`` and ``serve`` presets; their field names are the JAX
-package's, so one command line drives either package.  The port adds
-``device``.
-The other workloads' presets arrive with their slices.
+Every workload's preset: ``predprey``, ``ecg``, ``ett``,
+``cond_diffusion``, ``timemmd``, ``mnist``, ``symbolic`` and ``serve``;
+their field names are the JAX package's, so one command line drives
+either package.  The port adds ``device``.
 """
 
 from __future__ import annotations
@@ -171,6 +170,34 @@ class CondDiffusionPreset:
 
 
 @dataclass
+class TimeMMDPreset:
+    """train_kan_fet_mmd*_multimodal.py:234-257 (context 50, pred 12,
+    text SVD dim 7, batch 48, 50 epochs): the diffusion forecaster with
+    the KAN-RNN context encoder."""
+
+    domain: str = "Energy"           # Energy|Climate
+    multimodal: bool = False
+    context_len: int = 50
+    pred_len: int = 12
+    text_embed_dim: int = 7
+    tfidf_max_features: int = 20_000
+    batch_size: int = 48
+    epochs: int = 50
+    lr: float = 1e-3
+    # Not ported yet (ForecastRun refuses any other value, naming the
+    # ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    mesh_devices: int = 0
+    mesh_model: int = 1
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    resume: bool = False
+    aot_cache: str = ""
+    seed: int = 0
+    # "cuda" (refused when CUDA is absent) or "cpu".
+    device: str = "cuda"
+
+
+@dataclass
 class MNISTPreset:
     """mnist_kuramoto_kan.py:210-247 (10 Kuramoto steps dt 0.15,
     3 epochs, batch 128, AdamW 1e-3)."""
@@ -270,6 +297,7 @@ PRESETS = {
     "ecg": ECGPreset,
     "ett": ETTPreset,
     "cond_diffusion": CondDiffusionPreset,
+    "timemmd": TimeMMDPreset,
     "mnist": MNISTPreset,
     "symbolic": SymbolicPreset,
     "serve": ServePreset,

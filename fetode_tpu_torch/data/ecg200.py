@@ -5,11 +5,9 @@ Whitespace rows with the class label in column 0, labels remapped
 consistently to ``0..C-1`` across splits, each 96-point series
 z-normalised per row.  ``synthetic_ecg200`` is the in-repo stand-in with
 the same shapes and label contract.  Everything is numpy, as in the JAX
-package; the port keeps its own copies of the numpy paths of
-``data/native.py`` (``znorm_rows``, ``shuffled_indices``) and
-``data/batching.py: epoch_batches``.  Its shuffle is numpy's
-``default_rng(seed)``, the JAX package's fallback when its C++ runtime
-is not built.
+package; the port keeps its own copy of the numpy path of
+``data/native.py: znorm_rows``.  ``epoch_batches`` lives in
+``data/batching.py`` and is re-exported here.
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
+from fetode_tpu_torch.data.batching import epoch_batches
 from fetode_tpu_torch.data.paths import locate
 
 
@@ -26,33 +25,6 @@ def znorm_rows(x: np.ndarray, eps: float = 1e-8) -> np.ndarray:
     mu = x.mean(1, keepdims=True)
     sd = x.std(1, keepdims=True)
     return (x - mu) / (sd + eps)
-
-
-def shuffled_indices(n: int, seed: int) -> np.ndarray:
-    idx = np.arange(n, dtype=np.int64)
-    np.random.default_rng(seed).shuffle(idx)
-    return idx
-
-
-def epoch_batches(*arrays, batch_size: int, seed: int = 0,
-                  drop_last: bool = True):
-    """Shuffle consistently and stack each array into (n_batches, B, ...).
-    ``batch_size`` is clamped to the dataset size; a short last batch is
-    dropped or, with ``drop_last=False``, padded by wrap-around."""
-    n = len(arrays[0])
-    batch_size = min(batch_size, n)
-    idx = shuffled_indices(n, seed)
-    nb = max(n // batch_size if drop_last else -(-n // batch_size), 1)
-    out = []
-    for a in arrays:
-        batches = []
-        for i in range(nb):
-            sel = idx[i * batch_size:(i + 1) * batch_size]
-            if len(sel) < batch_size:
-                sel = np.concatenate([sel, idx[:batch_size - len(sel)]])
-            batches.append(a[sel])
-        out.append(np.stack(batches))
-    return tuple(out)
 
 
 def _parse(path: str) -> Tuple[np.ndarray, np.ndarray]:

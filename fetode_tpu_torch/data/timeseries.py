@@ -4,21 +4,31 @@
 numpy throughout, as in the JAX package.  The windows are one numpy
 gather (the JAX package's ``data/native.py: window_gather`` without its
 C++ runtime); ``window_batches`` shuffles with the port's
-``epoch_batches`` (``data/ecg200.py``).  ``load_ett_csv`` reads the CSV
-with numpy and keeps its numeric columns, so it needs no pandas.
+``epoch_batches`` (``data/batching.py``).  ``load_ett_csv`` and
+``load_timemmd_csv`` read the CSV as a table of ``data/columns.py`` and
+do the JAX loaders' pandas steps on it, so neither needs pandas.
 ``window_gather`` cuts windows at given starts (the conditional-diffusion
-futures).  ``synthetic_series`` is the stand-in the CLI uses when the ETT
-files are absent.  The Time-MMD loader waits for ROADMAP A.8's Time-MMD
-remainder.
+futures).  ``synthetic_series`` is the stand-in the CLI uses when the
+ETT or Time-MMD files are absent.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from fetode_tpu_torch.data.ecg200 import epoch_batches
+from fetode_tpu_torch.data.batching import epoch_batches
+from fetode_tpu_torch.data.columns import (
+    fill_missing,
+    is_numeric,
+    isna,
+    numeric_matrix,
+    read_csv,
+    sort_order,
+    take,
+    to_datetime,
+)
 from fetode_tpu_torch.data.paths import locate
 
 
@@ -46,14 +56,52 @@ def load_ett_csv(csv_path: Optional[str] = None, target_col: str = "OT",
     csv_path = csv_path or locate(f"ETT/{name}.csv")
     if csv_path is None:
         raise FileNotFoundError(f"{name}.csv not found; set FETODE_DATA_DIR")
-    table = np.genfromtxt(csv_path, delimiter=",", names=True, dtype=None,
-                          encoding="utf-8")
-    numeric = [c for c in table.dtype.names
-               if np.issubdtype(table.dtype[c], np.number)]
+    table = read_csv(csv_path)
+    numeric = [c for c, v in table.items() if is_numeric(v)]
     if target_col not in numeric:
         raise ValueError(f"target {target_col!r} not numeric; have {numeric}")
-    X = np.stack([table[c] for c in numeric], axis=1).astype(np.float32)
+    X = numeric_matrix(table, numeric).astype(np.float32)
     return X, table[target_col].astype(np.float32), numeric
+
+
+def _equals(values: np.ndarray, value) -> np.ndarray:
+    """``df[col] == value`` of pandas: a text column compares cell by
+    cell, a numeric one only with a number."""
+    if values.dtype == object:
+        return np.asarray([v == value for v in values], bool)
+    if isinstance(value, (int, float, np.number)):
+        return values == value
+    return np.zeros(len(values), bool)
+
+
+def load_timemmd_csv(csv_path: str, target_col: str,
+                     date_col: Optional[str] = None,
+                     drop_cols: Tuple[str, ...] = (),
+                     area_filter: Optional[Tuple[str, str]] = None):
+    """Time-MMD numeric csv loader (Energy / Climate): the rows whose
+    ``area_filter`` column equals its value, sorted by ``date_col`` as
+    pandas sorts (``columns.sort_order``), ``drop_cols`` dropped, the
+    numeric columns that are not all missing, forward- then back-filled.
+    Returns (X (N, F) float32, y (N,) float32, the table after the
+    filter, the sort and the drops)."""
+    df = read_csv(csv_path)
+    if area_filter is not None:
+        col, val = area_filter
+        if col in df:
+            df = take(df, np.flatnonzero(_equals(df[col], val)))
+    if date_col and date_col in df:
+        df[date_col] = to_datetime(df[date_col])
+        df = take(df, sort_order(df[date_col]))
+    for c in drop_cols:
+        df.pop(c, None)
+    numeric = [c for c, v in df.items()
+               if is_numeric(v) and not isna(v).all()]
+    if target_col not in numeric:
+        raise ValueError(f"target {target_col!r} not in numeric columns "
+                         f"{numeric}")
+    filled = {c: fill_missing(df[c]) for c in numeric}
+    return numeric_matrix(filled, numeric).astype(np.float32), \
+        filled[target_col].astype(np.float32), df
 
 
 def split_time_series(n: int, train_frac: float = 0.7, val_frac: float = 0.1):

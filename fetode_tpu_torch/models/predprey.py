@@ -31,8 +31,15 @@ and the tensor's device; a failure on CUDA raises, nothing falls back):
 * ``"while"`` — the eager early-exit solve on any device, no gradient.
 * ``"scan"`` — the eager solve that autograd differentiates.
 
-The fixed-step methods and the head and RNN variants arrive in later
-slices.
+A fixed-step ``method`` (``rk4``, ``rk2``, ``euler``, ...;
+``solvers/fixed.py``, ``n_substeps`` steps an interval) runs eager on the
+tensors' device in every ``solver_mode``, as the JAX package runs no
+Pallas kernel for it.  ``full_output=True`` (dopri5 only) also returns
+the eager solve's ``Dopri5Stats``; the kernels keep no such counts, so
+``solver_mode="pallas"`` refuses it and ``"auto"`` takes the eager solve
+for it, as the JAX package's ``"auto"`` does.
+
+The head and RNN variants arrive in a later slice (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from fetode_tpu_torch.ops.kanfet_wide import (
     kanfet_wide_solve_train,
 )
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
+from fetode_tpu_torch.solvers.fixed import odeint_fixed
 
 # ``predict`` sends stacks with max(in*out*K) >= this to the wide stack's
 # kernels, as the JAX package does (its crossover, measured on a TPU),
@@ -114,6 +122,7 @@ class PredPreyNODE(NamedTuple):
     rtol: float = 1e-7
     atol: float = 1e-9
     max_steps: int = 256            # attempt budget of the adaptive solve
+    n_substeps: int = 1             # steps an interval of a fixed method
     solver_mode: str = "auto"       # see the module docstring
 
     @classmethod
@@ -129,12 +138,8 @@ def predprey_init(generator: torch.Generator, spec: PredPreyNODE, *,
 
 
 def _use_kernel(params: KAN, spec: PredPreyNODE, x: torch.Tensor) -> bool:
-    """Resolve the solver: True for the CUDA kernels, False for eager."""
-    if spec.method != "dopri5":
-        raise NotImplementedError(
-            f"method={spec.method!r}: predprey's fixed-step methods "
-            "(solvers/fixed.py under checkpointing) are not wired yet "
-            "(ROADMAP A.3)")
+    """Resolve the dopri5 solver: True for the CUDA kernels, False for
+    eager."""
     mode = spec.solver_mode
     if mode not in ("auto", "pallas", "while", "scan"):
         raise ValueError(f"solver_mode={mode!r}: expected 'auto', 'pallas', "
@@ -161,17 +166,45 @@ def uses_wide_kernel(spec: PredPreyNODE) -> bool:
             and wide_holds(spec.kan, 1))
 
 
+def _field(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
+           ferro_state=None):
+    """The eager solves' vector field for states shaped like ``x0``
+    ``(..., D)``, the hysteresis state frozen (fresh unless given)."""
+    if ferro_state is None:
+        ferro_state = kan_state_init(x0.shape[:-1], spec.kan, device=x0.device,
+                                     dtype=x0.dtype)
+
+    def rhs(t, z):
+        return kan_apply(params, z, ferro_state)[0]
+    return rhs
+
+
+def _fixed_solve(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
+                 ts: torch.Tensor, ferro_state=None) -> torch.Tensor:
+    """A fixed-step ``spec.method`` from ``x0`` ``(..., D)`` ->
+    ``(T, ..., D)``."""
+    return odeint_fixed(_field(params, spec, x0, ferro_state), x0, ts,
+                        method=spec.method, n_substeps=spec.n_substeps)
+
+
 def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
-            ts: torch.Tensor, ferro_state=None) -> torch.Tensor:
+            ts: torch.Tensor, ferro_state=None, full_output: bool = False):
     """Solve the NODE from ``x0`` reporting states at ``ts``.
 
     ``x0`` is ``(..., D)`` and the eager solve steps all of it under one
     controller, as the JAX ``predict`` does; the kernel takes one
     trajectory, ``x0`` of shape ``(D,)``.  Hysteresis state is held
     frozen during the solve (fresh unless ``ferro_state`` is given).
-    Returns ``(T, ..., D)``.
+    Returns ``(T, ..., D)``, and with ``full_output`` (dopri5 only) the
+    eager solve's ``Dopri5Stats`` beside it.
     """
-    if _use_kernel(params, spec, x0):
+    if spec.method != "dopri5":
+        if full_output:
+            raise ValueError("full_output is only meaningful for dopri5")
+        return _fixed_solve(params, spec, x0, ts, ferro_state)
+    if full_output and spec.solver_mode == "pallas":
+        raise ValueError("full_output is not available in pallas mode")
+    if not full_output and _use_kernel(params, spec, x0):
         if x0.ndim != 1 or ferro_state is not None:
             raise ValueError("the kernel solve takes one (D,) trajectory from "
                              "the fresh hysteresis state; use predict_batch "
@@ -181,37 +214,29 @@ def predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
                 params, spec.kan, x0[None], ts, rtol=spec.rtol,
                 atol=spec.atol, max_steps=spec.max_steps)[0]
         return predict_batch(params, spec, x0[None], ts)[0]
-    if ferro_state is None:
-        ferro_state = kan_state_init(x0.shape[:-1], spec.kan, device=x0.device,
-                                     dtype=x0.dtype)
-
-    def rhs(t, z):
-        return kan_apply(params, z, ferro_state)[0]
-
-    return odeint_dopri5(rhs, x0, ts, rtol=spec.rtol, atol=spec.atol,
-                         max_steps=spec.max_steps, mode=spec.solver_mode)
+    return odeint_dopri5(_field(params, spec, x0, ferro_state), x0, ts,
+                         rtol=spec.rtol, atol=spec.atol,
+                         max_steps=spec.max_steps, mode=spec.solver_mode,
+                         full_output=full_output)
 
 
 def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
                   ts: torch.Tensor) -> torch.Tensor:
     """``(B, D)`` initial conditions -> ``(B, T, D)`` trajectories, each
     stepped on its own: ``jax.vmap(lambda x0: predict(params, spec, x0,
-    ts))`` of the JAX package, written out for PyTorch."""
+    ts))`` of the JAX package, written out for PyTorch (a fixed-step
+    method steps the batch as one, the same per row)."""
+    if spec.method != "dopri5":
+        return _fixed_solve(params, spec, x0s, ts).transpose(0, 1)
     if _use_kernel(params, spec, x0s):
         solve = (kanfet_solve_train
                  if _under_autograd(x0s, *params.parameters())
                  else kanfet_solve)
         return solve(params, spec.kan, x0s, ts, rtol=spec.rtol,
                      atol=spec.atol, max_steps=spec.max_steps)
-    state = kan_state_init((x0s.shape[0],), spec.kan, device=x0s.device,
-                           dtype=x0s.dtype)
-
-    def rhs(t, z):
-        return kan_apply(params, z, state)[0]
-
-    return odeint_dopri5(rhs, x0s, ts, rtol=spec.rtol, atol=spec.atol,
-                         max_steps=spec.max_steps, mode=spec.solver_mode,
-                         per_row=True)
+    return odeint_dopri5(_field(params, spec, x0s), x0s, ts, rtol=spec.rtol,
+                         atol=spec.atol, max_steps=spec.max_steps,
+                         mode=spec.solver_mode, per_row=True)
 
 
 def trajectory_loss(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,

@@ -29,11 +29,16 @@ Modes:
   are constants of the step mesh.
 * ``"auto"`` — ``"scan"`` exactly when the call is under autograd, else
   ``"while"``, as the JAX ``mode="auto"`` does.
+
+``full_output=True`` also returns ``Dopri5Stats``: accepted and rejected
+attempts and whether ``ts[-1]`` was reached, scalars in the whole-state
+form and one per row in the per-row form (``jax.vmap``'s stats).
+``norm_fn`` replaces the error norm (the continuous adjoint's seminorm).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -48,6 +53,12 @@ _ORDER = 5
 # PI controller (Hairer DOPRI5 defaults): beta = 0.04, alpha = 1/5 - 0.75*beta
 _BETA = 0.04
 _ALPHA = 1.0 / _ORDER - 0.75 * _BETA
+
+
+class Dopri5Stats(NamedTuple):
+    n_accepted: torch.Tensor
+    n_rejected: torch.Tensor
+    success: torch.Tensor   # integration reached ts[-1] within max_steps
 
 
 def _rms(v: torch.Tensor, ref: torch.Tensor, rtol, atol) -> torch.Tensor:
@@ -88,12 +99,13 @@ def _dense_eval(y0, dy, r3, r4, r5, theta):
 
 
 def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
-                dfactor, record=None):
+                dfactor, record=None, norm_fn=error_norm):
     """The early-exit loop over ``(B, D)`` rows, each with its own step
     control.  ``func(t (B, 1), y (B, D), *args) -> (B, D)``.  Returns
-    ``(B, T, D)``.  ``record(m, active, t, dt, accepted, y, ks)``, when
-    given, sees attempt m of every row before the state advances (the
-    rows in ``active`` are making their m-th attempt)."""
+    ``(B, T, D)`` and the rows' ``Dopri5Stats``.  ``record(m, active, t,
+    dt, accepted, y, ks)``, when given, sees attempt m of every row before
+    the state advances (the rows in ``active`` are making their m-th
+    attempt)."""
     B, D = y0.shape
     T = ts.shape[0]
     t0, t_final = ts[0], ts[-1]
@@ -106,7 +118,8 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
         _initial_step(func, t[:, None], y0, f, rtol, atol, args).detach(),
         t_final - t0)
     err_prev = torch.ones_like(t)
-    n = torch.zeros(B, dtype=torch.int32, device=y0.device)
+    n_acc = torch.zeros(B, dtype=torch.int32, device=y0.device)
+    n_rej = torch.zeros_like(n_acc)
     y = y0
     # Output buffer prefilled with y0: index 0 is already right, tails are
     # fixed up after the loop.
@@ -114,7 +127,7 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
 
     m = 0
     while True:
-        active = (t < end) & (n < max_steps)
+        active = (t < end) & (n_acc + n_rej < max_steps)
         if not bool(active.any()):
             break
         finished = t >= end
@@ -124,7 +137,7 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
         y1, y_err, ks = rk_stage_loop(func, t[:, None], y, dt[:, None], DOPRI5,
                                       args, f0=f)
         # Step control is a discrete decision: cut from the graph.
-        err = torch.clamp(error_norm(y_err, y, y1, rtol, atol).detach(),
+        err = torch.clamp(norm_fn(y_err, y, y1, rtol, atol).detach(),
                           min=1e-10)
         accept = (err <= 1.0) | finished
 
@@ -154,12 +167,14 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
         err_prev = torch.where(adv, err, err_prev)
         y = torch.where(adv[:, None], y1, y)
         f = torch.where(adv[:, None], ks[6], f)     # FSAL: f(t_new, y1)
-        n = n + active.to(n.dtype)
+        n_acc = n_acc + adv.to(n_acc.dtype)
+        n_rej = n_rej + (active & ~accept).to(n_rej.dtype)
         m += 1
 
     # Outputs past the frontier a row reached hold its last state.
     unreached = ts[None, :] > (t + tiny)[:, None]
-    return torch.where(unreached[..., None], y[:, None, :], ys)
+    return (torch.where(unreached[..., None], y[:, None, :], ys),
+            Dopri5Stats(n_acc, n_rej, t >= end))
 
 
 def _under_autograd(*tensors) -> bool:
@@ -172,7 +187,8 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
                   safety: float = 0.9, ifactor: float = 10.0,
                   dfactor: float = 0.2, mode: str = "auto",
                   per_row: bool = False, unroll: int = 1,
-                  checkpoint: bool = True, record=None) -> torch.Tensor:
+                  checkpoint: bool = True, record=None,
+                  norm_fn: Callable = error_norm, full_output: bool = False):
     """Integrate ``dy/dt = func(t, y, *args)`` adaptively, output at ``ts``.
 
     Args:
@@ -189,6 +205,9 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         the whole-state form it sees one row, the flattened state.
         ``ops/kanfet_adjoint.py`` (per row) and ``ops/node_common.py``
         (whole state) record the step mesh with it.
+      norm_fn: the error norm ``(y_err, y0, y1, rtol, atol) -> (B,)`` of
+        ``(B, D)`` rows (the flattened state in the whole-state form).
+      full_output: also return ``Dopri5Stats``.
     """
     if mode not in ("auto", "scan", "while"):
         raise ValueError(f"odeint_dopri5 mode={mode!r}: expected "
@@ -212,6 +231,9 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         f0 = fn(ts[:1].expand(rows.shape[0])[:, None], rows, *args)
         mode = "scan" if _under_autograd(rows, f0, *args) else "while"
     with torch.set_grad_enabled(mode == "scan" and torch.is_grad_enabled()):
-        ys = _solve_rows(fn, rows, ts, args, rtol, atol, max_steps, safety,
-                         ifactor, dfactor, record)
-    return ys if per_row else ys[0].reshape((ts.shape[0],) + tuple(shape))
+        ys, stats = _solve_rows(fn, rows, ts, args, rtol, atol, max_steps,
+                                safety, ifactor, dfactor, record, norm_fn)
+    if not per_row:
+        ys = ys[0].reshape((ts.shape[0],) + tuple(shape))
+        stats = Dopri5Stats(*(v[0] for v in stats))
+    return (ys, stats) if full_output else ys

@@ -43,10 +43,8 @@ from fetode_tpu_torch.utils.device import resolve_device
 # Knobs of the JAX driver that are not ported yet, with where they are
 # queued.  Each keeps its field and default in PredPreyRun.
 _NOT_PORTED = {
-    "step_budget_schedule": "ROADMAP A.5 (step-budget ladder, needs "
-                            "Dopri5Stats from A.3)",
-    "budget_headroom": "ROADMAP A.5 (step-budget ladder, needs Dopri5Stats "
-                       "from A.3)",
+    "step_budget_schedule": "ROADMAP A.5 (step-budget ladder)",
+    "budget_headroom": "ROADMAP A.5 (step-budget ladder)",
     "grid_update_every": "ROADMAP A.2 (kan_update_grid)",
     "shooting_points": "ROADMAP A.5 (multiple shooting)",
     "shooting_devices": "ROADMAP A.5 (multiple shooting) and A.11 "

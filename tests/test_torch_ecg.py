@@ -429,11 +429,21 @@ def test_refusals(case, tmp_path):
             mlp_node_solve(params, torch.zeros(2, 8), mspec)
     elif case == "fixed_step":
         # The ECG models take the fixed-step solvers (tests/
-        # test_torch_fixed.py); predprey's fixed-step methods still refuse.
+        # test_torch_fixed.py), and so does predprey: its rk4 solve
+        # against the JAX package's on the same parameters.
+        from fetode_tpu.models import predprey as jpp
+        from fetode_tpu_torch.convert import params_to_numpy
+
         pspec = PredPreyNODE.kanfet(layers_hidden=(2, 3, 2), method="rk4")
-        params = predprey_init(torch.Generator(), pspec)
-        with pytest.raises(NotImplementedError, match="A.3"):
-            predict(params, pspec, torch.ones(2), torch.linspace(0, 1, 3))
+        params = predprey_init(torch.Generator().manual_seed(0), pspec)
+        with torch.no_grad():
+            got = predict(params, pspec, torch.ones(2),
+                          torch.linspace(0, 1, 3))
+        want = jpp.predict(params_to_numpy(params), jpp.PredPreyNODE.kanfet(
+            layers_hidden=(2, 3, 2), method="rk4"), jnp.ones(2, jnp.float32),
+            jnp.linspace(0, 1, 3, dtype=jnp.float32))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
     elif case == "rnn_model":
         # The RNN models, 'all' (tests/test_torch_rnn.py) and the noise
         # study (tests/test_torch_population.py) are ported; an unknown

@@ -1,11 +1,14 @@
-"""The PyTorch port imports torch and never jax or the JAX package.
+"""The PyTorch port imports torch and never jax or the JAX package, nor
+pandas or sklearn (the card's machine has neither; the data layer does
+their steps with numpy and scipy).
 
 Checked in a fresh interpreter, since this test process imports both:
 every module of ``fetode_tpu_torch`` is imported and ``sys.modules`` must
 then hold neither ``jax`` (nor any ``jax.*``) nor ``fetode_tpu`` (nor any
 ``fetode_tpu.*``; note that the bare prefix ``fetode_tpu`` also matches
-``fetode_tpu_torch``).  The subprocess runs from the repo root with the
-root on ``PYTHONPATH``, since the package is not installed.
+``fetode_tpu_torch``), nor ``pandas`` or ``sklearn``.  The subprocess
+runs from the repo root with the root on ``PYTHONPATH``, since the
+package is not installed.
 """
 
 import os
@@ -23,8 +26,9 @@ names = [m.name for m in pkgutil.walk_packages(fetode_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "fetode_tpu") or k.startswith(("jax.", "jaxlib",
-                                                          "fetode_tpu.")))
+             if k in ("jax", "fetode_tpu", "pandas", "sklearn")
+             or k.startswith(("jax.", "jaxlib", "fetode_tpu.", "pandas.",
+                              "sklearn.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -67,7 +71,16 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.nn.rnn",
                  "fetode_tpu_torch.solvers.fixed",
                  "fetode_tpu_torch.ops.spline",
-                 "fetode_tpu_torch.examples.custom_field_kernel"):
+                 "fetode_tpu_torch.examples.custom_field_kernel",
+                 "fetode_tpu_torch.data.batching",
+                 "fetode_tpu_torch.data.columns",
+                 "fetode_tpu_torch.data.informer",
+                 "fetode_tpu_torch.data.masking",
+                 "fetode_tpu_torch.data.metrics",
+                 "fetode_tpu_torch.data.multimodal",
+                 "fetode_tpu_torch.data.timefeatures",
+                 "fetode_tpu_torch.solvers.adjoint",
+                 "fetode_tpu_torch.solvers.stateful"):
         assert name in report["modules"]
 
 
@@ -77,5 +90,6 @@ def test_port_sources_name_no_jax_import():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0].rstrip(",")
-                assert mod not in ("jax", "jaxlib", "fetode_tpu"), \
+                assert mod not in ("jax", "jaxlib", "fetode_tpu", "pandas",
+                                   "sklearn"), \
                     f"{path.relative_to(ROOT)}: {line.strip()}"

@@ -201,8 +201,13 @@ def test_predict_dispatch(setup):
     grad_one = tpp.predict(s["model"], auto, x0, ts)
     assert grad_one.requires_grad
     np.testing.assert_array_equal(grad_one.detach().numpy(), one.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tpp.predict(s["model"], s["spec"]._replace(method="rk4"), x0, ts)
+    # a fixed-step method runs eager in every mode, as the JAX package's
+    with torch.no_grad():
+        rk4 = tpp.predict(s["model"], s["spec"]._replace(method="rk4"), x0,
+                          ts)
+    want = np.asarray(jpp.predict(s["jparams"], s["jspec"]._replace(
+        method="rk4"), jnp.asarray(s["x0s"][0]), jnp.asarray(s["ts"])))
+    np.testing.assert_allclose(rk4.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

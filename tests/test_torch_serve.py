@@ -152,7 +152,14 @@ def test_cli_refusals(tmp_path):
         cli.main(["serve", "--source", "predprey", "--out-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["symbolic", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    # timemmd is ported: its preset has the JAX package's fields (and the
+    # port's device), and without CUDA it refuses the card as the others
+    from fetode_tpu.config import TimeMMDPreset as JTimeMMD
+
+    jcfg, tcfg = JTimeMMD(), make_config("timemmd")
+    assert {f: getattr(tcfg, f) for f in vars(jcfg)} == vars(jcfg)
+    assert set(vars(tcfg)) - set(vars(jcfg)) == {"device"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["timemmd", "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="checkpoint/resume"):
         cli.main(["serve", "--source", "predprey", "--device", "cpu",
