@@ -9,10 +9,14 @@ the ECG recurrent models (FEPA-RNN, NODE-RNN, the digital RNN,
 ``--model all``) with ETT's KAN-RNN encoder, the KAN layers' spline term
 (B.12) on every KAN path, the custom-field whole-solve example (B.14),
 B.1 / B.2 on other pure-KANFET stacks, the ECG noise study on B.4's
-member form, Time-MMD forecasting (unimodal and text-fused) and the rest
+member form, Time-MMD forecasting (unimodal and text-fused), the rest
 of the solvers (predprey's fixed-step methods, ``Dopri5Stats``, the
-continuous adjoint) — on the card and checks them, in phases that run in
-order; any failure exits non-zero.
+continuous adjoint), and the rest of the predprey driver with durable
+training (per-row times on B.1 / B.2 for multiple shooting, the
+step-budget ladder, anchored training, the live grid refit,
+kill-and-resume on four drivers and ``serve --ckpt_dir``) — on the card
+and checks them, in phases that run in order; any failure exits
+non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -458,6 +462,46 @@ CLI falls back to:
     1e-10): its gradients of y0 and the weights within 1e-6 (relative) of
     the scan-mode gradient, and both timed.
 
+The rest of the predprey driver and durable training, the flagship
+KANFET [2, 10, 2] at the preset (dopri5 rtol 1e-7 / atol 1e-9,
+``max_steps`` 256), random weights from a seed:
+
+48. The time operand of B.1 / B.2 (``csrc/kanfet_node.cu``,
+    ``csrc/kanfet_adjoint.cu``: trajectory b reads its times at ``ts + b
+    * stride``).  At the shooting shape (the 17 segments of 3 fit times
+    of ``PredPreyRun(shooting_points=3)``, from their observed first
+    values, the segment budget 60) and a ragged one (B = 5, T = 4, each
+    row its own start and end): B.1 and B.2's forward against their plain
+    versions with (B, T) times, rtol = atol = 1e-3, at rtol 1e-3 / atol
+    1e-5 (where rounding decides no attempt) with plain's attempts row by
+    row, and at the preset; the backward on the kernel's own records,
+    with the shooting loss's cotangent, against autograd of the plain
+    replay, relative error < 1e-4 (phase 6's gate).  A stride-0 launch
+    (one (T,) row) is bit-equal to the (B, T) launch with the row
+    repeated: B.1's output, B.2's output and records, its gradients and
+    x0bar.
+49. The new training paths, every B.1 / B.2 launch's (B, T, stride)
+    logged: ``cli.main(["predprey", "--shooting_points", "3", ...])``
+    (B.2 at B = 17, T = 3, stride 3; finite losses that fall); a
+    ``train_predprey`` run with the step-budget ladder,
+    ``phase_anchor_periods = 2``, ``select_anchor_k = 2`` and
+    ``grid_update_every = 1`` (B.2 on the 70 anchored fit times, B.1 on
+    the 140 test times, the 36 selection times and the 70 refit times;
+    the refit grids finite and moved, B.1 / B.2 holding them against
+    plain); and the twin of ``examples/01_predprey_train_loop.py`` for 30
+    epochs (its epoch-0 and epoch-29 losses printed beside the JAX
+    example's on a CPU, from another init).
+50. Kill and resume on the card, checkpoints under a temporary
+    directory: ``train_predprey`` (the ladder on, killed by its log after
+    the second call's checkpoint and resumed) and ``cli ecg``
+    (``kanfet_node``, B.5), ``cli ett`` (``point``, B.7) and ``cli
+    cond_diffusion`` (``kan_node``, B.8 and B.12), each stopped after its
+    checkpoint at epoch 1 and resumed to epoch 3: every resumed curve
+    bit-equal to the unbroken run's, and its kernels launched.  Then
+    ``cli.main(["serve", "--source", "predprey", "--ckpt_dir", ...])``:
+    the bundle serves the checkpoint's best parameters, requests of B =
+    1, 8 and 20 equal to direct ``predict_batch`` calls with them.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -600,6 +644,17 @@ MEMBER_SCALES = tuple(1.0 + 0.1 * m for m in range(12))
 # (phase 47): epochs of ``cli predprey --method rk4``.
 TIMEMMD_EPOCHS = 2
 RK4_EPOCHS = 4
+# The rest of the predprey driver (phases 48-50): the shooting points,
+# the ragged per-row case (B, T), the epochs of the shooting run, of the
+# anchored run and of the example twin, and the resumed runs' epochs
+# (stopped after 1).
+SHOOT_P = 3
+RAGGED = (5, 4)
+SHOOT_EPOCHS = 30
+ANCHOR_EPOCHS = 3
+EXAMPLE_EPOCHS = 30
+EXAMPLE_JAX_CPU = (4.088171, 2.107977)   # ROADMAP A.5: epochs 0 and 29
+RESUME_EPOCHS = 3
 
 # Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
 # cores from NVIDIA's data sheet; the special-function unit (exp2,
@@ -4809,6 +4864,415 @@ def solvers_phases(device, smi):
     return dict(spline=spline_err)
 
 
+class log_kanfet_shapes:
+    """Within it every B.1 / B.2 launch records (kernel, B, T, stride) in
+    ``shapes``: the ctypes entry points are wrapped where the wrappers
+    look them up."""
+
+    def __init__(self, shapes):
+        self.shapes = shapes
+
+    def __enter__(self):
+        from fetode_tpu_torch.ops import kanfet_adjoint as KA
+        from fetode_tpu_torch.ops import kanfet_node as KN
+
+        self.saved = (KN._launcher, KA._launchers)
+        shapes, (node, adj) = self.shapes, self.saved
+
+        def logged(fn, name, at):
+            def call(*a):
+                shapes.add((name,) + tuple(a[at:at + 3]))
+                return fn(*a)
+            return call
+
+        KN._launcher = lambda: logged(node(), "B.1", 7)
+        KA._launchers = lambda: (logged(adj()[0], "B.2 fwd", 10),
+                                 logged(adj()[1], "B.2 bwd", 12))
+        return self
+
+    def __exit__(self, *exc):
+        from fetode_tpu_torch.ops import kanfet_adjoint as KA
+        from fetode_tpu_torch.ops import kanfet_node as KN
+
+        KN._launcher, KA._launchers = self.saved
+
+
+def shooting_case(device):
+    """The shooting fit of ``PredPreyRun(shooting_points=SHOOT_P)`` on the
+    card: (run, FitProblem)."""
+    from fetode_tpu_torch.models.predprey import generate_data
+    from fetode_tpu_torch.train.predprey_driver import PredPreyRun, fit_problem
+
+    run = PredPreyRun(shooting_points=SHOOT_P, device="cuda")
+    ts, ts_learn, truth = generate_data(run.task, device=device)
+    x0 = torch.tensor([run.task.x0, run.task.y0], device=device)
+    return run, fit_problem(run, x0, ts, ts_learn, truth[:run.task.n_train])
+
+
+def row_time_phases(device, smi):
+    """Phase 48: B.1 / B.2 with (B, T) times against their plain versions,
+    and stride-0 launches against (B, T) launches of the repeated row.
+    Returns the worst forward and backward errors."""
+    from fetode_tpu_torch.models.predprey import (
+        PredPreyNODE,
+        PredPreyTask,
+        lotka_volterra_field,
+        predprey_init,
+    )
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+    from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+
+    t_phase = time.perf_counter()
+    spec = PredPreyNODE.kanfet()
+    params = predprey_init(torch.Generator().manual_seed(48), spec,
+                           device=device)
+    _, fit = shooting_case(device)
+    x_s, t_s, tgt_s = fit.fit_args
+    rng = np.random.default_rng(48)
+    B, T = RAGGED
+    t_r = torch.from_numpy(np.sort(rng.uniform(0.0, 1.5, (B, T)), axis=1)
+                           .astype(np.float32) + np.arange(B, dtype=np.float32
+                                                           )[:, None] * 0.4
+                           ).to(device)
+    x_r = torch.from_numpy(rng.uniform(0.5, 2.0, (B, 2)).astype(np.float32)
+                           ).to(device)
+    # the ground truth of each ragged row from its own x0 at its own times
+    tgt_r = odeint_dopri5(lotka_volterra_field(PredPreyTask()), x_r, t_r,
+                          rtol=1e-8, atol=1e-10, max_steps=4096,
+                          mode="while", per_row=True)
+    budget = fit.spec_shoot.max_steps
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for label, x, t, tgt in (("shooting", x_s, t_s, tgt_s),
+                             ("ragged", x_r, t_r, tgt_r)):
+        for tol, opts in (("rtol 1e-3", dict(rtol=1e-3, atol=1e-5)),
+                          ("preset", dict(rtol=spec.rtol, atol=spec.atol))):
+            opts = dict(opts, max_steps=budget)
+            with torch.no_grad():
+                y1 = KN.kanfet_solve(params, spec.kan, x, t, **opts)
+                y2, rec = KA.kanfet_adjoint_fwd(params, spec.kan, x, t,
+                                                **opts)
+                torch.cuda.synchronize()
+                yp, rec_p = KA.record_attempts_reference(params, spec.kan,
+                                                         x, t, **opts)
+            for name, y in (("B.1", y1), ("B.2 forward", y2)):
+                if not (torch.isfinite(y).all() and torch.allclose(
+                        y, yp, rtol=TOL, atol=TOL)):
+                    fail(f"{name} with (B, T) times, {label} {tuple(t.shape)}"
+                         f" at {tol}: max |diff| {max_abs(y, yp):.3e}")
+                errs["fwd"] = max(errs["fwd"], max_abs(y, yp))
+            same_att = torch.equal(rec.n_att, rec_p.n_att)
+            if tol == "rtol 1e-3" and not same_att:
+                fail(f"B.2 with (B, T) times, {label} at {tol}: attempts "
+                     f"{rec.n_att.tolist()}, plain's {rec_p.n_att.tolist()}")
+            ybar = 2.0 * (y2 - tgt) / y2.numel()
+            g_k, xb_k = KA.kanfet_adjoint_bwd(params, spec.kan, x, t, rec,
+                                              ybar)
+            g_p, xb_p = KA.replay_vjp_reference(params, spec.kan, x, t, rec,
+                                                ybar)
+            g_err, x_err = rel_err(flat(g_k), flat(g_p)), rel_err(xb_k, xb_p)
+            if not (g_err < GRAD_TOL and x_err < GRAD_TOL):
+                fail(f"B.2 backward with (B, T) times, {label} at {tol}: "
+                     f"grads rel {g_err:.3e}, x0bar rel {x_err:.3e}")
+            errs["bwd"] = max(errs["bwd"], max_abs(flat(g_k), flat(g_p)))
+            print(f"B.1 / B.2 with (B, T) times, {label} {tuple(t.shape)} at "
+                  f"{tol} (budget {budget}): forward max |diff| "
+                  f"{max_abs(y1, yp):.3e} / {max_abs(y2, yp):.3e}; attempts "
+                  f"{rec.n_att.min().item()}..{rec.n_att.max().item()}"
+                  f"{' (plain' + chr(39) + 's)' if same_att else ''}; "
+                  f"backward grads rel {g_err:.3e}, x0bar rel {x_err:.3e}")
+
+    # stride 0 against the (B, T) launch of the repeated row
+    t0 = t_s[0].contiguous()
+    t_rep = t0.expand(x_s.shape[0], t0.shape[0]).contiguous()
+    opts = dict(rtol=spec.rtol, atol=spec.atol, max_steps=budget)
+    with torch.no_grad():
+        same = [torch.equal(KN.kanfet_solve(params, spec.kan, x_s, t0,
+                                            **opts),
+                            KN.kanfet_solve(params, spec.kan, x_s, t_rep,
+                                            **opts))]
+        ya, ra = KA.kanfet_adjoint_fwd(params, spec.kan, x_s, t0, **opts)
+        yb, rb = KA.kanfet_adjoint_fwd(params, spec.kan, x_s, t_rep, **opts)
+    # records past a row's own attempts hold no data
+    made = (torch.arange(ra.rec.shape[0], device=device)[:, None]
+            < ra.n_att[None, :])[:, None, :]
+    same += [torch.equal(ya, yb), torch.equal(torch.where(made, ra.rec, 0.0),
+                                              torch.where(made, rb.rec, 0.0)),
+             torch.equal(ra.n_att, rb.n_att), torch.equal(ra.t_end, rb.t_end)]
+    ybar = 2.0 * (ya - tgt_s[:, :1].expand_as(ya)) / ya.numel()
+    ga, xa = KA.kanfet_adjoint_bwd(params, spec.kan, x_s, t0, ra, ybar)
+    gb, xb = KA.kanfet_adjoint_bwd(params, spec.kan, x_s, t_rep, rb, ybar)
+    same += [torch.equal(flat(ga), flat(gb)), torch.equal(xa, xb)]
+    if not all(same):
+        fail(f"stride-0 launches against the (B, T) launch of the repeated "
+             f"row (B.1; B.2 out, rec, n_att, t_end; grads, x0bar): {same}")
+    print(f"stride 0 = (B, T) with the row repeated, B = {x_s.shape[0]}: "
+          f"B.1 output, B.2 output, records, attempts, t_end, gradients and "
+          f"x0bar the same bits ({smi})")
+    print(f"phase 48 took {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def kanfet_kernels():
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+
+    return (KN.kanfet_solve, KA.kanfet_adjoint_fwd, KA.kanfet_adjoint_bwd)
+
+
+def counted(kernels, fn):
+    """``fn()``, a main-path run, with the kernels' counts set to 0 just
+    before it and read just after: (result, counts)."""
+    for f in kernels:
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [f.launches for f in kernels]
+
+
+def predprey_training_phases(device, smi):
+    """Phase 49: the shooting CLI run, the anchored library run with the
+    ladder and the grid refit, and the example twin.  Returns the B.1 /
+    B.2 launches of the three runs."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.examples import predprey_train_loop as example
+    from fetode_tpu_torch.models.predprey import generate_data, predprey_init
+    from fetode_tpu_torch.ops import kanfet_node as KN
+    from fetode_tpu_torch.train.predprey_driver import (
+        PredPreyRun,
+        train_predprey,
+    )
+
+    t_phase = time.perf_counter()
+    kernels = kanfet_kernels()
+    total = [0, 0, 0]
+    # ---- 49(a). multiple shooting through the CLI
+    shapes = set()
+    with tempfile.TemporaryDirectory() as tmp, log_kanfet_shapes(shapes):
+        res, counts = counted(kernels, lambda: cli.main(
+            ["predprey", "--device", "cuda", "--shooting_points",
+             str(SHOOT_P), "--epochs", str(SHOOT_EPOCHS),
+             "--epochs_per_call", str(SHOOT_EPOCHS // 3), "--out-dir", tmp]))
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            train = [json.loads(line)["train"] for line in fh]
+    n_seg = (35 - 1) // (SHOOT_P - 1)
+    want = {("B.2 fwd", n_seg, SHOOT_P, SHOOT_P),
+            ("B.2 bwd", n_seg, SHOOT_P, SHOOT_P)}
+    if not (want <= shapes and np.isfinite(train).all()
+            and train[-1] < train[0] and min(counts[1:]) > 0):
+        fail(f"cli predprey --shooting_points {SHOOT_P}: launches {counts}, "
+             f"shapes {sorted(shapes)}, losses {train}")
+    total = [a + b for a, b in zip(total, counts)]
+    print(f"cli predprey --shooting_points {SHOOT_P} ({SHOOT_EPOCHS} epochs):"
+          f" losses {[round(v, 6) for v in train]}, "
+          f"{res['epochs_per_sec']:.2f} epochs/s; launches (B.1, B.2 fwd, "
+          f"B.2 bwd) {counts} at (kernel, B, T, stride) {sorted(shapes)} "
+          f"({smi})")
+
+    # ---- 49(b). ladder, anchors, selection and grid refit in the driver
+    shapes = set()
+    logs = []
+    run = PredPreyRun(epochs=ANCHOR_EPOCHS, epochs_per_call=1,
+                      step_budget_schedule=True, phase_anchor_periods=2,
+                      select_anchor_k=2, grid_update_every=1,
+                      device="cuda")
+    with log_kanfet_shapes(shapes):
+        (params, hist), counts = counted(kernels, lambda: train_predprey(
+            run, log=logs.append))
+    T_fit = 35 * 2          # the window and its shift by two periods
+    want = {("B.2 fwd", 1, T_fit, 0), ("B.2 bwd", 1, T_fit, 0),
+            ("B.1", 1, 140, 0), ("B.1", 1, 36, 0), ("B.1", 1, T_fit, 0)}
+    grids = [layer.grid for layer in params.layers]
+    if not (want <= shapes and np.isfinite(hist["train"] + hist["sel"]).all()
+            and all(torch.isfinite(g).all() for g in grids)):
+        fail(f"anchored train_predprey: shapes {sorted(shapes)}, losses "
+             f"{hist['train']}, sel {hist['sel']}")
+    total = [a + b for a, b in zip(total, counts)]
+    # the refit grids, held by B.1 against plain on the 140 test times
+    ts, _, _ = generate_data(run.task, device=device)
+    x0 = torch.tensor([[1.0, 1.0]], device=device)
+    with torch.no_grad():
+        yk = KN.kanfet_solve(params, run.spec.kan, x0, ts, max_steps=1024)
+        yp = KN.kanfet_solve_reference(params, run.spec.kan, x0, ts,
+                                       max_steps=1024)
+    if not torch.allclose(yk[:, :N_CHECK], yp[:, :N_CHECK], rtol=TOL,
+                          atol=TOL):
+        fail(f"B.1 on the refit grids: max |diff| {max_abs(yk, yp):.3e}")
+    init = predprey_init(torch.Generator().manual_seed(run.seed), run.spec,
+                         device=device)
+    moved = max(float((a.grid - b.grid).abs().max())
+                for a, b in zip(params.layers, init.layers))
+    if not moved > 0:
+        fail("grid_update_every = 1 left the grids where init put them")
+    print(f"train_predprey, ladder + phase_anchor_periods 2 + "
+          f"select_anchor_k 2 + grid_update_every 1 ({ANCHOR_EPOCHS} calls):"
+          f" train {[round(v, 6) for v in hist['train']]}, sel "
+          f"{[round(v, 6) for v in hist['sel']]}, budgets {hist['budget']};"
+          f" launches {counts} at {sorted(shapes)}; refit grids moved by up "
+          f"to {moved:.3g}, B.1 on them vs plain {max_abs(yk, yp):.3e} "
+          f"({smi}); " + "; ".join(m for m in logs if m.startswith("[")))
+
+    # ---- 49(c). the twin of examples/01_predprey_train_loop.py
+    (_, losses), counts = counted(kernels, lambda: example.train(
+        EXAMPLE_EPOCHS, "cuda", log=None))
+    if not (np.isfinite(losses).all() and min(counts[1:]) > 0):
+        fail(f"predprey_train_loop: losses {losses}, launches {counts}")
+    total = [a + b for a, b in zip(total, counts)]
+    print(f"examples predprey_train_loop on the card ({EXAMPLE_EPOCHS} "
+          f"epochs, B.2): train MSE {losses[0]:.6f} at epoch 0, "
+          f"{losses[-1]:.6f} at epoch {EXAMPLE_EPOCHS - 1} (the JAX example "
+          f"on a CPU, from PRNGKey(0): {EXAMPLE_JAX_CPU[0]} and "
+          f"{EXAMPLE_JAX_CPU[1]}); launches {counts} ({smi})")
+    print(f"phase 49 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def resume_phases(device, smi):
+    """Phase 50: kill and resume of four drivers on the card, and serve
+    --ckpt_dir.  Returns the launches of the kernels the runs drove:
+    B.1, B.2 fwd / bwd, B.5 fwd / bwd, B.7 fwd / bwd, B.8 fwd / bwd (B.12
+    is counted into ``SPLINE_RUNS``)."""
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.models.predprey import PredPreyNODE, predict_batch
+    from fetode_tpu_torch.ops import logistic_node as LN
+    from fetode_tpu_torch.ops import node_enc as NE
+    from fetode_tpu_torch.ops import ode_dyn as OD
+    from fetode_tpu_torch.serve import load_servable
+    from fetode_tpu_torch.train.checkpoint import CheckpointManager
+    from fetode_tpu_torch.train.predprey_driver import (
+        PredPreyRun,
+        train_predprey,
+    )
+
+    t_phase = time.perf_counter()
+    kernels = kanfet_kernels() + (LN.logistic_node_fwd, LN.logistic_node_bwd,
+                                  OD.ode_dyn_fwd, OD.ode_dyn_bwd,
+                                  NE.node_enc_fwd, NE.node_enc_bwd)
+    total = [0] * len(kernels)
+
+    def add(counts):
+        for i, c in enumerate(counts):
+            total[i] += c
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 50(a). predprey: killed by its log after the second call's
+        # checkpoint (the cosine schedule spans the run's epochs)
+        ck = os.path.join(tmp, "predprey")
+        kw = dict(epochs=40, epochs_per_call=10, step_budget_schedule=True,
+                  budget_headroom=0.1, device="cuda")
+        (_, ref), counts = counted(kernels, lambda: train_predprey(
+            PredPreyRun(**kw), log=None))
+        add(counts)
+        seen = []
+
+        def killer(msg):
+            seen.append(msg)
+            if sum(m.startswith("epoch") for m in seen) >= 2:
+                raise KeyboardInterrupt
+
+        try:
+            train_predprey(PredPreyRun(**kw, ckpt_dir=ck, ckpt_every=10),
+                           log=killer)
+            fail("the killed predprey run did not stop")
+        except KeyboardInterrupt:
+            pass
+        logs = []
+        (_, res), counts = counted(kernels, lambda: train_predprey(
+            PredPreyRun(**kw, ckpt_dir=ck, ckpt_every=10, resume=True),
+            log=logs.append))
+        add(counts)
+        if not (any("resumed at epoch 20" in m for m in logs)
+                and res["train"] == ref["train"][2:]
+                and res["test"] == ref["test"][2:]
+                and res["budget"] == ref["budget"][2:]
+                and min(counts[:3]) > 0):
+            fail(f"predprey resume: {logs}, train {res['train']} vs "
+                 f"{ref['train']}, budgets {res['budget']} vs "
+                 f"{ref['budget']}, launches {counts[:3]}")
+        print(f"predprey killed at epoch 20 and resumed (ladder, budgets "
+              f"{ref['budget']}): train {res['train']} = the unbroken run's "
+              f"epochs 30-40, test losses too; launches (B.1, B.2 fwd, bwd) "
+              f"{counts[:3]}; checkpoints {CheckpointManager(ck).all_steps()}"
+              f" ({smi})")
+
+        # ---- 50(b). ECG, ETT point and cond-diffusion through the CLI:
+        # stopped after the checkpoint at epoch 1, resumed to the last
+        for label, argv, curves, own in (
+                ("cli ecg --model kanfet_node",
+                 ["ecg", "--model", "kanfet_node", "--solver_mode", "pallas"],
+                 ("loss_curve", "test_acc_curve"), (3, 4)),
+                ("cli ett --model point",
+                 ["ett", "--model", "point", "--solver_mode", "pallas"],
+                 ("train_curve", "val_curve", "test_mse"), (5, 6)),
+                ("cli cond_diffusion --denoiser kan_node",
+                 ["cond_diffusion", "--denoiser", "kan_node", "--diff_t",
+                  "50", "--eval_samples", "2"],
+                 ("train_curve", "val_curve", "test_mse"), (7, 8))):
+            d = os.path.join(tmp, argv[0])
+            base = argv + ["--device", "cuda", "--out-dir", d]
+            ref, counts = counted(kernels, lambda: count_spline(
+                label, lambda: cli.main(
+                    base + ["--epochs", str(RESUME_EPOCHS)])))
+            add(counts)
+            cli.main(base + ["--epochs", "1", "--ckpt_dir", d + "/ck",
+                             "--ckpt_every", "1"])
+            res, counts = counted(kernels, lambda: count_spline(
+                label, lambda: cli.main(
+                    base + ["--epochs", str(RESUME_EPOCHS), "--ckpt_dir",
+                            d + "/ck", "--ckpt_every", "1", "--resume",
+                            "true"])))
+            add(counts)
+            for key in curves:
+                want = ref[key]
+                want = want[1:] if isinstance(want, list) else want
+                if res[key] != want:
+                    fail(f"{label} resumed at epoch 1: {key} {res[key]}, "
+                         f"the unbroken run's {want}")
+            if min(counts[i] for i in own) < 1:
+                fail(f"{label} resumed: its kernels' launches {counts}")
+            print(f"{label} stopped after epoch 1 and resumed to "
+                  f"{RESUME_EPOCHS}: {', '.join(curves)} = the unbroken "
+                  f"run's; launches {[counts[i] for i in own]}; steps "
+                  f"{CheckpointManager(d + '/ck').all_steps()} ({smi})")
+        if SPLINE_RUNS.get("cli cond_diffusion --denoiser kan_node", 0) < 1:
+            fail("cond_diffusion kan_node: B.12 not launched")
+
+        # ---- 50(c). serve --source predprey --ckpt_dir
+        argv = ["serve", "--source", "predprey", "--device", "cuda",
+                "--ckpt_dir", ck, "--buckets", "8,64", "--iters", "3",
+                "--out-dir", os.path.join(tmp, "serve")]
+        result, counts = counted(kernels, lambda: cli.main(argv))
+        add(counts)
+        cfg = make_config("serve", cli._parse(argv)[1])
+        fresh, fn, _ = cli.predprey_serving(cfg, device)
+        sv = load_servable(result["bundle"], fn, fresh)
+        best = CheckpointManager(ck).restore()["best_params"]
+        if not all(torch.equal(sv.params.state_dict()[k], v.to(device))
+                   for k, v in best.items()):
+            fail("serve --ckpt_dir: the bundle does not hold the "
+                 "checkpoint's best parameters")
+        ts = torch.linspace(0.0, cfg.horizon, cfg.n_points, device=device)
+        rng = np.random.default_rng(50)
+        for b in (1, 8, 20):
+            x = torch.from_numpy(rng.uniform(0.5, 2.0, (b, 2)).astype(
+                np.float32)).to(device)
+            with torch.no_grad():
+                direct = predict_batch(sv.params, PredPreyNODE.kanfet(), x,
+                                       ts)
+                if not torch.equal(sv.predict(x), direct):
+                    fail(f"serve --ckpt_dir: request B = {b} differs from "
+                         "direct predict_batch with the checkpoint's "
+                         "parameters")
+        p50 = {row["batch"]: row["p50_ms"] for row in result["bench"]}
+        print(f"serve --source predprey --ckpt_dir: the checkpoint's best "
+              f"parameters served, requests B = 1, 8, 20 = direct "
+              f"predict_batch; p50 {p50} ms; B.1 launches {counts[0]} "
+              f"({smi})")
+    print(f"phase 50 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -5060,9 +5524,18 @@ def main():
     nm_errs, nm_times, nm_launches = noise_phases(device, smi)
     tm_errs, tm_times, tm_launches = timemmd_phases(device, smi)
     sv_errs = solvers_phases(device, smi)
-    serve_launches += stack_launches[0]
-    fwd_launches += stack_launches[1]
-    bwd_launches += stack_launches[2]
+    rt_errs = row_time_phases(device, smi)
+    pt_launches = predprey_training_phases(device, smi)
+    rs_launches = resume_phases(device, smi)
+    serve_launches += stack_launches[0] + pt_launches[0] + rs_launches[0]
+    fwd_launches += stack_launches[1] + pt_launches[1] + rs_launches[1]
+    bwd_launches += stack_launches[2] + pt_launches[2] + rs_launches[2]
+    ecg_launches[0] += rs_launches[3]
+    ecg_launches[1] += rs_launches[4]
+    ett_launches[0] += rs_launches[5]
+    ett_launches[1] += rs_launches[6]
+    enc_launches = [enc_launches[0] + rs_launches[7],
+                    enc_launches[1] + rs_launches[8]]
 
     # ---- the kernels line: predprey at B = 256, ECG at B = 8, the latent
     # solve at the training batch 64, the chain at 2,560 rows, the Kuramoto
@@ -5090,20 +5563,23 @@ def main():
     print(json.dumps({"kernels": [
         kernel_entry("kanfet_node_solve", "fetode_tpu_torch/csrc/kanfet_node.cu",
                      "fetode_tpu/ops/pallas_node.py:260",
-                     serve_launches, max_abs_err, times[256][0],
+                     serve_launches, max(max_abs_err, rt_errs["fwd"]),
+                     times[256][0],
                      times[256][1], bound(*kanfet_counts(
                          params, spec.kan, serve_recs, T_SERVE, "serve"))),
         kernel_entry("kanfet_adjoint_fwd",
                      "fetode_tpu_torch/csrc/kanfet_adjoint.cu",
                      "fetode_tpu/ops/pallas_adjoint.py:863", fwd_launches,
-                     checks[256][0], step_times[256]["kernel"]["fwd"],
+                     max(checks[256][0], rt_errs["fwd"]),
+                     step_times[256]["kernel"]["fwd"],
                      step_times[256]["plain"]["fwd"], bound(*kanfet_counts(
                          params, spec.kan, checks[256][4], ts_fit.shape[0],
                          "fwd"))),
         kernel_entry("kanfet_adjoint_bwd",
                      "fetode_tpu_torch/csrc/kanfet_adjoint.cu",
                      "fetode_tpu/ops/pallas_adjoint.py:932", bwd_launches,
-                     checks[256][5], step_times[256]["kernel"]["bwd"],
+                     max(checks[256][5], rt_errs["bwd"]),
+                     step_times[256]["kernel"]["bwd"],
                      step_times[256]["plain"]["bwd"], bound(*kanfet_counts(
                          params, spec.kan, checks[256][4], ts_fit.shape[0],
                          "bwd"))),

@@ -43,7 +43,13 @@ CLI, so one command line drives either package.  Ported so far:
 * ``serve --source ecg`` (the default source), ``predprey``, ``ett``,
   ``ddpm``, ``cond_diffusion`` and ``mnist`` — builds the model, exports
   a serving bundle, loads it back and reports p50/p99 latency per batch
-  bucket.
+  bucket.  ``--ckpt_dir`` serves a training checkpoint's best
+  parameters (``train/checkpoint.py``; else its train state's) in place
+  of the fresh ones.
+
+The training workloads take ``--ckpt_dir D --ckpt_every N [--resume
+true]`` (durable checkpoint/resume) and ``--aot_cache``, which the port
+accepts and logs; ``predprey`` also takes ``--shooting_points``.
 
 ``--device cuda`` (the default) without CUDA raises; nothing falls back
 to the CPU.
@@ -788,6 +794,28 @@ SERVING = {"ecg": ecg_serving, "predprey": predprey_serving,
            "cond_diffusion": cond_diffusion_serving, "mnist": mnist_serving}
 
 
+def _serve_ckpt_params(ckpt_dir):
+    """The ``state_dict`` a training checkpoint holds for serving: its
+    ``best_params``, else its train state's ``params`` (the JAX CLI's
+    order).  The source's hyper-parameters must match the training
+    run's."""
+    from fetode_tpu_torch.train.checkpoint import CheckpointManager
+
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir!r}")
+    saved = CheckpointManager(ckpt_dir).restore()
+    for keys in (("best_params",), ("state", "params")):
+        node = saved
+        try:
+            for k in keys:
+                node = node[k]
+            return node
+        except (KeyError, TypeError):
+            continue
+    raise ValueError(f"no params found in checkpoint at {ckpt_dir!r} "
+                     f"(top-level keys: {list(saved)})")
+
+
 def run_serve(cfg, out_dir, plots):
     """Export a serving bundle, load it back and bench it per bucket."""
     from fetode_tpu_torch.serve import export_servable, load_servable, serve_bench
@@ -796,12 +824,11 @@ def run_serve(cfg, out_dir, plots):
     if cfg.source not in SERVING:
         raise ValueError(f"unknown serve source {cfg.source!r}; ported: "
                          f"{sorted(SERVING)}")
-    if cfg.ckpt_dir:
-        raise NotImplementedError("serving a training checkpoint needs "
-                                  "checkpoint/resume: ROADMAP A.5 "
-                                  "(checkpoint/resume)")
     device = resolve_device(cfg.device)
     params, fn, example = SERVING[cfg.source](cfg, device)
+    if cfg.ckpt_dir:
+        params.load_state_dict(_serve_ckpt_params(cfg.ckpt_dir))
+        print(f"serving params restored from {cfg.ckpt_dir}")
 
     bundle = cfg.bundle_dir or os.path.join(out_dir, "bundle")
     t0 = time.perf_counter()

@@ -37,10 +37,13 @@ class PredPreyPreset:
     # Fit at the times the window targets were actually sampled
     # (PredPreyRun.consistent_time_base).
     consistent_time_base: bool = False
-    # Not ported yet (PredPreyRun refuses any other value, naming the
-    # ROADMAP item): multiple shooting, checkpoint/resume, AOT cache.
+    # Multiple shooting (PredPreyRun.shooting_points; 0 disables);
+    # shooting_devices (segments over a device mesh) is refused, naming
+    # ROADMAP A.11.
     shooting_points: int = 0
     shooting_devices: int = 0
+    # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
+    # true] (train/checkpoint.py); aot_cache is accepted and logged.
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
@@ -86,9 +89,12 @@ class ECGPreset:
     # Epochs per call of the block scanner (ECGRun.epochs_per_call).
     epochs_per_call: int = 1
     # Not ported yet (ECGRun refuses any other value, naming the ROADMAP
-    # item): the mesh, checkpoint/resume, the AOT cache.
+    # item): the mesh.
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
+    # true] (train/checkpoint.py: DurableLoop); aot_cache is accepted and
+    # logged.
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
@@ -124,9 +130,12 @@ class ETTPreset:
     # forward kernel without records.
     solver_mode: str = "auto"
     # Not ported yet (ForecastRun refuses any other value, naming the
-    # ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    # ROADMAP item): the mesh.
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
+    # true] (train/checkpoint.py: DurableLoop); aot_cache is accepted and
+    # logged.
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
@@ -157,9 +166,12 @@ class CondDiffusionPreset:
     # on the card runs the forward kernel without records.
     solver_mode: str = "auto"
     # Not ported yet (CondDiffusionRun refuses any other value, naming
-    # the ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    # the ROADMAP item): the mesh.
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
+    # true] (train/checkpoint.py: DurableLoop); aot_cache is accepted and
+    # logged.
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
@@ -185,9 +197,12 @@ class TimeMMDPreset:
     epochs: int = 50
     lr: float = 1e-3
     # Not ported yet (ForecastRun refuses any other value, naming the
-    # ROADMAP item): the mesh, checkpoint/resume, the AOT cache.
+    # ROADMAP item): the mesh.
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
+    # true] (train/checkpoint.py: DurableLoop); aot_cache is accepted and
+    # logged.
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
@@ -252,8 +267,9 @@ class ServePreset:
     buckets: tuple = (8, 64, 256)
     # Where the bundle goes ("" = <out-dir>/bundle).
     bundle_dir: str = ""
-    # Checkpoint to serve instead of a fresh init (refused until
-    # checkpoint/resume is ported).
+    # A training checkpoint to serve instead of a fresh init: its
+    # best_params, else its train state's params (the source's
+    # hyper-parameters must match the training run's).
     ckpt_dir: str = ""
     # Latency bench: timed calls per window (3 windows per bucket).
     iters: int = 30

@@ -51,16 +51,17 @@ def _flatten(prefix: str, node: Dict[str, Any], out: Dict[str, Any]) -> None:
             out[prefix + name] = value
 
 
-def params_from_numpy(tree: List[Dict[str, Any]],
-                      device=None) -> Dict[str, torch.Tensor]:
-    """The JAX param list -> a ``state_dict`` for the port's ``KAN``.
+def params_from_numpy(tree: List[Dict[str, Any]], device=None,
+                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The JAX param list -> a ``state_dict`` for the port's ``KAN``, in
+    ``dtype`` (float64 keeps the bits of a float64 tree).
 
     Use as ``kan.load_state_dict(params_from_numpy(tree, device))``.
     """
     flat: Dict[str, Any] = {}
     for i, layer in enumerate(tree):
         _flatten(f"layers.{i}.", layer, flat)
-    return {k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in flat.items()}
 
 

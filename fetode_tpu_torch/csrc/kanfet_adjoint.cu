@@ -99,7 +99,10 @@ struct Record {
   }
 };
 
-template <bool PG>
+// ROWS: trajectory b reads its times at ts + b * ts_stride; without it
+// every trajectory reads the one row at ts (the shared-times launches keep
+// their own instantiations, the code they had before the stride existed).
+template <bool PG, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 kanfet_adjoint_fwd_kernel(const float* __restrict__ x0s,
                           const float* __restrict__ ts,
@@ -108,8 +111,8 @@ kanfet_adjoint_fwd_kernel(const float* __restrict__ x0s,
                           float* __restrict__ out, float* __restrict__ rec,
                           int* __restrict__ n_att, float* __restrict__ t_end,
                           float* __restrict__ gscratch, Geo geo, int B, int T,
-                          int max_steps, float rtol, float atol, float gate,
-                          float alpha, float oma) {
+                          int ts_stride, int max_steps, float rtol,
+                          float atol, float gate, float alpha, float oma) {
   extern __shared__ float smem[];
   const float* P = stage_params<PG>(smem, packed, geo.n_params);
   const int warp = threadIdx.x / 32;
@@ -118,7 +121,8 @@ kanfet_adjoint_fwd_kernel(const float* __restrict__ x0s,
   const Field F = make_field(geo, dims, P, smem + (PG ? 0 : geo.n_params),
                              gscratch, warp, gate, alpha, oma);
   Record r{rec + b, B, n_att + b, t_end + b};
-  dopri5_solve<PG>(F, x0s + (size_t)b * geo.D, ts, T,
+  dopri5_solve<PG>(F, x0s + (size_t)b * geo.D,
+                   ROWS ? ts + (size_t)b * ts_stride : ts, T,
                    out + (size_t)b * T * geo.D, max_steps, rtol, atol, r);
 }
 
@@ -262,7 +266,7 @@ __device__ void replay(const Field& F, const float* ts, const float* ybar,
   if (own) x0bar[(size_t)b * D + lane] = lam;
 }
 
-template <bool PG>
+template <bool PG, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 kanfet_adjoint_bwd_kernel(const float* __restrict__ ts,
                           const float* __restrict__ ybar,
@@ -274,7 +278,8 @@ kanfet_adjoint_bwd_kernel(const float* __restrict__ ts,
                           float* __restrict__ part,
                           float* __restrict__ gscratch,
                           float* __restrict__ x0bar, Geo geo, int B, int T,
-                          float gate, float alpha, float oma) {
+                          int ts_stride, float gate, float alpha,
+                          float oma) {
   extern __shared__ float smem[];
   const float* P = stage_params<PG>(smem, packed, geo.n_params);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -289,7 +294,8 @@ kanfet_adjoint_bwd_kernel(const float* __restrict__ ts,
   __syncwarp();
   const int b = blockIdx.x * kWarps + warp;
   if (b < B)  // the whole warp; no return: the block sums below
-    replay<PG>(F, ts, ybar, rec, n_att, t_end, gvec, x0bar, b, B, T);
+    replay<PG>(F, ROWS ? ts + (size_t)b * ts_stride : ts, ybar, rec, n_att,
+               t_end, gvec, x0bar, b, B, T);
   if (geo.grads_smem) {
     // The block's warps in warp order into its row of part.
     __syncthreads();
@@ -314,39 +320,42 @@ kanfet_adjoint_reduce_kernel(const float* __restrict__ part,
   grads[g] = s;
 }
 
-template <bool PG>
+template <bool PG, bool ROWS>
 cudaError_t launch_fwd(const float* x0s, const float* ts, const float* packed,
                        const int* dims, float* out, float* rec, int* n_att,
                        float* t_end, float* gscratch, const Geo& geo, int B,
-                       int T, int max_steps, float rtol, float atol,
-                       float gate, float alpha, float oma,
+                       int T, int ts_stride, int max_steps, float rtol,
+                       float atol, float gate, float alpha, float oma,
                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kanfet_adjoint_fwd_kernel<PG>,
+      kanfet_adjoint_fwd_kernel<PG, ROWS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (B + kWarps - 1) / kWarps;
-  kanfet_adjoint_fwd_kernel<PG><<<blocks, kThreads, geo.smem_bytes, stream>>>(
+  kanfet_adjoint_fwd_kernel<PG, ROWS>
+      <<<blocks, kThreads, geo.smem_bytes, stream>>>(
       x0s, ts, packed, dims, out, rec, n_att, t_end, gscratch, geo, B, T,
-      max_steps, rtol, atol, gate, alpha, oma);
+      ts_stride, max_steps, rtol, atol, gate, alpha, oma);
   return cudaGetLastError();
 }
 
-template <bool PG>
+template <bool PG, bool ROWS>
 cudaError_t launch_bwd(const float* ts, const float* ybar, const float* rec,
                        const int* n_att, const float* t_end,
                        const float* packed, const int* dims, float* part,
                        float* gscratch, float* grads, float* x0bar,
-                       const Geo& geo, int B, int T, float gate, float alpha,
-                       float oma, cudaStream_t stream) {
+                       const Geo& geo, int B, int T, int ts_stride,
+                       float gate, float alpha, float oma,
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kanfet_adjoint_bwd_kernel<PG>,
+      kanfet_adjoint_bwd_kernel<PG, ROWS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (B + kWarps - 1) / kWarps;
-  kanfet_adjoint_bwd_kernel<PG><<<blocks, kThreads, geo.smem_bytes, stream>>>(
+  kanfet_adjoint_bwd_kernel<PG, ROWS>
+      <<<blocks, kThreads, geo.smem_bytes, stream>>>(
       ts, ybar, rec, n_att, t_end, packed, dims, part, gscratch, x0bar, geo,
-      B, T, gate, alpha, oma);
+      B, T, ts_stride, gate, alpha, oma);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = geo.grads_smem ? blocks : blocks * kWarps;
@@ -361,27 +370,29 @@ cudaError_t launch_bwd(const float* ts, const float* ybar, const float* rec,
 // geo: the 13 host ints of kanfet_field.cuh: Geo for this kernel's
 // placement; dims: the (L, 6) layer table on the device; gscratch:
 // ceil(B / kWarps) * kWarps * ws_floats floats when the warp scratch is
-// not in shared memory, else unused.
+// not in shared memory, else unused.  Trajectory b reads its T output
+// times at ts + b * ts_stride: 0 shares one (T,) row, T gives each
+// trajectory its own row of a (B, T) array.
 
 // out (B, T, D); rec (max_steps, 3 + 8D, B); n_att (B,) int; t_end (B,).
 extern "C" int kanfet_adjoint_fwd(const float* x0s, const float* ts,
                                   const float* packed, const int* dims,
                                   float* out, float* rec, int* n_att,
                                   float* t_end, float* gscratch,
-                                  const int* geo, int B, int T, int max_steps,
-                                  float rtol, float atol, float gate,
-                                  float alpha, float one_minus_alpha,
-                                  void* stream) {
+                                  const int* geo, int B, int T, int ts_stride,
+                                  int max_steps, float rtol, float atol,
+                                  float gate, float alpha,
+                                  float one_minus_alpha, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const kanfet::Geo g = kanfet::read_geo(geo);
-  if (g.params_smem)
-    return (int)launch_fwd<false>(x0s, ts, packed, dims, out, rec, n_att,
-                                  t_end, gscratch, g, B, T, max_steps, rtol,
-                                  atol, gate, alpha, one_minus_alpha, s);
-  return (int)launch_fwd<true>(x0s, ts, packed, dims, out, rec, n_att, t_end,
-                               gscratch, g, B, T, max_steps, rtol, atol, gate,
-                               alpha, one_minus_alpha, s);
+  const auto fn =
+      g.params_smem
+          ? (ts_stride ? launch_fwd<false, true> : launch_fwd<false, false>)
+          : (ts_stride ? launch_fwd<true, true> : launch_fwd<true, false>);
+  return (int)fn(x0s, ts, packed, dims, out, rec, n_att, t_end, gscratch, g,
+                 B, T, ts_stride, max_steps, rtol, atol, gate, alpha,
+                 one_minus_alpha, s);
 }
 
 // ybar (B, T, D); part: (blocks, n_grad) floats when the gradients are in
@@ -392,17 +403,17 @@ extern "C" int kanfet_adjoint_bwd(const float* ts, const float* ybar,
                                   const float* t_end, const float* packed,
                                   const int* dims, float* part,
                                   float* gscratch, float* grads, float* x0bar,
-                                  const int* geo, int B, int T, float gate,
-                                  float alpha, float one_minus_alpha,
-                                  void* stream) {
+                                  const int* geo, int B, int T, int ts_stride,
+                                  float gate, float alpha,
+                                  float one_minus_alpha, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const kanfet::Geo g = kanfet::read_geo(geo);
-  if (g.params_smem)
-    return (int)launch_bwd<false>(ts, ybar, rec, n_att, t_end, packed, dims,
-                                  part, gscratch, grads, x0bar, g, B, T, gate,
-                                  alpha, one_minus_alpha, s);
-  return (int)launch_bwd<true>(ts, ybar, rec, n_att, t_end, packed, dims,
-                               part, gscratch, grads, x0bar, g, B, T, gate,
-                               alpha, one_minus_alpha, s);
+  const auto fn =
+      g.params_smem
+          ? (ts_stride ? launch_bwd<false, true> : launch_bwd<false, false>)
+          : (ts_stride ? launch_bwd<true, true> : launch_bwd<true, false>);
+  return (int)fn(ts, ybar, rec, n_att, t_end, packed, dims, part, gscratch,
+                 grads, x0bar, g, B, T, ts_stride, gate, alpha,
+                 one_minus_alpha, s);
 }

@@ -42,14 +42,17 @@ namespace {
 
 using namespace kanfet;
 
-template <bool PG>
+// ROWS: trajectory b reads its times at ts + b * ts_stride; without it
+// every trajectory reads the one row at ts (the shared-times launch keeps
+// its own instantiation, the code it had before the stride existed).
+template <bool PG, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 kanfet_node_kernel(const float* __restrict__ x0s, const float* __restrict__ ts,
                    const float* __restrict__ packed,
                    const int* __restrict__ dims, float* __restrict__ out,
                    float* __restrict__ gscratch, Geo geo, int B, int T,
-                   int max_steps, float rtol, float atol, float gate,
-                   float alpha, float oma) {
+                   int ts_stride, int max_steps, float rtol, float atol,
+                   float gate, float alpha, float oma) {
   extern __shared__ float smem[];
   const float* P = stage_params<PG>(smem, packed, geo.n_params);
   const int warp = threadIdx.x / 32;
@@ -58,24 +61,25 @@ kanfet_node_kernel(const float* __restrict__ x0s, const float* __restrict__ ts,
   const Field F = make_field(geo, dims, P, smem + (PG ? 0 : geo.n_params),
                              gscratch, warp, gate, alpha, oma);
   NoRecord rec;
-  dopri5_solve<PG>(F, x0s + (size_t)b * geo.D, ts, T,
+  dopri5_solve<PG>(F, x0s + (size_t)b * geo.D,
+                   ROWS ? ts + (size_t)b * ts_stride : ts, T,
                    out + (size_t)b * T * geo.D, max_steps, rtol, atol, rec);
 }
 
-template <bool PG>
+template <bool PG, bool ROWS>
 cudaError_t launch(const float* x0s, const float* ts, const float* packed,
                    const int* dims, float* out, float* gscratch,
-                   const Geo& geo, int B, int T, int max_steps, float rtol,
-                   float atol, float gate, float alpha, float oma,
-                   cudaStream_t stream) {
+                   const Geo& geo, int B, int T, int ts_stride,
+                   int max_steps, float rtol, float atol, float gate,
+                   float alpha, float oma, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kanfet_node_kernel<PG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      geo.smem_bytes);
+      kanfet_node_kernel<PG, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (B + kWarps - 1) / kWarps;
-  kanfet_node_kernel<PG><<<blocks, kThreads, geo.smem_bytes, stream>>>(
-      x0s, ts, packed, dims, out, gscratch, geo, B, T, max_steps, rtol, atol,
-      gate, alpha, oma);
+  kanfet_node_kernel<PG, ROWS><<<blocks, kThreads, geo.smem_bytes, stream>>>(
+      x0s, ts, packed, dims, out, gscratch, geo, B, T, ts_stride, max_steps,
+      rtol, atol, gate, alpha, oma);
   return cudaGetLastError();
 }
 
@@ -85,20 +89,21 @@ cudaError_t launch(const float* x0s, const float* ts, const float* packed,
 // geo: the 13 host ints of kanfet_field.cuh: Geo; dims: the (L, 6) layer
 // table on the device; gscratch: ceil(B / kWarps) * kWarps * ws_floats
 // floats when the warp scratch is not in shared memory, else unused.
+// Trajectory b reads its T output times at ts + b * ts_stride: 0 shares
+// one (T,) row, T gives each trajectory its own row of a (B, T) array.
 extern "C" int kanfet_node_solve(const float* x0s, const float* ts,
                                  const float* packed, const int* dims,
                                  float* out, float* gscratch, const int* geo,
-                                 int B, int T, int max_steps, float rtol,
-                                 float atol, float gate, float alpha,
-                                 float one_minus_alpha, void* stream) {
+                                 int B, int T, int ts_stride, int max_steps,
+                                 float rtol, float atol, float gate,
+                                 float alpha, float one_minus_alpha,
+                                 void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const kanfet::Geo g = kanfet::read_geo(geo);
-  if (g.params_smem)
-    return (int)launch<false>(x0s, ts, packed, dims, out, gscratch, g, B, T,
-                              max_steps, rtol, atol, gate, alpha,
-                              one_minus_alpha, s);
-  return (int)launch<true>(x0s, ts, packed, dims, out, gscratch, g, B, T,
-                           max_steps, rtol, atol, gate, alpha,
-                           one_minus_alpha, s);
+  const auto fn = g.params_smem
+                      ? (ts_stride ? launch<false, true> : launch<false, false>)
+                      : (ts_stride ? launch<true, true> : launch<true, false>);
+  return (int)fn(x0s, ts, packed, dims, out, gscratch, g, B, T, ts_stride,
+                 max_steps, rtol, atol, gate, alpha, one_minus_alpha, s);
 }

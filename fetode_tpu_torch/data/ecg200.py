@@ -5,9 +5,10 @@ Whitespace rows with the class label in column 0, labels remapped
 consistently to ``0..C-1`` across splits, each 96-point series
 z-normalised per row.  ``synthetic_ecg200`` is the in-repo stand-in with
 the same shapes and label contract.  Everything is numpy, as in the JAX
-package; the port keeps its own copy of the numpy path of
-``data/native.py: znorm_rows``.  ``epoch_batches`` lives in
-``data/batching.py`` and is re-exported here.
+package; ``znorm_rows`` is the port's own copy of the JAX package's
+native z-norm (``native/fetode_native.cpp: fet_znorm_rows``, which it
+takes wherever g++ builds its runtime), so the two give the same bits.
+``epoch_batches`` lives in ``data/batching.py`` and is re-exported here.
 """
 
 from __future__ import annotations
@@ -21,10 +22,17 @@ from fetode_tpu_torch.data.paths import locate
 
 
 def znorm_rows(x: np.ndarray, eps: float = 1e-8) -> np.ndarray:
+    """``fet_znorm_rows`` of a float32 (n, t) array: the mean and the sum
+    of squared deviations in float64, added in row order (a cumulative
+    sum, not numpy's pairwise ``sum``); ``sd = float32(sqrt(var / t)) +
+    eps`` and ``(x - float32(mu)) / sd`` in float32."""
     x = np.ascontiguousarray(x, np.float32)
-    mu = x.mean(1, keepdims=True)
-    sd = x.std(1, keepdims=True)
-    return (x - mu) / (sd + eps)
+    t = x.shape[1]
+    x64 = x.astype(np.float64)
+    mu = np.cumsum(x64, axis=1)[:, -1:] / t
+    var = np.cumsum((x64 - mu) ** 2, axis=1)[:, -1:]
+    sd = np.sqrt(var / t).astype(np.float32) + np.float32(eps)
+    return (x - mu.astype(np.float32)) / sd
 
 
 def _parse(path: str) -> Tuple[np.ndarray, np.ndarray]:

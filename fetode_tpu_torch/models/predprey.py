@@ -225,8 +225,14 @@ def predict_batch(params: KAN, spec: PredPreyNODE, x0s: torch.Tensor,
     """``(B, D)`` initial conditions -> ``(B, T, D)`` trajectories, each
     stepped on its own: ``jax.vmap(lambda x0: predict(params, spec, x0,
     ts))`` of the JAX package, written out for PyTorch (a fixed-step
-    method steps the batch as one, the same per row)."""
+    method steps the batch as one, the same per row).  ``ts`` is ``(T,)``,
+    shared, or ``(B, T)``, row b's own times (``jax.vmap`` over x0 and ts,
+    as multiple shooting solves its segments; the kernels take it as a
+    time operand of stride T)."""
     if spec.method != "dopri5":
+        if ts.ndim == 2:
+            return torch.stack([_fixed_solve(params, spec, x0, t)
+                                for x0, t in zip(x0s, ts)])
         return _fixed_solve(params, spec, x0s, ts).transpose(0, 1)
     if _use_kernel(params, spec, x0s):
         solve = (kanfet_solve_train

@@ -11,8 +11,11 @@ Parameters initialised by the JAX package load one to one through
 
 Hysteresis state stays explicit (``kan_state_init``), passed in and
 returned by ``kan_linear_apply`` / ``kan_apply``.  ``kan_regularization``
-is the training penalty; ``kan_update_grid`` is not ported yet
-(ROADMAP A.2).
+is the training penalty; ``kan_update_grid`` refits the knot grids to
+the inputs a stack sees.  It writes the new grids and spline weights
+into the layers' own tensors, so an optimiser keeps holding the same
+``Parameter`` objects and their Adam moments, as the JAX package's
+optimiser state stays valid across its pure refit.
 """
 
 from __future__ import annotations
@@ -24,7 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fetode_tpu_torch.ops.bsplines import curve2coeff, make_grid
+from fetode_tpu_torch.ops.bsplines import (
+    bspline_basis,
+    curve2coeff,
+    make_grid,
+    refine_grid,
+)
 from fetode_tpu_torch.ops.ferro import (
     FerroConfig,
     FerroParams,
@@ -245,6 +253,33 @@ def kan_linear_state(batch_shape, cfg: KANLinearConfig, *, device=None,
                             dtype=dtype)
 
 
+@torch.no_grad()
+def kan_linear_update_grid(layer: KANLinear, x: torch.Tensor,
+                           margin: float = 0.01) -> KANLinear:
+    """Adaptive grid refit of one layer (``update_grid``,
+    ``efficientkan.py:184-221``): move the knots toward the empirical
+    distribution of ``x`` (``refine_grid``) and refit the spline
+    coefficients so that the layer computes the same function.  The new
+    grid and spline weight are copied into the layer's own buffer and
+    ``Parameter`` (shapes unchanged), so optimiser state stays attached.
+    Returns the layer."""
+    cfg = layer.cfg
+    x2 = x.reshape(-1, cfg.in_features).to(layer.grid.dtype)
+    bases = bspline_basis(x2, layer.grid, cfg.spline_order)     # (B, in, C)
+    sw = _scaled_spline_weight(layer)                           # (out, in, C)
+    y_unreduced = torch.einsum("bic,oic->bio", bases, sw)       # (B, in, out)
+    new_grid = refine_grid(x2, cfg.grid_size, cfg.spline_order,
+                           cfg.grid_eps, margin)
+    new_coeff = curve2coeff(x2, y_unreduced, new_grid, cfg.spline_order)
+    # Fold the fit back into the raw weight so the scaled value is kept.
+    if cfg.standalone_spline_scaler:
+        scaler = layer.spline_scaler[..., None]
+        new_coeff = new_coeff / torch.where(scaler == 0, 1.0, scaler)
+    layer.grid.copy_(new_grid)
+    layer.spline_weight.copy_(new_coeff)
+    return layer
+
+
 def kan_linear_regularization(layer: KANLinear,
                               regularize_activation: float = 1.0,
                               regularize_entropy: float = 1.0,
@@ -313,6 +348,24 @@ def kan_regularization(params: KAN, **kw):
     """The sum of every layer's ``kan_linear_regularization``."""
     return sum(kan_linear_regularization(layer, **kw)
                for layer in params.layers)
+
+
+@torch.no_grad()
+def kan_update_grid(params: KAN, x: torch.Tensor,
+                    margin: float = 0.01) -> KAN:
+    """Stack-level adaptive grid refit (``update_grid`` over the whole
+    KAN): each layer refits its knots to the empirical distribution of
+    its own input, ``x`` propagated through the layers already refit
+    from the fresh hysteresis state, keeping the function the stack
+    computes.  In place (``kan_linear_update_grid``): the optimiser's
+    ``Parameter`` objects and moments stay as they are.  Returns
+    ``params``."""
+    state = kan_state_init(x.shape[:-1], params.cfg, device=x.device,
+                           dtype=x.dtype)
+    for layer, s in zip(params.layers, state):
+        kan_linear_update_grid(layer, x, margin)
+        x, _ = kan_linear_apply(layer, x, s)
+    return params
 
 
 # ---------------------------------------------------------------------- KANFET

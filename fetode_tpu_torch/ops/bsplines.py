@@ -1,9 +1,9 @@
 """B-spline basis evaluation and least-squares coefficient fitting.
 
 Counterpart of ``fetode_tpu/ops/bsplines.py``: the Cox-de Boor recursion
-on a per-feature knot grid, and the batched least-squares fit of spline
-coefficients.  ``refine_grid`` (the adaptive grid refit) arrives with
-the training slice.
+on a per-feature knot grid, the batched least-squares fit of spline
+coefficients, and ``refine_grid``, the data-adaptive knot grid of the
+live grid refit (``nn/kan.py: kan_update_grid``).
 
 Shapes
 ------
@@ -14,6 +14,7 @@ bases : (..., in_features, grid_size + spline_order)
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -78,3 +79,54 @@ def curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,
     b = y.cpu().transpose(0, 1)                              # (in, B, out)
     sol = torch.linalg.lstsq(a, b, driver="gelsd").solution  # (in, C, out)
     return sol.permute(2, 0, 1).contiguous().to(device)
+
+
+def quantile_indices(batch: int, grid_size: int) -> np.ndarray:
+    """The sample ranks ``refine_grid`` takes as knots: the JAX package's
+    ``jnp.linspace(0, batch - 1, grid_size + 1).astype(int32)``, its float32
+    arithmetic reproduced as XLA compiles it (the division by
+    ``grid_size`` folded into a float32 reciprocal and reassociated: point
+    i is ``i * ((batch - 1) * (1 / grid_size))``, the last exact), then
+    truncated.  A float64 or a plain float32 linspace rounds some ranks
+    the other way (at batch 109, grid 12, point 7 is 63, not 62)."""
+    r = np.float32(1.0) / np.float32(grid_size)
+    pts = np.arange(grid_size, dtype=np.float32) * (np.float32(batch - 1) * r)
+    pts = np.append(pts, np.float32(batch - 1))
+    return pts.astype(np.int32).astype(np.int64)
+
+
+def refine_grid(x: torch.Tensor, grid_size: int, spline_order: int,
+                grid_eps: float = 0.02, margin: float = 0.01
+                ) -> torch.Tensor:
+    """Data-adaptive knot grid blended with a uniform grid (the capability
+    of the reference's ``update_grid``, ``efficientkan.py:184-221``):
+    interior knots are a ``grid_eps`` blend of uniform spacing and
+    empirical quantiles of ``x``, extended by ``spline_order`` knots on
+    each side.  The same knot count as before, so every kernel that reads
+    a grid takes the refit one.
+
+    Args:
+      x: (batch, in_features) samples observed by the layer.
+
+    Returns:
+      (in_features, grid_size + 2*spline_order + 1) new knot grid.
+    """
+    batch = x.shape[0]
+    xs = torch.sort(x, dim=0).values                          # (B, in)
+    idx = torch.from_numpy(quantile_indices(batch, grid_size)).to(x.device)
+    grid_adaptive = xs[idx]                                   # (G+1, in)
+
+    span = xs[-1] - xs[0] + 2 * margin                        # (in,)
+    step = span / grid_size
+    ar = torch.arange(grid_size + 1, dtype=x.dtype, device=x.device)[:, None]
+    grid_uniform = ar * step[None, :] + xs[0][None, :] - margin
+
+    interior = grid_eps * grid_uniform + (1 - grid_eps) * grid_adaptive
+
+    kw = dict(dtype=x.dtype, device=x.device)
+    below = interior[:1] - step[None, :] * torch.arange(
+        spline_order, 0, -1, **kw)[:, None]
+    above = interior[-1:] + step[None, :] * torch.arange(
+        1, spline_order + 1, **kw)[:, None]
+    full = torch.cat([below, interior, above], dim=0)         # (G+2k+1, in)
+    return full.T.contiguous()

@@ -42,6 +42,7 @@ from fetode_tpu_torch.ops.kanfet_node import (
     _check_cuda,
     _check_inputs,
     _check_stack,
+    ts_stride,
     _dims_tensor,
     _geo_ints,
     _pack_for,
@@ -102,7 +103,7 @@ def record_attempts_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     rec = torch.zeros((max_steps, record_width(D), B), dtype=x0s.dtype,
                       device=x0s.device)
     n_att = torch.zeros(B, dtype=torch.int32, device=x0s.device)
-    t_end = ts[0].to(x0s.dtype).expand(B).clone()
+    t_end = ts[..., 0].to(x0s.dtype).expand(B).clone()
 
     def record(m, active, t, dt, adv, y, ks):
         row = torch.cat([t[:, None], dt[:, None], adv[:, None].to(y.dtype),
@@ -129,11 +130,11 @@ def replay_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     ``x0s``."""
     D = _check_stack(cfg)
     _check_inputs(x0s, ts, D)
-    B, T = x0s.shape[0], ts.shape[0]
+    B, T = x0s.shape[0], ts.shape[-1]
     rec = records.rec.to(x0s.dtype)
     n_att = records.n_att
     t_end = records.t_end.to(x0s.dtype)
-    ts = ts.to(x0s.dtype)
+    ts = ts.to(x0s.dtype).expand(B, T)
     tiny = torch.tensor(1e-12, dtype=x0s.dtype, device=x0s.device)
     rhs = _field(params, cfg, B, x0s)
     y = x0s
@@ -148,14 +149,13 @@ def replay_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
         dt_safe = torch.where(dt == 0.0, 1.0, dt)
         y1, _, ks = rk_stage_loop(rhs, t[:, None], y, dt[:, None], DOPRI5)
         dy, r3, r4, r5 = _dense_coeffs(y, y1, ks, dt[:, None])
-        theta = torch.clamp((ts[None, :] - t[:, None]) / dt_safe[:, None],
-                            0.0, 1.0)
-        write = (adv[:, None] & (ts[None, :] > t[:, None])
-                 & (ts[None, :] <= (t + dt + tiny)[:, None]))
+        theta = torch.clamp((ts - t[:, None]) / dt_safe[:, None], 0.0, 1.0)
+        write = (adv[:, None] & (ts > t[:, None])
+                 & (ts <= (t + dt + tiny)[:, None]))
         out = torch.where(write[..., None],
                           _dense_eval(y, dy, r3, r4, r5, theta), out)
         y = torch.where(adv[:, None], y1, y)
-    unreached = ts[None, :] > (t_end + tiny)[:, None]
+    unreached = ts > (t_end + tiny)[:, None]
     return torch.where(unreached[..., None], y[:, None, :], out)
 
 
@@ -246,14 +246,14 @@ def _launchers():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     G = ctypes.POINTER(I)
     fwd, bwd = lib.kanfet_adjoint_fwd, lib.kanfet_adjoint_bwd
-    fwd.argtypes = [P] * 9 + [G] + [I] * 3 + [F] * 5 + [P]
-    bwd.argtypes = [P] * 11 + [G] + [I] * 2 + [F] * 3 + [P]
+    fwd.argtypes = [P] * 9 + [G] + [I] * 4 + [F] * 5 + [P]
+    bwd.argtypes = [P] * 11 + [G] + [I] * 3 + [F] * 3 + [P]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _launch_fwd(packed, geo, x0s, ts, rtol, atol, max_steps):
-    B, T, D = x0s.shape[0], ts.shape[0], geo["D"]
+    B, T, D = x0s.shape[0], ts.shape[-1], geo["D"]
     dev = x0s.device
     check_layout(_KERNEL_NAME, geo)
     dims = _dims_tensor(geo, dev)
@@ -267,8 +267,8 @@ def _launch_fwd(packed, geo, x0s, ts, rtol, atol, max_steps):
     rc = _launchers()[0](
         x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), dims.data_ptr(),
         out.data_ptr(), rec.data_ptr(), n_att.data_ptr(), t_end.data_ptr(),
-        scratch.data_ptr(), _geo_ints(geo, "fwd"), B, T, int(max_steps),
-        float(rtol), float(atol), geo["gate"], geo["alpha"],
+        scratch.data_ptr(), _geo_ints(geo, "fwd"), B, T, ts_stride(ts),
+        int(max_steps), float(rtol), float(atol), geo["gate"], geo["alpha"],
         1.0 - geo["alpha"], stream)
     if rc != 0:
         raise RuntimeError(f"kanfet_adjoint_fwd kernel launch failed: CUDA "
@@ -287,7 +287,10 @@ def grad_rows(geo: dict, B: int) -> int:
 
 def _launch_bwd(packed, geo, ts, records, ybar):
     rec, n_att, t_end = records
-    B, T, D = rec.shape[-1], ts.shape[0], geo["D"]
+    B, T, D = rec.shape[-1], ts.shape[-1], geo["D"]
+    if ts.ndim == 2 and ts.shape[0] != B:
+        raise ValueError(f"ts must be (T,) or ({B}, T), got "
+                         f"{tuple(ts.shape)}")
     if ybar.shape != (B, T, D):
         raise ValueError(f"ybar must be {(B, T, D)}, got {tuple(ybar.shape)}")
     if (rec.ndim != 3 or rec.shape[1] != record_width(D)
@@ -317,8 +320,8 @@ def _launch_bwd(packed, geo, ts, records, ybar):
         ts.data_ptr(), ybar.data_ptr(), rec.data_ptr(), n_att.data_ptr(),
         t_end.data_ptr(), packed.data_ptr(), dims.data_ptr(), part.data_ptr(),
         scratch.data_ptr(), grads.data_ptr(), x0bar.data_ptr(),
-        _geo_ints(geo, "bwd"), B, T, geo["gate"], geo["alpha"],
-        1.0 - geo["alpha"], stream)
+        _geo_ints(geo, "bwd"), B, T, ts_stride(ts), geo["gate"],
+        geo["alpha"], 1.0 - geo["alpha"], stream)
     if rc != 0:
         raise RuntimeError(f"kanfet_adjoint_bwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -399,8 +402,9 @@ def kanfet_solve_train(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
                        atol: float = 1e-9, max_steps: int = 256
                        ) -> torch.Tensor:
     """Solve the autonomous KANFET NODE for a batch of initial conditions,
-    differentiably: ``(B, D)`` float32 ``x0s``, ``(T,)`` float32 ``ts`` ->
-    ``(B, T, D)`` — the forward of ``kanfet_solve``.  Autograd gives the
+    differentiably: ``(B, D)`` float32 ``x0s``, ``(T,)`` or ``(B, T)``
+    float32 ``ts`` (a row of times a trajectory) -> ``(B, T, D)`` — the
+    forward of ``kanfet_solve``.  Autograd gives the
     gradients of every trainable parameter of ``params`` (none for the knot
     grid) and of ``x0s`` when it requires grad; none for ``ts``."""
     D = _check_stack(cfg)

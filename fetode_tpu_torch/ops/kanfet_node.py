@@ -62,13 +62,24 @@ def _check_stack(cfg: KANConfig) -> int:
 
 
 def _check_inputs(x0s: torch.Tensor, ts: torch.Tensor, D: int) -> None:
+    """x0s (B, D); ts (T,), shared by every row, or (B, T), a row of times
+    a trajectory."""
     if x0s.ndim != 2 or x0s.shape[1] != D or x0s.shape[0] == 0:
         raise ValueError(f"x0s must be (B, {D}) with B >= 1, got "
                          f"{tuple(x0s.shape)}")
-    if ts.ndim != 1 or ts.shape[0] == 0:
-        raise ValueError(f"ts must be (T,) with T >= 1, got {tuple(ts.shape)}")
+    B = x0s.shape[0]
+    if ts.ndim not in (1, 2) or ts.shape[-1] == 0 or (
+            ts.ndim == 2 and ts.shape[0] != B):
+        raise ValueError(f"ts must be (T,) or ({B}, T) with T >= 1, got "
+                         f"{tuple(ts.shape)}")
     if ts.device != x0s.device:
         raise ValueError(f"x0s on {x0s.device} but ts on {ts.device}")
+
+
+def ts_stride(ts: torch.Tensor) -> int:
+    """The kernels' time operand stride: trajectory b reads its times at
+    ``ts + b * stride``, 0 for one shared (T,) row, T for (B, T)."""
+    return 0 if ts.ndim == 1 else ts.shape[1]
 
 
 def kanfet_solve_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
@@ -77,8 +88,9 @@ def kanfet_solve_reference(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
                            max_steps: int = 512) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``(B, D)`` initial conditions
     -> ``(B, T, D)`` trajectories, each row with its own step control —
-    the contract of ``vmap(predict)`` in while mode.  Works in the dtype
-    of ``x0s`` (the kernel is float32 only)."""
+    the contract of ``vmap(predict)`` in while mode; ``ts`` is (T,) or (B,
+    T), as for ``kanfet_solve``.  Works in the dtype of ``x0s`` (the
+    kernel is float32 only)."""
     D = _check_stack(cfg)
     _check_inputs(x0s, ts, D)
     state = kan_state_init((x0s.shape[0],), cfg, device=x0s.device,
@@ -270,7 +282,7 @@ def _launcher():
 
     fn = load_library(_KERNEL_NAME).kanfet_node_solve
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 6 + [ctypes.POINTER(I)] + [I] * 3 + [F] * 5 + [P]
+    fn.argtypes = [P] * 6 + [ctypes.POINTER(I)] + [I] * 4 + [F] * 5 + [P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -286,8 +298,10 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
         widths, K, grid and order, one order, grid, gate slope and alpha
         across layers, D <= 32 (``stack_geometry``).
       x0s: (B, D) float32 initial conditions; ts: (T,) float32 output
-        times, ts[0] the start (any order after it: every accepted step
-        tests all T times).
+        times shared by every trajectory, or (B, T), trajectory b's times
+        in row b (multiple shooting's segments); a row's first time is
+        its start (any order after it: every accepted step tests all T
+        times).
 
     Returns:
       (B, T, D) trajectories — the contract of
@@ -304,7 +318,7 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
         return kanfet_solve_reference(params, cfg, x0s, ts, rtol=rtol,
                                       atol=atol, max_steps=max_steps)
     _check_cuda(x0s, ts, "kanfet_solve")
-    B, T = x0s.shape[0], ts.shape[0]
+    B, T = x0s.shape[0], ts.shape[-1]
     dev = x0s.device
     geo = stack_geometry(cfg)
     check_layout(_KERNEL_NAME, geo)
@@ -316,8 +330,8 @@ def kanfet_solve(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     rc = _launcher()(
         x0s.data_ptr(), ts.data_ptr(), packed.data_ptr(), dims.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), _geo_ints(geo, "fwd"), B, T,
-        int(max_steps), float(rtol), float(atol), geo["gate"], geo["alpha"],
-        1.0 - geo["alpha"], stream)
+        ts_stride(ts), int(max_steps), float(rtol), float(atol), geo["gate"],
+        geo["alpha"], 1.0 - geo["alpha"], stream)
     if rc != 0:
         raise RuntimeError(f"kanfet_node kernel launch failed: CUDA error "
                            f"{rc}")

@@ -201,8 +201,9 @@ def check_geometry(kan, D: int, K: int, H: int) -> None:
             f"mlp_node: the kernels take the init-time KAN of "
             f"KanFetNODESpec.kan_cfg ([{D * K}, {H}, {H}], grid {GRID_SIZE}, "
             f"order {ORDER}, standalone scaler, no other branch), got layers "
-            f"{dims}; other geometries wait for grid refinement (ROADMAP "
-            "A.2)")
+            f"{dims} at grid {[c.grid_size for c in cfgs]}; a grid refit "
+            "(nn/kan.py: kan_update_grid) keeps that geometry and only moves "
+            "the knots, which the kernels read as operands")
 
 
 def mlp_weights(params) -> List[torch.Tensor]:

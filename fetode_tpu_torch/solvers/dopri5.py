@@ -15,7 +15,11 @@ Two forms around one loop:
   finished or has used ``max_steps`` attempts.  This equals
   ``jax.vmap(odeint_dopri5)``, which is how the JAX package's serving
   path gets per-trajectory step control (``cli.py:693-694``); PyTorch
-  cannot vmap a data-dependent loop, so the batch is written out.
+  cannot vmap a data-dependent loop, so the batch is written out.  The
+  output times are ``(T,)``, shared by every row, or ``(B, T)``, each row
+  its own (``jax.vmap`` over both ``y0`` and ``ts``, as multiple shooting
+  solves its segments): row b then starts at ``ts[b, 0]`` and ends at
+  ``ts[b, T-1]``.
 
 Modes:
 
@@ -101,18 +105,20 @@ def _dense_eval(y0, dy, r3, r4, r5, theta):
 def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
                 dfactor, record=None, norm_fn=error_norm):
     """The early-exit loop over ``(B, D)`` rows, each with its own step
-    control.  ``func(t (B, 1), y (B, D), *args) -> (B, D)``.  Returns
+    control.  ``func(t (B, 1), y (B, D), *args) -> (B, D)``; ``ts`` is
+    ``(T,)`` or ``(B, T)``, one row of times a row of ``y0``.  Returns
     ``(B, T, D)`` and the rows' ``Dopri5Stats``.  ``record(m, active, t,
     dt, accepted, y, ks)``, when given, sees attempt m of every row before
     the state advances (the rows in ``active`` are making their m-th
     attempt)."""
     B, D = y0.shape
-    T = ts.shape[0]
-    t0, t_final = ts[0], ts[-1]
+    T = ts.shape[-1]
+    ts = ts.expand(B, T)
+    t0, t_final = ts[:, 0], ts[:, -1]
     tiny = torch.tensor(1e-12, dtype=ts.dtype, device=ts.device)
     end = t_final - tiny
 
-    t = t0.expand(B).clone()
+    t = t0.clone()
     f = func(t[:, None], y0, *args)
     dt = torch.minimum(
         _initial_step(func, t[:, None], y0, f, rtol, atol, args).detach(),
@@ -151,14 +157,13 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
 
         # Dense output at every requested time this step covers.
         dy, r3, r4, r5 = _dense_coeffs(y, y1, ks, dt[:, None])
-        theta = torch.clamp((ts[None, :] - t[:, None]) / dt_safe[:, None],
-                            0.0, 1.0)
+        theta = torch.clamp((ts - t[:, None]) / dt_safe[:, None], 0.0, 1.0)
         dense = _dense_eval(y, dy, r3, r4, r5, theta)
         adv = active & accept & ~finished
         if record is not None:
             record(m, active, t, dt, adv, y, ks)
-        write = (adv[:, None] & (ts[None, :] > t[:, None])
-                 & (ts[None, :] <= (t + dt + tiny)[:, None]))
+        write = (adv[:, None] & (ts > t[:, None])
+                 & (ts <= (t + dt + tiny)[:, None]))
         ys = torch.where(write[..., None], dense, ys)
 
         # A row that is done stays frozen, as a vmapped while_loop lane does.
@@ -172,7 +177,7 @@ def _solve_rows(func, y0, ts, args, rtol, atol, max_steps, safety, ifactor,
         m += 1
 
     # Outputs past the frontier a row reached hold its last state.
-    unreached = ts[None, :] > (t + tiny)[:, None]
+    unreached = ts > (t + tiny)[:, None]
     return (torch.where(unreached[..., None], y[:, None, :], ys),
             Dopri5Stats(n_acc, n_rej, t >= end))
 
@@ -193,6 +198,7 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
 
     Args:
       ts: (T,) increasing output times; integration runs [ts[0], ts[-1]].
+        With ``per_row`` also (B, T), each row of ``y0`` its own times.
       mode: 'auto', 'scan' or 'while' (see the module docstring).
       per_row: False — one controller over the whole of ``y0`` (any shape),
         ``func(t, y)`` with a scalar ``t``; returns ``(T, *y0.shape)``.
@@ -217,8 +223,14 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
         if y0.ndim != 2:
             raise ValueError(f"per_row=True takes a (B, D) state, got "
                              f"{tuple(y0.shape)}")
+        if ts.ndim not in (1, 2) or (ts.ndim == 2
+                                     and ts.shape[0] != y0.shape[0]):
+            raise ValueError(f"per_row=True takes (T,) or (B, T) times for "
+                             f"{y0.shape[0]} rows, got {tuple(ts.shape)}")
         rows, fn = y0, func
     else:
+        if ts.ndim != 1:
+            raise ValueError(f"ts must be (T,), got {tuple(ts.shape)}")
         shape = y0.shape
         rows = y0.reshape(1, -1)
 
@@ -228,7 +240,7 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, ts: torch.Tensor, *args,
     if mode == "auto":
         # As in the JAX package, the first stage carries whatever the field
         # closes over (its parameters), so it is checked with y0.
-        f0 = fn(ts[:1].expand(rows.shape[0])[:, None], rows, *args)
+        f0 = fn(ts[..., :1].expand(rows.shape[0], 1), rows, *args)
         mode = "scan" if _under_autograd(rows, f0, *args) else "while"
     with torch.set_grad_enabled(mode == "scan" and torch.is_grad_enabled()):
         ys, stats = _solve_rows(fn, rows, ts, args, rtol, atol, max_steps,

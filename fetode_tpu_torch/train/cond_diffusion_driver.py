@@ -17,9 +17,16 @@ backward); validation and sampling run without autograd, so the forward
 kernel alone, recording nothing (the JAX package downgrades its kernel to
 the while-mode solve there).
 
-Not ported yet, each raising an error that names its ROADMAP item: the
-mesh (``mesh_devices``, ``mesh_model``), checkpoint/resume (``ckpt_dir``,
-``ckpt_every``, ``resume``) and the AOT cache (``aot_cache``).
+Checkpoint/resume (``ckpt_dir``, ``ckpt_every``, ``resume``;
+``train/checkpoint.py: DurableLoop``) saves the train state, the best
+snapshot and its validation loss every ``ckpt_every`` epochs and after
+the last; a resumed run continues the exact curve of an unbroken one,
+since every epoch's shuffle, step generators and validation draws are
+seeded from the run seed and the epoch alone (the JAX package carries a
+key chain in the payload instead).  ``aot_cache`` is accepted and
+logged: the port compiles nothing per run.  Not ported yet, raising an
+error that names its ROADMAP item: the mesh (``mesh_devices``,
+``mesh_model``).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from fetode_tpu_torch.nn.diffusion import (
     make_schedule,
     q_sample,
 )
+from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
 from fetode_tpu_torch.train.forecast_driver import _NOT_PORTED
 from fetode_tpu_torch.train.loop import (
     derived_seed,
@@ -79,9 +87,11 @@ class CondDiffusionRun:
     # Not ported (see forecast_driver._NOT_PORTED).
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
+    # Accepted and logged: the port has no compiled program to cache.
     aot_cache: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
     device: str = "cuda"
@@ -123,6 +133,7 @@ def train_conditional_diffusion(spec: CondDenoiserSpec, past_fut,
     Ly, D)) numpy arrays.  Returns (best params, history with ``train``,
     ``val`` and ``wall_seconds``)."""
     _check_ported(run)
+    aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     sched = _schedule(run, device)
     params = cond_denoiser_init(torch.Generator().manual_seed(run.seed), spec,
@@ -139,9 +150,10 @@ def train_conditional_diffusion(spec: CondDenoiserSpec, past_fut,
               for a in past_fut["val"])
     noise_seed = derived_seed(run.seed, _NOISE)
     best = (np.inf, copy.deepcopy(state.params))
+    dl, start_ep, state, best, _ = resume_run(run, state, best, log)
     history = {"train": [], "val": []}
     t0 = time.perf_counter()
-    for ep in range(run.epochs):
+    for ep in range(start_ep, run.epochs):
         bp, bf = window_batches(*past_fut["train"], run.batch_size,
                                 seed=run.seed + ep)
         state, losses = epoch_fn(state, (noise_seed, ep), (
@@ -155,6 +167,8 @@ def train_conditional_diffusion(spec: CondDenoiserSpec, past_fut,
         history["val"].append(vl)
         if vl < best[0]:
             best = (vl, copy.deepcopy(state.params))
+        dl.save(ep + 1, state=state, best_crit=best[0], best_params=best[1],
+                last=ep + 1 == run.epochs)
         if log is not None and ep % run.log_every == 0:
             log(f"epoch {ep:3d} | eps-loss {history['train'][-1]:.5f} | "
                 f"val {vl:.5f}")

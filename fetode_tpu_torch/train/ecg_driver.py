@@ -22,12 +22,17 @@ latent solves share one launch of the member kernels on the card
 ``compare_noise_population`` runs the clean-vs-noisy grid through it,
 ``compare_noise`` the same grid one run at a time.
 
-Not ported yet, each raising an error that names its ROADMAP item:
-the mesh (``mesh_devices``, ``mesh_model``), checkpoint/resume
-(``ckpt_dir``, ``ckpt_every``, ``resume``) and the AOT cache
-(``aot_cache``, ``aot_tag``).  The population trainer refuses
-``ckpt_dir`` and ``mesh_model > 1`` with ``ValueError``, as the JAX
-package's does.
+Checkpoint/resume (``ckpt_dir``, ``ckpt_every``, ``resume``;
+``train/checkpoint.py: DurableLoop``): the train state, the best
+snapshot and its accuracy are saved after every block that ends on a
+multiple of ``ckpt_every`` epochs and after the last; a resumed run
+continues the exact curve of an unbroken one, since every epoch's
+shuffle, step generators and eval draws are seeded from the run seed and
+the epoch alone.  ``aot_cache`` / ``aot_tag`` are accepted and logged:
+the port compiles nothing per run.  Not ported yet, raising an error
+that names its ROADMAP item: the mesh (``mesh_devices``,
+``mesh_model``).  The population trainer refuses ``ckpt_dir`` and
+``mesh_model > 1`` with ``ValueError``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from fetode_tpu_torch.data.ecg200 import batch_iterator
+from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
 from fetode_tpu_torch.train.loop import (
     PopulationState,
     derived_seed,
@@ -57,11 +63,6 @@ from fetode_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh_devices": "ROADMAP A.11 (multi-device)",
     "mesh_model": "ROADMAP A.11 (multi-device)",
-    "ckpt_dir": "ROADMAP A.5 (checkpoint/resume)",
-    "ckpt_every": "ROADMAP A.5 (checkpoint/resume)",
-    "resume": "ROADMAP A.5 (checkpoint/resume)",
-    "aot_cache": "ROADMAP A.5 (aot_cache)",
-    "aot_tag": "ROADMAP A.5 (aot_cache)",
 }
 
 # Streams of the seeds derived from run.seed: step noise, eval draws.
@@ -87,9 +88,11 @@ class ECGRun:
     # Not ported (see _NOT_PORTED).
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
+    # Accepted and logged: the port has no compiled program to cache.
     aot_cache: str = ""
     aot_tag: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
@@ -175,9 +178,11 @@ def train_ecg_model(init_fn: Callable, apply_fn: Callable, data,
                                                                  y_test)
     history = {"loss": [], "train_acc": [], "test_acc": []}
     best = (-1.0, copy.deepcopy(state.params))
+    aot_cache_note(run.aot_cache, log)
+    dl, start_ep, state, best, _ = resume_run(run, state, best, log)
     t0 = time.perf_counter()
     E = max(1, run.epochs_per_call)
-    for ep in range(0, run.epochs, E):
+    for ep in range(start_ep, run.epochs, E):
         n = min(E, run.epochs - ep)
         shuffles = [batch_iterator(x_train, y_train, run.batch_size,
                                    seed=run.seed + ep + i) for i in range(n)]
@@ -195,6 +200,8 @@ def train_ecg_model(init_fn: Callable, apply_fn: Callable, data,
         history["test_acc"].append(te_acc)
         if te_acc > best[0]:
             best = (te_acc, copy.deepcopy(state.params))
+        dl.save(ep + n, state=state, best_crit=best[0], best_params=best[1],
+                last=ep + n >= run.epochs)
         # Log whenever the block [ep, ep+n) crossed a log_every boundary,
         # labelled with the last epoch the metrics were evaluated after.
         if log is not None and (
@@ -238,6 +245,7 @@ def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
                          "over 'data'; mesh_model tensor-sharding is not "
                          "supported here")
     _check_ported(run)
+    aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     x_train, y_train, x_test, y_test = data
     P = len(members)

@@ -16,9 +16,16 @@ solve batches a whole chunk under one step controller, so the chunks are
 cut as the JAX package cuts them.  On the card evaluation runs the
 forward kernels (``ops/ode_dyn.py`` without records, ``ops/ddpm.py``).
 
-Not ported yet, each raising an error that names its ROADMAP item: the
-mesh (``mesh_devices``, ``mesh_model``), checkpoint/resume (``ckpt_dir``,
-``ckpt_every``, ``resume``) and the AOT cache (``aot_cache``).
+Checkpoint/resume (``ckpt_dir``, ``ckpt_every``, ``resume``;
+``train/checkpoint.py: DurableLoop``) saves the train state, the best
+snapshot and its validation score every ``ckpt_every`` epochs and after
+the last; a resumed run continues the exact curve of an unbroken one,
+since every epoch's shuffle, step generators and validation draws are
+seeded from the run seed and the epoch alone (the JAX package's
+diffusion trainer carries a key chain in the payload instead).
+``aot_cache`` is accepted and logged: the port compiles nothing per run.
+Not ported yet, raising an error that names its ROADMAP item: the mesh
+(``mesh_devices``, ``mesh_model``).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from fetode_tpu_torch.models.forecasting import (
     latent_ode_forecaster_init,
 )
 from fetode_tpu_torch.nn.diffusion import make_schedule
+from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
 from fetode_tpu_torch.train.loop import (
     derived_seed,
     init_state,
@@ -59,10 +67,6 @@ from fetode_tpu_torch.utils.device import resolve_device
 _NOT_PORTED = {
     "mesh_devices": "ROADMAP A.11 (multi-device)",
     "mesh_model": "ROADMAP A.11 (multi-device)",
-    "ckpt_dir": "ROADMAP A.5 (checkpoint/resume)",
-    "ckpt_every": "ROADMAP A.5 (checkpoint/resume)",
-    "resume": "ROADMAP A.5 (checkpoint/resume)",
-    "aot_cache": "ROADMAP A.5 (aot_cache)",
 }
 
 # Streams of the seeds derived from run.seed: step noise, validation,
@@ -87,9 +91,11 @@ class ForecastRun:
     # Not ported (see _NOT_PORTED).
     mesh_devices: int = 0
     mesh_model: int = 1
+    # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
     ckpt_dir: str = ""
     ckpt_every: int = 0
     resume: bool = False
+    # Accepted and logged: the port has no compiled program to cache.
     aot_cache: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
     device: str = "cuda"
@@ -127,9 +133,10 @@ def prepare_windows(X: np.ndarray, y: np.ndarray, run: ForecastRun):
     return out, sx, sy
 
 
-def _setup(run: ForecastRun, X, y):
+def _setup(run: ForecastRun, X, y, log):
     """The device, the windows as device tensors, the target scaler."""
     _check_ported(run)
+    aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     windows, _, sy = prepare_windows(X, y, run)
     tensors = {k: tuple(torch.as_tensor(a, dtype=torch.float32,
@@ -156,7 +163,7 @@ def train_point_forecaster(spec: LatentODEForecasterSpec, X, y,
     """MSE point-forecast trainer.  Returns (best params, history with
     ``train``, ``val``, ``wall_seconds``, ``test_mse``,
     ``final_forecast``)."""
-    device, windows, data, sy = _setup(run, X, y)
+    device, windows, data, sy = _setup(run, X, y, log)
     params = latent_ode_forecaster_init(
         torch.Generator().manual_seed(run.seed), spec, device=device)
     state = init_state(params, _optimizer(params, run))
@@ -173,9 +180,10 @@ def train_point_forecaster(spec: LatentODEForecasterSpec, X, y,
             p, x, yt, chunk=512)
 
     best = (np.inf, copy.deepcopy(state.params))
+    dl, start_ep, state, best, _ = resume_run(run, state, best, log)
     history = {"train": [], "val": []}
     t0 = time.perf_counter()
-    for ep in range(run.epochs):
+    for ep in range(start_ep, run.epochs):
         state, losses = epoch_fn(state, _epoch_batches(windows, run, ep,
                                                        device))
         vl = eval_mse(state.params, *data["val"])
@@ -183,6 +191,8 @@ def train_point_forecaster(spec: LatentODEForecasterSpec, X, y,
         history["val"].append(vl)
         if vl < best[0]:
             best = (vl, copy.deepcopy(state.params))
+        dl.save(ep + 1, state=state, best_crit=best[0], best_params=best[1],
+                last=ep + 1 == run.epochs)
         if log is not None and (ep % run.log_every == 0
                                 or ep == run.epochs - 1):
             log(f"epoch {ep:3d} | train {history['train'][-1]:.5f} | "
@@ -205,7 +215,7 @@ def train_diffusion_forecaster(spec: DiffusionForecasterSpec, X, y,
     encoder ('mlp' or 'kan') is ``spec.encoder``.  Returns (best params,
     history with ``train``, ``val``, ``wall_seconds``, ``test_mse``,
     ``final_forecast``)."""
-    device, windows, data, sy = _setup(run, X, y)
+    device, windows, data, sy = _setup(run, X, y, log)
     sched = make_schedule(spec.diff_T, device=device)
     params = diffusion_forecaster_init(
         torch.Generator().manual_seed(run.seed), spec, device=device)
@@ -229,9 +239,10 @@ def train_diffusion_forecaster(spec: DiffusionForecasterSpec, X, y,
 
     noise_seed = derived_seed(run.seed, _NOISE)
     best = (np.inf, copy.deepcopy(state.params))
+    dl, start_ep, state, best, _ = resume_run(run, state, best, log)
     history = {"train": [], "val": []}
     t0 = time.perf_counter()
-    for ep in range(run.epochs):
+    for ep in range(start_ep, run.epochs):
         state, losses = epoch_fn(state, (noise_seed, ep),
                                  _epoch_batches(windows, run, ep, device))
         vl = eval_sample_mse(state.params, *data["val"],
@@ -240,6 +251,8 @@ def train_diffusion_forecaster(spec: DiffusionForecasterSpec, X, y,
         history["val"].append(vl)
         if vl < best[0]:
             best = (vl, copy.deepcopy(state.params))
+        dl.save(ep + 1, state=state, best_crit=best[0], best_params=best[1],
+                last=ep + 1 == run.epochs)
         if log is not None and (ep % run.log_every == 0
                                 or ep == run.epochs - 1):
             log(f"epoch {ep:3d} | eps-loss {history['train'][-1]:.5f} | "

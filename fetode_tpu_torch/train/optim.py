@@ -74,6 +74,15 @@ class Optimizer:
         else:
             raise ValueError(f"unknown optimiser {kind!r}")
 
+    def state_dict(self) -> dict:
+        """The step count (the schedule's position) and the inner
+        optimiser's moments, for a checkpoint."""
+        return {"count": self.count, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.count = int(sd["count"])
+        self.inner.load_state_dict(sd["inner"])
+
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 

@@ -247,6 +247,40 @@ def test_synthetic_data_matches_jax():
     assert set(np.unique(y_tr)) == {0, 1}
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 10, 97, 1297])
+def test_shuffle_is_the_native_runtimes(n):
+    """``data/batching.py: shuffled_indices`` is the JAX package's native
+    splitmix64 Fisher-Yates (``native/fetode_native.cpp: fet_shuffle``),
+    bit for bit, seed 0 read as 1 (ROADMAP C, F7)."""
+    from fetode_tpu.data import native
+    from fetode_tpu_torch.data.batching import shuffled_indices
+
+    assert native.available()
+    for seed in (0, 1, 7, 123456789, 2 ** 40 + 3):
+        got = shuffled_indices(n, seed)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, native.shuffled_indices(n, seed))
+    if n == 10:
+        np.testing.assert_array_equal(shuffled_indices(10, 0),
+                                      [4, 2, 8, 1, 9, 3, 0, 6, 7, 5])
+        np.testing.assert_array_equal(shuffled_indices(10, 0),
+                                      shuffled_indices(10, 1))
+
+
+@pytest.mark.parametrize("shape", [(100, 96), (8, 30), (5, 7), (3, 1)])
+def test_znorm_is_the_native_runtimes(shape):
+    """``znorm_rows`` is ``fet_znorm_rows`` bit for bit: float64 sums in
+    row order, the scale and quotient in float32 (ROADMAP C, F7)."""
+    from fetode_tpu.data import native
+
+    for seed in range(3):
+        x = (3.0 * np.random.default_rng(seed).standard_normal(shape)
+             + 1.0).astype(np.float32)
+        got = tdata.znorm_rows(x)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, native.znorm_rows(x))
+
+
 def test_load_ecg200_matches_jax(tmp_path, monkeypatch):
     """Files in the UCR layout (label in column 0): the same series, labels
     remapped to 0..C-1 across both splits; without files it raises."""
@@ -425,7 +459,7 @@ def test_refusals(case, tmp_path):
         params = TM.kanfet_node_init(torch.Generator(), mspec)
         params.kan = kan_init(torch.Generator(), KANConfig.make(
             [32, 16, 16], grid_size=7))
-        with pytest.raises(NotImplementedError, match="A.2"):
+        with pytest.raises(NotImplementedError, match="grid refit"):
             mlp_node_solve(params, torch.zeros(2, 8), mspec)
     elif case == "fixed_step":
         # The ECG models take the fixed-step solvers (tests/

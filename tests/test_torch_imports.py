@@ -80,7 +80,9 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.data.multimodal",
                  "fetode_tpu_torch.data.timefeatures",
                  "fetode_tpu_torch.solvers.adjoint",
-                 "fetode_tpu_torch.solvers.stateful"):
+                 "fetode_tpu_torch.solvers.stateful",
+                 "fetode_tpu_torch.train.checkpoint",
+                 "fetode_tpu_torch.examples.predprey_train_loop"):
         assert name in report["modules"]
 
 

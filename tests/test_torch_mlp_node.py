@@ -285,10 +285,11 @@ def test_refusals(setup):
         MN.mlp_node_fwd(w[:6] + [w[6][:, :, :-1]] + w[7:], h0)
     with pytest.raises(ValueError, match="13 operands"):
         MN.mlp_node_fwd(w[:-1], h0)
-    # A refined grid (other knots a feature) is not the kernels' KAN.
+    # Another grid size is not the kernels' KAN (a grid refit keeps the
+    # size and moves only the knots).
     m.kan = kan_init(torch.Generator().manual_seed(0), KANConfig.make(
         [32, 16, 16], grid_size=7))
-    with pytest.raises(NotImplementedError, match="A.2"):
+    with pytest.raises(NotImplementedError, match="grid refit"):
         MN.mlp_node_solve(m, h0, s["spec"])
 
 

@@ -161,8 +161,11 @@ def test_cli_refusals(tmp_path):
     assert set(vars(tcfg)) - set(vars(jcfg)) == {"device"}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["timemmd", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="checkpoint/resume"):
+    # serve --ckpt_dir is ported (tests/test_torch_checkpoint.py); a
+    # directory without checkpoints is refused
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         cli.main(["serve", "--source", "predprey", "--device", "cpu",
-                  "--ckpt_dir", "x", "--out-dir", str(tmp_path)])
+                  "--ckpt_dir", str(tmp_path / "empty"), "--out-dir",
+                  str(tmp_path)])
     with pytest.raises(ValueError, match="unknown option"):
         cli.main(["serve", "--no_such_flag", "1", "--out-dir", str(tmp_path)])

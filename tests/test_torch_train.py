@@ -48,8 +48,8 @@ from fetode_tpu_torch.nn.kan import KAN, kan_regularization
 from fetode_tpu_torch.ops import kanfet_adjoint as KA
 from fetode_tpu_torch.train import loop
 from fetode_tpu_torch.train.optim import cosine_decay_schedule, make_optimizer
+from fetode_tpu_torch.train.checkpoint import CheckpointManager
 from fetode_tpu_torch.train.predprey_driver import (
-    _NOT_PORTED,
     PredPreyRun,
     train_predprey,
 )
@@ -317,13 +317,35 @@ def test_cli_predprey_on_cpu(tmp_path):
     assert json.loads((tmp_path / "result.json").read_text()) == result
 
 
-@pytest.mark.parametrize("knob", sorted(_NOT_PORTED))
+# The knobs that raised NotImplementedError until the step-budget ladder,
+# shooting, anchoring, the grid refit, checkpoints and the AOT flag were
+# ported; each now runs, or raises the JAX driver's ValueError.
+_JAX_KNOBS = ("aot_cache", "anchor_cycles", "budget_headroom", "ckpt_dir",
+              "ckpt_every", "dense_anchor", "grid_update_every",
+              "jitter_anchor", "phase_anchor_periods", "resume",
+              "select_anchor_k", "shooting_devices", "shooting_points",
+              "step_budget_schedule")
+_JAX_VALUE_ERRORS = {"jitter_anchor": "requires dense_anchor",
+                     "shooting_devices": "requires shooting_points"}
+
+
+@pytest.mark.parametrize("knob", _JAX_KNOBS)
 def test_unported_predprey_knobs_raise(knob):
     default = {f.name: f.default for f in dataclasses.fields(PredPreyRun)}
     value = {bool: True, int: 2, float: 0.5, str: "x",
              tuple: (1,)}[type(default[knob])]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_predprey(PredPreyRun(device="cpu", **{knob: value}))
+    run = PredPreyRun(device="cpu", epochs=2, epochs_per_call=1,
+                      eval_every_call=False,
+                      spec=tpp.PredPreyNODE.kanfet(**FAST), **{knob: value})
+    if knob in _JAX_VALUE_ERRORS:
+        with pytest.raises(ValueError, match=_JAX_VALUE_ERRORS[knob]):
+            train_predprey(run, log=None)
+        return
+    logs = []
+    _, hist = train_predprey(run, log=logs.append)
+    assert hist["epoch"] == [1, 2] and np.isfinite(hist["train"]).all()
+    if knob == "aot_cache":
+        assert any("aot_cache" in m for m in logs)
 
 
 @pytest.mark.parametrize("case", ["traj_mesh", "optimizer", "plots",
@@ -340,9 +362,13 @@ def test_refusals(case, tmp_path):
             cli.main(["predprey", "--device", "cpu", "--plots",
                       "--out-dir", str(tmp_path)])
     elif case == "cli_ckpt":
-        with pytest.raises(NotImplementedError, match="checkpoint/resume"):
-            cli.main(["predprey", "--device", "cpu", "--ckpt_dir", "x",
-                      "--out-dir", str(tmp_path)])
+        # checkpoint/resume is ported: the CLI's flags reach the trainer
+        ck = str(tmp_path / "ck")
+        cli.main(["predprey", "--device", "cpu", "--ckpt_dir", ck,
+                  "--ckpt_every", "1", "--epochs", "2", "--epochs_per_call",
+                  "1", "--rtol", "1e-3", "--atol", "1e-5", "--max_steps",
+                  "32", "--out-dir", str(tmp_path)])
+        assert CheckpointManager(ck).all_steps() == [1, 2]
     elif case == "pallas_cpu":
         # the kernels take CUDA tensors; under autograd too
         spec = tpp.PredPreyNODE.kanfet(solver_mode="pallas")
