@@ -14,9 +14,11 @@ of the solvers (predprey's fixed-step methods, ``Dopri5Stats``, the
 continuous adjoint), and the rest of the predprey driver with durable
 training (per-row times on B.1 / B.2 for multiple shooting, the
 step-budget ladder, anchored training, the live grid refit,
-kill-and-resume on four drivers and ``serve --ckpt_dir``) — on the card
-and checks them, in phases that run in order; any failure exits
-non-zero.
+kill-and-resume on four drivers and ``serve --ckpt_dir``), the predprey
+variants (the residual head after and inside the solve, the Euler
+rollout, the KAN-RNN delta model), the classes with the reference's
+names, ``diag/`` and the serving-bundle example twin — on the card and
+checks them, in phases that run in order; any failure exits non-zero.
 
 1. Device: CUDA must be present; prints the card's name and power limit.
 2. Build: compiles every kernel of the paths from ``fetode_tpu_torch/csrc``,
@@ -502,6 +504,43 @@ KANFET [2, 10, 2] at the preset (dopri5 rtol 1e-7 / atol 1e-9,
     the bundle serves the checkpoint's best parameters, requests of B =
     1, 8 and 20 equal to direct ``predict_batch`` calls with them.
 
+The predprey variants (ROADMAP A.4) at the reference's widths (KANFET
+[2, 10, 2], grid 5, K = 8, dopri5 at rtol 1e-7 / atol 1e-9, head
+bottleneck 32; the KAN-RNN at seq_len 16, hidden 64, 10 bases), and the
+classes and diagnostics of the last single-device slice:
+
+51. (a) ``predict_with_head`` with the head after the solve, no grad, B =
+    8 on the 140 serving times: one B.1 launch, the first 40 points
+    within 1e-3 of the plain solve plus the head.  (b) Its training path
+    at B = 1 on the 35 fit times: the B.2 forward plus the head within
+    1e-3 of the plain recording solve plus the head, the full gradient's
+    cosine against plain's (each on its own mesh) > 0.999, then three
+    Adam steps launching B.2's forward and backward three times each,
+    finite losses.  (c) The head inside the field: the eager dopri5 (no
+    B.1 / B.2 launch) with each KAN layer's spline term on B.12, within
+    1e-3 of the same solve on the plain product.  (d)
+    ``euler_rollout_predict``, 34 steps at B = 256, on B.12, within 1e-3
+    of the plain product.  (e) ``predprey_rnn_rollout`` over 36 times:
+    the card within 1e-3 (relative to the largest state) of the CPU, then
+    two Adam steps with finite losses.  B.12 at every shape first
+    launched here against plain (phase 40's check).
+52. (a) ``KANFET([2, 10, 2])`` at B = 256: two B.12 launches, within
+    2e-5 of the plain product.  (b) ``FerroelectricBasis(64, 64, 12)``,
+    clean, at B = 8 and 64: one B.13 launch each, within 1e-3 of
+    ``ferro_apply`` (and phase 36's check of y, the branch and the
+    gradients); its activations on the plain op.  (c)
+    ``FerroelectricBasisConv2d(1, 8, 3, K = 3, padding 1, stateful)`` on
+    16 images of 28 x 28: ``out_chunk = 3`` within 1e-5 of the whole, the
+    card within 1e-4 of the CPU, a stateful second call finite.  (d)
+    ``sweep_loop`` on the card within 1e-5 of the CPU's.  (e)
+    ``roofline_row`` of a timed 2048^3 matmul (``time_fn``, CUDA events)
+    names the NVIDIA H100 80GB HBM3.  (f) The twin of
+    ``examples/03_serving_bundle.py``: B.5 at its buckets 8 and 32
+    against plain (phase 9's forward check), served logits equal to the
+    direct call on the padded batch, B.5 launched.  (g) ``cli symbolic
+    --plots``: where matplotlib is absent (the card's machine), an
+    ``ImportError`` naming it; else the plots.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -656,13 +695,6 @@ EXAMPLE_EPOCHS = 30
 EXAMPLE_JAX_CPU = (4.088171, 2.107977)   # ROADMAP A.5: epochs 0 and 29
 RESUME_EPOCHS = 3
 
-# Peak rates of one H100 SXM at 700 W: HBM and FP32 outside the tensor
-# cores from NVIDIA's data sheet; the special-function unit (exp2,
-# reciprocal, ...) at 16 results per SM per clock (Hopper architecture
-# white paper) and the 1.98 GHz boost clock.
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
-SFU_OPS_S = 132 * 16 * 1.98e9
 # What the counts below assume for one call, as (FP32 operations, SFU
 # results): a sigmoid 1 / (1 + exp(-z)) and a tanhf each (4, 2).
 SIG = TANH = (4, 2)
@@ -722,11 +754,25 @@ def max_abs(a, b):
 # ---------------------------------------------------------------- bounds
 
 
+def peaks():
+    """The card's peak rates, ``diag/roofline.py``'s table (one H100 SXM:
+    HBM and FP32 outside the tensor cores from NVIDIA's data sheet, the
+    special-function unit (exp2, reciprocal, ...) at 16 results per SM per
+    clock at the 1.98 GHz boost clock)."""
+    from fetode_tpu_torch.diag.roofline import device_peaks
+
+    p = device_peaks(torch.device("cuda"))
+    if p is None:
+        fail(f"no peak table for {torch.cuda.get_device_name(0)}")
+    return p
+
+
 def bound(fp32, sfu, nbytes):
     """(bound_ms, bound_by, unit) of one call: the larger of its bytes over
     the memory rate and its operations over the rate of their unit."""
-    t = {"bytes": nbytes / HBM_BYTES_S, "fp32": fp32 / FP32_OPS_S,
-         "sfu": sfu / SFU_OPS_S}
+    p = peaks()
+    t = {"bytes": nbytes / p["peak_hbm_Bps"], "fp32": fp32 / p["peak_flops"],
+         "sfu": sfu / p["peak_sfu"]}
     unit = max(t, key=t.get)
     return t[unit] * 1e3, ("bytes" if unit == "bytes" else "operations"), unit
 
@@ -5273,6 +5319,352 @@ def resume_phases(device, smi):
     return total
 
 
+# ------------------------------- the predprey variants, classes and diag
+
+
+def variants_phases(device, smi):
+    """Phase 51: the predprey variants (A.4) at the reference's widths.
+    Returns (the B.1 / B.2 fwd / B.2 bwd launches of its runs, the worst
+    B.1 / B.2 forward error against plain, the worst B.12 error)."""
+    from fetode_tpu_torch.models import predprey as P
+    from fetode_tpu_torch.nn.kan import kan_apply, kan_state_init
+    from fetode_tpu_torch.nn.mlp import residual_head_apply
+    from fetode_tpu_torch.ops import kanfet_adjoint as KA
+    from fetode_tpu_torch.ops import kanfet_node as KN
+    from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
+    from fetode_tpu_torch.solvers.fixed import rollout_discrete
+
+    t_phase = time.perf_counter()
+    mark = set(SPLINE_LOG)
+    kernels = kanfet_kernels()
+    total = [0, 0, 0]
+    errs = {"b12": 0.0}
+    rng = np.random.default_rng(51)
+    spec = P.PredPreyNODEWithHead.make()
+    params = P.predprey_head_init(torch.Generator().manual_seed(51), spec,
+                                  device=device)
+    kan, head, node = params["kan"], params["head"], spec.node
+    kw = dict(rtol=node.rtol, atol=node.atol, max_steps=node.max_steps)
+    task = P.PredPreyTask()
+    _, ts_fit, truth = P.generate_data(task, device=device)
+    target = truth[:task.n_train]
+    x0 = torch.tensor([task.x0, task.y0], device=device)
+
+    # ---- 51(a). the head after the solve, serving: B.1 at B = 8
+    x8 = torch.from_numpy(rng.uniform(0.5, 2.0, (8, 2)).astype(np.float32)
+                          ).to(device)
+    ts = torch.linspace(0.0, HORIZON, T_SERVE, device=device)
+    with torch.no_grad():
+        y, counts = counted(kernels, lambda: P.predict_with_head(
+            params, spec, x8, ts))
+        yp = residual_head_apply(head, spec.head, KN.kanfet_solve_reference(
+            kan, node.kan, x8, ts, **kw).transpose(0, 1))
+    err_b1 = max_abs(y[:N_CHECK], yp[:N_CHECK])
+    if not (y.shape == (T_SERVE, 8, 2) and torch.isfinite(y).all()
+            and counts == [1, 0, 0] and torch.allclose(
+                y[:N_CHECK], yp[:N_CHECK], rtol=TOL, atol=TOL)):
+        fail(f"predict_with_head (head after) at B = 8: launches {counts}, "
+             f"max |diff| {err_b1:.3e} against plain + head")
+    total = [a + b for a, b in zip(total, counts)]
+    print(f"predict_with_head, head after the solve, B = 8 x {T_SERVE} "
+          f"times: B.1 launches {counts[0]}, first {N_CHECK} points within "
+          f"{err_b1:.3e} of the plain solve + head ({smi})")
+
+    # ---- 51(b). three Adam steps through B.2 at B = 1, 35 fit times
+    def mse(a):
+        return torch.mean((a - target) ** 2)
+
+    def grads(solve):
+        p = copy.deepcopy(params)
+        w = KA.train_weights(p["kan"]) + list(p["head"].parameters())
+        traj = solve(p["kan"], node.kan, x0[None], ts_fit, **kw)[0]
+        out = residual_head_apply(p["head"], spec.head, traj)
+        return out.detach(), flat(torch.autograd.grad(mse(out), w))
+
+    yk, gk = grads(KA.kanfet_solve_train)
+    yq, gq = grads(KA.kanfet_solve_train_reference)
+    cos = float(torch.dot(gk, gq) / (gk.norm() * gq.norm()))
+    err_b2 = max_abs(yk, yq)
+    if not (torch.allclose(yk, yq, rtol=TOL, atol=TOL) and cos > COS_MIN):
+        fail(f"head variant through B.2: forward max |diff| {err_b2:.3e}, "
+             f"own-mesh gradient cosine {cos:.6f}")
+    p_train = copy.deepcopy(params)
+    opt = torch.optim.Adam(p_train.parameters(), lr=2e-3)
+    losses = []
+
+    def steps():
+        for _ in range(3):
+            opt.zero_grad()
+            loss = mse(P.predict_with_head(p_train, spec, x0, ts_fit))
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+    _, counts = counted(kernels, steps)
+    if not (np.isfinite(losses).all() and counts == [0, 3, 3]):
+        fail(f"head variant, 3 Adam steps: losses {losses}, launches "
+             f"{counts}")
+    total = [a + b for a, b in zip(total, counts)]
+    print(f"predict_with_head, head after, 3 Adam steps through B.2 (B = 1,"
+          f" 35 times): losses {[round(v, 6) for v in losses]}, launches "
+          f"(B.1, B.2 fwd, bwd) {counts}; forward within {err_b2:.3e} of "
+          f"plain + head, own-mesh gradient cosine {cos:.7f} ({smi})")
+
+    # ---- 51(c). the head inside the field: eager dopri5 on B.12
+    spec_in = spec._replace(head_inside=True)
+    state = kan_state_init((), node.kan, device=device)
+
+    def plain_rhs(t, z):
+        return residual_head_apply(head, spec.head,
+                                   kan_apply(kan, z, state, plain=True)[0])
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        y_in, counts = counted(kernels, lambda: count_spline(
+            "predprey head inside (phase 51)",
+            lambda: P.predict_with_head(params, spec_in, x0, ts_fit)))
+        t_in = time.perf_counter() - t1
+        yp_in = odeint_dopri5(plain_rhs, x0, ts_fit, mode="while", **kw)
+    err_in = max_abs(y_in, yp_in)
+    n12 = SPLINE_RUNS["predprey head inside (phase 51)"]
+    if not (counts == [0, 0, 0] and n12 > 0 and torch.isfinite(y_in).all()
+            and torch.allclose(y_in, yp_in, rtol=TOL, atol=TOL)):
+        fail(f"predict_with_head (head inside): launches {counts}, B.12 "
+             f"{n12}, max |diff| {err_in:.3e} against plain")
+    print(f"predict_with_head, head inside the field, B = 1: eager dopri5, "
+          f"{n12} B.12 launches, no B.1 / B.2; within {err_in:.3e} of the "
+          f"plain product; {t_in:.2f} s ({smi})")
+
+    # ---- 51(d). the Euler rollout, 34 steps at B = 256
+    x256 = torch.from_numpy(rng.uniform(0.5, 2.0, (256, 2)).astype(
+        np.float32)).to(device)
+    fresh = kan_state_init((256,), node.kan, device=device)
+    with torch.no_grad():
+        y_eu = count_spline("predprey Euler rollout (phase 51)",
+                            lambda: P.euler_rollout_predict(kan, node, x256,
+                                                            34))
+        yp_eu = rollout_discrete(
+            lambda z: kan_apply(kan, z, fresh, plain=True)[0], x256, 34,
+            residual_dt=1.0 / 34)
+    err_eu = max_abs(y_eu, yp_eu)
+    if not (y_eu.shape == (35, 256, 2) and torch.allclose(
+            y_eu, yp_eu, rtol=TOL, atol=TOL)):
+        fail(f"euler_rollout_predict at B = 256: max |diff| {err_eu:.3e}")
+    print(f"euler_rollout_predict, 34 steps at B = 256: "
+          f"{SPLINE_RUNS['predprey Euler rollout (phase 51)']} B.12 "
+          f"launches, within {err_eu:.3e} of the plain product ({smi})")
+
+    # ---- 51(e). the RNN delta model: rollout over 36 times, 2 Adam steps
+    rspec = P.PredPreyRNN()
+    rparams = P.predprey_rnn_init(torch.Generator().manual_seed(52), rspec,
+                                  device=device)
+    t_grid = torch.linspace(0.0, task.tf_learn, 36, device=device)
+    r_target = odeint_dopri5(P.lotka_volterra_field(task), x0, t_grid,
+                             rtol=1e-8, atol=1e-10, max_steps=4096,
+                             mode="while")
+    with torch.no_grad():
+        r_card = P.predprey_rnn_rollout(rparams, rspec, x0, t_grid)
+        r_cpu = P.predprey_rnn_rollout(copy.deepcopy(rparams).cpu(), rspec,
+                                       x0.cpu(), t_grid.cpu())
+    err_rnn = max_abs(r_card.cpu(), r_cpu)
+    scale = float(r_cpu.abs().max())
+    ropt = torch.optim.Adam(rparams.parameters(), lr=2e-3)
+    r_losses = []
+    for _ in range(2):
+        ropt.zero_grad()
+        loss = torch.mean((P.predprey_rnn_rollout(rparams, rspec, x0, t_grid)
+                           - r_target) ** 2)
+        loss.backward()
+        ropt.step()
+        r_losses.append(float(loss.detach()))
+    if not (r_card.shape == (36, 2) and err_rnn <= TOL * (1.0 + scale)
+            and np.isfinite(r_losses).all()):
+        fail(f"predprey_rnn_rollout: card vs CPU {err_rnn:.3e} (max |y| "
+             f"{scale:.3e}), losses {r_losses}")
+    print(f"predprey_rnn_rollout (seq 16, hidden 64, 10 bases) over 36 "
+          f"times: card vs CPU max |diff| {err_rnn:.3e} (max |y| "
+          f"{scale:.3e}); 2 Adam steps, losses "
+          f"{[round(v, 4) for v in r_losses]} ({smi})")
+    errs["b12"] = check_new_spline_shapes(device, mark, "phase 51")
+    print(f"phase 51 took {time.perf_counter() - t_phase:.1f} s")
+    return total, max(err_b1, err_b2), max(errs["b12"], err_in, err_eu)
+
+
+def classes_diag_phases(device, smi):
+    """Phase 52: the classes with the reference's names, ``diag/`` and the
+    serving-bundle example twin.  Returns (B.13 launches, the worst B.13
+    error, the B.5 forward launches, the worst B.5 forward error, the
+    worst B.12 error)."""
+    import importlib.util
+
+    from fetode_tpu_torch import cli
+    from fetode_tpu_torch.diag import hysteresis as DH
+    from fetode_tpu_torch.diag import profiling as DP
+    from fetode_tpu_torch.diag import roofline as DR
+    from fetode_tpu_torch.examples import serving_bundle
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.nn import modules as MOD
+    from fetode_tpu_torch.ops import ferro_fused as FF
+    from fetode_tpu_torch.ops import logistic_node as LN
+    from fetode_tpu_torch.ops.ferro import ferro_apply
+
+    t_phase = time.perf_counter()
+    mark = set(SPLINE_LOG)
+    rng = np.random.default_rng(52)
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    # ---- 52(a). KANFET([2, 10, 2]) at B = 256 on B.12
+    m = MOD.KANFET([2, 10, 2], generator=gen(1), device=device)
+    x = torch.from_numpy(rng.uniform(-1.5, 1.5, (256, 2)).astype(
+        np.float32)).to(device)
+    with torch.no_grad():
+        y, _ = count_spline("KANFET class (phase 52)",
+                            lambda: m(x, m.init_state((256,))))
+        yp, _ = m(x, m.init_state((256,)), plain=True)
+    err_kan = max_abs(y, yp)
+    n12 = SPLINE_RUNS["KANFET class (phase 52)"]
+    if not (n12 == 2 and torch.allclose(y, yp, rtol=SPLINE_TOL,
+                                        atol=SPLINE_TOL)):
+        fail(f"KANFET class at B = 256: B.12 launches {n12}, max |diff| "
+             f"{err_kan:.3e} against the plain product")
+    print(f"KANFET([2, 10, 2]) at B = 256: {n12} B.12 launches, within "
+          f"{err_kan:.3e} of the plain product ({smi})")
+
+    # ---- 52(b). FerroelectricBasis(64, 64, 12), clean, on B.13
+    fb = MOD.FerroelectricBasis(64, 64, 12, generator=gen(2), device=device)
+    ff_launches, ff_err = 0, 0.0
+    for B in (8, 64):
+        state = ferro_state_after(fb, fb.cfg, B, 3, torch.float32, device,
+                                  rng)
+        xb = torch.from_numpy(rng.standard_normal((B, 64)).astype(
+            np.float32)).to(device)
+        FF.ferro_apply_fused.launches = 0
+        with torch.no_grad():
+            yk, sk = fb(state, xb)
+        torch.cuda.synchronize()
+        n13 = FF.ferro_apply_fused.launches
+        with torch.no_grad():
+            yq, sq = ferro_apply(fb, state, xb, fb.cfg)
+        err = max_abs(yk, yq)
+        if not (n13 == 1 and torch.allclose(yk, yq, rtol=TOL, atol=TOL)
+                and torch.allclose(sk.branch, sq.branch, atol=1e-5)):
+            fail(f"FerroelectricBasis(64, 64, 12) at B = {B}: B.13 launches "
+                 f"{n13}, max |diff| {err:.3e}")
+        ybar = torch.from_numpy(rng.standard_normal((B, 64)).astype(
+            np.float32)).to(device)
+        check_ferro_fused(fb, fb.cfg, state, xb, ybar,
+                          f"FerroelectricBasis B={B}")
+        ff_launches += n13
+        ff_err = max(ff_err, err)
+        with torch.no_grad():
+            _, _, basis = fb(state, xb, return_activations=True)
+        print(f"FerroelectricBasis(64, 64, 12) at B = {B}: {n13} B.13 "
+              f"launch, within {err:.3e} of ferro_apply (gradients held by "
+              f"check_ferro_fused); activations {tuple(basis.shape)} on the "
+              f"plain op ({smi})")
+
+    # ---- 52(c). FerroelectricBasisConv2d on 28 x 28 images
+    conv = MOD.FerroelectricBasisConv2d(1, 8, kernel_size=3, num_basis=3,
+                                        padding=1, stateful=True,
+                                        generator=gen(3), device=device)
+    imgs = torch.from_numpy(rng.uniform(0.0, 1.0, (16, 1, 28, 28)).astype(
+        np.float32)).to(device)
+    with torch.no_grad():
+        y_whole, st = conv(imgs)
+        conv.cfg = conv.cfg._replace(out_chunk=3)
+        y_chunk, _ = conv(imgs)
+        y2, _ = conv(1.0 - imgs, st)
+        conv.cfg = conv.cfg._replace(out_chunk=0)
+        y_cpu, _ = copy.deepcopy(conv).cpu()(imgs.cpu())
+    err_chunk = max_abs(y_chunk, y_whole)
+    err_conv = max_abs(y_whole.cpu(), y_cpu)
+    if not (y_whole.shape == (16, 8, 28, 28) and torch.isfinite(y2).all()
+            and err_chunk <= 1e-5 and err_conv <= 1e-4):
+        fail(f"FerroelectricBasisConv2d on 16 x 28 x 28: out_chunk 3 vs "
+             f"whole {err_chunk:.3e}, card vs CPU {err_conv:.3e}")
+    print(f"FerroelectricBasisConv2d(1, 8, 3, K = 3, padding 1) on 16 "
+          f"images of 28 x 28: out_chunk 3 within {err_chunk:.3e} of the "
+          f"whole, card within {err_conv:.3e} of the CPU; a stateful second "
+          f"call finite ({smi})")
+
+    # ---- 52(d). sweep_loop on the card against the CPU's
+    p_card = fb
+    p_cpu = copy.deepcopy(fb).cpu()
+    f1, r_card = DH.sweep_loop(p_card, fb.cfg, n_points=41)
+    f2, r_cpu = DH.sweep_loop(p_cpu, fb.cfg, n_points=41)
+    err_sweep = float(np.abs(r_card - r_cpu).max())
+    gaps = DH.loop_openness(p_card, fb.cfg, n_points=41)
+    if not (np.array_equal(f1, f2) and err_sweep <= 1e-5
+            and (gaps > 0).mean() > 0.5):
+        fail(f"sweep_loop on the card vs the CPU: max |diff| "
+             f"{err_sweep:.3e}, open loops {(gaps > 0).mean():.3f}")
+    print(f"sweep_loop of FerroelectricBasis(64, 64, 12), 82 fields: card "
+          f"within {err_sweep:.3e} of the CPU; {100 * (gaps > 0).mean():.1f}"
+          f"% of the loops open ({smi})")
+
+    # ---- 52(e). time_fn and roofline_row on the card
+    a = torch.randn((2048, 2048), device=device)
+    cost = DR.flop_cost(torch.matmul, a, a)
+    sec = DP.time_fn(torch.matmul, a, a, warmup=2, iters=10)
+    row = DR.roofline_row(cost["flops"], cost["bytes"], 1.0 / sec,
+                          device=device)
+    if row.get("device") != "NVIDIA H100 80GB HBM3" or \
+            row["bound"].startswith("unknown"):
+        fail(f"roofline_row on {torch.cuda.get_device_name(0)}: {row}")
+    print(f"roofline_row of a 2048^3 float32 matmul (time_fn, CUDA events): "
+          f"{sec * 1e3:.4f} ms, {row['achieved_gflops']} GFLOP/s, "
+          f"{row['pct_peak_flops']}% of {row['device']}'s FP32 peak, bound "
+          f"{row['bound']} ({smi})")
+
+    # ---- 52(f). the serving-bundle example twin (B.5), its batches held
+    spec = M.KanFetNODESpec(T=96, latent_dim=16, num_basis=4, max_steps=16)
+    eparams = M.kanfet_node_init(gen(0), spec, device=device)
+    case = logistic_case(eparams, spec)
+    b5_err = 0.0
+    for b in (8, 32):                 # the example's two served buckets
+        xs = torch.from_numpy(rng.standard_normal((b, 96)).astype(
+            np.float32)).to(device)
+        with torch.no_grad():
+            h0 = xs @ eparams.encoder_w.T + eparams.encoder_b
+        b5_err = max(b5_err, check_node_kernels(
+            case, h0, torch.zeros_like(h0), backward=False)["fwd_err"])
+    with tempfile.TemporaryDirectory() as tmp:
+        LN.logistic_node_fwd.launches = 0
+        logits, direct, stats = serving_bundle.main(
+            [os.path.join(tmp, "bundle"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        n5 = LN.logistic_node_fwd.launches
+    if not (n5 > 0 and torch.equal(logits, direct)):
+        fail(f"examples serving_bundle on the card: B.5 launches {n5}")
+    print(f"examples serving_bundle on the card: B.5 launches {n5}, served "
+          f"= direct on the padded batch, p50 {stats['p50_ms']:.3f} ms at "
+          f"B = 8 ({smi})")
+
+    # ---- 52(g). --plots where matplotlib is absent
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["symbolic", "--device", "cuda", "--epochs", "2", "--plots",
+                "--out-dir", tmp]
+        FF.ferro_apply_fused.launches = 0
+        try:
+            cli.main(argv)
+            outcome = "plots written"
+            if not (has_mpl and os.path.exists(os.path.join(tmp,
+                                                            "loss.png"))):
+                fail("cli symbolic --plots drew nothing")
+        except ImportError as e:
+            if has_mpl or "matplotlib" not in str(e):
+                fail(f"cli symbolic --plots: {e!r}")
+            outcome = f"ImportError({str(e)!r})"
+        torch.cuda.synchronize()
+        ff_launches += FF.ferro_apply_fused.launches
+    print(f"cli symbolic --plots, matplotlib "
+          f"{'present' if has_mpl else 'absent'}: {outcome}")
+    b12 = check_new_spline_shapes(device, mark, "phase 52")
+    print(f"phase 52 took {time.perf_counter() - t_phase:.1f} s")
+    return ff_launches, ff_err, n5, b5_err, max(b12, err_kan)
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -5527,10 +5919,17 @@ def main():
     rt_errs = row_time_phases(device, smi)
     pt_launches = predprey_training_phases(device, smi)
     rs_launches = resume_phases(device, smi)
-    serve_launches += stack_launches[0] + pt_launches[0] + rs_launches[0]
-    fwd_launches += stack_launches[1] + pt_launches[1] + rs_launches[1]
-    bwd_launches += stack_launches[2] + pt_launches[2] + rs_launches[2]
-    ecg_launches[0] += rs_launches[3]
+    va_launches, va_err, va_b12 = variants_phases(device, smi)
+    cd_ff, cd_ff_err, cd_b5, cd_b5_err, cd_b12 = classes_diag_phases(device,
+                                                                     smi)
+    serve_launches += (stack_launches[0] + pt_launches[0] + rs_launches[0]
+                       + va_launches[0])
+    fwd_launches += (stack_launches[1] + pt_launches[1] + rs_launches[1]
+                     + va_launches[1])
+    bwd_launches += (stack_launches[2] + pt_launches[2] + rs_launches[2]
+                     + va_launches[2])
+    ff_launches += cd_ff
+    ecg_launches[0] += rs_launches[3] + cd_b5
     ecg_launches[1] += rs_launches[4]
     ett_launches[0] += rs_launches[5]
     ett_launches[1] += rs_launches[6]
@@ -5563,14 +5962,15 @@ def main():
     print(json.dumps({"kernels": [
         kernel_entry("kanfet_node_solve", "fetode_tpu_torch/csrc/kanfet_node.cu",
                      "fetode_tpu/ops/pallas_node.py:260",
-                     serve_launches, max(max_abs_err, rt_errs["fwd"]),
+                     serve_launches,
+                     max(max_abs_err, rt_errs["fwd"], va_err),
                      times[256][0],
                      times[256][1], bound(*kanfet_counts(
                          params, spec.kan, serve_recs, T_SERVE, "serve"))),
         kernel_entry("kanfet_adjoint_fwd",
                      "fetode_tpu_torch/csrc/kanfet_adjoint.cu",
                      "fetode_tpu/ops/pallas_adjoint.py:863", fwd_launches,
-                     max(checks[256][0], rt_errs["fwd"]),
+                     max(checks[256][0], rt_errs["fwd"], va_err),
                      step_times[256]["kernel"]["fwd"],
                      step_times[256]["plain"]["fwd"], bound(*kanfet_counts(
                          params, spec.kan, checks[256][4], ts_fit.shape[0],
@@ -5586,7 +5986,8 @@ def main():
         kernel_entry("logistic_node_fwd",
                      "fetode_tpu_torch/csrc/logistic_node.cu",
                      "fetode_tpu/ops/pallas_logistic_node.py:121",
-                     ecg_launches[0], worst("logistic", "fwd_err"),
+                     ecg_launches[0],
+                     max(worst("logistic", "fwd_err"), cd_b5_err),
                      lt["fwd_dev"], lt["plain_fwd"], lt["bound_fwd"]),
         kernel_entry("logistic_node_bwd",
                      "fetode_tpu_torch/csrc/logistic_node.cu",
@@ -5664,12 +6065,14 @@ def main():
                      wt["bwd"], wt["plain_bwd"], wt["bound_bwd"]),
         kernel_entry("ferro_apply_fused", "fetode_tpu_torch/csrc/ferro_fused.cu",
                      "fetode_tpu/ops/pallas_ferro.py:107", ff_launches,
-                     ff_err, ff["ms"], ff["plain"], ff["bound"]),
+                     max(ff_err, cd_ff_err), ff["ms"], ff["plain"],
+                     ff["bound"]),
         kernel_entry("spline_matmul_fused", "fetode_tpu_torch/csrc/spline.cu",
                      "fetode_tpu/ops/pallas_spline.py:65",
                      sum(SPLINE_RUNS.values()),
                      max(sc_errs["spline"], tm_errs["spline"],
-                         sv_errs["spline"]), st["ms"], st["plain"],
+                         sv_errs["spline"], va_b12, cd_b12), st["ms"],
+                     st["plain"],
                      st["bound"]),
         kernel_entry("custom_field_fwd", "fetode_tpu_torch/csrc/custom_field.cu",
                      "examples/02_custom_field_kernel.py:95",

@@ -9,12 +9,14 @@ of the JAX package becomes a hand-written CUDA kernel for Hopper
 
 The port imports ``torch`` and never ``jax`` or ``fetode_tpu``.
 
-Ported so far: the predator-prey KANFET serving path
-(``python -m fetode_tpu_torch.cli serve --source predprey``), whose
-solver is the whole-solve dopri5 kernel ``ops/kanfet_node.py``, and its
-training path (``python -m fetode_tpu_torch.cli predprey``, ``train/``),
-whose solver is the discrete-adjoint kernel pair
-``ops/kanfet_adjoint.py``.
+Everything the JAX package does on one device is ported (its layout
+plus ``diag`` and ``utils``); the multi-device options (``parallel/``,
+the mesh flags) raise, naming ROADMAP A.11.  The predator-prey KANFET
+serving path (``python -m fetode_tpu_torch.cli serve --source
+predprey``) solves with the whole-solve dopri5 kernel
+``ops/kanfet_node.py``, its training path (``python -m
+fetode_tpu_torch.cli predprey``, ``train/``) with the discrete-adjoint
+kernel pair ``ops/kanfet_adjoint.py``.
 """
 
 __version__ = "0.1.0"

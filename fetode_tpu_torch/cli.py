@@ -50,6 +50,12 @@ CLI, so one command line drives either package.  Ported so far:
 The training workloads take ``--ckpt_dir D --ckpt_every N [--resume
 true]`` (durable checkpoint/resume) and ``--aot_cache``, which the port
 accepts and logs; ``predprey`` also takes ``--shooting_points``.
+``--plots`` saves the JAX CLI's plots under ``--out-dir`` (it needs
+matplotlib): ``predprey`` the trajectory and the losses, ``ecg`` the
+losses and the trained ferro layers' P-E loops (``--model all`` also the
+model comparison), ``ett`` the forecast and the losses, ``symbolic``
+the loops and the losses; ``timemmd``, ``cond_diffusion``, ``mnist``
+and ``serve`` accept the flag and draw nothing, as the JAX CLI does.
 
 ``--device cuda`` (the default) without CUDA raises; nothing falls back
 to the CPU.
@@ -97,16 +103,15 @@ def _parse(argv):
 
 
 def run_predprey(cfg, out_dir, plots):
-    """Train the predprey KANFET NODE on the reference's trajectory."""
+    """Train the predprey KANFET NODE on the reference's trajectory; the
+    losses go to ``metrics.jsonl``."""
+    from fetode_tpu_torch.diag.logging import MetricLogger
     from fetode_tpu_torch.models.predprey import PredPreyNODE
     from fetode_tpu_torch.train.predprey_driver import (
         PredPreyRun,
         train_predprey,
     )
 
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
     spec = PredPreyNODE.kanfet(layers_hidden=cfg.layers,
                                grid_size=cfg.grid_size,
                                ferro_num_basis=cfg.ferro_num_basis,
@@ -121,13 +126,41 @@ def run_predprey(cfg, out_dir, plots):
                       ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every,
                       resume=cfg.resume, aot_cache=cfg.aot_cache,
                       device=cfg.device)
-    _, hist = train_predprey(run, log=lambda m: print(m, flush=True))
-    with open(os.path.join(out_dir, "metrics.jsonl"), "w") as f:
-        for i, (ep, tr) in enumerate(zip(hist["epoch"], hist["train"])):
-            te = hist["test"][i] if hist["test"] else None
-            f.write(json.dumps({"step": ep, "train": tr, "test": te}) + "\n")
+    logger = MetricLogger(os.path.join(out_dir, "metrics.jsonl"))
+    params, hist = train_predprey(run, log=lambda m: print(m, flush=True))
+    for i, (ep, tr) in enumerate(zip(hist["epoch"], hist["train"])):
+        logger.log(ep, train=tr, test=hist["test"][i] if hist["test"] else None)
+    if plots:
+        _predprey_plots(params, spec, hist, out_dir, cfg.device)
     return {"epochs_per_sec": hist["epochs_per_sec"],
             "final_train": hist["train"][-1]}
+
+
+def _predprey_plots(params, spec, hist, out_dir, device):
+    """The JAX CLI's ``trajectory.png`` (the trained NODE from the task's
+    x0 over the 140 test times, with four times the attempt budget, by
+    ``predict`` on the run's device: B.1 on the card) and ``loss.png``."""
+    from fetode_tpu_torch.diag.plots import plot_losses, plot_trajectory
+    from fetode_tpu_torch.models.predprey import (
+        PredPreyTask,
+        generate_data,
+        predict,
+    )
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    task = PredPreyTask()
+    ts, _, truth = generate_data(task, device=device)
+    mode = spec.solver_mode if spec.solver_mode in ("auto", "pallas") \
+        else "while"
+    with torch.no_grad():
+        pred = predict(params, spec._replace(solver_mode=mode,
+                                             max_steps=4 * spec.max_steps),
+                       torch.tensor([task.x0, task.y0], device=device), ts)
+    plot_trajectory(ts, truth, pred, os.path.join(out_dir, "trajectory.png"),
+                    train_cut=task.tf_learn)
+    plot_losses({"train": hist["train"], "test": hist["test"]},
+                os.path.join(out_dir, "loss.png"))
 
 
 # ``ecg --model all``: the JAX CLI's comparison set, then kanfet_mlp_node
@@ -147,7 +180,10 @@ def _ecg_data():
 
 
 def _ecg_model(cfg, T, device):
-    """``(init_fn, apply_fn)`` of ``cfg.model``, as the trainer takes them."""
+    """``(init_fn, apply_fn, loops_fn)`` of ``cfg.model``: the first two
+    as the trainer takes them, ``loops_fn(params)`` the ferro layers whose
+    P-E loops ``--plots`` draws, ``[(prefix, layer params, FerroConfig)]``
+    (the JAX CLI's lists; none for the models without ferro layers)."""
     from fetode_tpu_torch.models import ecg as M
     from fetode_tpu_torch.nn import rnn as R
 
@@ -162,7 +198,8 @@ def _ecg_model(cfg, T, device):
                                 rtol=cfg.rtol, atol=cfg.atol, field=cfg.field,
                                 solver_mode=cfg.solver_mode)
         return (lambda g: M.kanfet_node_init(g, spec, device=device),
-                lambda p, x, g: M.kanfet_node_apply(p, spec, x))
+                lambda p, x, g: M.kanfet_node_apply(p, spec, x),
+                lambda p: [])
     if cfg.model == "kanfet_mlp_node":
         spec = M.KanFetMLPNODESpec(T=T, latent_dim=cfg.latent_dim,
                                    num_basis=cfg.num_basis, solver=cfg.solver,
@@ -172,48 +209,69 @@ def _ecg_model(cfg, T, device):
                                    gate_impl=cfg.gate_impl)
         return (lambda g: M.kanfet_mlp_node_init(g, spec, device=device),
                 lambda p, x, g: M.kanfet_mlp_node_apply(p, spec, x,
-                                                        generator=gen(g)))
+                                                        generator=gen(g)),
+                lambda p: [("fc1", p.fc1, spec.fc1_cfg),
+                           ("fc2", p.fc2, spec.fc2_cfg)])
     if cfg.model == "fepa_rnn":
         rcfg = R.FerroKANRNNConfig(hidden_size=cfg.latent_dim,
                                    num_basis=cfg.num_basis,
                                    noise_std=cfg.noise_std)
         return (lambda g: R.ferro_kan_rnn_init(g, rcfg, device=device),
                 lambda p, x, g: R.ferro_kan_rnn_apply(p, rcfg, x,
-                                                      generator=gen(g)))
+                                                      generator=gen(g)),
+                lambda p: [("cell_input", p.cell.input_basis,
+                            rcfg.cell.input_cfg),
+                           ("cell_hidden", p.cell.hidden_basis,
+                            rcfg.cell.hidden_cfg),
+                           ("head", p.head_basis, rcfg.head_cfg)])
     if cfg.model == "digital_rnn":
         dcfg = R.DigitalRNNConfig(hidden_size=cfg.latent_dim)
         return (lambda g: R.digital_rnn_init(g, dcfg, device=device),
-                lambda p, x, g: R.digital_rnn_apply(p, dcfg, x))
+                lambda p, x, g: R.digital_rnn_apply(p, dcfg, x),
+                lambda p: [])
     if cfg.model == "node_rnn":
         spec = M.NodeRNNSpec(hidden_size=cfg.latent_dim,
                              num_basis=cfg.num_basis, noise_std=cfg.noise_std)
         return (lambda g: M.node_rnn_init(g, spec, device=device),
                 lambda p, x, g: M.node_rnn_apply(p, spec, x,
-                                                 generator=gen(g)))
+                                                 generator=gen(g)),
+                lambda p: [("basis", p.basis, spec.basis_cfg),
+                           ("cell_input", p.cell.input_basis,
+                            spec.cell_cfg.input_cfg),
+                           ("cell_hidden", p.cell.hidden_basis,
+                            spec.cell_cfg.hidden_cfg)])
     raise SystemExit(f"unknown ECG model {cfg.model!r}")
 
 
-def _run_ecg_all(cfg, data, out_dir):
+def _run_ecg_all(cfg, data, out_dir, plots):
     """The JAX CLI's ``ecg --model all``: each variant in its own
-    sub-directory, the best test accuracies in ``accuracy_table.json``;
-    returns them and each variant's loss curve."""
+    sub-directory, the best test accuracies in ``accuracy_table.json``
+    and, with ``plots``, each variant's plots and the test-accuracy curves
+    in ``model_comparison.png``; returns the accuracies and each variant's
+    loss curve."""
     import dataclasses
 
     variants = [(m, 0.0) for m in _ECG_ALL_MODELS]
     variants.append(("kanfet_mlp_node",
                      cfg.noise_std if cfg.noise_std > 0 else 0.2))
-    table, curves = {}, {}
+    table, curves, acc_curves = {}, {}, {}
     for name, noise in variants:
         label = f"{name}_noisy" if noise > 0 else name
         sub = os.path.join(out_dir, label)
         os.makedirs(sub, exist_ok=True)
         print(f"[ecg all] training {label}", flush=True)
         res = run_ecg(dataclasses.replace(cfg, model=name, noise_std=noise),
-                      sub, False, data=data)
+                      sub, plots, data=data)
         table[label] = res["best_test_acc"]
         curves[label] = res["loss_curve"]
+        acc_curves[label] = res["test_acc_curve"]
         print(f"[ecg all] {label}: best test acc {res['best_test_acc']:.4f}",
               flush=True)
+    if plots:
+        from fetode_tpu_torch.diag.plots import plot_model_comparison
+
+        plot_model_comparison(acc_curves,
+                              os.path.join(out_dir, "model_comparison.png"))
     with open(os.path.join(out_dir, "accuracy_table.json"), "w") as f:
         json.dump(table, f, indent=2)
     print("model".ljust(26), "best test acc")
@@ -306,17 +364,14 @@ def run_ecg(cfg, out_dir, plots, data=None):
             f"--gate-impl {cfg.gate_impl!r} is only supported by "
             f"--model kanfet_mlp_node (model {cfg.model!r} has no "
             f"gate_impl field)")
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
     device = resolve_device(cfg.device)
     if data is None:
         data = _ecg_data()
     if cfg.model == "all":
-        return _run_ecg_all(cfg, data, out_dir)
+        return _run_ecg_all(cfg, data, out_dir, plots)
     if cfg.model == "noise_study":
         return _run_ecg_noise_study(cfg, data, out_dir, device)
-    init_fn, apply_fn = _ecg_model(cfg, data[0].shape[1], device)
+    init_fn, apply_fn, loops_fn = _ecg_model(cfg, data[0].shape[1], device)
     run = ECGRun(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
                  weight_decay=cfg.weight_decay, seed=cfg.seed,
                  epochs_per_call=cfg.epochs_per_call,
@@ -324,12 +379,39 @@ def run_ecg(cfg, out_dir, plots, data=None):
                  ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every,
                  resume=cfg.resume, aot_cache=cfg.aot_cache,
                  device=cfg.device)
-    _, hist = train_ecg_model(init_fn, apply_fn, data, run,
-                              log=lambda m: print(m, flush=True))
+    params, hist = train_ecg_model(init_fn, apply_fn, data, run,
+                                   log=lambda m: print(m, flush=True))
+    if plots:
+        _ecg_plots(cfg, loops_fn(params), hist, out_dir)
     return {"best_test_acc": hist["best_test_acc"],
             "test_acc_curve": [float(a) for a in hist["test_acc"]],
             "loss_curve": [float(v) for v in hist["loss"]],
             "wall_seconds": hist["wall_seconds"]}
+
+
+def _ecg_plots(cfg, layers, hist, out_dir):
+    """The JAX CLI's ECG plots: ``loss.png`` and, for each trained ferro
+    layer, its P-E loops under ``hysteresis/`` (6 panels a layer), and with
+    ``noise_std > 0`` the noisy panels too, drawn from a generator of
+    their own for each layer, seeded from (seed, layer index) as the JAX
+    CLI folds the layer index into its key."""
+    import numpy as np
+
+    from fetode_tpu_torch.diag.hysteresis import plot_loops
+    from fetode_tpu_torch.diag.plots import plot_losses
+
+    plot_losses({"loss": hist["loss"]}, os.path.join(out_dir, "loss.png"),
+                logy=False)
+    loops = os.path.join(out_dir, "hysteresis")
+    for li, (prefix, params, fcfg) in enumerate(layers):
+        plot_loops(params, fcfg, loops, max_panels=6, prefix=prefix)
+        if cfg.noise_std > 0:
+            seed = int(np.random.SeedSequence([cfg.seed, li])
+                       .generate_state(1)[0])
+            plot_loops(params, fcfg, loops, max_panels=6,
+                       prefix=f"{prefix}_noisy",
+                       generator=torch.Generator(params.k.device)
+                       .manual_seed(seed))
 
 
 # The context encoder of each diffusion model.
@@ -355,9 +437,6 @@ def run_ett(cfg, out_dir, plots):
 
     if cfg.model != "point" and cfg.model not in _ETT_ENCODERS:
         raise SystemExit(f"unknown ETT model {cfg.model!r}")
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
     resolve_device(cfg.device)
     try:
         X, y, _ = load_ett_csv(name=cfg.dataset, target_col=cfg.target)
@@ -384,6 +463,13 @@ def run_ett(cfg, out_dir, plots):
                                        encoder=_ETT_ENCODERS[cfg.model],
                                        **common)
         _, hist = train_diffusion_forecaster(spec, X, y, run, log=log)
+    if plots:
+        from fetode_tpu_torch.diag.plots import plot_forecast, plot_losses
+
+        plot_losses({"train": hist["train"], "val": hist["val"]},
+                    os.path.join(out_dir, "loss.png"))
+        plot_forecast(y, hist["final_forecast"],
+                      os.path.join(out_dir, "forecast.png"))
     return {"test_mse": hist["test_mse"],
             "wall_seconds": hist["wall_seconds"],
             "train_curve": hist["train"], "val_curve": hist["val"]}
@@ -425,14 +511,12 @@ def timemmd_data(cfg):
 
 def run_timemmd(cfg, out_dir, plots):
     """Train the Time-MMD diffusion forecaster (the KAN-RNN context
-    encoder) on ``timemmd_data``."""
+    encoder) on ``timemmd_data``; ``plots`` draws nothing, as in the JAX
+    CLI."""
     from fetode_tpu_torch.models.forecasting import DiffusionForecasterSpec
     from fetode_tpu_torch.train import forecast_driver
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
     resolve_device(cfg.device)
     X, y = timemmd_data(cfg)
     run = forecast_driver.ForecastRun(
@@ -455,7 +539,8 @@ def run_timemmd(cfg, out_dir, plots):
 def run_cond_diffusion(cfg, out_dir, plots):
     """Train a conditional-diffusion forecaster on the ETT CSV when it is
     found, else on the synthetic stand-in; the test forecast MSE / MAE of
-    the sample mean over the first (at most) 256 test windows."""
+    the sample mean over the first (at most) 256 test windows; ``plots``
+    draws nothing, as in the JAX CLI."""
     import numpy as np
 
     from fetode_tpu_torch.data.timeseries import (
@@ -474,9 +559,6 @@ def run_cond_diffusion(cfg, out_dir, plots):
     )
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
     device = resolve_device(cfg.device)
     try:
         X, _, _ = load_ett_csv(name=cfg.dataset)
@@ -538,7 +620,8 @@ def _mnist_data():
 
 def run_mnist(cfg, out_dir, plots):
     """Train the Kuramoto-lattice KAN classifier: AdamW, cross-entropy,
-    minibatches in a seeded order; the test accuracy after each epoch."""
+    minibatches in a seeded order; the test accuracy after each epoch.
+    ``plots`` draws nothing, as in the JAX CLI."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -554,10 +637,7 @@ def run_mnist(cfg, out_dir, plots):
     if cfg.mesh_devices or cfg.mesh_model != 1:
         raise NotImplementedError("mnist --mesh_devices / --mesh_model: the "
                                   "sharded trainers are not ported yet: "
-                                  "ROADMAP A.11")
-    if plots:
-        raise NotImplementedError("--plots: the plotting diagnostics are not "
-                                  "ported yet: ROADMAP A.11")
+                                  "ROADMAP A.11 (multi-device)")
     device = resolve_device(cfg.device)
     (x_train, y_train), (x_test, y_test) = _mnist_data()
     spec = KuramotoSpec(H=x_train.shape[1], W=x_train.shape[2],
@@ -600,7 +680,8 @@ def run_symbolic(cfg, out_dir, plots):
     """The reference's symbolic-regression demo (smooth_test_KAN_ferro.py):
     fit y = sin x + 0.1 x^2 with a 2-layer ferro-KAN and save the trained
     params (its `torch.save` of KAN_ferro_SR_trained.pth) as the JAX CLI
-    saves them."""
+    saves them and, with ``plots``, the losses and both layers' P-E
+    loops."""
     import numpy as np
 
     from fetode_tpu_torch.convert import symbolic_params_to_numpy
@@ -610,9 +691,6 @@ def run_symbolic(cfg, out_dir, plots):
     )
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if plots:
-        raise NotImplementedError("--plots: the hysteresis-loop and loss "
-                                  "plots are not ported yet: ROADMAP A.11")
     device = resolve_device(cfg.device)
     spec = SymbolicNetSpec(hidden=cfg.hidden, num_basis=cfg.num_basis,
                            l1_coef=cfg.l1_coef)
@@ -624,6 +702,15 @@ def run_symbolic(cfg, out_dir, plots):
              **{f"{layer}.{k}": v
                 for layer, d in symbolic_params_to_numpy(params).items()
                 for k, v in d.items()})
+    if plots:
+        from fetode_tpu_torch.diag.hysteresis import plot_loops
+        from fetode_tpu_torch.diag.plots import plot_losses
+
+        plot_losses({"loss": losses}, os.path.join(out_dir, "loss.png"))
+        for name, cfg_l in (("l1", spec.l1_cfg), ("l2", spec.l2_cfg)):
+            plot_loops(getattr(params, name), cfg_l,
+                       os.path.join(out_dir, "hysteresis"), max_panels=6,
+                       prefix=name)
     return {"final_loss": float(losses[-1]) if len(losses) else None,
             "initial_loss": float(losses[0]) if len(losses) else None}
 
@@ -866,6 +953,26 @@ RUNNERS = {
 }
 
 
+def _init_device(name: str) -> None:
+    """The CLI's first device touch, as the JAX CLI's: a CUDA device is
+    initialised under ``device_init_watchdog`` (timeout
+    ``$FETODE_DEVICE_TIMEOUT`` seconds, default 300; 0 waits forever)."""
+    from fetode_tpu_torch.utils.debug import (
+        device_init_watchdog,
+        enable_compile_cache,
+    )
+    from fetode_tpu_torch.utils.device import resolve_device
+
+    enable_compile_cache()
+    device = resolve_device(name)
+    if device.type == "cuda":
+        disarm = device_init_watchdog(
+            float(os.environ.get("FETODE_DEVICE_TIMEOUT", "300")))
+        torch.cuda.init()
+        torch.empty(1, device=device)
+        disarm()
+
+
 def main(argv=None):
     from fetode_tpu_torch.config import make_config
 
@@ -873,6 +980,7 @@ def main(argv=None):
     cfg = make_config(args.workload, overrides)
     os.makedirs(args.out_dir, exist_ok=True)
     print(f"workload={args.workload} config={cfg}")
+    _init_device(cfg.device)
     result = RUNNERS[args.workload](cfg, args.out_dir, args.plots)
     with open(os.path.join(args.out_dir, "result.json"), "w") as f:
         json.dump(result, f, indent=2)

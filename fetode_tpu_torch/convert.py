@@ -327,3 +327,24 @@ def symbolic_grads_to_numpy(module, dtype=np.float32) -> Dict[str, Any]:
     """A ``SymbolicNet``'s ``.grad``s -> the JAX gradient dict; a parameter
     without a gradient gets zeros."""
     return _nest(_grads_or_zeros(module), dtype)
+
+
+def predprey_head_params_from_numpy(tree: Dict[str, Any], device=None,
+                                    dtype=torch.float32
+                                    ) -> Dict[str, torch.Tensor]:
+    """The head variant's JAX param dict (``predprey_head_init``: ``kan``,
+    a KAN layer list, and ``head``, an MLP layer list) -> a ``state_dict``
+    for the port's ``models/predprey.py: predprey_head_init``, keys
+    ``kan.layers.<i>.<name>`` and ``head.<i>.w`` / ``head.<i>.b``."""
+    out = {f"kan.{k}": v
+           for k, v in params_from_numpy(tree["kan"], device, dtype).items()}
+    for i, layer in enumerate(tree["head"]):
+        for name, value in layer.items():
+            out[f"head.{i}.{name}"] = torch.tensor(np.asarray(value),
+                                                   dtype=dtype, device=device)
+    return out
+
+
+# The RNN variant's tree (``cell: {input_basis, hidden_basis}``, ``head:
+# {basis, output}``) maps by its dotted paths, as the ECG models' trees do.
+predprey_rnn_params_from_numpy = ecg_params_from_numpy

@@ -39,7 +39,14 @@ the eager solve's ``Dopri5Stats``; the kernels keep no such counts, so
 ``solver_mode="pallas"`` refuses it and ``"auto"`` takes the eager solve
 for it, as the JAX package's ``"auto"`` does.
 
-The head and RNN variants arrive in a later slice (ROADMAP A.4).
+The variants of the reference's other predprey scripts follow the JAX
+package: ``euler_rollout_predict`` (the Euler rollout with dt = 1/steps,
+eager on any device), ``PredPreyNODEWithHead`` / ``predict_with_head``
+(a residual MLP head after the solve, which then takes ``predict``'s
+dispatch, or inside the field, which no kernel computes: eager) and the
+logistic KAN-RNN delta model ``PredPreyRNN`` with its autoregressive
+``predprey_rnn_rollout``.  On the card each KAN layer's spline term
+still goes to B.12 (``nn/kan.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
 from fetode_tpu_torch.nn.kan import (
     KAN,
@@ -56,6 +64,17 @@ from fetode_tpu_torch.nn.kan import (
     kan_state_init,
     kanfet_config,
 )
+from fetode_tpu_torch.nn.mlp import (
+    ResidualHeadConfig,
+    residual_head_apply,
+    residual_head_init,
+)
+from fetode_tpu_torch.nn.rnn import (
+    LogisticKANRNNConfig,
+    ParamTree,
+    logistic_kan_rnn_apply,
+    logistic_kan_rnn_init,
+)
 from fetode_tpu_torch.ops.kanfet_adjoint import kanfet_solve_train
 from fetode_tpu_torch.ops.kanfet_node import kanfet_solve
 from fetode_tpu_torch.ops.kanfet_wide import (
@@ -63,7 +82,7 @@ from fetode_tpu_torch.ops.kanfet_wide import (
     kanfet_wide_solve_train,
 )
 from fetode_tpu_torch.solvers.dopri5 import _under_autograd, odeint_dopri5
-from fetode_tpu_torch.solvers.fixed import odeint_fixed
+from fetode_tpu_torch.solvers.fixed import odeint_fixed, rollout_discrete
 
 # ``predict`` sends stacks with max(in*out*K) >= this to the wide stack's
 # kernels, as the JAX package does (its crossover, measured on a TPU),
@@ -251,3 +270,138 @@ def trajectory_loss(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
     ``train_kanfet_node_predprey.py:254``)."""
     pred = predict(params, spec, x0, ts)
     return torch.mean((pred - target) ** 2)
+
+
+def euler_rollout_predict(params: KAN, spec: PredPreyNODE, x0: torch.Tensor,
+                          n_steps: int) -> torch.Tensor:
+    """Euler trajectory rollout with dt = 1/steps (the
+    ``train_kanfet_predprey.py:181-189`` integration scheme), the
+    hysteresis state fresh and frozen: ``(n_steps + 1, ..., D)``."""
+    state = kan_state_init(x0.shape[:-1], spec.kan, device=x0.device,
+                           dtype=x0.dtype)
+    return rollout_discrete(lambda z: kan_apply(params, z, state)[0], x0,
+                            n_steps, residual_dt=1.0 / n_steps)
+
+
+# -------------------------------------------------- MLP-head NODE variants
+
+
+class PredPreyNODEWithHead(NamedTuple):
+    """KANFET NODE with a residual-MLP refinement head, in the reference's
+    two placements: ``head_inside=False``, the head on the solved
+    trajectory (``train_kanfet_mlp_node_predprey.py:206-218``);
+    ``head_inside=True``, the head on the field's output
+    (``train_kanfet_mlp_predprey.py:179-183``)."""
+
+    node: PredPreyNODE
+    head: ResidualHeadConfig
+    head_inside: bool = False
+
+    @classmethod
+    def make(cls, head_inside: bool = False, bottleneck: int = 32,
+             **node_kw) -> "PredPreyNODEWithHead":
+        return cls(node=PredPreyNODE.kanfet(**node_kw),
+                   head=ResidualHeadConfig(dim=2, bottleneck=bottleneck),
+                   head_inside=head_inside)
+
+
+def predprey_head_init(generator: torch.Generator, spec: PredPreyNODEWithHead,
+                       *, device=None, dtype=torch.float32) -> nn.ModuleDict:
+    """``{"kan": KAN, "head": the head's layers}``, the JAX package's dict."""
+    kw = dict(device=device, dtype=dtype)
+    return nn.ModuleDict({"kan": predprey_init(generator, spec.node, **kw),
+                          "head": residual_head_init(generator, spec.head,
+                                                     **kw)})
+
+
+def predict_with_head(params: nn.ModuleDict, spec: PredPreyNODEWithHead,
+                      x0: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """Trajectories ``(T, ..., D)`` of the NODE with its head.
+
+    ``head_inside=False``: the solve is ``predict``'s, with its dispatch
+    (a batch ``(B, D)`` through ``predict_batch`` where the kernels take
+    it: each trajectory under its own controller, where the JAX function
+    steps the batch under one), then the head on every state.  On the
+    card under ``"auto"`` / ``"pallas"`` that is B.1, or B.2 under
+    autograd: the JAX function's trajectory to the solver's tolerance.
+
+    ``head_inside=True``: the field is the KAN plus the head, which no
+    kernel computes, so the solve is eager on the tensors' device in
+    every ``solver_mode`` (``"pallas"`` runs as ``"auto"``): dopri5, or
+    the fixed-step ``method``, each KAN layer's spline term on B.12 on
+    the card.
+    """
+    node = spec.node
+    kan, head = params["kan"], params["head"]
+    if not spec.head_inside:
+        if (node.method == "dopri5" and x0.ndim == 2
+                and _use_kernel(kan, node, x0)):
+            traj = predict_batch(kan, node, x0, ts).transpose(0, 1)
+        else:
+            traj = predict(kan, node, x0, ts)
+        return residual_head_apply(head, spec.head, traj)
+    state = kan_state_init(x0.shape[:-1], node.kan, device=x0.device,
+                           dtype=x0.dtype)
+
+    def rhs(t, z):
+        return residual_head_apply(head, spec.head,
+                                   kan_apply(kan, z, state)[0])
+    if node.method == "dopri5":
+        mode = "auto" if node.solver_mode == "pallas" else node.solver_mode
+        return odeint_dopri5(rhs, x0, ts, rtol=node.rtol, atol=node.atol,
+                             max_steps=node.max_steps, mode=mode)
+    return odeint_fixed(rhs, x0, ts, method=node.method,
+                        n_substeps=node.n_substeps)
+
+
+# ------------------------------------------------------- RNN delta model
+
+
+class PredPreyRNN(NamedTuple):
+    """Logistic-basis KAN-RNN predicting state deltas, rolled out
+    autoregressively (``train_kanfet_rnn_predprey.py:119-225``)."""
+
+    seq_len: int = 16
+    hidden_size: int = 64
+    num_basis: int = 10
+
+    @property
+    def rnn_cfg(self) -> LogisticKANRNNConfig:
+        return LogisticKANRNNConfig(input_size=3, hidden_size=self.hidden_size,
+                                    out_dim=2, num_basis=self.num_basis)
+
+
+def predprey_rnn_init(generator: torch.Generator, spec: PredPreyRNN, *,
+                      device=None, dtype=torch.float32) -> ParamTree:
+    return logistic_kan_rnn_init(generator, spec.rnn_cfg, device=device,
+                                 dtype=dtype)
+
+
+def make_txy_seq(t_scalar: torch.Tensor, xy: torch.Tensor,
+                 seq_len: int) -> torch.Tensor:
+    """(B,) times + (B, 2) states -> (B, seq_len, 3) repeated [t, x, y]
+    feature sequences (``train_kanfet_rnn_predprey.py:199-208``)."""
+    feat = torch.cat([t_scalar[:, None], xy], dim=-1)
+    return feat[:, None, :].expand(feat.shape[0], seq_len, 3)
+
+
+def predprey_rnn_delta(params: ParamTree, spec: PredPreyRNN,
+                       t_scalar: torch.Tensor, xy: torch.Tensor
+                       ) -> torch.Tensor:
+    """The predicted state delta (B, 2) at times (B,) from states (B, 2)."""
+    return logistic_kan_rnn_apply(params, spec.rnn_cfg,
+                                  make_txy_seq(t_scalar, xy, spec.seq_len))
+
+
+def predprey_rnn_rollout(params: ParamTree, spec: PredPreyRNN,
+                         x0y0: torch.Tensor, t_grid: torch.Tensor
+                         ) -> torch.Tensor:
+    """The autoregressive rollout pred[k+1] = pred[k] + delta(t_k, pred[k])
+    over ``t_grid`` (T,) from ``x0y0`` (2,): (T, 2)
+    (``train_kanfet_rnn_predprey.py:210-225``)."""
+    out, xy = [x0y0], x0y0
+    for k in range(t_grid.shape[0] - 1):
+        xy = xy + predprey_rnn_delta(params, spec, t_grid[k:k + 1],
+                                     xy[None])[0]
+        out.append(xy)
+    return torch.stack(out)

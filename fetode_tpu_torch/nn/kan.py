@@ -381,3 +381,8 @@ def kanfet_config(layers_hidden: Sequence[int], grid_size: int = 5,
                           ferro_num_basis=ferro_num_basis,
                           ferro_noise_std=noise_std, **kw)
 
+
+
+kanfet_init = kan_init
+kanfet_apply = kan_apply
+kanfet_state_init = kan_state_init

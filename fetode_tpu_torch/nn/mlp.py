@@ -1,5 +1,5 @@
-"""Plain MLP stacks and layer norm (counterpart of ``fetode_tpu/nn/mlp.py:
-MLPConfig, mlp_init, mlp_apply, layer_norm``).
+"""Plain MLP stacks, layer norm and the residual bottleneck head
+(counterpart of ``fetode_tpu/nn/mlp.py``).
 
 A stack is an ``nn.ModuleList`` of ``Dense`` layers, each holding ``w``
 (out, in) and ``b`` (out,), so its ``state_dict`` keys (``0.w``,
@@ -74,3 +74,25 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+class ResidualHeadConfig(NamedTuple):
+    """y + W2 GELU(W1 y): dim -> bottleneck -> dim refinement head."""
+
+    dim: int = 2
+    bottleneck: int = 32
+
+    @property
+    def mlp(self) -> MLPConfig:
+        return MLPConfig((self.dim, self.bottleneck, self.dim),
+                         activation="gelu")
+
+
+def residual_head_init(generator: torch.Generator, cfg: ResidualHeadConfig, *,
+                       device=None, dtype=torch.float32) -> nn.ModuleList:
+    return mlp_init(generator, cfg.mlp, device=device, dtype=dtype)
+
+
+def residual_head_apply(params: nn.ModuleList, cfg: ResidualHeadConfig,
+                        y: torch.Tensor) -> torch.Tensor:
+    return y + mlp_apply(params, cfg.mlp, y)

@@ -22,6 +22,7 @@ Tolerances, float32:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -389,9 +390,12 @@ def test_refusals(case, tmp_path):
             with pytest.raises(NotImplementedError, match=item):
                 drv.train_conditional_diffusion(None, None, run)
     elif case == "plots":
-        with pytest.raises(NotImplementedError, match="A.11"):
-            cli.main(["cond_diffusion", "--device", "cpu", "--plots",
-                      "--out-dir", str(tmp_path)])
+        # accepted, and nothing drawn, as in the JAX CLI
+        cli.main(["cond_diffusion", "--device", "cpu", "--plots",
+                  "--denoiser", "mlp", "--seq_len", "12", "--pred_len", "4",
+                  "--diff_t", "4", "--eval_samples", "2", "--epochs", "1",
+                  "--batch_size", "512", "--out-dir", str(tmp_path)])
+        assert not any(f.endswith(".png") for f in os.listdir(tmp_path))
     elif case == "names":
         with pytest.raises(ValueError, match="unknown denoiser"):
             CD.make_denoiser_spec("kan_fet_rnn", d_in=2, pred_len=4)

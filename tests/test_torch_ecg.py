@@ -486,9 +486,12 @@ def test_refusals(case, tmp_path):
             cli.main(["ecg", "--device", "cpu", "--model", "no_such_model",
                       "--out-dir", str(tmp_path)])
     elif case == "plots":
-        with pytest.raises(NotImplementedError, match="A.11"):
-            cli.main(["ecg", "--device", "cpu", "--plots", "--out-dir",
-                      str(tmp_path)])
+        # ported: the loss curve (kanfet_node has no ferro layer to loop)
+        cli.main(["ecg", "--device", "cpu", "--plots", "--epochs", "1",
+                  "--latent_dim", "8", "--num_basis", "3", "--out-dir",
+                  str(tmp_path)])
+        assert sorted(p.name for p in tmp_path.rglob("*.png")) == \
+            ["loss.png"]
     elif case == "serve_source":
         with pytest.raises(ValueError, match="unknown serve source"):
             cli.main(["serve", "--source", "no_such_source", "--device",

@@ -466,9 +466,12 @@ def test_refusals(case, tmp_path):
                                                 device="cpu",
                                                 **{knob: value}))
     elif case == "plots":
-        with pytest.raises(NotImplementedError, match="A.11"):
-            cli.main(["ett", "--device", "cpu", "--plots", "--out-dir",
-                      str(tmp_path)])
+        # ported: the loss curves and the forecast, as the JAX CLI draws
+        cli.main(["ett", "--device", "cpu", "--plots", "--epochs", "1",
+                  "--latent_dim", "8", "--context_len", "12", "--pred_len",
+                  "4", "--out-dir", str(tmp_path)])
+        assert sorted(p.name for p in tmp_path.glob("*.png")) == \
+            ["forecast.png", "loss.png"]
     elif case == "no_card":
         if torch.cuda.is_available():
             pytest.skip("checks the refusal of --device cuda without CUDA")

@@ -1,12 +1,14 @@
 """The PyTorch port imports torch and never jax or the JAX package, nor
 pandas or sklearn (the card's machine has neither; the data layer does
-their steps with numpy and scipy).
+their steps with numpy and scipy), nor matplotlib (imported only inside
+the plotting functions) or optax.
 
 Checked in a fresh interpreter, since this test process imports both:
 every module of ``fetode_tpu_torch`` is imported and ``sys.modules`` must
 then hold neither ``jax`` (nor any ``jax.*``) nor ``fetode_tpu`` (nor any
 ``fetode_tpu.*``; note that the bare prefix ``fetode_tpu`` also matches
-``fetode_tpu_torch``), nor ``pandas`` or ``sklearn``.  The subprocess
+``fetode_tpu_torch``), nor ``pandas``, ``sklearn``, ``matplotlib`` or
+``optax``.  The subprocess
 runs from the repo root with the root on ``PYTHONPATH``, since the
 package is not installed.
 """
@@ -26,9 +28,10 @@ names = [m.name for m in pkgutil.walk_packages(fetode_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "fetode_tpu", "pandas", "sklearn")
+             if k in ("jax", "fetode_tpu", "pandas", "sklearn", "matplotlib",
+                      "optax")
              or k.startswith(("jax.", "jaxlib", "fetode_tpu.", "pandas.",
-                              "sklearn.")))
+                              "sklearn.", "matplotlib.", "optax.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -82,7 +85,19 @@ def test_port_imports_no_jax():
                  "fetode_tpu_torch.solvers.adjoint",
                  "fetode_tpu_torch.solvers.stateful",
                  "fetode_tpu_torch.train.checkpoint",
-                 "fetode_tpu_torch.examples.predprey_train_loop"):
+                 "fetode_tpu_torch.examples.predprey_train_loop",
+                 "fetode_tpu_torch.nn.ferro_layers",
+                 "fetode_tpu_torch.nn.modules",
+                 "fetode_tpu_torch.diag.hysteresis",
+                 "fetode_tpu_torch.diag.logging",
+                 "fetode_tpu_torch.diag.plots",
+                 "fetode_tpu_torch.diag.profiling",
+                 "fetode_tpu_torch.diag.roofline",
+                 "fetode_tpu_torch.train.tools",
+                 "fetode_tpu_torch.utils.debug",
+                 "fetode_tpu_torch.utils.trees",
+                 "fetode_tpu_torch.examples.serving_bundle",
+                 "fetode_tpu_torch.examples.custom_dataset_forecast"):
         assert name in report["modules"]
 
 
@@ -92,6 +107,8 @@ def test_port_sources_name_no_jax_import():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0].rstrip(",")
+                # matplotlib is imported inside the plotting functions
+                # only: the probe above checks that no import loads it.
                 assert mod not in ("jax", "jaxlib", "fetode_tpu", "pandas",
-                                   "sklearn"), \
+                                   "sklearn", "optax"), \
                     f"{path.relative_to(ROOT)}: {line.strip()}"

@@ -111,6 +111,8 @@ def test_cli_symbolic_on_cpu(tmp_path):
 
 
 def test_cli_symbolic_plots_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        cli.main(["symbolic", "--device", "cpu", "--plots", "--out-dir",
-                  str(tmp_path)])
+    """No longer refused: the loss curve and both layers' P-E loops."""
+    cli.main(["symbolic", "--device", "cpu", "--plots", "--epochs", "3",
+              "--out-dir", str(tmp_path)])
+    pngs = sorted(p.name for p in tmp_path.rglob("*.png"))
+    assert "loss.png" in pngs and len(pngs) == 13

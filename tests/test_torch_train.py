@@ -358,9 +358,12 @@ def test_refusals(case, tmp_path):
         with pytest.raises(ValueError, match="unknown optimiser"):
             make_optimizer(1e-3, params=[], kind="lion")
     elif case == "plots":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            cli.main(["predprey", "--device", "cpu", "--plots",
-                      "--out-dir", str(tmp_path)])
+        # ported: the JAX CLI's trajectory and loss plots
+        cli.main(["predprey", "--device", "cpu", "--plots", "--epochs", "2",
+                  "--epochs_per_call", "1", "--rtol", "1e-3", "--atol",
+                  "1e-5", "--max_steps", "32", "--out-dir", str(tmp_path)])
+        assert sorted(p.name for p in tmp_path.glob("*.png")) == \
+            ["loss.png", "trajectory.png"]
     elif case == "cli_ckpt":
         # checkpoint/resume is ported: the CLI's flags reach the trainer
         ck = str(tmp_path / "ck")
