@@ -541,6 +541,26 @@ classes and diagnostics of the last single-device slice:
     --plots``: where matplotlib is absent (the card's machine), an
     ``ImportError`` naming it; else the plots.
 
+The mesh (ROADMAP A.11, ``fetode_tpu_torch/parallel``), one process a
+rank, the ranks started by ``parallel.spawn_local``:
+
+53. (a) ``torch.cuda.device_count()`` NCCL ranks (one a card) train
+    ``train_traj_parallel`` at the flagship, 256 trajectories, 3 steps,
+    B.2 on each rank's block, through the group's gathers and
+    all-reduces (on a one-card machine one NCCL rank in this process, its
+    group of one real); the losses equal the single-device run's, bit for
+    bit at one rank and within rtol 2e-4 over several, and a gather and an
+    all-reduce of CUDA blocks are exact.  (b) Two gloo ranks sharing
+    cuda:0: the same run (rtol 2e-4); ``kanfet_mlp_node`` with ``mesh=`` at
+    ECGPreset width, B = 8, clean and with noise of std 0.2 drawn for
+    the global batch; the sharded solves of B.4 (clean and noisy), B.2,
+    B.5 and B.6 against one launch on each rank's own rows (bit for bit;
+    the gradients summed over the ranks); the noise-study population, P = 12 over the two ranks, 1
+    epoch, every member within 5e-6 of the unsharded run; and
+    ``shooting_devices=2`` on B.2 against the single-device curve.  B.2
+    and B.4 launch in every rank.  The ranks load the libraries phase 2
+    built.  Its times share one card between two ranks: no speed claim.
+
 Every kernel's line carries ``bound_ms``: the larger of the bytes the
 call must move over the card's memory rate and the operations it does
 over the peak rate of the unit that runs them, counted from this run's
@@ -5665,6 +5685,396 @@ def classes_diag_phases(device, smi):
     return ff_launches, ff_err, n5, b5_err, max(b12, err_kan)
 
 
+MESH_TRAJ = 256          # phase 53's trajectories (n_traj)
+MESH_ECG_B = 8           # phase 53's kanfet_mlp_node batch (4 rows a rank)
+MESH_SHOOT_P = 18        # 34 intervals -> 2 segments, one a rank
+
+
+def mesh_traj_run(n_devices, epochs=3):
+    from fetode_tpu_torch.models.predprey import PredPreyNODE
+    from fetode_tpu_torch.train.traj_driver import TrajParallelRun
+
+    return TrajParallelRun(n_traj=MESH_TRAJ, epochs=epochs,
+                           epochs_per_call=1,
+                           spec=PredPreyNODE.kanfet(solver_mode="pallas"),
+                           n_devices=n_devices, device="cuda")
+
+
+def mesh_shoot_run(shooting_devices):
+    from fetode_tpu_torch.models.predprey import PredPreyNODE
+    from fetode_tpu_torch.train.predprey_driver import PredPreyRun
+
+    return PredPreyRun(spec=PredPreyNODE.kanfet(solver_mode="pallas"),
+                       epochs=4, epochs_per_call=2,
+                       shooting_points=MESH_SHOOT_P,
+                       shooting_devices=shooting_devices, device="cuda")
+
+
+def mesh_population_run(mesh_devices):
+    from fetode_tpu_torch.train.ecg_driver import ECGRun
+
+    return ECGRun(epochs=1, batch_size=8, eval_noise_draws=4, eval_chunk=16,
+                  mesh_devices=mesh_devices, device="cuda")
+
+
+def mesh_population(mesh_devices):
+    """The noise study's population (P = 12, ECGPreset widths, 1 epoch)
+    through ``train_ecg_population``: (losses, test accuracies) a member."""
+    from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+    from fetode_tpu_torch.models import ecg as M
+    from fetode_tpu_torch.train.ecg_driver import train_ecg_population
+
+    spec = M.KanFetMLPNODESpec(num_basis=12, solver_mode="pallas")
+    members = [(std, seed) for std in NOISE_STDS for seed in NOISE_SEEDS]
+    _, hs = train_ecg_population(
+        lambda g: M.kanfet_mlp_node_init(g, spec, device="cuda"),
+        lambda ps, x, gens, stds: M.kanfet_mlp_node_apply_members(
+            ps, spec, x, generators=gens, noise_stds=stds),
+        synthetic_ecg200(), mesh_population_run(mesh_devices), members,
+        log=None)
+    return [h["loss"] for h in hs], [h["test_acc"] for h in hs]
+
+
+def mesh_rank(rank, kind):
+    """One rank of phase 53: (a) ``kind="nccl"``, the trajectory driver
+    over the world's NCCL ranks; (b) ``kind="gloo"``, two ranks sharing
+    cuda:0, the trajectory driver, ``kanfet_mlp_node`` with ``mesh=`` and
+    the B.4 sharded solve against one launch on the rank's own rows, the
+    population and multiple shooting over the ranks.  Loads the libraries
+    phase 2 built; returns what it saw."""
+    import torch.distributed as dist
+
+    from fetode_tpu_torch.models.predprey import predprey_init
+    from fetode_tpu_torch.ops import _build
+    from fetode_tpu_torch.ops import ferro_node as FN
+    from fetode_tpu_torch.ops import logistic_node as LN
+    from fetode_tpu_torch.ops import mlp_node as MN
+    from fetode_tpu_torch.ops.kanfet_adjoint import (
+        kanfet_adjoint_bwd,
+        kanfet_adjoint_fwd,
+        kanfet_solve_train,
+        kanfet_solve_train_sharded,
+    )
+    import fetode_tpu_torch.parallel.collectives as C
+    from fetode_tpu_torch.parallel import make_mesh, world
+    from fetode_tpu_torch.parallel.collectives import (
+        all_gather_cat,
+        all_reduce_tensors,
+    )
+    from fetode_tpu_torch.train.predprey_driver import train_predprey
+    from fetode_tpu_torch.train.traj_driver import (
+        make_batched_data,
+        train_traj_parallel,
+    )
+
+    for name in ("kanfet_adjoint", "ferro_node", "logistic_node",
+                 "mlp_node"):
+        src = _build.SRC_DIR / f"{name}.cu"
+        if not (_build.BUILD_DIR / f"{name}-{_build._digest(src)}.so"
+                ).exists():
+            raise RuntimeError(f"rank {rank}: {name} is not built (phase 2 "
+                               "builds it; no rank compiles)")
+    n = world()[1]
+    res = {"rank": rank, "world": n, "card": torch.cuda.current_device(),
+           "backend": dist.get_backend() if dist.is_initialized() else None}
+    b2 = (kanfet_adjoint_fwd, kanfet_adjoint_bwd)
+    # the collectives of the group, on CUDA tensors: rank r gives r + a
+    # block, the gather is every rank's block and the sum their sum
+    blk = torch.arange(6.0, device="cuda").reshape(3, 2)
+    got = all_gather_cat(blk + rank, None)
+    summed = all_reduce_tensors([blk + rank], None)[0]
+    res["collectives_err"] = max(
+        float((got - torch.cat([blk + r for r in range(n)])).abs().max()),
+        float((summed - (n * blk + n * (n - 1) / 2)).abs().max()))
+    gathers = []
+
+    def counted(*a, **k):
+        gathers.append(1)
+        return all_gather_cat(*a, **k)
+
+    def traj(tag):
+        # one warm step first (the rank's first CUDA work, the libraries'
+        # load), so that the timed run's steps are steady
+        train_traj_parallel(mesh_traj_run(n, epochs=1), log=None)
+        for f in b2:
+            f.launches = 0
+        C.all_gather_cat = counted      # the step's gathers, counted
+        try:
+            _, hist = train_traj_parallel(mesh_traj_run(n), log=None)
+        finally:
+            C.all_gather_cat = all_gather_cat
+        torch.cuda.synchronize()
+        res[tag] = dict(losses=hist["train"], wall=hist["wall_seconds"],
+                        launches=[f.launches for f in b2],
+                        gathers=len(gathers))
+
+    traj("traj")
+    if kind == "gloo":
+        from fetode_tpu_torch.data.ecg200 import synthetic_ecg200
+        from fetode_tpu_torch.models import ecg as M
+
+        mesh = make_mesh(n)
+        b4 = (FN.ferro_node_fwd, FN.ferro_node_bwd)
+        spec = M.KanFetMLPNODESpec(num_basis=12, solver_mode="pallas")
+        m = M.kanfet_mlp_node_init(torch.Generator().manual_seed(53), spec,
+                                   device="cuda")
+        with torch.no_grad():
+            m.fc1.coef.mul_(3.0)
+            m.fc2.coef.mul_(3.0)
+        data = synthetic_ecg200()
+        x = torch.from_numpy(data[0][:MESH_ECG_B]).cuda()
+        y = torch.from_numpy(data[1][:MESH_ECG_B]).long().cuda()
+        # the model's entry point with mesh=, clean and noisy (std 0.2,
+        # drawn for the global batch from one generator)
+        for tag, sp, gen in (
+                ("ecg", spec, None),
+                ("ecg noisy", spec._replace(noise_std=0.2),
+                 torch.Generator(device="cuda").manual_seed(531))):
+            for f in b4:
+                f.launches = 0
+            m.zero_grad()
+            t0 = time.perf_counter()
+            logits = M.kanfet_mlp_node_apply(m, sp, x, generator=gen,
+                                             mesh=mesh)
+            loss = torch.nn.functional.cross_entropy(logits, y)
+            loss.backward()
+            torch.cuda.synchronize()
+            res[tag] = dict(loss=float(loss.detach()),
+                            wall=time.perf_counter() - t0,
+                            finite=bool(torch.isfinite(logits).all()),
+                            launches=[f.launches for f in b4])
+        # each sharded solve against one launch on this rank's own rows:
+        # B.4 (clean and with noise drawn for the global batch), B.2 at the
+        # flagship's 256 trajectories, B.5 and B.6 at ECGPreset width
+        rows = slice(rank * MESH_ECG_B // n, (rank + 1) * MESH_ECG_B // n)
+        rng = np.random.default_rng(532)
+
+        def normal(shape):
+            return torch.from_numpy(rng.standard_normal(
+                tuple(shape)).astype(np.float32)).cuda()
+
+        def grads(loss, ts):
+            gs = torch.autograd.grad(loss, ts, allow_unused=True)
+            return [torch.zeros_like(t) if g is None else g
+                    for t, g in zip(ts, gs)]
+
+        def against_own_rows(tag, module, sharded, one, h0, rows, kernels):
+            for f in kernels:
+                f.launches = 0
+            weights = list(module.parameters())
+            h = h0.clone().requires_grad_(True)
+            out = sharded(h)
+            hbar = normal(out.shape)
+            g = grads((out * hbar).sum(), weights + [h])
+            h_own = h0[rows].clone().requires_grad_(True)
+            own = one(h_own, rows)
+            g_own = grads((own * hbar[rows]).sum(), weights + [h_own])
+            summed = all_reduce_tensors([t.clone() for t in g_own[:-1]],
+                                        None)
+            out, own = out.detach(), own.detach()
+            torch.cuda.synchronize()
+            res[tag] = dict(
+                out_err=float((out[rows] - own).abs().max()),
+                h0bar_err=float((g[-1][rows] - g_own[-1]).abs().max()),
+                grad_err=max(float((a - b).abs().max())
+                             for a, b in zip(g[:-1], summed)),
+                grad_scale=max(float(a.abs().max()) for a in g[:-1]),
+                launches=[f.launches for f in kernels])
+
+        with torch.no_grad():
+            h0 = x @ m.encoder_w.T + m.encoder_b
+        noise = FN.frozen_solve_noise(
+            torch.Generator(device="cuda").manual_seed(533), MESH_ECG_B,
+            spec.fc1_cfg, spec.fc2_cfg, noise_std=0.2, device="cuda")
+        for tag, nz in (("B.4", None), ("B.4 noisy", noise)):
+            against_own_rows(
+                tag, m,
+                lambda h, nz=nz: FN.ferro_node_solve_sharded(
+                    m.fc1, m.fc2, h, spec, mesh, noise=nz),
+                lambda h, r, nz=nz: FN.ferro_node_solve(
+                    m.fc1, m.fc2, h, spec,
+                    noise=None if nz is None else tuple(t[r] for t in nz)),
+                h0, rows, b4)
+        run = mesh_traj_run(n)
+        kan = predprey_init(torch.Generator().manual_seed(534), run.spec,
+                            device="cuda")
+        ts, x0s, _ = make_batched_data(run, torch.device("cuda"))
+        opts = dict(rtol=run.spec.rtol, atol=run.spec.atol,
+                    max_steps=run.spec.max_steps)
+        b = MESH_TRAJ // n
+        against_own_rows(
+            "B.2", kan,
+            lambda x0: kanfet_solve_train_sharded(kan, run.spec.kan, x0, ts,
+                                                  mesh, **opts),
+            lambda x0, r: kanfet_solve_train(kan, run.spec.kan, x0, ts,
+                                             **opts),
+            x0s, slice(rank * b, (rank + 1) * b), b2)
+        for tag, field, sharded, one, kernels in (
+                ("B.5", "plain", LN.logistic_node_solve_sharded,
+                 LN.logistic_node_solve,
+                 (LN.logistic_node_fwd, LN.logistic_node_bwd)),
+                ("B.6", "mlp", MN.mlp_node_solve_sharded, MN.mlp_node_solve,
+                 (MN.mlp_node_fwd, MN.mlp_node_bwd))):
+            nspec = M.KanFetNODESpec(num_basis=12, field=field)
+            nm = M.kanfet_node_init(torch.Generator().manual_seed(535),
+                                    nspec, device="cuda")
+            with torch.no_grad():
+                nh0 = x @ nm.encoder_w.T + nm.encoder_b
+            against_own_rows(
+                tag, nm,
+                lambda h, f=sharded, s=nspec, p=nm: f(p, h, s, mesh),
+                lambda h, r, f=one, s=nspec, p=nm: f(p, h, s),
+                nh0, rows, kernels)
+        for f in FN.ferro_node_fwd_members, FN.ferro_node_bwd_members:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res["population"] = mesh_population(n)
+        torch.cuda.synchronize()
+        res["population_wall"] = time.perf_counter() - t0
+        res["population_launches"] = [FN.ferro_node_fwd_members.launches,
+                                      FN.ferro_node_bwd_members.launches]
+        for f in b2:
+            f.launches = 0
+        _, hist = train_predprey(mesh_shoot_run(n), log=None)
+        torch.cuda.synchronize()
+        res["shooting"] = dict(losses=hist["train"],
+                               launches=[f.launches for f in b2])
+    return res
+
+
+def mesh_phases(device, smi):
+    """Phase 53: the mesh (ROADMAP A.11) on the card.  (a) A world of
+    ``torch.cuda.device_count()`` NCCL ranks (one a card; on a one-card
+    machine one rank in this process, in a real group of one, so the
+    step's collectives run through NCCL) trains the trajectory driver at
+    the flagship, 256 trajectories, 3 steps with B.2 on each rank's block;
+    the losses equal the single-device run's, bit for bit at one rank,
+    rtol 2e-4 over several; a gather and an all-reduce of CUDA blocks over
+    the group are exact.  (b) Two gloo ranks sharing
+    cuda:0: the same run (rtol 2e-4, B.2 launched in both ranks);
+    ``kanfet_mlp_node`` with ``mesh=`` at ECGPreset width, B = 8, clean
+    and with device noise of std 0.2 drawn for the global batch (B.4 in
+    both ranks, finite), and the sharded solves of B.4 (clean and noisy),
+    B.2 (256 trajectories), B.5 and B.6 (B = 8): each rank's rows and
+    input cotangent equal to one launch on its own rows, the parameters'
+    gradients equal to the sum over the ranks of those launches'; the
+    noise-study population, P = 12 over the two ranks, 1 epoch, every
+    member within 5e-6 of the unsharded run (the member kernels launched
+    in both ranks); ``shooting_devices=2`` on B.2 against the
+    single-device curve at rtol 2e-4.  The ranks load the libraries phase
+    2 built.  Two ranks time-slice one card, so the times printed here
+    are no speed claim."""
+    from fetode_tpu_torch.parallel import (
+        initialize_distributed,
+        shutdown_distributed,
+        spawn_local,
+    )
+    from fetode_tpu_torch.train.predprey_driver import train_predprey
+    from fetode_tpu_torch.train.traj_driver import train_traj_parallel
+
+    t_phase = time.perf_counter()
+    _, ref = train_traj_parallel(mesh_traj_run(None), log=None)
+    print(f"phase 53 single-device traj: {ref['wall_seconds'] / 3 * 1e3:.1f} "
+          f"ms a step at {MESH_TRAJ} trajectories ({smi})")
+    _, ref_shoot = train_predprey(mesh_shoot_run(0), log=None)
+    ref_pop = mesh_population(0)
+    print(f"phase 53 single-device references took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    for kind, n, backend in (("nccl", torch.cuda.device_count(), None),
+                             ("gloo", 2, "gloo")):
+        t0 = time.perf_counter()
+        if n == 1:
+            # a world of one NCCL rank in this process: its group is
+            # real, so the step's collectives run through NCCL
+            with tempfile.TemporaryDirectory() as tmp:
+                initialize_distributed(f"file://{tmp}/store", 1, 0,
+                                       device="cuda")
+                try:
+                    res = [mesh_rank(0, kind)]
+                finally:
+                    shutdown_distributed()
+        else:
+            res = spawn_local(mesh_rank, n, (kind,), device="cuda",
+                              backend=backend, timeout=300)
+        wall = time.perf_counter() - t0
+        out[kind] = res
+        print(f"phase 53({'a' if kind == 'nccl' else 'b'}): {n} {kind} "
+              f"rank(s) on cards {[r['card'] for r in res]}, backend "
+              f"{[r['backend'] for r in res]}, {wall:.1f} s"
+              f"{' with the spawn' if n > 1 else ' in this process'} "
+              f"({smi})")
+        for r in res:
+            tr = r["traj"]
+            print(f"  rank {r['rank']}: traj losses {tr['losses']}, "
+                  f"{tr['wall'] / 3 * 1e3:.1f} ms a step after a warm "
+                  f"step, B.2 launches "
+                  f"(fwd, bwd) {tr['launches']}, {tr['gathers']} gathers "
+                  f"over the group; gather and all-reduce of a block "
+                  f"|err| {r['collectives_err']:.1e} ({smi})")
+            if min(tr["launches"]) < 3:
+                fail(f"phase 53 {kind} rank {r['rank']}: B.2 launched "
+                     f"{tr['launches']} times in 3 steps")
+            if r["backend"] != kind or tr["gathers"] < 3 or \
+                    r["collectives_err"] > 0:
+                fail(f"phase 53 {kind} rank {r['rank']}: backend "
+                     f"{r['backend']}, {tr['gathers']} gathers in 3 steps, "
+                     f"collectives |err| {r['collectives_err']}")
+            if n == 1:
+                if tr["losses"] != ref["train"]:
+                    fail(f"phase 53 {kind}: one rank's losses {tr['losses']}"
+                         f" differ from the single-device {ref['train']}")
+            elif not np.allclose(tr["losses"], ref["train"], rtol=2e-4,
+                                 atol=0):
+                fail(f"phase 53 {kind} rank {r['rank']}: losses "
+                     f"{tr['losses']} vs single-device {ref['train']}")
+    print(f"  single-device traj losses {ref['train']}")
+    for r in out["gloo"]:
+        for tag in ("ecg", "ecg noisy"):
+            e = r[tag]
+            print(f"  rank {r['rank']}: kanfet_mlp_node mesh= B = "
+                  f"{MESH_ECG_B} {tag}: loss {e['loss']:.6f}, "
+                  f"{e['wall'] * 1e3:.1f} ms forward + backward, B.4 "
+                  f"launches (fwd, bwd) {e['launches']} ({smi})")
+            if not e["finite"] or min(e["launches"]) < 1:
+                fail(f"phase 53 rank {r['rank']} {tag}: finite "
+                     f"{e['finite']}, B.4 launches {e['launches']}")
+        for tag in ("B.4", "B.4 noisy", "B.2", "B.5", "B.6"):
+            c = r[tag]
+            print(f"  rank {r['rank']} {tag} sharded vs one launch on its "
+                  f"rows: out {c['out_err']:.3e}, input cotangent "
+                  f"{c['h0bar_err']:.3e}, summed grads {c['grad_err']:.3e} "
+                  f"(largest {c['grad_scale']:.3e}), launches (fwd, bwd) "
+                  f"{c['launches']}")
+            if c["out_err"] > 0 or c["h0bar_err"] > 0 or \
+                    c["grad_err"] > 1e-6 * max(1.0, c["grad_scale"]) or \
+                    min(c["launches"]) < 2:
+                fail(f"phase 53 rank {r['rank']} {tag}: the sharded solve "
+                     "differs from one launch on the rank's rows, or its "
+                     "kernels did not launch in both")
+        losses, accs = r["population"]
+        err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for a, b in zip(losses, ref_pop[0]))
+        print(f"  rank {r['rank']}: population P = {len(losses)} over 2 "
+              f"ranks, {r['population_wall']:.1f} s, member launches "
+              f"(fwd, bwd) {r['population_launches']}, worst member loss "
+              f"|diff| {err:.3e} ({smi})")
+        if len(losses) != len(ref_pop[0]) or err > 5e-6 or \
+                accs != ref_pop[1] or min(r["population_launches"]) < 1:
+            fail(f"phase 53 rank {r['rank']}: the population over ranks "
+                 f"differs from the unsharded run (|diff| {err}) or "
+                 "launched no member kernel")
+        sh = r["shooting"]
+        print(f"  rank {r['rank']}: shooting_devices=2 losses "
+              f"{sh['losses']} (single device {ref_shoot['train']}), B.2 "
+              f"launches {sh['launches']}")
+        if min(sh["launches"]) < 1 or not np.allclose(
+                sh["losses"], ref_shoot["train"], rtol=2e-4, atol=1e-6):
+            fail(f"phase 53 rank {r['rank']}: shooting over ranks differs "
+                 "from the single-device curve or launched no B.2")
+    print(f"phase 53 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -5922,6 +6332,7 @@ def main():
     va_launches, va_err, va_b12 = variants_phases(device, smi)
     cd_ff, cd_ff_err, cd_b5, cd_b5_err, cd_b12 = classes_diag_phases(device,
                                                                      smi)
+    mesh_phases(device, smi)
     serve_launches += (stack_launches[0] + pt_launches[0] + rs_launches[0]
                        + va_launches[0])
     fwd_launches += (stack_launches[1] + pt_launches[1] + rs_launches[1]

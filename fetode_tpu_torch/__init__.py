@@ -9,9 +9,10 @@ of the JAX package becomes a hand-written CUDA kernel for Hopper
 
 The port imports ``torch`` and never ``jax`` or ``fetode_tpu``.
 
-Everything the JAX package does on one device is ported (its layout
-plus ``diag`` and ``utils``); the multi-device options (``parallel/``,
-the mesh flags) raise, naming ROADMAP A.11.  The predator-prey KANFET
+Everything the JAX package does is ported (its layout plus ``diag``,
+``utils`` and ``parallel``); the multi-device options (the mesh flags,
+``--mesh``) run one process per rank on ``torch.distributed``
+(``parallel/``).  The predator-prey KANFET
 serving path (``python -m fetode_tpu_torch.cli serve --source
 predprey``) solves with the whole-solve dopri5 kernel
 ``ops/kanfet_node.py``, its training path (``python -m

@@ -64,10 +64,12 @@ to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -84,6 +86,14 @@ def _parse(argv):
     p.add_argument("workload", choices=WORKLOADS)
     p.add_argument("--out-dir", default="runs/latest")
     p.add_argument("--plots", action="store_true", help="save plot artifacts")
+    p.add_argument("--mesh", default=None,
+                   help="train over a ('data','model') mesh of ranks: "
+                        "'data=N[,model=M]', a rank count, or 'auto' (the "
+                        "world, else every card; pure DP). Run alone, the "
+                        "CLI starts the ranks itself; under torchrun it "
+                        "uses its group. Supported by the ecg / ett / "
+                        "cond_diffusion / timemmd / mnist workloads "
+                        "(predprey uses --shooting_devices)")
     args, unknown = p.parse_known_args(argv)
     overrides = {}
     key = None
@@ -207,9 +217,16 @@ def _ecg_model(cfg, T, device):
                                    noise_std=cfg.noise_std,
                                    solver_mode=cfg.solver_mode,
                                    gate_impl=cfg.gate_impl)
+        # Under --mesh the whole-solve kernel runs one block of the batch a
+        # rank (ferro_node_solve_sharded), as the JAX CLI passes its mesh
+        # to the pallas path; the other modes run the whole batch.
+        mesh = None
+        if cfg.mesh_devices and cfg.solver_mode == "pallas":
+            from fetode_tpu_torch.parallel import driver_mesh
+            mesh = driver_mesh(cfg.mesh_devices, cfg.mesh_model)
         return (lambda g: M.kanfet_mlp_node_init(g, spec, device=device),
-                lambda p, x, g: M.kanfet_mlp_node_apply(p, spec, x,
-                                                        generator=gen(g)),
+                lambda p, x, g: M.kanfet_mlp_node_apply(
+                    p, spec, x, generator=gen(g), mesh=mesh),
                 lambda p: [("fc1", p.fc1, spec.fc1_cfg),
                            ("fc2", p.fc2, spec.fc2_cfg)])
     if cfg.model == "fepa_rnn":
@@ -621,7 +638,11 @@ def _mnist_data():
 def run_mnist(cfg, out_dir, plots):
     """Train the Kuramoto-lattice KAN classifier: AdamW, cross-entropy,
     minibatches in a seeded order; the test accuracy after each epoch.
-    ``plots`` draws nothing, as in the JAX CLI."""
+    ``plots`` draws nothing, as in the JAX CLI.  Under a mesh each image is
+    its own rollout, so each rank trains on its block of every minibatch
+    and the train step sums the gradients (``train/loop.py``);
+    ``mesh_model`` > 1 shards the weights' output features over
+    'model'."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -630,14 +651,16 @@ def run_mnist(cfg, out_dir, plots):
         kuramoto_init,
         kuramoto_kan_apply,
     )
+    from fetode_tpu_torch.parallel import (
+        driver_mesh,
+        place_params,
+        shard_rows,
+    )
     from fetode_tpu_torch.train.loop import init_state, make_minibatch_epoch
     from fetode_tpu_torch.train.optim import make_optimizer
     from fetode_tpu_torch.utils.device import resolve_device
 
-    if cfg.mesh_devices or cfg.mesh_model != 1:
-        raise NotImplementedError("mnist --mesh_devices / --mesh_model: the "
-                                  "sharded trainers are not ported yet: "
-                                  "ROADMAP A.11 (multi-device)")
+    mesh = driver_mesh(cfg.mesh_devices, cfg.mesh_model)
     device = resolve_device(cfg.device)
     (x_train, y_train), (x_test, y_test) = _mnist_data()
     spec = KuramotoSpec(H=x_train.shape[1], W=x_train.shape[2],
@@ -646,7 +669,8 @@ def run_mnist(cfg, out_dir, plots):
     params = kuramoto_init(torch.Generator().manual_seed(cfg.seed), spec,
                            device=device)
     state = init_state(params, make_optimizer(
-        cfg.lr, params=params.parameters(), kind="adamw", weight_decay=1e-4))
+        cfg.lr, params=place_params(params, mesh, grad_sum=True),
+        kind="adamw", weight_decay=1e-4))
 
     def loss_fn(p, x, y):
         return F.cross_entropy(kuramoto_kan_apply(p, spec, x), y)
@@ -667,7 +691,10 @@ def run_mnist(cfg, out_dir, plots):
         idx = rng.permutation(len(x_train))[: (len(x_train) // bs) * bs]
         bx = torch.from_numpy(x_train[idx].reshape(-1, bs, *x_train.shape[1:]))
         by = torch.from_numpy(y_train[idx].reshape(-1, bs)).long()
-        state, losses = epoch_fn(state, (bx.to(device), by.to(device)))
+        batches = (bx.to(device), by.to(device))
+        if mesh is not None:
+            batches = shard_rows(batches, mesh, batch_axis=1)
+        state, losses = epoch_fn(state, batches)
         acc = eval_acc(state.params)
         print(f"epoch {ep}: loss {float(losses.mean()):.4f} test acc "
               f"{acc:.4f}", flush=True)
@@ -973,19 +1000,77 @@ def _init_device(name: str) -> None:
         disarm()
 
 
-def main(argv=None):
-    from fetode_tpu_torch.config import make_config
+def _run(args, cfg):
+    """One process's run of the workload.  On a mesh rank 0 alone prints
+    and writes ``result.json``, metrics, plots and checkpoints; the other
+    ranks run the same steps with their output sent to a directory of
+    their own that is thrown away."""
+    from fetode_tpu_torch.parallel import is_rank0
 
-    args, overrides = _parse(argv if argv is not None else sys.argv[1:])
+    if is_rank0():
+        os.makedirs(args.out_dir, exist_ok=True)
+        print(f"workload={args.workload} config={cfg}")
+        _init_device(cfg.device)
+        result = RUNNERS[args.workload](cfg, args.out_dir, args.plots)
+        with open(os.path.join(args.out_dir, "result.json"), "w") as f:
+            json.dump(result, f, indent=2)
+        print(json.dumps(result))
+        return result
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(null):
+        _init_device(cfg.device)
+        return RUNNERS[args.workload](cfg, tmp, False)
+
+
+def _rank_main(rank, argv):
+    """A rank that ``main`` spawned: the same command line in a process of
+    the group."""
+    main(argv)
+
+
+def main(argv=None):
+    """Parse, and run the workload.  ``--mesh N`` (or ``data=D,model=M``;
+    or the overrides ``--mesh_devices N`` and ``--mesh_model M``) trains
+    over a mesh of N ranks, and predprey's ``--shooting_devices N``
+    its shooting segments over N ranks: under torchrun (``WORLD_SIZE``
+    set) every process is a rank of the group torchrun made; run alone,
+    ``main`` starts the N local ranks itself (``parallel.spawn_local``:
+    CUDA ranks on ``cuda:<rank>`` with NCCL, CPU ranks with gloo), waits
+    for them and returns rank 0's result."""
+    from fetode_tpu_torch.config import make_config
+    from fetode_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        parse_mesh_flag,
+        spawn_local,
+        world,
+    )
+
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args, overrides = _parse(argv)
     cfg = make_config(args.workload, overrides)
-    os.makedirs(args.out_dir, exist_ok=True)
-    print(f"workload={args.workload} config={cfg}")
-    _init_device(cfg.device)
-    result = RUNNERS[args.workload](cfg, args.out_dir, args.plots)
-    with open(os.path.join(args.out_dir, "result.json"), "w") as f:
-        json.dump(result, f, indent=2)
-    print(json.dumps(result))
-    return result
+    if args.mesh and not hasattr(cfg, "mesh_devices"):
+        raise SystemExit(f"--mesh is not supported by the "
+                         f"{args.workload!r} workload")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(device=cfg.device)
+    if args.mesh:
+        cfg.mesh_devices, cfg.mesh_model = parse_mesh_flag(args.mesh)
+    ranks = (getattr(cfg, "mesh_devices", 0)
+             or getattr(cfg, "shooting_devices", 0))
+    if getattr(cfg, "mesh_devices", 0):
+        make_mesh(cfg.mesh_devices, model=cfg.mesh_model)    # its shape
+    if world()[1] > 1 and ranks != world()[1]:
+        raise SystemExit(f"{world()[1]} ranks (WORLD_SIZE) need --mesh "
+                         f"{world()[1]} or --mesh_devices {world()[1]} "
+                         f"(predprey: --shooting_devices {world()[1]})")
+    if world()[1] == 1 and ranks > 1:
+        print(f"starting {ranks} ranks", flush=True)
+        spawn_local(_rank_main, ranks, (argv,), device=cfg.device)
+        with open(os.path.join(args.out_dir, "result.json")) as f:
+            return json.load(f)
+    return _run(args, cfg)
 
 
 if __name__ == "__main__":

@@ -38,8 +38,7 @@ class PredPreyPreset:
     # (PredPreyRun.consistent_time_base).
     consistent_time_base: bool = False
     # Multiple shooting (PredPreyRun.shooting_points; 0 disables);
-    # shooting_devices (segments over a device mesh) is refused, naming
-    # ROADMAP A.11.
+    # shooting_devices spreads the segments over that many ranks.
     shooting_points: int = 0
     shooting_devices: int = 0
     # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
@@ -88,8 +87,8 @@ class ECGPreset:
     field: str = "plain"
     # Epochs per call of the block scanner (ECGRun.epochs_per_call).
     epochs_per_call: int = 1
-    # Not ported yet (ECGRun refuses any other value, naming the ROADMAP
-    # item): the mesh.
+    # The mesh (set by --mesh, parallel.parse_mesh_flag): ranks, and the
+    # 'model' axis inside them (0 = one device).
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
@@ -129,8 +128,8 @@ class ETTPreset:
     # ops/ode_dyn.py; CUDA only).  Evaluation on the card runs the
     # forward kernel without records.
     solver_mode: str = "auto"
-    # Not ported yet (ForecastRun refuses any other value, naming the
-    # ROADMAP item): the mesh.
+    # The mesh (set by --mesh, parallel.parse_mesh_flag): ranks, and the
+    # 'model' axis inside them (0 = one device).
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
@@ -165,8 +164,8 @@ class CondDiffusionPreset:
     # "scan", "while", or "pallas" (the kernels; CUDA only).  Evaluation
     # on the card runs the forward kernel without records.
     solver_mode: str = "auto"
-    # Not ported yet (CondDiffusionRun refuses any other value, naming
-    # the ROADMAP item): the mesh.
+    # The mesh (set by --mesh, parallel.parse_mesh_flag): ranks, and the
+    # 'model' axis inside them (0 = one device).
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
@@ -196,8 +195,8 @@ class TimeMMDPreset:
     batch_size: int = 48
     epochs: int = 50
     lr: float = 1e-3
-    # Not ported yet (ForecastRun refuses any other value, naming the
-    # ROADMAP item): the mesh.
+    # The mesh (set by --mesh, parallel.parse_mesh_flag): ranks, and the
+    # 'model' axis inside them (0 = one device).
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume: --ckpt_dir D --ckpt_every N [--resume
@@ -227,8 +226,8 @@ class MNISTPreset:
     # rollout), "pallas" (the rollout kernels of ops/kuramoto.py) or
     # "pallas_fused" (the fused rollout + head kernel; CUDA only).
     rollout: str = "auto"
-    # Not ported yet (run_mnist refuses any other value, naming ROADMAP
-    # A.11): the mesh.
+    # The mesh (set by --mesh, parallel.parse_mesh_flag): ranks, and the
+    # 'model' axis inside them (0 = one device).
     mesh_devices: int = 0
     mesh_model: int = 1
     seed: int = 0

@@ -33,7 +33,9 @@ x(t)])) gain + bias by rk4, then one ferro KAN cell and a linear head; its
 ferro layer ops are ``ops/ferro_fused.py`` on the card) and
 ``OdeRnnEncoder``.  The RNN classifiers themselves are ``nn/rnn.py``.
 
-Not ported yet: the ``mesh`` argument (ROADMAP A.11), which raises.
+``kanfet_mlp_node_apply(mesh=)`` runs its whole-solve data-parallel,
+one block of the batch a rank (``ops/ferro_node.py:
+ferro_node_solve_sharded``).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from fetode_tpu_torch.ops.ferro_node import (
     basis_layout,
     ferro_node_solve,
     ferro_node_solve_members,
+    ferro_node_solve_sharded,
     frozen_solve_noise,
     frozen_solve_noise_members,
 )
@@ -326,11 +329,19 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
     it) comes from ``generator``.  Under dopri5 it is frozen per solve:
     ``frozen_solve_noise`` draws it once, and the kernels and the eager
     solve add the same draws.  A fixed-step solve draws it afresh at every
-    right-hand-side evaluation."""
-    if mesh is not None:
-        raise NotImplementedError("kanfet_mlp_node_apply(mesh=...): the "
-                                  "multi-device solve is not ported yet "
-                                  "(ROADMAP A.11)")
+    right-hand-side evaluation.
+
+    With ``mesh`` the whole-solve path (dopri5, ``solver_mode`` "pallas"
+    or "auto") runs data-parallel: every rank solves its block of the
+    batch (``ferro_node_solve_sharded``: B.4 on the card, its plain
+    version on the CPU), the noise drawn for the global batch; encoder
+    and classifier run on the whole batch, so every rank returns the
+    global logits.  The eager "scan" / "while" solves ignore the mesh (a
+    pure layout, as GSPMD leaves the JAX package's scan path)."""
+    if noise_std is not None and mesh is not None:
+        raise ValueError("an overriding noise_std with a mesh is not wired; "
+                         "population runs shard the member axis instead "
+                         "(train/ecg_driver.py)")
     if noise_std is not None and spec.solver_mode == "pallas" \
             and generator is None:
         raise ValueError("an overriding noise_std on the pallas path requires "
@@ -349,6 +360,12 @@ def kanfet_mlp_node_apply(params: KanFetMLPNODEParams,
     if noisy and spec.solver == "dopri5":
         noise = frozen_solve_noise(generator, B, spec.fc1_cfg, spec.fc2_cfg,
                                    noise_std=noise_std, device=x.device)
+    if mesh is not None and spec.solver == "dopri5" \
+            and spec.gate_impl == "sigmoid" \
+            and spec.solver_mode in ("pallas", "auto"):
+        hT = ferro_node_solve_sharded(params.fc1, params.fc2, h0, spec,
+                                      mesh, noise=noise)
+        return hT @ params.cls_w.T + params.cls_b
     if kernel:
         hT = ferro_node_solve(params.fc1, params.fc2, h0, spec, noise=noise)
         return hT @ params.cls_w.T + params.cls_b

@@ -681,3 +681,44 @@ def ferro_node_solve_members(fc1s, fc2s, h0: torch.Tensor, spec, *,
                                  *w)
     return ferro_node_fwd_members(fc1s, fc2s, h0, cfg, noise=noise,
                                   record=False)[0]
+
+
+class _Layers(torch.nn.Module):
+    """fc1 and fc2 as one module (the parameters a sharded solve sums)."""
+
+    def __init__(self, fc1, fc2):
+        super().__init__()
+        self.fc1, self.fc2 = fc1, fc2
+
+
+def ferro_node_solve_sharded(fc1, fc2, h0: torch.Tensor, spec, mesh, *,
+                             axis: str = "data",
+                             generator: torch.Generator | None = None,
+                             noise: Noise = None) -> torch.Tensor:
+    """``ferro_node_solve`` over a mesh (counterpart of
+    ``pallas_ferro_node_solve_sharded``): every rank takes the global
+    ``h0`` (B, D), solves its block of rows over ``axis`` with that
+    block's own step control (B.4 on the card, its plain version on the
+    CPU) and returns the global final states.  Under autograd fc1's and
+    fc2's gradients are summed over the ranks and h0 gets its full
+    cotangent (``parallel.shard_map_rows``).  Device noise
+    (``spec.noise_std > 0``) is drawn for the global batch from
+    ``generator`` with the single-device draws (or given as ``noise``)
+    and sharded with ``h0``.  ``h0``'s batch must divide the axis size."""
+    from fetode_tpu_torch.parallel.collectives import shard_map_rows
+
+    n = mesh.axis_size(axis)
+    if h0.shape[0] % n:
+        raise ValueError(f"batch {h0.shape[0]} not divisible by {axis}={n}")
+    if noise is None and spec.noise_std > 0.0:
+        if generator is None:
+            raise ValueError("noise_std > 0 requires a generator")
+        noise = frozen_solve_noise(generator, h0.shape[0], spec.fc1_cfg,
+                                   spec.fc2_cfg, device=h0.device)
+
+    def solve(m, h, *nz):
+        return ferro_node_solve(m.fc1, m.fc2, h, spec,
+                                noise=tuple(nz) if nz else None)
+
+    return shard_map_rows(solve, mesh, _Layers(fc1, fc2), h0,
+                          *(noise or ()), axis=axis)

@@ -419,3 +419,28 @@ def kanfet_solve_train(params: KAN, cfg: KANConfig, x0s: torch.Tensor,
     geo = stack_geometry(cfg)
     return _SolveTrain.apply(params, cfg, geo, (rtol, atol, max_steps), x0s,
                              ts, *train_weights(params))
+
+
+def kanfet_solve_train_sharded(params: KAN, cfg: KANConfig,
+                               x0s: torch.Tensor, ts: torch.Tensor, mesh, *,
+                               axis: str = "data", rtol: float = 1e-7,
+                               atol: float = 1e-9, max_steps: int = 256
+                               ) -> torch.Tensor:
+    """``kanfet_solve_train`` over a mesh (counterpart of
+    ``pallas_kanfet_solve_train_sharded``): every rank takes the global
+    ``x0s`` (and ``ts``), solves its block of rows over ``axis`` (B.2 on
+    the card, each trajectory with its own step control, so the result is
+    the single-device one) and returns the global ``(B, T, D)`` output.
+    Under autograd the parameters' gradients are summed over the ranks
+    (``parallel.shard_map_rows``).  ``x0s``' batch must divide the axis
+    size.  A ``(B, T)`` ``ts`` is sharded with ``x0s``."""
+    from fetode_tpu_torch.parallel.collectives import shard_map_rows
+
+    opts = dict(rtol=rtol, atol=atol, max_steps=max_steps)
+    if ts.ndim == 2:
+        return shard_map_rows(
+            lambda p, x, t: kanfet_solve_train(p, cfg, x, t, **opts),
+            mesh, params, x0s, ts, axis=axis)
+    return shard_map_rows(
+        lambda p, x: kanfet_solve_train(p, cfg, x, ts, **opts),
+        mesh, params, x0s, axis=axis)

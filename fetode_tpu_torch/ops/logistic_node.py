@@ -344,3 +344,17 @@ def logistic_node_solve(params, h0: torch.Tensor, spec) -> torch.Tensor:
         return _SolveTrain.apply(
             (opts["rtol"], opts["atol"], opts["max_steps"]), h0, *w)
     return logistic_node_fwd(*w, h0, record=False, **opts)[0]
+
+
+def logistic_node_solve_sharded(params, h0: torch.Tensor, spec, mesh, *,
+                                axis: str = "data") -> torch.Tensor:
+    """``logistic_node_solve`` over a mesh (counterpart of
+    ``pallas_logistic_node_solve_sharded``): every rank solves its block
+    of ``h0``'s rows over ``axis`` with that block's own step control and
+    returns the global final states; the parameters' gradients are summed
+    over the ranks (``parallel.shard_map_rows``).  ``h0``'s batch must
+    divide the axis size."""
+    from fetode_tpu_torch.parallel.collectives import shard_map_rows
+
+    return shard_map_rows(lambda p, h: logistic_node_solve(p, h, spec),
+                          mesh, params, h0, axis=axis)

@@ -457,3 +457,17 @@ def mlp_node_solve(params, h0: torch.Tensor, spec) -> torch.Tensor:
             (spec.h_bound, spec.rtol, spec.atol, spec.max_steps), h0, *w)
     return mlp_node_fwd(w, h0, h_bound=spec.h_bound, record=False,
                         **opts)[0]
+
+
+def mlp_node_solve_sharded(params, h0: torch.Tensor, spec, mesh, *,
+                           axis: str = "data") -> torch.Tensor:
+    """``mlp_node_solve`` over a mesh (counterpart of
+    ``pallas_mlp_node_solve_sharded``): every rank solves its block of
+    ``h0``'s rows over ``axis`` with that block's own step control and
+    returns the global final states; the parameters' gradients are summed
+    over the ranks (``parallel.shard_map_rows``).  ``h0``'s batch must
+    divide the axis size."""
+    from fetode_tpu_torch.parallel.collectives import shard_map_rows
+
+    return shard_map_rows(lambda p, h: mlp_node_solve(p, h, spec),
+                          mesh, params, h0, axis=axis)

@@ -36,6 +36,9 @@ import tempfile
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
+
+from fetode_tpu_torch.parallel.mesh import is_rank0, world
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -152,7 +155,9 @@ class DurableLoop:
     (in place) and returns them in ``saved``; a ``key`` (a
     ``torch.Generator``) gets its saved state back.  Other numbers a
     driver carries (the predprey budget stage) ride ``save``'s keywords
-    and come back in ``saved``.
+    and come back in ``saved``.  On a mesh rank 0 alone writes (the
+    payload is every rank's: a model-sharded optimiser's moments are
+    gathered whole); every rank restores, after a barrier.
     """
 
     def __init__(self, ckpt_dir: str = "", ckpt_every: int = 0,
@@ -167,6 +172,8 @@ class DurableLoop:
         """(start_epoch, saved payload | None)."""
         if not (self.enabled and self.resume):
             return 0, None
+        if world()[1] > 1:
+            dist.barrier()      # rank 0's last save is on disk
         step = self.manager.latest_step()
         if step is None:
             return 0, None
@@ -186,12 +193,14 @@ class DurableLoop:
             return False
         if epoch % self.every and not last:
             return False
+        # every rank builds the payload: a model-sharded optimiser gathers
+        # its moments (Optimizer.state_dict)
         payload = dict(extra, state=train_state_dict(state),
                        best_crit=float(best_crit),
                        best_params=best_params.state_dict())
         if key is not None:
             payload["key"] = key.get_state()
-        return self.manager.save(epoch, payload)
+        return self.manager.save(epoch, payload) if is_rank0() else False
 
 
 def resume_run(run, state, best, log):

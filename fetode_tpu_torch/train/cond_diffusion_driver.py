@@ -24,15 +24,23 @@ the last; a resumed run continues the exact curve of an unbroken one,
 since every epoch's shuffle, step generators and validation draws are
 seeded from the run seed and the epoch alone (the JAX package carries a
 key chain in the payload instead).  ``aot_cache`` is accepted and
-logged: the port compiles nothing per run.  Not ported yet, raising an
-error that names its ROADMAP item: the mesh (``mesh_devices``,
-``mesh_model``).
+logged: the port compiles nothing per run.
+
+``mesh_devices`` / ``mesh_model`` train over a mesh of that many ranks.
+A denoiser with the convolutional encoder treats each window on its own,
+so its minibatch is sharded over the ranks: each rank takes its block
+of the rows and of the step's draws (the steps and the noise are drawn for
+the whole minibatch from the single-device generator, then cut), and
+the train step sums the gradients (``train/loop.py``).  The NODE
+encoder steps its batch under one controller, so its denoisers run the
+whole minibatch on every rank.  ``mesh_model`` > 1 shards the weights'
+output features over 'model'.  The curves are the single-device ones;
+rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -53,8 +61,12 @@ from fetode_tpu_torch.nn.diffusion import (
     make_schedule,
     q_sample,
 )
+from fetode_tpu_torch.parallel import (
+    driver_mesh,
+    place_params,
+    shard_rows,
+)
 from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
-from fetode_tpu_torch.train.forecast_driver import _NOT_PORTED
 from fetode_tpu_torch.train.loop import (
     derived_seed,
     init_state,
@@ -84,7 +96,9 @@ class CondDiffusionRun:
     seed: int = 0
     eval_samples: int = 10
     log_every: int = 1
-    # Not ported (see forecast_driver._NOT_PORTED).
+    # >0: train over a ('data', 'model') mesh of this many ranks (see the
+    # module docstring); mesh_model > 1 shards the weights' output
+    # features over 'model'.
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
@@ -95,14 +109,6 @@ class CondDiffusionRun:
     aot_cache: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
     device: str = "cuda"
-
-
-def _check_ported(run: CondDiffusionRun) -> None:
-    for f in dataclasses.fields(run):
-        if f.name in _NOT_PORTED and getattr(run, f.name) != f.default:
-            raise NotImplementedError(
-                f"CondDiffusionRun.{f.name}={getattr(run, f.name)!r} is not "
-                f"ported yet: {_NOT_PORTED[f.name]}")
 
 
 def _schedule(run: CondDiffusionRun, device) -> DiffusionSchedule:
@@ -132,18 +138,34 @@ def train_conditional_diffusion(spec: CondDenoiserSpec, past_fut,
     """``past_fut``: 'train' / 'val' / 'test' -> (past (M, Lx, D), fut (M,
     Ly, D)) numpy arrays.  Returns (best params, history with ``train``,
     ``val`` and ``wall_seconds``)."""
-    _check_ported(run)
+    mesh = driver_mesh(run.mesh_devices, run.mesh_model)
     aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     sched = _schedule(run, device)
     params = cond_denoiser_init(torch.Generator().manual_seed(run.seed), spec,
                                 device=device)
+    per_row = mesh is not None and spec.encoder == "conv"
+    placed = place_params(params, mesh, grad_sum=per_row)
     state = init_state(params, make_optimizer(
-        run.lr, params=params.parameters(), kind="adamw",
+        run.lr, params=placed, kind="adamw",
         weight_decay=run.weight_decay, grad_clip=run.grad_clip))
+    # the minibatch's rows (window_batches clamps the size to the split),
+    # sharded over the ranks where they divide (else whole on every rank)
+    rows = min(run.batch_size, len(past_fut["train"][0]))
+    sharded = per_row and rows % mesh.size == 0
 
     def loss_fn(p, generator, past, fut):
-        return cond_diffusion_loss(p, spec, sched, past, fut, generator)
+        if not sharded:
+            return cond_diffusion_loss(p, spec, sched, past, fut, generator)
+        # this rank's rows: the single-device draws for the whole
+        # minibatch, then this rank's block of them
+        t_idx = torch.randint(0, sched.T, (rows,), generator=generator,
+                              device=fut.device)
+        eps = torch.randn((rows,) + tuple(fut.shape[1:]), generator=generator,
+                          device=fut.device, dtype=fut.dtype)
+        t_idx, eps = shard_rows((t_idx, eps), mesh)
+        return cond_diffusion_loss(p, spec, sched, past, fut, t_idx=t_idx,
+                                   eps=eps)
 
     epoch_fn = make_minibatch_epoch(loss_fn, keyed=True)
     pv, fv = (torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -156,13 +178,16 @@ def train_conditional_diffusion(spec: CondDenoiserSpec, past_fut,
     for ep in range(start_ep, run.epochs):
         bp, bf = window_batches(*past_fut["train"], run.batch_size,
                                 seed=run.seed + ep)
-        state, losses = epoch_fn(state, (noise_seed, ep), (
-            torch.as_tensor(bp, device=device),
-            torch.as_tensor(bf, device=device)))
+        batches = (torch.as_tensor(bp, device=device),
+                   torch.as_tensor(bf, device=device))
+        if sharded:
+            batches = shard_rows(batches, mesh, batch_axis=1)
+        state, losses = epoch_fn(state, (noise_seed, ep), batches)
         g = torch.Generator(device=device).manual_seed(
             derived_seed(run.seed, _EVAL, ep))
         with torch.no_grad():
-            vl = float(loss_fn(state.params, g, pv, fv))
+            vl = float(cond_diffusion_loss(state.params, spec, sched, pv,
+                                           fv, g))
         history["train"].append(float(losses.mean()))
         history["val"].append(vl)
         if vl < best[0]:

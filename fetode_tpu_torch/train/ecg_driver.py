@@ -29,9 +29,17 @@ multiple of ``ckpt_every`` epochs and after the last; a resumed run
 continues the exact curve of an unbroken one, since every epoch's
 shuffle, step generators and eval draws are seeded from the run seed and
 the epoch alone.  ``aot_cache`` / ``aot_tag`` are accepted and logged:
-the port compiles nothing per run.  Not ported yet, raising an error
-that names its ROADMAP item: the mesh (``mesh_devices``,
-``mesh_model``).  The population trainer refuses ``ckpt_dir`` and
+the port compiles nothing per run.
+
+``mesh_devices`` / ``mesh_model`` train over a mesh of that many ranks
+(``parallel.place_params``): every rank computes the whole minibatch
+(the latent solves step a batch under one controller), and
+``mesh_model`` > 1 shards the weights' output features over 'model'.  A
+model whose ``apply_fn`` takes the mesh (``kanfet_mlp_node_apply(mesh=)``)
+solves one block of the batch a rank inside.  Rank 0 alone writes
+checkpoints.  The population trainer shards the members over the ranks
+(each trains P / n members, no collectives in a step) and gathers the
+curves and the best parameters; it refuses ``ckpt_dir`` and
 ``mesh_model > 1`` with ``ValueError``, as the JAX package's does.
 """
 
@@ -48,6 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from fetode_tpu_torch.data.ecg200 import batch_iterator
+from fetode_tpu_torch.parallel import driver_mesh, place_params
+from fetode_tpu_torch.parallel.collectives import all_gather_cat
 from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
 from fetode_tpu_torch.train.loop import (
     PopulationState,
@@ -59,11 +69,6 @@ from fetode_tpu_torch.train.loop import (
 )
 from fetode_tpu_torch.train.optim import make_optimizer
 from fetode_tpu_torch.utils.device import resolve_device
-
-_NOT_PORTED = {
-    "mesh_devices": "ROADMAP A.11 (multi-device)",
-    "mesh_model": "ROADMAP A.11 (multi-device)",
-}
 
 # Streams of the seeds derived from run.seed: step noise, eval draws.
 _NOISE, _EVAL = 1, 2
@@ -85,7 +90,9 @@ class ECGRun:
     # Epochs per call of the block scanner; eval and best-tracking happen
     # once per block.
     epochs_per_call: int = 1
-    # Not ported (see _NOT_PORTED).
+    # >0: train over a ('data', 'model') mesh of this many ranks (the
+    # population: its members over the ranks); mesh_model > 1 shards the
+    # weights' output features over 'model'.
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
@@ -97,14 +104,6 @@ class ECGRun:
     aot_tag: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
     device: str = "cuda"
-
-
-def _check_ported(run: ECGRun) -> None:
-    for f in dataclasses.fields(run):
-        if f.name in _NOT_PORTED and getattr(run, f.name) != f.default:
-            raise NotImplementedError(
-                f"ECGRun.{f.name}={getattr(run, f.name)!r} is not ported "
-                f"yet: {_NOT_PORTED[f.name]}")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -144,11 +143,12 @@ def train_ecg_model(init_fn: Callable, apply_fn: Callable, data,
     ``loss``, ``train_acc``, ``test_acc``, ``wall_seconds``,
     ``best_test_acc``.
     """
-    _check_ported(run)
+    mesh = driver_mesh(run.mesh_devices, run.mesh_model)
     device = resolve_device(run.device)
     x_train, y_train, x_test, y_test = data
     params = init_fn(torch.Generator().manual_seed(run.seed))
-    opt = make_optimizer(run.lr, params=params.parameters(), kind="adamw",
+    placed = place_params(params, mesh)
+    opt = make_optimizer(run.lr, params=placed, kind="adamw",
                          weight_decay=run.weight_decay,
                          grad_clip=run.grad_clip)
     state = init_state(params, opt)
@@ -236,6 +236,12 @@ def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
     ``train_ecg_model``'s history, plus ``block_seconds`` (wall seconds of
     each block's training steps, the first with the kernels' build when
     they are not built yet).
+
+    ``run.mesh_devices`` > 0 shards the members over the ranks: P must
+    divide, each rank trains its block of P / n members with no
+    collectives in a step (its members' latent solves in one launch of
+    the member kernels), and every block's accuracies and losses and the
+    best parameters are gathered, so every rank returns all P members.
     """
     if run.ckpt_dir:
         raise ValueError("train_ecg_population does not support "
@@ -244,7 +250,22 @@ def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
         raise ValueError("train_ecg_population shards the POPULATION axis "
                          "over 'data'; mesh_model tensor-sharding is not "
                          "supported here")
-    _check_ported(run)
+    mesh = None
+    if run.mesh_devices:
+        if len(members) % run.mesh_devices:
+            raise ValueError(f"population P={len(members)} not divisible "
+                             f"by mesh_devices={run.mesh_devices}")
+        mesh = driver_mesh(run.mesh_devices)
+        block = len(members) // run.mesh_devices
+        lo = mesh.axis_index("data") * block
+        members = list(members)[lo:lo + block]
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        """Every rank's members along axis 0 (all P in member order)."""
+        if mesh is None or mesh.size == 1:
+            return t
+        return all_gather_cat(t, mesh.group("data"))
+
     aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     x_train, y_train, x_test, y_test = data
@@ -306,20 +327,27 @@ def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
         block_seconds.append(time.perf_counter() - tb0)
         tr = eval_acc(states.params, *train_split)
         te = eval_acc(states.params, *test_split)
-        curves["loss"].append([float(losses[m].mean()) for m in range(P)])
-        curves["train_acc"].append(tr)
-        curves["test_acc"].append(te)
         for m in range(P):
             if te[m] > best_acc[m]:
                 best_acc[m] = te[m]
                 best[m] = copy.deepcopy(states.params[m])
+        row = gather(torch.tensor(
+            [[float(losses[m].mean()), tr[m], te[m]] for m in range(P)],
+            dtype=torch.float64, device=device)).tolist()
+        curves["loss"].append([r[0] for r in row])
+        curves["train_acc"].append([r[1] for r in row])
+        te = [r[2] for r in row]
+        curves["test_acc"].append(te)
         if log is not None and (
                 (ep + n - 1) // run.log_every > (ep - 1) // run.log_every
                 or ep + n >= run.epochs):
-            log(f"epoch {ep + n - 1:3d} | population P={P} | test_acc "
+            log(f"epoch {ep + n - 1:3d} | population P={len(te)} | test_acc "
                 f"mean {np.mean(te)*100:.1f}% "
                 f"[{np.min(te)*100:.1f}, {np.max(te)*100:.1f}]%")
     wall = time.perf_counter() - t0
+    best_acc = gather(torch.tensor(best_acc, dtype=torch.float64,
+                                   device=device)).tolist()
+    P = len(best_acc)
     histories = [{
         "loss": [row[m] for row in curves["loss"]],
         "train_acc": [row[m] for row in curves["train_acc"]],
@@ -329,7 +357,7 @@ def train_ecg_population(init_fn: Callable, apply_fn: Callable, data,
         "block_seconds": block_seconds,
     } for m in range(P)]
     sds = [b.state_dict() for b in best]
-    stacked = {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}
+    stacked = {k: gather(torch.stack([sd[k] for sd in sds])) for k in sds[0]}
     return stacked, histories
 
 

@@ -24,14 +24,18 @@ since every epoch's shuffle, step generators and validation draws are
 seeded from the run seed and the epoch alone (the JAX package's
 diffusion trainer carries a key chain in the payload instead).
 ``aot_cache`` is accepted and logged: the port compiles nothing per run.
-Not ported yet, raising an error that names its ROADMAP item: the mesh
-(``mesh_devices``, ``mesh_model``).
+
+``mesh_devices`` / ``mesh_model`` train over a mesh of that many ranks
+(``parallel.place_params``): every rank computes the whole minibatch,
+since the latent solve steps a batch under one controller (a per-rank
+block would take other steps), and ``mesh_model`` > 1 shards the
+weights' output features over 'model'.  The curves are the
+single-device ones; rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -61,13 +65,9 @@ from fetode_tpu_torch.train.loop import (
     init_state,
     make_minibatch_epoch,
 )
+from fetode_tpu_torch.parallel import driver_mesh, place_params
 from fetode_tpu_torch.train.optim import make_optimizer
 from fetode_tpu_torch.utils.device import resolve_device
-
-_NOT_PORTED = {
-    "mesh_devices": "ROADMAP A.11 (multi-device)",
-    "mesh_model": "ROADMAP A.11 (multi-device)",
-}
 
 # Streams of the seeds derived from run.seed: step noise, validation,
 # test and the final forecast's draws.
@@ -88,7 +88,10 @@ class ForecastRun:
     seed: int = 0
     log_every: int = 10
     eval_samples: int = 10   # diffusion eval averaging
-    # Not ported (see _NOT_PORTED).
+    # >0: train over a ('data', 'model') mesh of this many ranks, the
+    # whole minibatch on every rank (the latent solves step the batch under
+    # one controller); mesh_model > 1 shards the weights' output features
+    # over 'model' (parallel.place_params).
     mesh_devices: int = 0
     mesh_model: int = 1
     # Durable checkpoint/resume (train/checkpoint.py: DurableLoop).
@@ -99,14 +102,6 @@ class ForecastRun:
     aot_cache: str = ""
     # "cuda" (refused when CUDA is absent) or "cpu".
     device: str = "cuda"
-
-
-def _check_ported(run: ForecastRun) -> None:
-    for f in dataclasses.fields(run):
-        if f.name in _NOT_PORTED and getattr(run, f.name) != f.default:
-            raise NotImplementedError(
-                f"ForecastRun.{f.name}={getattr(run, f.name)!r} is not ported "
-                f"yet: {_NOT_PORTED[f.name]}")
 
 
 def _chunked_mean(sum_fn: Callable, p, x, y, chunk: int = 512) -> float:
@@ -135,7 +130,6 @@ def prepare_windows(X: np.ndarray, y: np.ndarray, run: ForecastRun):
 
 def _setup(run: ForecastRun, X, y, log):
     """The device, the windows as device tensors, the target scaler."""
-    _check_ported(run)
     aot_cache_note(run.aot_cache, log)
     device = resolve_device(run.device)
     windows, _, sy = prepare_windows(X, y, run)
@@ -145,8 +139,9 @@ def _setup(run: ForecastRun, X, y, log):
     return device, windows, tensors, sy
 
 
-def _optimizer(params, run: ForecastRun):
-    return make_optimizer(run.lr, params=params.parameters(), kind="adamw",
+def _optimizer(params, run: ForecastRun, mesh):
+    placed = place_params(params, mesh)
+    return make_optimizer(run.lr, params=placed, kind="adamw",
                           weight_decay=run.weight_decay,
                           grad_clip=run.grad_clip)
 
@@ -163,10 +158,11 @@ def train_point_forecaster(spec: LatentODEForecasterSpec, X, y,
     """MSE point-forecast trainer.  Returns (best params, history with
     ``train``, ``val``, ``wall_seconds``, ``test_mse``,
     ``final_forecast``)."""
+    mesh = driver_mesh(run.mesh_devices, run.mesh_model)
     device, windows, data, sy = _setup(run, X, y, log)
     params = latent_ode_forecaster_init(
         torch.Generator().manual_seed(run.seed), spec, device=device)
-    state = init_state(params, _optimizer(params, run))
+    state = init_state(params, _optimizer(params, run, mesh))
 
     def loss_fn(p, xb, yb):
         return torch.mean((latent_ode_forecast(p, spec, xb) - yb) ** 2)
@@ -215,11 +211,12 @@ def train_diffusion_forecaster(spec: DiffusionForecasterSpec, X, y,
     encoder ('mlp' or 'kan') is ``spec.encoder``.  Returns (best params,
     history with ``train``, ``val``, ``wall_seconds``, ``test_mse``,
     ``final_forecast``)."""
+    mesh = driver_mesh(run.mesh_devices, run.mesh_model)
     device, windows, data, sy = _setup(run, X, y, log)
     sched = make_schedule(spec.diff_T, device=device)
     params = diffusion_forecaster_init(
         torch.Generator().manual_seed(run.seed), spec, device=device)
-    state = init_state(params, _optimizer(params, run))
+    state = init_state(params, _optimizer(params, run, mesh))
 
     def loss_fn(p, generator, xb, yb):
         return diffusion_forecaster_loss(p, spec, sched, xb, yb, generator)

@@ -49,12 +49,26 @@ def init_state(params: nn.Module, opt: Optimizer) -> TrainState:
 
 def make_train_step(loss_fn: Callable) -> Callable:
     """``loss_fn(params, *batch) -> scalar``.  Returns ``step(state,
-    *batch) -> (state, loss)``: one gradient step in place."""
+    *batch) -> (state, loss)``: one gradient step in place.
+
+    On a mesh (the optimiser built on a ``parallel.Placement``) the
+    placement's ``backward`` runs the backward: with the rows sharded
+    over the ranks each rank backpropagates its share of the global mean
+    and the gradients are summed over the ranks before the clip and the
+    step; a model-sharded leaf steps its block, and the module's full
+    tensors are gathered after the step.  The loss returned is the
+    global one."""
     def step(state: TrainState, *batch) -> Tuple[TrainState, torch.Tensor]:
+        place = getattr(state.opt, "placement", None)
         state.opt.zero_grad()
         loss = loss_fn(state.params, *batch)
-        loss.backward()
+        if place is None:
+            loss.backward()
+        else:
+            loss = place.backward(loss)
         state.opt.step()
+        if place is not None:
+            place.gather()
         return state, loss.detach()
 
     return step

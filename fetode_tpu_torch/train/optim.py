@@ -43,10 +43,14 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     return schedule
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         sq_norm: torch.Tensor | None = None) -> torch.Tensor:
     """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``
-    (optax's formula); returns the norm before clipping."""
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    (optax's formula); returns the norm before clipping.  ``sq_norm``: the
+    squared norm when the caller computes it (across ranks)."""
+    if sq_norm is None:
+        sq_norm = sum(g.square().sum() for g in grads)
+    norm = torch.sqrt(sq_norm)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
@@ -56,11 +60,19 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 class Optimizer:
     """Adam or AdamW over ``params`` with an optional global-norm clip
     first and a learning rate that is a float or a schedule of the step
-    count."""
+    count.  ``params`` may be a mesh ``Placement``
+    (``parallel.shard_params``): the optimiser then steps its
+    ``parameters()`` (a model-sharded leaf's block), the clip takes the
+    norm across the model group, a checkpoint holds the whole state, and
+    ``self.placement`` is the one the train step syncs through
+    (``train/loop.py: make_train_step``)."""
 
-    def __init__(self, params: Iterable[torch.Tensor],
-                 lr: Union[float, Schedule], grad_clip: float | None = None,
-                 kind: str = "adam", weight_decay: float = 0.0):
+    def __init__(self, params, lr: Union[float, Schedule],
+                 grad_clip: float | None = None, kind: str = "adam",
+                 weight_decay: float = 0.0):
+        self.placement = None
+        if hasattr(params, "sq_norm"):
+            self.placement, params = params, params.parameters()
         self.params = [p for p in params if p.requires_grad]
         self.lr = lr if callable(lr) else (lambda count: lr)
         self.grad_clip = grad_clip
@@ -76,12 +88,23 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         """The step count (the schedule's position) and the inner
-        optimiser's moments, for a checkpoint."""
-        return {"count": self.count, "inner": self.inner.state_dict()}
+        optimiser's moments, for a checkpoint; on a placement with
+        model-sharded blocks their moments gathered whole (a collective:
+        every rank calls it)."""
+        inner = self.inner.state_dict()
+        if self.placement is not None:
+            inner = self.placement.whole_state(inner, self.params)
+        return {"count": self.count, "inner": inner}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Load ``state_dict``'s payload; on a placement the blocks and
+        their moments are cut anew from the loaded module and state."""
         self.count = int(sd["count"])
-        self.inner.load_state_dict(sd["inner"])
+        inner = sd["inner"]
+        if self.placement is not None:
+            inner = self.placement.own_state(inner, self.params)
+            self.placement.scatter()
+        self.inner.load_state_dict(inner)
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
@@ -95,17 +118,19 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         if self.grad_clip is not None and grads:
-            clip_by_global_norm_(grads, self.grad_clip)
+            sq = (self.placement.sq_norm(grads, self.params)
+                  if self.placement is not None else None)
+            clip_by_global_norm_(grads, self.grad_clip, sq)
         for group in self.inner.param_groups:
             group["lr"] = self.lr(self.count)
         self.inner.step()
         self.count += 1
 
 
-def make_optimizer(lr: Union[float, Schedule], *,
-                   params: Iterable[torch.Tensor], kind: str = "adam",
+def make_optimizer(lr: Union[float, Schedule], *, params, kind: str = "adam",
                    weight_decay: float = 0.0,
                    grad_clip: float | None = None) -> Optimizer:
     """``lr`` may be a float or a schedule (e.g. ``cosine_decay_schedule``);
-    ``kind`` is "adam" or "adamw" (with ``weight_decay``)."""
+    ``kind`` is "adam" or "adamw" (with ``weight_decay``); ``params`` the
+    tensors to step or a mesh ``Placement``."""
     return Optimizer(params, lr, grad_clip, kind, weight_decay)

@@ -37,8 +37,13 @@ its one trajectory instead.  Multiple shooting solves its segments
 through ``predict_batch`` at every width: B.2 with a row of times a
 segment (the kernels' time operand of stride T), since B.3 takes one
 row of times shared by its batch and at most one cluster (ROADMAP C,
-F6).  On the CPU every solve is eager.  ``shooting_devices`` (segments
-spread over a device mesh) is not ported: it raises naming ROADMAP A.11.
+F6).  On the CPU every solve is eager.  ``shooting_devices`` spreads the
+segments over the 'data' axis of a mesh of that many ranks (the process
+group must be up): every rank solves its block of segments (B.2 on the
+card) and the parameters' gradients are summed over the ranks in the
+backward (``parallel.shard_map_rows``); each segment keeps its own step
+control, so the curve is the single-device one.  Rank 0 alone writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from fetode_tpu_torch.models.predprey import (
     trajectory_loss,
 )
 from fetode_tpu_torch.nn.kan import kan_regularization, kan_update_grid
+from fetode_tpu_torch.parallel import driver_mesh, shard_map_rows
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
 from fetode_tpu_torch.train.checkpoint import aot_cache_note, resume_run
 from fetode_tpu_torch.train.loop import init_state, make_epoch_scanner
@@ -101,7 +107,9 @@ class PredPreyRun:
     # overlapping by one, each solved from its observed first value;
     # requires (n_fit - 1) % (shooting_points - 1) == 0.
     shooting_points: int = 0
-    # Segments over a device mesh: not ported (ROADMAP A.11).
+    # Parallel in time (0 disables; requires shooting_points > 1): the
+    # segments over the 'data' axis of a mesh of this many ranks;
+    # requires n_segments % shooting_devices == 0.
     shooting_devices: int = 0
     # Best-model selection by the loss k periods out (0 disables).
     select_anchor_k: int = 0
@@ -273,26 +281,29 @@ def fit_problem(run: PredPreyRun, x0: torch.Tensor, ts: torch.Tensor,
         seg_budget = max(32, int(4 * spec.max_steps * (P - 1) / (n_pts - 1)))
         spec_shoot = spec._replace(max_steps=seg_budget)
         fit_args = (target_fit[idx[:, 0]], ts_fit[idx], target_fit[idx])
-        if run.shooting_devices > 0:
-            raise NotImplementedError(
-                f"PredPreyRun.shooting_devices={run.shooting_devices} (the "
-                "segments over a device mesh) is not ported yet: ROADMAP "
-                "A.11 (multi-device)")
+        if run.shooting_devices > 0 and n_seg % run.shooting_devices:
+            raise ValueError(f"{n_seg} shooting segments not divisible "
+                             f"by shooting_devices={run.shooting_devices}")
     elif run.shooting_devices > 0:
         raise ValueError("shooting_devices requires shooting_points > 1")
     return FitProblem(spec, spec_shoot, fit_args, ts_fit, resample_fit)
 
 
-def make_loss(run: PredPreyRun, fit: FitProblem, budget: int) -> Callable:
+def make_loss(run: PredPreyRun, fit: FitProblem, budget: int,
+              mesh=None) -> Callable:
     """The training loss at an attempt budget: ``loss(params, *fit_args)``,
     the window's trajectory MSE or, under shooting, the segments' MSE
-    (``predict_batch`` with a row of times a segment), plus the KAN
-    regulariser."""
+    (``predict_batch`` with a row of times a segment; with a ``mesh``,
+    each rank's block of segments), plus the KAN regulariser."""
     spec_b = fit.spec._replace(max_steps=budget)
+
+    def segments(p, x0_, ts_):
+        return predict_batch(p, fit.spec_shoot, x0_, ts_)
 
     def loss_fn(p, x0_, ts_, target_):
         if fit.spec_shoot is not None:
-            pred = predict_batch(p, fit.spec_shoot, x0_, ts_)
+            pred = (segments(p, x0_, ts_) if mesh is None else
+                    shard_map_rows(segments, mesh, p, x0_, ts_))
             loss = torch.mean((pred - target_) ** 2)
         else:
             loss = trajectory_loss(p, spec_b, x0_, ts_, target_)
@@ -327,8 +338,10 @@ def train_predprey(run: PredPreyRun, log=print):
     budgets = (_budget_ladder(spec.max_steps) if run.step_budget_schedule
                and spec.method == "dopri5" else [spec.max_steps])
 
+    mesh = driver_mesh(run.shooting_devices)
+
     def make_scanner(budget):
-        return make_epoch_scanner(make_loss(run, fit, budget),
+        return make_epoch_scanner(make_loss(run, fit, budget, mesh),
                                   run.epochs_per_call)
 
     def make_probe(budget):
@@ -399,7 +412,7 @@ def train_predprey(run: PredPreyRun, log=print):
     # compiles nothing per call, so one step builds the kernels (nvcc, on
     # first use) and warms CUDA and the allocator.
     warm = copy.deepcopy(state)
-    make_epoch_scanner(make_loss(run, fit, budgets[stage]), 1)(warm,
+    make_epoch_scanner(make_loss(run, fit, budgets[stage], mesh), 1)(warm,
                                                                *fit_args)
     _ = float(test_loss(warm.params)) if run.eval_every_call else None
     _ = float(val_loss(warm.params)) if run.val_points > 0 else None

@@ -6,8 +6,18 @@ The hysteresis state is explicit, so a batch of trajectories trains as
 one (B, D) solve.  With ``solver_mode="pallas"`` (or ``"auto"``) on the
 card each step is one launch of the discrete-adjoint forward kernel and
 one of its backward, every trajectory with its own step control; on the
-CPU it is the eager per-row scan solve.  The multi-device mesh
-(``n_devices``, ``model_axis``) waits for ROADMAP A.11.
+CPU it is the eager per-row scan solve.
+
+``n_devices`` trains over a ('data', 'model') mesh of that many ranks
+(``parallel/``; the process group must be up: torchrun, or
+``parallel.spawn_local``).  Every rank solves its block of the
+trajectories (the JAX package's ``shard_map``, ``parallel.shard_map_rows``:
+the kernel pair on the block on the card, the eager per-row solve on the
+CPU) and the parameters' gradients are summed over the data ranks in the
+backward.  Every trajectory keeps its own step control, so the curves are
+the single-device ones.  With ``model_axis`` > 1 the KAN weights' output
+features are sharded over 'model' (``kan_stack_param_specs``); tensor
+parallelism is refused under "pallas", as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +33,12 @@ from fetode_tpu_torch.models.predprey import (
     lotka_volterra_field,
     predict_batch,
     predprey_init,
+)
+from fetode_tpu_torch.parallel import (
+    driver_mesh,
+    kan_stack_param_specs,
+    shard_map_rows,
+    shard_params,
 )
 from fetode_tpu_torch.solvers.dopri5 import odeint_dopri5
 from fetode_tpu_torch.train.loop import init_state, make_epoch_scanner
@@ -47,7 +63,8 @@ class TrajParallelRun:
     # Pin x0s[0] to the task's canonical initial condition so the
     # single-trajectory workload is a strict subset of the population.
     include_canonical: bool = True
-    # Multi-device mesh (None = one device); not ported (ROADMAP A.11).
+    # Mesh: None = single device (no sharding); otherwise the number of
+    # ranks to use, with model_axis-way tensor parallelism inside it.
     n_devices: int = None
     model_axis: int = 1
     dtype: torch.dtype = torch.float32
@@ -79,10 +96,6 @@ def make_batched_data(run: TrajParallelRun, device=None):
 
 def train_traj_parallel(run: TrajParallelRun, log=print):
     """Train on a population of trajectories; returns (params, history)."""
-    if run.n_devices is not None or run.model_axis != 1:
-        raise NotImplementedError("TrajParallelRun.n_devices / model_axis: "
-                                  "multi-device training is not ported yet "
-                                  "(ROADMAP A.11)")
     spec = run.spec
     device = resolve_device(run.device)
     ts_learn, x0s, targets = make_batched_data(run, device)
@@ -91,12 +104,29 @@ def train_traj_parallel(run: TrajParallelRun, log=print):
                            device=device, dtype=run.dtype)
     lr = (cosine_decay_schedule(run.lr, run.epochs, alpha=0.05)
           if run.cosine_decay else run.lr)
-    opt = make_optimizer(lr, params=params.parameters(), kind="adam",
+
+    mesh = None
+    placed = params.parameters()
+    if run.n_devices is not None:
+        if spec.solver_mode == "pallas" and run.model_axis > 1:
+            raise ValueError("solver_mode='pallas' shards trajectories over "
+                             "'data' only; tensor parallelism needs scan "
+                             "mode")
+        mesh = driver_mesh(run.n_devices, run.model_axis)
+        specs = (kan_stack_param_specs(params) if run.model_axis > 1
+                 else None)
+        placed = shard_params(params, mesh, specs)
+    opt = make_optimizer(lr, params=placed, kind="adam",
                          grad_clip=run.grad_clip)
     state = init_state(params, opt)
 
     def loss_fn(p, x0s_, targets_):
-        pred = predict_batch(p, spec, x0s_, ts_learn)
+        if mesh is None:
+            pred = predict_batch(p, spec, x0s_, ts_learn)
+        else:
+            pred = shard_map_rows(
+                lambda q, x: predict_batch(q, spec, x, ts_learn), mesh, p,
+                x0s_)
         return torch.mean((pred - targets_) ** 2)
 
     scanner = make_epoch_scanner(loss_fn, run.epochs_per_call)

@@ -21,7 +21,6 @@ Tolerances, float32:
 * the reverse chains on JAX's own draws: 1e-4, the JAX hoist tests' own.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -377,18 +376,25 @@ def test_refusals(case, tmp_path):
         with pytest.raises(ValueError, match="rk4"):
             CD.node_encoder_apply(enc, cfg, torch.zeros((2, 12, 2)))
     elif case == "run_knob":
-        defaults = {f.name: f.default
-                    for f in dataclasses.fields(drv.CondDiffusionRun)}
-        for knob, item in (("mesh_devices", "A.11"), ("mesh_model", "A.11"),
-                           ("ckpt_dir", None), ("ckpt_every", None),
-                           ("resume", None), ("aot_cache", None)):
-            value = {bool: True, int: 2, str: "x"}[type(defaults[knob])]
-            run = drv.CondDiffusionRun(device="cpu", **{knob: value})
-            if item is None:     # checkpoint/resume and the AOT flag: ported
-                drv._check_ported(run)
-                continue
-            with pytest.raises(NotImplementedError, match=item):
-                drv.train_conditional_diffusion(None, None, run)
+        # checkpoint/resume and the AOT flag are ported: a small run
+        # writes its checkpoint, and a resumed run continues from it
+        ck = str(tmp_path / "ck")
+        argv = ["cond_diffusion", "--device", "cpu", "--denoiser", "mlp",
+                "--seq_len", "12", "--pred_len", "4", "--diff_t", "4",
+                "--eval_samples", "2", "--epochs", "1", "--batch_size",
+                "512", "--ckpt_dir", ck, "--ckpt_every", "1", "--aot_cache",
+                str(tmp_path / "aot"), "--out-dir", str(tmp_path)]
+        cli.main(argv)
+        assert sorted(os.listdir(ck)) == ["ckpt_1.pt"]
+        argv[argv.index("--epochs") + 1] = "2"
+        cli.main(argv + ["--resume", "true"])
+        assert sorted(os.listdir(ck)) == ["ckpt_1.pt", "ckpt_2.pt"]
+        # the mesh is ported (tests/test_torch_mesh_drivers.py); without a
+        # process group of its ranks it refuses before any work
+        for kw in (dict(mesh_devices=2), dict(mesh_devices=4, mesh_model=2)):
+            with pytest.raises(RuntimeError, match="process group"):
+                drv.train_conditional_diffusion(
+                    None, None, drv.CondDiffusionRun(device="cpu", **kw))
     elif case == "plots":
         # accepted, and nothing drawn, as in the JAX CLI
         cli.main(["cond_diffusion", "--device", "cpu", "--plots",

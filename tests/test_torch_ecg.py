@@ -25,7 +25,6 @@ parameters from ``PRNGKey(0)``, inputs from a numpy seed.  Tolerances:
   order one (float32 rounding of one update).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -497,12 +496,12 @@ def test_refusals(case, tmp_path):
             cli.main(["serve", "--source", "no_such_source", "--device",
                       "cpu", "--out-dir", str(tmp_path)])
     elif case == "run_knob":
-        defaults = {f.name: f.default for f in dataclasses.fields(tdrv.ECGRun)}
-        for knob in tdrv._NOT_PORTED:
-            value = {bool: True, int: 2, str: "x"}[type(defaults[knob])]
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # the mesh is ported (tests/test_torch_mesh_drivers.py); without a
+        # process group of its ranks it refuses before any work
+        for kw in (dict(mesh_devices=2), dict(mesh_devices=4, mesh_model=2)):
+            with pytest.raises(RuntimeError, match="process group"):
                 tdrv.train_ecg_model(None, None, None, tdrv.ECGRun(
-                    device="cpu", **{knob: value}))
+                    device="cpu", **kw))
 
 
 @pytest.mark.cuda

@@ -360,8 +360,9 @@ def test_refusals(setup):
                                  noise_std=0.1)
     with pytest.raises(ValueError, match="generator"):
         TM.kanfet_mlp_node_apply(m, spec._replace(noise_std=0.1), x)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TM.kanfet_mlp_node_apply(m, spec, x, mesh=object())
+    with pytest.raises(ValueError, match="noise_std with a mesh"):
+        TM.kanfet_mlp_node_apply(m, spec, x, mesh=object(), noise_std=0.1,
+                                 generator=torch.Generator())
     with pytest.raises(ValueError, match="rk4"):      # fixed-step: ported
         TM.kanfet_mlp_node_apply(m, spec._replace(solver="rk9"), x)
     with pytest.raises(ValueError, match="D -> hidden -> D"):

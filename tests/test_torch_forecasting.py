@@ -18,7 +18,6 @@ specs' rtol 1e-3 / atol 1e-4, max_steps 32; parameters from
 * data helpers exact or 1e-6.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -456,15 +455,13 @@ def test_refusals(case, tmp_path):
             cli.main(["ett", "--device", "cpu", "--model",
                       "kan_fet_diffusion2", "--out-dir", str(tmp_path)])
     elif case == "run_knob":
-        defaults = {f.name: f.default
-                    for f in dataclasses.fields(tdrv.ForecastRun)}
-        for knob in tdrv._NOT_PORTED:
-            value = {bool: True, int: 2, str: "x"}[type(defaults[knob])]
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # the mesh is ported (tests/test_torch_mesh_drivers.py); without a
+        # process group of its ranks it refuses before any work
+        for kw in (dict(mesh_devices=2), dict(mesh_devices=4, mesh_model=2)):
+            with pytest.raises(RuntimeError, match="process group"):
                 tdrv.train_point_forecaster(None, None, None,
-                                            tdrv.ForecastRun(
-                                                device="cpu",
-                                                **{knob: value}))
+                                            tdrv.ForecastRun(device="cpu",
+                                                             **kw))
     elif case == "plots":
         # ported: the loss curves and the forecast, as the JAX CLI draws
         cli.main(["ett", "--device", "cpu", "--plots", "--epochs", "1",

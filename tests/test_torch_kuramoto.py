@@ -460,8 +460,14 @@ def test_cli_serve_mnist_on_cpu(tmp_path):
                                    "--mesh_devices", "2"], ["symbolic"]])
 def test_cli_refusals(tmp_path, argv):
     if "--mesh_devices" in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            cli.main(argv + ["--out-dir", str(tmp_path)])
+        # the override spelling of --mesh runs: main starts two gloo
+        # ranks itself, and rank 0's result is the single-device one
+        small = ["--epochs", "1", "--kuramoto_steps", "2", "--batch_size",
+                 "64"]
+        got = cli.main(argv + small + ["--out-dir", str(tmp_path / "mesh")])
+        assert (tmp_path / "mesh" / "result.json").exists()
+        want = cli.main(argv[:3] + small + ["--out-dir", str(tmp_path)])
+        np.testing.assert_allclose(got["test_acc"], want["test_acc"])
     else:
         if torch.cuda.is_available():
             pytest.skip("checks the refusal of --device cuda without CUDA")

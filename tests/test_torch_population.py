@@ -549,9 +549,15 @@ def test_population_refusals(case, tmp_path):
         with pytest.raises(ValueError, match="train_ecg_population"):
             _population(spec, run)
     elif case == "mesh_devices":
+        # the members over the ranks are ported
+        # (tests/test_torch_mesh_drivers.py): P = 3 does not divide over 2
+        # ranks, and 2 ranks without their process group refuse
         run = dataclasses.replace(RUN, mesh_devices=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        with pytest.raises(ValueError, match="not divisible by "
+                                             "mesh_devices=2"):
             _population(spec, run)
+        with pytest.raises(RuntimeError, match="process group"):
+            _population(spec, run, MEMBERS[:2])
     elif case == "aot_cache":
         # accepted and logged: the port has no compiled program to cache
         logs = []

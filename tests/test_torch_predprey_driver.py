@@ -184,7 +184,9 @@ def test_shooting_refusals():
                       (dict(jitter_anchor=True), "requires dense_anchor")):
         with pytest.raises(ValueError, match=match):
             _port_fit(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    # the 17 segments of 3 points do not divide over 2 ranks
+    with pytest.raises(ValueError, match="not divisible by "
+                                         "shooting_devices=2"):
         _port_fit(shooting_points=3, shooting_devices=2)
 
 

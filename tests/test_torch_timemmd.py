@@ -431,9 +431,17 @@ def test_cli_timemmd_small_run(extra, tmp_path):
 
 
 def test_cli_timemmd_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        cli.main(["timemmd", "--device", "cpu", "--out-dir",
-                  str(tmp_path), "--mesh_devices", "2"] + SMALL_ARGS)
+    # --mesh_devices runs: main starts two gloo ranks itself, every rank
+    # computes the whole minibatch, and rank 0's result is the
+    # single-device one
+    got = cli.main(["timemmd", "--device", "cpu", "--out-dir",
+                    str(tmp_path / "mesh"), "--mesh_devices", "2"]
+                   + SMALL_ARGS)
+    want = cli.main(["timemmd", "--device", "cpu", "--out-dir",
+                     str(tmp_path / "one")] + SMALL_ARGS)
+    for k in ("train_curve", "val_curve", "test_mse"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-6,
+                                   err_msg=k)
     # checkpoint/resume is ported: the flags reach the trainer
     ck = str(tmp_path / "ck")
     cli.main(["timemmd", "--device", "cpu", "--out-dir", str(tmp_path),
